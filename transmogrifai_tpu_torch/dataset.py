@@ -1,0 +1,42 @@
+"""Columnar Dataset — an ordered mapping feature-name -> Column plus a row
+count. Transformers append columns; all columns share one length."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+from .types.columns import Column
+
+
+@dataclasses.dataclass
+class Dataset:
+    columns: dict[str, Column]
+    num_rows: int
+
+    @staticmethod
+    def of(columns: dict[str, Column]) -> "Dataset":
+        lengths = {name: len(c) for name, c in columns.items()}
+        if len(set(lengths.values())) > 1:
+            raise ValueError(f"Ragged dataset: {lengths}")
+        n = next(iter(lengths.values())) if lengths else 0
+        return Dataset(dict(columns), n)
+
+    def __len__(self) -> int:
+        return self.num_rows
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.columns
+
+    def __getitem__(self, name: str) -> Column:
+        return self.columns[name]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.columns)
+
+    def rows(self, names: list[str] | None = None) -> list[dict]:
+        """Row-wise dict view."""
+        names = list(self.columns) if names is None else names
+        cols = {n: self.columns[n].to_list() for n in names}
+        return [
+            {n: cols[n][i] for n in names} for i in range(self.num_rows)
+        ]

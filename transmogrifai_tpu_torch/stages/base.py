@@ -1,0 +1,76 @@
+"""Stage ABI for serving: PipelineStage / Transformer / Model.
+
+Stages declare typed input features and produce one output feature.
+``Transformer.transform_columns(*cols, num_rows)`` is columnar: it maps
+whole columns, not rows; per-row scoring runs it over a batch of one.
+Fitting is not ported: every stage here is loaded fitted.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from ..types import FeatureType
+from ..types.columns import Column
+from ..utils import uid as uid_util
+
+
+class PipelineStage:
+    """Base of every stage."""
+
+    output_type: type = FeatureType
+
+    def __init__(self, operation_name: str, uid: str | None = None):
+        self.operation_name = operation_name
+        self.uid = uid or uid_util.make_uid(type(self))
+        self.input_features: tuple[Any, ...] = ()  # tuple[Feature, ...]
+        #: fitted-stage summary ledger, carried over from the saved manifest
+        self.metadata: dict[str, Any] = {}
+
+    @property
+    def input_names(self) -> tuple[str, ...]:
+        return tuple(f.name for f in self.input_features)
+
+    @property
+    def output_name(self) -> str:
+        """The output column name: the fixed name the loader sets, else
+        the reference's derived ``<inputs>_<operation>_<uid suffix>``."""
+        fixed = getattr(self, "_fixed_output_name", None)
+        if fixed is not None:
+            return fixed
+        _, suffix = uid_util.from_string(self.uid)
+        base = "-".join(self.input_names) if self.input_features else "out"
+        return f"{base[:80]}_{self.operation_name}_{suffix}"
+
+    def get_output(self) -> Any:
+        """The output Feature, with this stage as origin."""
+        from ..features.feature import Feature
+
+        if not self.input_features:
+            raise ValueError(f"{self}: inputs must be wired before get_output")
+        self._fixed_output_name = self.output_name
+        return Feature(
+            name=self._fixed_output_name,
+            ftype=self.output_type,
+            origin_stage=self,
+            parents=tuple(self.input_features),
+            is_response=any(f.is_response for f in self.input_features),
+        )
+
+    def to(self, device) -> "PipelineStage":
+        """Place the stage's fitted arrays on ``device`` for the predict
+        path; host-only stages keep this no-op."""
+        return self
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.uid})"
+
+
+class Transformer(PipelineStage):
+    """A pure columnar function of its input features."""
+
+    def transform_columns(self, *cols: Column, num_rows: int) -> Column:
+        raise NotImplementedError
+
+
+class Model(Transformer):
+    """A fitted transformer."""

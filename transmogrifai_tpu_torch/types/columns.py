@@ -1,0 +1,206 @@
+"""Columnar physical data model for serving.
+
+Each feature is a column. Numeric-family columns are (values, validity-mask)
+ndarray pairs, text columns are object arrays of ``str | None``, the vector
+plane is a dense float32 [N, D] matrix carrying provenance metadata, and a
+model's output is a PredictionColumn of dense (prediction, probability,
+raw) arrays. Semantics match ``transmogrifai_tpu.types.columns`` for the
+storages serving reads (numeric, text, vector, prediction).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterable, Sequence
+
+import numpy as np
+
+from . import Prediction, Storage
+
+
+class Column:
+    """Base class for all physical columns."""
+
+    feature_type: type
+
+    def __len__(self) -> int:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def to_list(self) -> list:  # pragma: no cover - abstract
+        """Row-wise view (None for missing) — for local scoring."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class NumericColumn(Column):
+    """Real/Integral/Binary/Date columns: dense values + validity mask.
+    Missing entries have mask=False and value 0."""
+
+    feature_type: type
+    values: np.ndarray  # [N] float64 / int64 / bool
+    mask: np.ndarray    # [N] bool, True = present
+
+    def __post_init__(self) -> None:
+        if self.values.shape != self.mask.shape:
+            raise ValueError(
+                f"values {self.values.shape} and mask {self.mask.shape} differ"
+            )
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def to_list(self) -> list:
+        return [
+            (v if m else None)
+            for v, m in zip(self.values.tolist(), self.mask.tolist())
+        ]
+
+
+@dataclasses.dataclass
+class TextColumn(Column):
+    """Text-family column: object ndarray of str | None."""
+
+    feature_type: type
+    values: np.ndarray  # [N] object: str | None
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def to_list(self) -> list:
+        return list(self.values)
+
+
+@dataclasses.dataclass
+class VectorColumn(Column):
+    """OPVector column: float32 [N, D] + column provenance metadata
+    (a ``stages.metadata.VectorMetadata``, or None)."""
+
+    feature_type: type
+    values: np.ndarray  # [N, D] float32
+    metadata: Any = None
+
+    def __len__(self) -> int:
+        return int(self.values.shape[0])
+
+    def to_list(self) -> list:
+        return [np.asarray(row) for row in self.values]
+
+
+@dataclasses.dataclass
+class PredictionColumn(Column):
+    """Prediction column: dense arrays instead of a per-row map.
+    ``probability``/``raw`` are [N, C]; regression has neither."""
+
+    feature_type: type
+    prediction: np.ndarray                 # [N] float64
+    probability: np.ndarray | None = None  # [N, C] float64
+    raw: np.ndarray | None = None          # [N, C] float64
+
+    def __len__(self) -> int:
+        return len(self.prediction)
+
+    def to_list(self) -> list:
+        """Row-wise Prediction maps with the reference's key names:
+        ``prediction``, ``probability_<j>``, ``rawPrediction_<j>``."""
+        keys = [Prediction.KEY_PREDICTION]
+        cols = [np.asarray(self.prediction).tolist()]
+        for key, arr in (
+            (Prediction.KEY_PROB, self.probability),
+            (Prediction.KEY_RAW, self.raw),
+        ):
+            if arr is None:
+                continue
+            arr = np.asarray(arr)
+            keys += [f"{key}_{j}" for j in range(arr.shape[1])]
+            cols += [arr[:, j].tolist() for j in range(arr.shape[1])]
+        return [dict(zip(keys, row)) for row in zip(*cols, strict=True)]
+
+
+_STORAGE_DTYPE = {
+    Storage.REAL: np.float64,
+    Storage.INTEGRAL: np.int64,
+    Storage.DATE: np.int64,
+    Storage.BINARY: bool,
+}
+
+#: string forms the Binary codec reads as True
+TRUE_TOKENS = frozenset(("true", "1", "1.0", "yes", "t"))
+
+
+def _coerce(storage: Storage, feature_type: type, v: Any) -> Any:
+    """One raw value -> a Python scalar of the storage's kind, or None."""
+    if isinstance(v, bool) or v is None:
+        return v
+    if isinstance(v, float) and np.isnan(v):
+        return None
+    if storage is Storage.BINARY:
+        if isinstance(v, str):
+            return v.strip().lower() in TRUE_TOKENS
+        return bool(v)
+    if isinstance(v, str):
+        v = v.strip()
+        if v == "":
+            return None
+        if storage is Storage.REAL:
+            return float(v)
+        try:
+            return int(v)
+        except ValueError:
+            f = float(v)
+            if not f.is_integer():
+                raise ValueError(
+                    f"Non-integral value {v!r} for "
+                    f"{feature_type.__name__} column"
+                ) from None
+            return int(f)
+    return v
+
+
+def _numeric_column(feature_type: type, raw: Sequence[Any]) -> NumericColumn:
+    storage = feature_type.storage
+    dtype = _STORAGE_DTYPE[storage]
+    lst = raw if isinstance(raw, list) else list(raw)
+    if storage is not Storage.BINARY:
+        # already-typed rows: numpy reads None as NaN for float targets and
+        # raises on strings or on None for int targets (those take the
+        # per-value path below)
+        try:
+            vals = np.asarray(lst, dtype=dtype)
+            if vals.dtype == np.float64:
+                mask = ~np.isnan(vals)
+                vals = np.where(mask, vals, 0.0)
+            else:
+                mask = np.ones(len(lst), dtype=bool)
+            return NumericColumn(feature_type, vals, mask)
+        except (TypeError, ValueError, OverflowError):
+            pass
+    coerced = [_coerce(storage, feature_type, v) for v in lst]
+    mask = np.array([v is not None for v in coerced], dtype=bool)
+    vals = np.array(
+        [0 if v is None else v for v in coerced], dtype=dtype
+    ).reshape(len(coerced))
+    return NumericColumn(feature_type, vals, mask)
+
+
+def column_from_values(feature_type: type, raw: Iterable[Any]) -> Column:
+    """The physical column for ``feature_type`` from row values (numeric,
+    text and vector storages; other storages have no serving stage in the
+    port yet and raise)."""
+    storage = feature_type.storage
+    if storage in _STORAGE_DTYPE:
+        return _numeric_column(feature_type, list(raw))
+    if storage is Storage.TEXT:
+        lst = [None if v is None or v == "" else str(v) for v in raw]
+        out = np.empty(len(lst), dtype=object)
+        out[:] = lst
+        return TextColumn(feature_type, out)
+    if storage is Storage.VECTOR:
+        arr = np.asarray(list(raw), dtype=np.float32)
+        if arr.ndim != 2:
+            raise ValueError(
+                f"OPVector values must be [N, D], got shape {arr.shape}"
+            )
+        return VectorColumn(feature_type, arr)
+    raise NotImplementedError(
+        f"{feature_type.__name__} ({storage.value} storage) has no column "
+        "in the serving port"
+    )
