@@ -4,19 +4,35 @@
     python3 chip_smoke.py
 
 Run from the repository root. It builds the port's CUDA kernels from
-``transmogrifai_tpu_torch/csrc/`` into ``transmogrifai_tpu_torch/_build/``,
-checks each kernel against its plain PyTorch version on the card, then
-drives the main path: the committed fixture models
-(``tests/fixtures/torch_serving/{xgb,rf}``, trained and saved by the JAX
-package) are loaded with ``load_workflow_model`` and answer requests through
-``score_function`` on ``cuda``; their scores are held to the ones the JAX
-package stored. Every phase that fails raises, and the script exits non-zero
-with no result line; it never falls back to the CPU.
+``transmogrifai_tpu_torch/csrc/`` into ``transmogrifai_tpu_torch/_build/``
+(one ``nvcc`` per source, all started together), checks each kernel
+against its plain PyTorch version on the card, then drives the port's two
+paths:
+
+* serving: the committed fixture models
+  (``tests/fixtures/torch_serving/{xgb,rf}``, trained and saved by the JAX
+  package) are loaded with ``load_workflow_model`` and answer requests
+  through ``score_function`` on ``cuda``; their scores are held to the ones
+  the JAX package stored;
+* training: ``XGBoostClassifier`` and ``RandomForestClassifier`` fit the
+  default selector's grids over 3 fold masks of a seeded 16384 x 928 table
+  at the flagship vector's width (``fit_arrays_batched_masks``), every
+  histogram through kernel K2; the fitted lanes score through
+  ``predict_arrays`` (kernel K1) and agree with the fit's own outputs, a
+  second XGBoost fit is bit-identical, and the training fixture the JAX
+  package stored (``tests/fixtures/torch_training``) is reproduced. K2's
+  launches of one XGBoost round and of the first tree of each forest depth
+  group are captured during that run, then each is relaunched, held
+  against the plain version and timed; their mean, weighted by how often
+  each tree recurs on the path, is K2's entry in the kernels line.
+
+Every phase that fails raises, and the script exits non-zero with no result
+line; it never falls back to the CPU.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches on the main path, its error against the plain version, and its
-time, the plain version's time and the card's lower bound at the main
-path's shape. The last line is ``{"ok": true, "device": {...}}``.
+launches on its path, its error against the plain version, and its time,
+the plain version's time, the card's lower bound and a library call's time
+where one exists. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -31,6 +47,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_serving")
+TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_training")
+DEV = "cuda"
 #: H100 SXM memory rate (NVIDIA data sheet), bytes per second
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM non-tensor fp32 / int32 rate, operations per second
@@ -42,6 +60,38 @@ L2_BYTES = 50 * 2**20
 #: tests/test_torch_scoring.py)
 PROB_ATOL = 1e-5
 BUCKET_ROWS = 8192  # the reference's scoring bucket cap
+#: unit roundoff of float32: a sequential f32 sum of n terms is within
+#: n * U32 * sum|term| of the exact sum
+U32 = 2.0 ** -24
+
+#: kernel K2 shapes: (N, F, B, K, M). (a) the flagship vector's indicator
+#: group, (b) its continuous group, both with the XGBoost grid's 6 lanes;
+#: (c) ragged, with dead rows and slots >= M; (d) the reference kernel's
+#: own tuning shape (hist_pallas.py:390-393)
+K2_SHAPES = {
+    "a_narrow": (16384, 918, 2, 6, 64),
+    "b_wide": (16384, 10, 32, 6, 64),
+    "c_ragged": (4099, 7, 5, 2, 3),
+    "d_tuning": (1 << 20, 500, 32, 1, 64),
+}
+#: the training table: 16384 rows (above the 4096 where the reference
+#: leaves the GEMM histogram) at the flagship vector's width, 10 continuous
+#: columns (3 with ~20% NaN) and 918 indicator columns (~5% ones)
+TRAIN_ROWS, TRAIN_CONT, TRAIN_BIN = 16384, 10, 918
+#: the default selector's grids (selector/model_selector.py:55-64,
+#: :166-191), over 3 fold masks
+XGB_GRID = [
+    {"num_round": 200, "eta": 0.02, "gamma": 0.8, "max_depth": 10,
+     "min_child_weight": w, "max_bins": 32} for w in (1.0, 10.0)
+]
+RF_GRID = [
+    {"max_depth": d, "min_info_gain": gain, "min_instances_per_node": mi,
+     "num_trees": 50, "max_bins": 32}
+    for d in (3, 6, 12) for gain in (0.001, 0.01, 0.1) for mi in (10, 100)
+]
+#: leaf values and outputs against the JAX package's stored fit: f32 sums
+#: in the same order, held to a few ulps of values of order 1
+FIXTURE_TOL = 1e-5
 
 
 def phase(name: str, **fields) -> None:
@@ -67,6 +117,27 @@ def time_ms(torch, fn, arg_sets, reps: int = 20, rounds: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
+    """Device time per call of ``fn`` (every kernel it launches, from
+    ``torch.profiler``), successive calls taking successive entries of
+    ``arg_sets``, after one warm-up call. Unlike ``time_ms`` it leaves out
+    the gaps in which the card waits for the host to issue the next
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    total = sum(
+        evt.self_device_time_total for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return total / 1e3 / calls
 
 
 def l2_cold_copies(args, touched_bytes: int) -> list:
@@ -131,7 +202,7 @@ def check_traversal(torch, ST, name, binned, sf, sb, lv, timed: bool) -> dict:
     """Kernel against the plain walk on the same card tensors: bit-identical
     or raise; with ``timed``, the kernel's and the plain walk's times with
     the inputs out of L2 (and the kernel's with them L2-resident too)."""
-    args = [torch.from_numpy(a).cuda() for a in (binned, sf, sb, lv)]
+    args = [torch.from_numpy(a).to(DEV) for a in (binned, sf, sb, lv)]
     got = ST.serve_trees(*args)
     want = ST.serve_trees_reference(*args)
     torch.cuda.synchronize()
@@ -221,6 +292,551 @@ def stage_seconds(torch, model, rows: list[dict]) -> dict[str, float]:
     return out
 
 
+def hist_inputs(torch, n, f, b, k, m, ragged: bool, seed: int):
+    """Codes, slots, grad and hess on the card from a seeded generator.
+    Slots are drawn from [-1, M) (dead rows), or [-1, M + 2) when ragged
+    (slots >= M too)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    hi = m + 2 if ragged else m
+    return [
+        torch.randint(0, b, (n, f), generator=gen, device=DEV, dtype=torch.int32),
+        torch.randint(-1, hi, (k, n), generator=gen, device=DEV, dtype=torch.int32),
+        torch.randn((k, n), generator=gen, device=DEV),
+        torch.rand((k, n), generator=gen, device=DEV) * 0.9 + 0.1,
+    ]
+
+
+def hist_bound(torch, binned, node, g, h, m, b) -> tuple[float, str, int]:
+    """(bound ms, "bytes" or "operations", bytes): the codes of rows live
+    in some lane, node/grad/hess read once and the histogram written once
+    over the memory rate; 2 f32 adds per live (lane, row, feature) over the
+    scalar rate. A live row has a slot in [0, M) and a nonzero grad or
+    hess (a zero-weight row changes no sum)."""
+    n, f = binned.shape
+    k = node.shape[0]
+    live = (node >= 0) & (node < m) & ((g != 0) | (h != 0))
+    nbytes = (int(live.any(dim=0).sum()) * f * 4 + 3 * k * n * 4
+              + k * m * f * b * 2 * 4)
+    ops = 2 * f * int(live.sum())
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / SCALAR_OPS_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes", nbytes
+    return by_ops, "operations", nbytes
+
+
+def gemm_library_ms(torch, binned, node, g, h, m, b) -> float:
+    """The reference's GEMM formulation as the library yardstick: weighted
+    node one-hots [K*M, N] times a prebuilt code one-hot [N, F*B], two f32
+    ``torch.matmul``s. Rows go in chunks that keep the code one-hot under
+    4 GiB; the timed work is the matmul pairs only (the one-hots are built
+    outside the timed calls, as the reference builds the code one-hot once
+    per fit)."""
+    n, f = binned.shape
+    k = node.shape[0]
+    rows = max(1, min(n, (1 << 30) // (f * b)))
+    total = 0.0
+    for r0 in range(0, n, rows):
+        sl = slice(r0, min(n, r0 + rows))
+        c1h = torch.nn.functional.one_hot(binned[sl].long(), b).reshape(
+            sl.stop - sl.start, f * b).to(torch.float32)
+        live = (node[:, sl] >= 0) & (node[:, sl] < m)
+        n1h = torch.nn.functional.one_hot(
+            torch.where(live, node[:, sl], 0).long(), m
+        ).to(torch.float32) * live[..., None]
+        gw = (n1h * g[:, sl, None]).permute(0, 2, 1).reshape(k * m, -1).contiguous()
+        hw = (n1h * h[:, sl, None]).permute(0, 2, 1).reshape(k * m, -1).contiguous()
+
+        def pair(gw=gw, hw=hw, c1h=c1h):
+            return torch.matmul(gw, c1h), torch.matmul(hw, c1h)
+
+        total += time_ms(torch, pair, [[]], reps=3, rounds=3)
+        del c1h, n1h, gw, hw
+    return total
+
+
+def hist_accuracy(torch, H, name, args, m, b, got, cpu_check: bool) -> dict:
+    """``got``, K2's histogram of ``args``, against the float64 plain version
+    as the yardstick, each cell within count * 2^-24 * sum|term| (the bound
+    of a sequential f32 sum), and a relaunch bit-identical to it; with
+    ``cpu_check`` also bit-identical to the plain f32 version on the CPU,
+    which adds each cell's rows in ascending order as the kernel does."""
+    binned, node, g, h = args
+    again = H.build_histogram_binloop(*args, m, b)
+    plain = H.build_histogram_scatter_batched
+    want = plain(binned, node, g.double(), h.double(), m, b)
+    mag = plain(binned, node, g.abs().double(), h.abs().double(), m, b)
+    ones = torch.ones_like(g, dtype=torch.float64)
+    count = plain(binned, node, ones, ones, m, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"hist_binloop {name}: two launches differ")
+    err = (got.double() - want).abs()
+    tol = count * U32 * mag
+    ratio = (err / tol.clamp(min=1e-300)).max().item() if err.numel() else 0.0
+    if not bool((err <= tol).all()):
+        raise AssertionError(
+            f"hist_binloop {name}: max err {err.max().item()} beyond the f32 "
+            f"summation bound (max over cells of err/tol {ratio})"
+        )
+    out = {
+        "max_abs_err": err.max().item() if err.numel() else 0.0,
+        "max_err_over_tol": ratio,
+        "bit_identical_relaunch": True,
+    }
+    del want, mag, count, ones, err, tol, again
+    if cpu_check:
+        cpu = plain(*(a.cpu() for a in args), m, b)
+        if not torch.equal(got.cpu(), cpu):
+            raise AssertionError(f"hist_binloop {name}: differs from the "
+                                 "sequential plain version")
+        out["bit_identical_to_cpu_plain"] = True
+    return out
+
+
+def hist_times(torch, H, args, m, b, reps: int = 5) -> dict:
+    """On ``args``, with the inputs out of L2: K2's device time per wrapper
+    call (the row-order sort and the kernel; ``kernel_ms``) and its time
+    between CUDA events (``wrapper_ms``, which also holds any wait for the
+    host); the f32 plain version's device time; the GEMM pair's (the
+    library call); and the bound."""
+    plain = H.build_histogram_scatter_batched
+    bound, by, nbytes = hist_bound(torch, *args, m, b)
+    cold = l2_cold_copies(args, nbytes)
+
+    def k2(*a):
+        return H.build_histogram_binloop(*a, m, b)
+
+    def p32(*a):
+        return plain(*a, m, b)
+
+    out = {
+        "kernel_ms": device_ms(torch, k2, cold),
+        "wrapper_ms": time_ms(torch, k2, cold, reps=reps, rounds=5),
+        "plain_ms": device_ms(torch, p32, cold, calls=4),
+        "library_ms": gemm_library_ms(torch, *args, m, b),
+        "bound_ms": bound, "bound_by": by, "touched_bytes": nbytes,
+        "arg_copies": len(cold),
+    }
+    del cold
+    return out
+
+
+def check_hist(torch, H, name, n, f, b, k, m, timed: bool, seed: int) -> dict:
+    """K2 on the card at a synthetic shape, against its plain version
+    (``hist_accuracy``); with ``timed``, ``hist_times``."""
+    args = hist_inputs(torch, n, f, b, k, m, ragged=name.startswith("c"),
+                       seed=seed)
+    got = H.build_histogram_binloop(*args, m, b)
+    out = {
+        "shape": {"N": n, "F": f, "B": b, "K": k, "M": m},
+        "tolerance": "per cell: rows * 2^-24 * sum|term| (sequential f32 sum)",
+        **hist_accuracy(torch, H, name, args, m, b, got,
+                        cpu_check=n * f <= 16 * 2**20),
+    }
+    if timed:
+        out.update(hist_times(torch, H, args, m, b))
+    return out
+
+
+class K2Capture:
+    """Records kernel K2's launches on chosen trees of the training path:
+    the inputs the wrapper was given and the histogram it returned, with
+    the tree and the level they belong to. It adds no launch: every call
+    reaches the wrapper once, as the grower made it.
+
+    Call ``start(family)`` before each fit. XGBoost: the launches of round
+    ``xgb_round`` (one ``_grow_tree_impl`` call grows every lane's tree of a
+    round). Random forest: the launches of the first tree of each depth
+    group."""
+
+    def __init__(self, H, TR, xgb_round: int):
+        self.H, self.TR = H, TR
+        self.kernel = H.build_histogram_binloop
+        self.grow = TR._grow_tree_impl
+        self.xgb_round = xgb_round
+        self.family = None
+        self.records: list[dict] = []
+        self._trees = 0
+        self._depths: set[int] = set()
+        self._tree = None
+
+    def _grow_hook(self, *a, **kw):
+        label = None
+        if self.family == "xgb":
+            if self._trees == self.xgb_round:
+                label = f"xgb round {self._trees + 1}"
+        elif self.family == "rf" and kw["max_depth"] not in self._depths:
+            self._depths.add(kw["max_depth"])
+            label = f"rf depth {kw['max_depth']} tree 1"
+        self._trees += 1
+        self._tree = None if label is None else (label, self.TR.host_syncs)
+        try:
+            return self.grow(*a, **kw)
+        finally:
+            self._tree = None
+
+    def start(self, family: str) -> None:
+        self.family, self._trees = family, 0
+
+    def __enter__(self):
+        def kernel_hook(binned, node, g, h, m, b):
+            # the wrapper counts its launch on the name it is called by,
+            # which is this hook while the capture is on
+            out = self.kernel(binned, node, g, h, m, b)
+            if self._tree is not None:
+                label, syncs = self._tree
+                self.records.append({
+                    "family": self.family, "tree": label,
+                    "level": self.TR.host_syncs - syncs - 1,
+                    "args": [binned, node, g, h], "m": m, "b": b, "out": out,
+                })
+            return out
+
+        kernel_hook.launches = self.kernel.launches
+        self.TR._grow_tree_impl = self._grow_hook
+        self.H.build_histogram_binloop = kernel_hook
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.launches = self.H.build_histogram_binloop.launches
+        self.TR._grow_tree_impl = self.grow
+        self.H.build_histogram_binloop = self.kernel
+        return False
+
+
+def check_main_launches(torch, H, records, weights: dict) -> dict:
+    """Each captured main-path launch of K2 held against its plain version
+    (``hist_accuracy``: the relaunch must equal the main path's own
+    histogram bit for bit; the first launch of each tree also against the
+    CPU's plain version) and timed (``hist_times``). The summary weighs
+    each launch by how often its tree recurs on the path (``weights``:
+    rounds for XGBoost, trees per group for the forest), which estimates
+    the mean launch of the whole path."""
+    rows, seen = [], set()
+    for rec in records:
+        args, m, b = rec["args"], rec["m"], rec["b"]
+        binned, node, g, h = args
+        counts = H.node_order(node, m, g, h)[2]
+        name = f"{rec['tree']} level {rec['level']} B={b}"
+        row = {
+            "tree": rec["tree"], "level": rec["level"],
+            "N": binned.shape[0], "F": binned.shape[1], "B": b,
+            "K": node.shape[0], "M": m,
+            "slotted_rows": int(((node >= 0) & (node < m)).sum()),
+            "live_rows": int(counts.sum()),
+            "longest_slot_run": int(counts.max()),
+            **hist_accuracy(torch, H, name, args, m, b, rec["out"],
+                            cpu_check=rec["tree"] not in seen),
+            **hist_times(torch, H, args, m, b, reps=3),
+        }
+        seen.add(rec["tree"])
+        row["weight"] = weights[rec["family"]]
+        rows.append(row)
+        rec["out"] = None
+    if not rows:
+        raise AssertionError("no K2 launch of the training path was captured")
+    wsum = sum(r["weight"] for r in rows)
+
+    def mean(key):
+        return sum(r["weight"] * r[key] for r in rows) / wsum
+
+    by_bytes, by_ops = (
+        sum(r["weight"] * r["bound_ms"] for r in rows if r["bound_by"] == by)
+        for by in ("bytes", "operations")
+    )
+    return {
+        "basis": "mean per launch, each launch weighted by how often its "
+                 "tree recurs on the path",
+        "weights": weights, "captured_launches": len(rows),
+        "estimated_path_launches": wsum,
+        "ms": mean("kernel_ms"), "wrapper_ms": mean("wrapper_ms"),
+        "plain_ms": mean("plain_ms"),
+        "library_ms": mean("library_ms"), "bound_ms": mean("bound_ms"),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_err_over_tol": max(r["max_err_over_tol"] for r in rows),
+        "launches": rows,
+    }
+
+
+def train_table(n: int, seed: int = 0):
+    """The training table (``TRAIN_*``): float32 x [n, 928], label y."""
+    rng = np.random.default_rng(seed)
+    x = np.empty((n, TRAIN_CONT + TRAIN_BIN), dtype=np.float32)
+    x[:, :TRAIN_CONT] = rng.normal(size=(n, TRAIN_CONT))
+    x[:, TRAIN_CONT:] = rng.uniform(size=(n, TRAIN_BIN)) < 0.05
+    for c in range(3):
+        x[rng.uniform(size=n) < 0.2, c] = np.nan
+    z = np.nan_to_num(x)
+    score = (z[:, 0] - 0.8 * z[:, 3] + 1.5 * z[:, 10] - z[:, 11]
+             + 0.7 * z[:, 12] + 0.5 * z[:, 4] * z[:, 5]
+             + rng.normal(0.0, 0.7, size=n))
+    masks = [(np.arange(n) % 3 != i).astype(np.float32) for i in range(3)]
+    return x, (score > 0).astype(np.float32), masks
+
+
+def fit_family(torch, est, x, y, masks, grid):
+    """(models[mask][point], seconds, host syncs) of one batched fit."""
+    from transmogrifai_tpu_torch.models import trees as TR
+
+    syncs = TR.host_syncs
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    models = est.fit_arrays_batched_masks(x, y, masks, grid)
+    torch.cuda.synchronize()
+    return models, time.perf_counter() - s, TR.host_syncs - syncs
+
+
+def stacks_of(models) -> list[dict]:
+    seen, out = set(), []
+    for row in models:
+        for m in row:
+            if id(m._sweep_stack) not in seen:
+                seen.add(id(m._sweep_stack))
+                out.append(m._sweep_stack)
+    return out
+
+
+def check_lanes_score(x, models, boosted: bool) -> dict:
+    """Every fitted lane scored through ``predict_arrays`` on the card (the
+    serve_trees kernel) against the fit's own training output: margins
+    (boosted) or mean leaves (forest) of R trees, summed in another order
+    than the fit's, within R * 2^-22 * scale, where scale bounds the sum of
+    the terms' magnitudes (eta * R * max|leaf| for a boosted lane, max|leaf|
+    for a forest); predictions and probabilities finite and of the
+    expected shape."""
+    worst, n = 0.0, x.shape[0]
+    for row in models:
+        for m in row:
+            core = m.predict_core(x)[:, 0]
+            pred, prob, _ = m.predict_arrays(x)
+            if prob.shape != (n, 2) or not np.isfinite(prob).all():
+                raise AssertionError(f"{m}: bad probability block {prob.shape}")
+            if pred.shape != (n,):
+                raise AssertionError(f"{m}: bad prediction shape {pred.shape}")
+            want = np.asarray(m._sweep_stack["outputs"][m._sweep_lane], np.float64)
+            trees = m.trees if boosted else m.forests_per_class[0]
+            rounds = trees.split_feat.shape[0]
+            leaf = float(np.nanmax(np.abs(trees.leaf_value)))
+            scale = max(1.0, float(np.abs(want).max()),
+                        abs(m.eta) * rounds * leaf if boosted else leaf)
+            tol = rounds * 2.0 ** -22 * scale
+            err = float(np.abs(core - want).max())
+            if not err <= tol:
+                raise AssertionError(
+                    f"{m}: predict_arrays differs from the fit's output by "
+                    f"{err} > {tol}"
+                )
+            worst = max(worst, err / tol)
+    return {"lanes": sum(len(r) for r in models), "max_err_over_tol": worst}
+
+
+def check_train_fixture(torch) -> dict:
+    """The JAX package's stored fits of the training fixture, reproduced on
+    the card: identical split arrays, leaves and outputs within
+    ``FIXTURE_TOL``."""
+    from transmogrifai_tpu_torch.models import gbdt as G
+
+    with np.load(os.path.join(TRAIN_FIXTURE, "table.npz")) as z:
+        x, y, masks = z["x"], z["y"], z["masks"]
+    with open(os.path.join(TRAIN_FIXTURE, "config.json")) as fh:
+        points = json.load(fh)["points"]
+    out = {}
+    for name, cls in (("xgb", G.XGBoostClassifier),
+                      ("rf", G.RandomForestClassifier)):
+        with np.load(os.path.join(TRAIN_FIXTURE, f"{name}.npz")) as z:
+            want = {k: z[k] for k in z.files}
+        models = cls(device=DEV).fit_arrays_batched_masks(
+            x, y, list(masks), [points[name]])
+        stack = models[0][0]._sweep_stack
+        trees = stack["trees"]
+        same = (np.array_equal(trees.split_feat, want["split_feat"])
+                and np.array_equal(trees.split_bin, want["split_bin"]))
+        leaf_err = float(np.nanmax(np.abs(trees.leaf_value - want["leaf_value"])))
+        out_err = float(np.abs(stack["outputs"] - want["outputs"]).max())
+        if not same:
+            bad = int(((trees.split_feat != want["split_feat"])
+                       | (trees.split_bin != want["split_bin"])).sum())
+            raise AssertionError(f"train_fixture {name}: {bad} split entries "
+                                 "differ from the JAX package's")
+        nan_ok = np.array_equal(np.isnan(trees.leaf_value),
+                                np.isnan(want["leaf_value"]))
+        if not (nan_ok and leaf_err <= FIXTURE_TOL and out_err <= FIXTURE_TOL):
+            raise AssertionError(
+                f"train_fixture {name}: leaf err {leaf_err}, output err "
+                f"{out_err} > {FIXTURE_TOL}"
+            )
+        out[name] = {"splits_identical": True, "leaf_max_abs_err": leaf_err,
+                     "output_max_abs_err": out_err}
+    return out
+
+
+def check_gemm_route(torch) -> dict:
+    """The card's GEMM route (N <= 4096): the one-hot products against the
+    float64 plain version at the flagship width (N=4096, the indicator
+    group, XGBoost's 6 lanes, the GEMM chunk of 128 slots), within the f32
+    summation bound; and one batched tree grown through it."""
+    from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import trees as TR
+
+    n, f, b, k, m = 4096, 918, 2, 6, 128
+    binned, node, g, h = hist_inputs(torch, n, f, b, k, m, ragged=False, seed=7)
+    got = H.build_histogram_gemm(H.codes_one_hot(binned, b), node, g, h, m, b)
+    plain = H.build_histogram_scatter_batched
+    want = plain(binned, node, g.double(), h.double(), m, b)
+    mag = plain(binned, node, g.abs().double(), h.abs().double(), m, b)
+    err = (got.double() - want).abs()
+    if not bool((err <= n * U32 * mag + 1e-30).all()):
+        raise AssertionError(f"gemm route: max err {err.max().item()}")
+    x, y, _ = train_table(3000, seed=3)
+    thr = TR.quantile_thresholds(x, 32)
+    binned = TR.bin_data(torch.from_numpy(x).to(DEV), torch.from_numpy(thr).to(DEV))
+    gg = torch.from_numpy(np.stack([y - 0.5, y - 0.3]).astype(np.float32)).to(DEV)
+    tree = TR.grow_tree_batched(
+        binned, gg, torch.full_like(gg, 0.25), torch.ones_like(gg),
+        torch.ones((2, x.shape[1]), device=DEV), max_depth=6, num_bins=32,
+    )
+    sf = tree.split_feat
+    if not (bool((sf < x.shape[1]).all()) and bool((sf >= 0).any())
+            and bool(torch.isfinite(tree.leaf_value).any())):
+        raise AssertionError("gemm route: grown tree is malformed")
+    return {"hist_max_abs_err": err.max().item(), "grown_splits": int((sf >= 0).sum())}
+
+
+def where_time_goes_train(torch, x, y, masks) -> dict:
+    """A window of the training path: XGBoost's grid for 10 rounds and the
+    depth-12 random-forest group for 5 trees, run once unprofiled for its
+    wall time and once under ``torch.profiler`` for device time by kernel
+    group (the profiler's own host tracing stretches that run's wall
+    clock, so the busy share is taken against the unprofiled wall), with
+    its host syncs and the host seconds spent drawing bagging masks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from transmogrifai_tpu_torch.models import gbdt as G
+    from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import trees as TR
+
+    bag_s = [0.0]
+    real_bag = TR._bag_masks
+
+    def timed_bag(*a, **kw):
+        s = time.perf_counter()
+        try:
+            return real_bag(*a, **kw)
+        finally:
+            bag_s[0] += time.perf_counter() - s
+
+    xgb = [dict(p, num_round=10) for p in XGB_GRID]
+    rf = [dict(p, num_trees=5) for p in RF_GRID if p["max_depth"] == 12]
+    def window():
+        G.XGBoostClassifier(device=DEV).fit_arrays_batched_masks(x, y, masks, xgb)
+        G.RandomForestClassifier(device=DEV).fit_arrays_batched_masks(x, y, masks, rf)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    window()
+    plain_wall = time.perf_counter() - s
+    TR._bag_masks = timed_bag
+    try:
+        syncs = TR.host_syncs
+        launches = H.build_histogram_binloop.launches
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            window()
+        wall = time.perf_counter() - s
+        syncs = TR.host_syncs - syncs
+        launches = H.build_histogram_binloop.launches - launches
+    finally:
+        TR._bag_masks = real_bag
+    groups = {"K2 hist_binloop": ("hist_binloop",),
+              "K2 row order (sort, counts)": ("sort", "radix", "scan", "scatter_add"),
+              "GEMM": ("gemm", "matmul", "cutlass"),
+              "leaf sums / compaction (index_put, gather)": ("index", "gather", "scatter")}
+    dev_ms = {g: 0.0 for g in groups}
+    dev_ms["elementwise and reductions (split search, routing)"] = 0.0
+    total = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        if not t or getattr(evt, "device_type", None) not in (None, torch.autograd.DeviceType.CUDA):
+            continue
+        t = t / 1e3
+        total += t
+        name = evt.key.lower()
+        for g, keys in groups.items():
+            if any(k in name for k in keys):
+                dev_ms[g] += t
+                break
+        else:
+            dev_ms["elementwise and reductions (split search, routing)"] += t
+    return {
+        "window": "XGBoost grid 10 rounds + RF depth-12 group 5 trees",
+        "wall_s": plain_wall, "wall_s_profiled": wall,
+        "device_ms": dev_ms if total else "not measured",
+        "device_busy_share": (total / 1e3 / plain_wall) if total else "not measured",
+        "host_syncs": syncs, "bagging_draw_s": bag_s[0],
+        "hist_binloop_launches": launches,
+        "hist_binloop_ms_per_launch": (dev_ms["K2 hist_binloop"] / launches
+                                       if total and launches else "not measured"),
+    }
+
+
+def train_path(torch) -> dict:
+    """The training main path, with K2's and K1's counts read around it and
+    K2's launches on some of its trees captured (``K2Capture``)."""
+    from transmogrifai_tpu_torch.models import gbdt as G
+    from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import serve_trees as ST
+    from transmogrifai_tpu_torch.models import trees as TR
+
+    x, y, masks = train_table(TRAIN_ROWS)
+    H.build_histogram_binloop.launches = 0
+    ST.serve_trees.launches = 0
+    with K2Capture(H, TR, xgb_round=XGB_GRID[0]["num_round"] // 2) as cap:
+        cap.start("xgb")
+        xgb, xgb_s, xgb_syncs = fit_family(
+            torch, G.XGBoostClassifier(device=DEV), x, y, masks, XGB_GRID)
+        k2_xgb = H.build_histogram_binloop.launches
+        cap.start("rf")
+        rf, rf_s, rf_syncs = fit_family(
+            torch, G.RandomForestClassifier(device=DEV), x, y, masks, RF_GRID)
+    xgb_score = check_lanes_score(x, xgb, boosted=True)
+    rf_score = check_lanes_score(x, rf, boosted=False)
+    k2 = H.build_histogram_binloop.launches
+    k1 = ST.serve_trees.launches
+    H.build_histogram_binloop.launches = 0
+    ST.serve_trees.launches = 0
+    if k2 == 0 or k2_xgb == 0 or k2 == k2_xgb:
+        raise AssertionError(f"training did not launch hist_binloop in both "
+                             f"families ({k2_xgb} of {k2})")
+    if k1 == 0:
+        raise AssertionError("scoring the fitted lanes never launched serve_trees")
+    again, again_s, _ = fit_family(torch, G.XGBoostClassifier(device=DEV),
+                                   x, y, masks, XGB_GRID)
+    H.build_histogram_binloop.launches = 0
+    a, b = stacks_of(xgb)[0], stacks_of(again)[0]
+    if not (all(np.array_equal(p, q) for p, q in zip(a["trees"], b["trees"]))
+            and np.array_equal(a["outputs"], b["outputs"])):
+        raise AssertionError("a second XGBoost fit is not bit-identical")
+    return {
+        "rows": TRAIN_ROWS, "features": x.shape[1],
+        "xgb": {"lanes": len(XGB_GRID) * 3, "seconds": xgb_s,
+                "seconds_refit": again_s, "host_syncs": xgb_syncs,
+                "hist_binloop_launches": k2_xgb, "scoring": xgb_score},
+        "rf": {"lanes": len(RF_GRID) * 3, "groups": len(stacks_of(rf)),
+               "seconds": rf_s, "host_syncs": rf_syncs,
+               "hist_binloop_launches": k2 - k2_xgb, "scoring": rf_score},
+        "hist_binloop_launches": k2, "serve_trees_launches_scoring": k1,
+        "refit_bit_identical": True,
+        "_table": (x, y, masks),
+        "_k2_records": cap.records,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -228,6 +844,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from transmogrifai_tpu_torch import load_workflow_model, score_function
+    from transmogrifai_tpu_torch.models import hist as H
     from transmogrifai_tpu_torch.models import serve_trees as ST
     from transmogrifai_tpu_torch.utils import cuda_build
 
@@ -238,11 +855,12 @@ def main() -> int:
     phase(
         "environment", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
     )
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.build(["serve_trees"])
+    built = cuda_build.build(["serve_trees", "hist_binloop"])
     phase("build", seconds=time.perf_counter() - t0, per_source=built)
     for name, log in cuda_build.build_logs.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
@@ -309,6 +927,29 @@ def main() -> int:
     phase("serve_trees main_path", **main)
     ST.serve_trees.launches = 0
 
+    # kernel K2 at its shapes (launches here are not counted)
+    hist_res = {}
+    for i, (label, (n, f, b, k, m)) in enumerate(K2_SHAPES.items()):
+        hist_res[label] = check_hist(torch, H, label, n, f, b, k, m,
+                                     timed=not label.startswith("c"), seed=i)
+        phase(f"hist_binloop {label}", **hist_res[label])
+    phase("gemm_route", **check_gemm_route(torch))
+
+    # the training path, with the counts read around exactly this run
+    train = train_path(torch)
+    x, y, masks = train.pop("_table")
+    records = train.pop("_k2_records")
+    phase("train", **train)
+    # K2 at the training path's own launches (relaunches are not counted)
+    k2 = check_main_launches(torch, H, records, weights={
+        "xgb": XGB_GRID[0]["num_round"], "rf": RF_GRID[0]["num_trees"]})
+    del records
+    phase("hist_binloop main_path", **k2)
+    phase("train_fixture", **check_train_fixture(torch))
+    phase("where_time_goes train", **where_time_goes_train(torch, x, y, masks))
+    H.build_histogram_binloop.launches = 0
+    ST.serve_trees.launches = 0
+
     print(json.dumps({"kernels": [{
         "name": "serve_trees",
         "route": "cuda",
@@ -321,6 +962,18 @@ def main() -> int:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "hist_binloop",
+        "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/hist_binloop.cu",
+        "replaces": "transmogrifai_tpu/models/hist_pallas.py:427",
+        "launches": train["hist_binloop_launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

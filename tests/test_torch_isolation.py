@@ -48,11 +48,21 @@ def _imports(path: str) -> list[str]:
     return out
 
 
+#: modules the walk must reach (the training slice's among them)
+REQUIRED = (
+    "models/hist.py", "models/trees.py", "models/gbdt.py", "models/base.py",
+    "models/serve_trees.py", "stages/base.py", "utils/prng.py",
+    "utils/cuda_build.py",
+)
+
+
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    walked = {os.path.relpath(f, PORT) for f in files}
+    assert set(REQUIRED) <= walked
     bad = {
         os.path.relpath(f, ROOT): [m for m in _imports(f) if _forbidden(m)]
         for f in files
@@ -71,6 +81,16 @@ with open({os.path.join(FIXTURE, "rows.json")!r}) as fh:
     rows = json.load(fh)
 fn = score_function(load_workflow_model({FIXTURE!r}, device="cpu"), device="cpu")
 out = fn.batch(rows[:8])
+import numpy as np
+from transmogrifai_tpu_torch.models.gbdt import (
+    RandomForestClassifier, XGBoostClassifier,
+)
+rng = np.random.default_rng(0)
+x = rng.normal(size=(120, 4)).astype(np.float32)
+y = (x[:, 0] > 0).astype(np.float32)
+mask = np.ones(120, np.float32)
+XGBoostClassifier(num_round=2, max_depth=2, device="cpu").fit_arrays(x, y, mask)
+RandomForestClassifier(num_trees=2, max_depth=2, device="cpu").fit_arrays(x, y, mask)
 loaded = sorted(
     m for m in sys.modules
     if any(m == b or m.startswith(b + ".") for b in {FORBIDDEN!r})

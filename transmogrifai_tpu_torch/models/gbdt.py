@@ -1,21 +1,35 @@
-"""Fitted tree-ensemble predictor stages: XGBoost's binary model and the
-random forest classifier.
+"""Tree-ensemble predictor stages: the binary XGBoost and random-forest
+classifiers (estimators and fitted models).
 
-A model holds its quantile thresholds and stacked trees as numpy arrays
-from the saved model; ``to(device)`` validates them once and places them on
-the device as int32/float32 tensors. Every predict bins the batch there,
-runs the traversal (the ``serve_trees`` kernel on the card), reduces per
-family, and finishes with the float64 host epilogue
+A model holds its quantile thresholds and stacked trees as numpy arrays,
+from a saved model or from a fit; ``to(device)`` validates them once and
+places them on the device as int32/float32 tensors (a fitted model places
+itself on its fit's device at its first predict). Every predict bins the
+batch there, runs the traversal (the ``serve_trees`` kernel on the card),
+reduces per family, and finishes with the float64 host epilogue
 ``predictions_from_core``, whatever the batch size.
+
+The estimators bin the training matrix on the device once, then grow
+trees through ``trees.py``; ``fit_arrays_batched_masks`` fits folds x grid
+points that share their static shape as the K lanes of one batched fit.
+Multiclass labels and the regressors are not ported yet.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from . import serve_trees as ST
 from . import trees as TR
-from .base import PredictorModel
+from .base import PredictorEstimator, PredictorModel
+
+_NOT_PORTED = (
+    "{what} is not ported yet: only binary labels train in the port "
+    "(ROADMAP.md, A4: multiclass and regressor tree fits)"
+)
 
 
 def _sigmoid(m: np.ndarray) -> np.ndarray:
@@ -65,6 +79,8 @@ class _BinnedModel(PredictorModel):
         super().__init__(operation_name, uid=uid)
         self.thresholds = np.asarray(thresholds, dtype=np.float32)
         self.device: torch.device | None = None
+        #: where a fitted model places itself at its first predict
+        self.default_device: torch.device | None = None
         self._dev_thr: torch.Tensor | None = None
         self.device_stacks: list[TR.Tree] = []
 
@@ -100,6 +116,8 @@ class _BinnedModel(PredictorModel):
     def predict_core(self, x: np.ndarray) -> np.ndarray:
         """float64 [N, k] of margins (boosted) or mean-leaf values (forest),
         one column per tree stack, computed on the model's device."""
+        if self.device is None and self.default_device is not None:
+            self.to(self.default_device)
         if self.device is None:
             raise RuntimeError(f"{self}: place the model with .to(device) first")
         x = np.asarray(x, dtype=np.float32)
@@ -174,3 +192,291 @@ class ForestClassifierModel(_BinnedModel):
         raw = probs.copy()
         prob = probs / np.maximum(probs.sum(axis=1, keepdims=True), 1e-12)
         return prob.argmax(axis=1).astype(np.float64), prob, raw
+
+
+# ---------------------------------------------------------------------------
+# estimators
+# ---------------------------------------------------------------------------
+def _feature_bin_groups(x: np.ndarray):
+    """(narrow_idx, wide_idx) int32 partition of the columns: 0/1 indicator
+    columns (NaN allowed) and the rest, or None when no column is binary."""
+    xf = np.asarray(x)
+    with np.errstate(invalid="ignore"):
+        binary = ((xf == 0) | (xf == 1) | ~np.isfinite(xf)).all(axis=0)
+    narrow = np.nonzero(binary)[0].astype(np.int32)
+    wide = np.nonzero(~binary)[0].astype(np.int32)
+    if len(narrow) == 0:
+        return None
+    return narrow, wide
+
+
+def _num_classes(y: np.ndarray, mask: np.ndarray) -> int:
+    present = y[mask > 0]
+    return max(int(present.max()) + 1 if len(present) else 2, 2)
+
+
+def _host_tree(t: TR.Tree) -> TR.Tree:
+    return TR.Tree(*(a.detach().cpu().numpy() for a in t))
+
+
+# (data address, shape, strides, max_bins, device) -> (x, thresholds,
+# binned, feature groups): every family of a sweep bins the same matrix
+_BINNED_CACHE: dict = {}
+_BINNED_LOCK = threading.Lock()
+
+
+class _TreeEstimator(PredictorEstimator):
+    #: grid params that fix shapes: points sharing them batch into one fit
+    _STATIC_GRID_KEYS: tuple = ()
+
+    def __init__(self, operation_name: str, max_depth: int, max_bins: int,
+                 device=None, uid=None):
+        super().__init__(operation_name, uid=uid)
+        self.max_depth = max_depth
+        self.max_bins = max_bins
+        #: ``None`` fits on the card; ``"cpu"`` runs the plain versions
+        self.device = device
+
+    def _binned(self, x: np.ndarray):
+        """(device, thresholds, binned codes on the device, feature groups),
+        cached per (matrix, max_bins, device); the cache holds ``x``."""
+        dev = resolve_device(self.device)
+        x = np.ascontiguousarray(x, dtype=np.float32)
+        key = (x.__array_interface__["data"][0], x.shape, x.strides,
+               int(self.max_bins), str(dev))
+        with _BINNED_LOCK:
+            hit = _BINNED_CACHE.get(key)
+        if hit is not None:
+            return dev, hit[1], hit[2], hit[3]
+        thresholds = TR.quantile_thresholds(x, self.max_bins)
+        binned = TR.bin_data(torch.from_numpy(x).to(dev),
+                             torch.from_numpy(thresholds).to(dev))
+        fgroups = _feature_bin_groups(x)
+        with _BINNED_LOCK:
+            _BINNED_CACHE[key] = (x, thresholds, binned, fgroups)
+            while len(_BINNED_CACHE) > 4:
+                _BINNED_CACHE.pop(next(iter(_BINNED_CACHE)))
+        return dev, thresholds, binned, fgroups
+
+    def _fit_group_masks(self, x, y, masks, group_points):
+        """Fit len(masks) x len(group_points) models of one static shape as
+        the lanes of one batched fit. ``masks`` is [M, N] float32."""
+        raise NotImplementedError
+
+    def fit_arrays_batched_masks(self, x, y, masks, points):
+        """Validator hook: folds x grid points, batched per group of points
+        that share static shapes (deepest group first). Returns
+        models[mask][point]."""
+        masks = np.stack([np.asarray(m, dtype=np.float32) for m in masks])
+        y = np.asarray(y, dtype=np.float32)
+        groups: dict[tuple, list[int]] = {}
+        for i, p in enumerate(points):
+            merged = {**self.get_params(), **p}
+            groups.setdefault(
+                tuple(merged.get(k) for k in self._STATIC_GRID_KEYS), []
+            ).append(i)
+
+        def depth_of(item):
+            merged = {**self.get_params(), **points[item[1][0]]}
+            return -int(merged.get("max_depth", 0) or 0)
+
+        models: list[list] = [[None] * len(points) for _ in masks]
+        for _, idxs in sorted(groups.items(), key=depth_of):
+            fitted = self._fit_group_masks(x, y, masks, [points[i] for i in idxs])
+            for mi in range(len(masks)):
+                for j, i in enumerate(idxs):
+                    models[mi][i] = fitted[mi][j]
+        return models
+
+    def _batched_group_fit(self, x, masks, group_points, run_batched,
+                           make_model):
+        """Bin once, merge params, stack the float knobs
+        mask-major (lane k = mask_index * n_points + point_index), run the
+        family's batched trainer, and slice the lanes back out.
+        ``run_batched(binned, m0, row_mask_K, knob, fgroups)`` returns
+        ([K, ...] trees, [K, N] training outputs); each model keeps the
+        host stack and its lane in ``_sweep_stack`` / ``_sweep_lane``."""
+        base = self.with_params(**group_points[0])
+        dev, thresholds, binned, fgroups = base._binned(x)
+        merged = [{**self.get_params(), **p} for p in group_points]
+        n_masks, n_pts = masks.shape[0], len(merged)
+        row_mask_k = torch.from_numpy(np.repeat(masks, n_pts, axis=0)).to(dev)
+
+        def knob(name):
+            return np.asarray(
+                [float(m[name]) for m in merged] * n_masks, dtype=np.float32
+            )
+
+        trees, outputs = run_batched(binned, merged[0], row_mask_k, knob, fgroups)
+        stack = {
+            "trees": _host_tree(trees),
+            "thresholds": thresholds,
+            "k": n_masks * n_pts,
+            "outputs": outputs.detach().cpu().numpy(),
+        }
+        models = []
+        for mi in range(n_masks):
+            row = []
+            for j in range(n_pts):
+                lane = mi * n_pts + j
+                model = make_model(
+                    thresholds, TR.Tree(*(a[lane].copy() for a in stack["trees"])),
+                    merged[j],
+                )
+                model.default_device = dev
+                model._sweep_stack = stack
+                model._sweep_lane = lane
+                row.append(model)
+            models.append(row)
+        return models
+
+
+class XGBoostClassifier(_TreeEstimator):
+    """Binary XGBoost (OpXGBoostClassifier parity: eta 0.3, maxDepth 6,
+    lambda 1 by default)."""
+
+    model_type = "OpXGBoostClassifier"
+    _STATIC_GRID_KEYS = ("num_round", "max_depth", "max_bins")
+
+    def __init__(self, num_round: int = 100, eta: float = 0.3,
+                 max_depth: int = 6, reg_lambda: float = 1.0,
+                 gamma: float = 0.0, min_child_weight: float = 1.0,
+                 min_info_gain: float = 0.0, max_bins: int = 32,
+                 device=None, uid: str | None = None):
+        super().__init__("xgbClassifier", max_depth, max_bins, device=device,
+                         uid=uid)
+        self.num_round = num_round
+        self.eta = eta
+        self.reg_lambda = reg_lambda
+        self.gamma = gamma
+        self.min_child_weight = min_child_weight
+        self.min_info_gain = min_info_gain
+
+    def get_params(self):
+        return {
+            "num_round": self.num_round, "eta": self.eta,
+            "max_depth": self.max_depth, "reg_lambda": self.reg_lambda,
+            "gamma": self.gamma, "min_child_weight": self.min_child_weight,
+            "min_info_gain": self.min_info_gain, "max_bins": self.max_bins,
+        }
+
+    def fit_arrays(self, x, y, row_mask):
+        y = np.asarray(y, dtype=np.float32)
+        row_mask = np.asarray(row_mask, dtype=np.float32)
+        if _num_classes(y, row_mask) != 2:
+            raise NotImplementedError(_NOT_PORTED.format(what="multiclass XGBoost"))
+        dev, thresholds, binned, fgroups = self._binned(x)
+        trees, _ = TR.fit_boosted(
+            binned, y, row_mask, num_rounds=int(self.num_round),
+            max_depth=int(self.max_depth), num_bins=int(self.max_bins),
+            eta=float(self.eta), reg_lambda=float(self.reg_lambda),
+            gamma=float(self.gamma),
+            min_child_weight=float(self.min_child_weight),
+            min_info_gain=float(self.min_info_gain),
+            objective="binary:logistic", feature_groups=fgroups,
+        )
+        model = BoostedBinaryModel(thresholds, _host_tree(trees),
+                                   float(self.eta), 0.0)
+        model.default_device = dev
+        return model
+
+    def _fit_group_masks(self, x, y, masks, group_points):
+        if _num_classes(y, masks.max(axis=0)) != 2:
+            raise NotImplementedError(_NOT_PORTED.format(what="multiclass XGBoost"))
+
+        def run_batched(binned, m0, row_mask_k, knob, fgroups):
+            # the final margin is each lane's raw output on every row
+            return TR.fit_boosted_batched(
+                binned, y, row_mask_k, num_rounds=int(m0["num_round"]),
+                max_depth=int(m0["max_depth"]), num_bins=int(m0["max_bins"]),
+                eta=knob("eta"), reg_lambda=knob("reg_lambda"),
+                gamma=knob("gamma"), min_child_weight=knob("min_child_weight"),
+                min_info_gain=knob("min_info_gain"),
+                objective="binary:logistic", feature_groups=fgroups,
+            )
+
+        return self._batched_group_fit(
+            x, masks, group_points, run_batched,
+            lambda th, tr, m: BoostedBinaryModel(th, tr, float(m["eta"]), 0.0),
+        )
+
+
+class RandomForestClassifier(_TreeEstimator):
+    """Binary random forest (OpRandomForestClassifier parity: Spark's
+    featureSubsetStrategy 'auto' = sqrt for classification)."""
+
+    model_type = "OpRandomForestClassifier"
+    _STATIC_GRID_KEYS = ("num_trees", "max_depth", "max_bins", "seed")
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 subsampling_rate: float = 1.0, max_bins: int = 32,
+                 seed: int = 42, device=None, uid: str | None = None):
+        super().__init__("rfClassifier", max_depth, max_bins, device=device,
+                         uid=uid)
+        self.num_trees = num_trees
+        self.min_instances_per_node = min_instances_per_node
+        self.min_info_gain = min_info_gain
+        self.subsampling_rate = subsampling_rate
+        self.seed = seed
+
+    def get_params(self):
+        return {
+            "num_trees": self.num_trees, "max_depth": self.max_depth,
+            "min_instances_per_node": self.min_instances_per_node,
+            "min_info_gain": self.min_info_gain,
+            "subsampling_rate": self.subsampling_rate,
+            "max_bins": self.max_bins, "seed": self.seed,
+        }
+
+    @staticmethod
+    def _colsample(num_features: int) -> float:
+        return 1.0 / np.sqrt(max(num_features, 1))
+
+    def fit_arrays(self, x, y, row_mask):
+        y = np.asarray(y, dtype=np.float32)
+        row_mask = np.asarray(row_mask, dtype=np.float32)
+        if _num_classes(y, row_mask) != 2:
+            raise NotImplementedError(_NOT_PORTED.format(what="multiclass random forest"))
+        dev, thresholds, binned, fgroups = self._binned(x)
+        trees = TR.fit_forest(
+            binned, (y == 1).astype(np.float32), row_mask,
+            num_trees=int(self.num_trees), max_depth=int(self.max_depth),
+            num_bins=int(self.max_bins),
+            subsample_rate=float(self.subsampling_rate),
+            colsample_rate=float(self._colsample(x.shape[1])),
+            min_instances=float(self.min_instances_per_node),
+            min_info_gain=float(self.min_info_gain), seed=int(self.seed),
+            lowp=True,  # indicator targets are bf16-exact
+            feature_groups=fgroups,
+        )
+        model = ForestClassifierModel(thresholds, [_host_tree(trees)])
+        model.default_device = dev
+        return model
+
+    def _fit_group_masks(self, x, y, masks, group_points):
+        if _num_classes(y, masks.max(axis=0)) != 2:
+            raise NotImplementedError(_NOT_PORTED.format(what="multiclass random forest"))
+        colsample = self._colsample(x.shape[1])
+        target = (y == 1).astype(np.float32)
+
+        def run_batched(binned, m0, row_mask_k, knob, fgroups):
+            # mixed depths ride the lane axis as per-lane caps
+            depth = knob("max_depth")
+            uniform = bool((depth == depth[0]).all())
+            return TR.fit_forest_batched(
+                binned, target, row_mask_k, num_trees=int(m0["num_trees"]),
+                max_depth=int(depth.max()), num_bins=int(m0["max_bins"]),
+                subsample_rate=knob("subsampling_rate"),
+                colsample_rate=float(colsample),
+                min_instances=knob("min_instances_per_node"),
+                min_info_gain=knob("min_info_gain"), seed=int(m0["seed"]),
+                lowp=True, feature_groups=fgroups,
+                max_depth_v=None if uniform else depth.astype(np.int32),
+                return_outputs=True,
+            )
+
+        return self._batched_group_fit(
+            x, masks, group_points, run_batched,
+            lambda th, tr, m: ForestClassifierModel(th, [tr]),
+        )

@@ -1,9 +1,10 @@
-"""Stage ABI for serving: PipelineStage / Transformer / Model.
+"""Stage ABI: PipelineStage / Transformer / Model / Estimator.
 
 Stages declare typed input features and produce one output feature.
 ``Transformer.transform_columns(*cols, num_rows)`` is columnar: it maps
 whole columns, not rows; per-row scoring runs it over a batch of one.
-Fitting is not ported: every stage here is loaded fitted.
+``Estimator.fit(dataset)`` learns a ``Model`` from a dataset; of the
+estimators, only the tree predictors are ported so far.
 """
 from __future__ import annotations
 
@@ -25,6 +26,29 @@ class PipelineStage:
         self.input_features: tuple[Any, ...] = ()  # tuple[Feature, ...]
         #: fitted-stage summary ledger, carried over from the saved manifest
         self.metadata: dict[str, Any] = {}
+
+    def set_input(self, *features: Any) -> "PipelineStage":
+        """Wire the input features (checked against ``input_types`` where a
+        stage declares them). A wired stage is not rewired."""
+        if self.input_features and tuple(features) != self.input_features:
+            raise ValueError(
+                f"{self} is already wired to {self.input_names}; create a new "
+                "stage instead of rewiring"
+            )
+        types = getattr(self, "input_types", None)
+        if types is not None:
+            if len(features) != len(types):
+                raise ValueError(
+                    f"{self}: expected {len(types)} inputs, got {len(features)}"
+                )
+            for f, want in zip(features, types):
+                if not issubclass(f.ftype, want):
+                    raise TypeError(
+                        f"{self}: input '{f.name}' has type "
+                        f"{f.ftype.__name__}, expected {want.__name__}"
+                    )
+        self.input_features = tuple(features)
+        return self
 
     @property
     def input_names(self) -> tuple[str, ...]:
@@ -74,3 +98,19 @@ class Transformer(PipelineStage):
 
 class Model(Transformer):
     """A fitted transformer."""
+
+
+class Estimator(PipelineStage):
+    """Learns a Model from data."""
+
+    def fit(self, dataset) -> Model:
+        model = self.fit_model(dataset)
+        model.input_features = self.input_features
+        model.operation_name = self.operation_name
+        # the model's output replaces the estimator's declared output name
+        model._fixed_output_name = self.output_name
+        model.metadata = dict(self.metadata)
+        return model
+
+    def fit_model(self, dataset) -> Model:
+        raise NotImplementedError
