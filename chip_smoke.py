@@ -24,7 +24,19 @@ paths:
   launches of one XGBoost round and of the first tree of each forest depth
   group are captured during that run, then each is relaunched, held
   against the plain version and timed; their mean, weighted by how often
-  each tree recurs on the path, is K2's entry in the kernels line.
+  each tree recurs on the path, is K2's entry in the kernels line;
+* regression training: ``GBTRegressor`` and ``RandomForestRegressor`` fit
+  the regression selector's grids on the same table's continuous target
+  with a 256-bin sketch: the continuous columns' histograms through kernel
+  K3 and the indicators' through K2. The lanes score through K1, a second
+  GBT fit is bit-identical, the fixture's 256-bin regression fits are
+  reproduced, and K3's launches of the middle GBT round and the first
+  forest tree of each depth group are captured, relaunched and timed as
+  K2's are.
+
+Kernel K4, the fused split search, is on no path of the reference (its
+policy never takes it); it is held against the two-phase split search it
+fuses at the reference's fused-route shapes.
 
 Every phase that fails raises, and the script exits non-zero with no result
 line; it never falls back to the CPU.
@@ -74,6 +86,26 @@ K2_SHAPES = {
     "c_ragged": (4099, 7, 5, 2, 3),
     "d_tuning": (1 << 20, 500, 32, 1, 64),
 }
+#: kernel K3 shapes: (N, F, B, K, M). (a) the GBT grid's root level over
+#: the 10 continuous columns at 256 bins (18 lanes, the 256-slot chunk,
+#: every live row in slot 0); (b) a deep level, slots spread; (c) ragged,
+#: with dead rows and slots >= M; (d) a large single fit
+K3_SHAPES = {
+    "a_gbt_root": (16384, 10, 256, 18, 256),
+    "b_deep": (16384, 10, 256, 18, 256),
+    "c_ragged": (4099, 3, 300, 2, 3),
+    "d_large": (1 << 20, 64, 256, 1, 64),
+}
+#: kernel K4 shapes: (N, F, B, K, M), the reference's fused route (N <=
+#: 2048, B <= 128) at the flagship width: (a) the indicator group, (b) the
+#: continuous group at 32 bins, (c) the reference test's ragged shape
+#: (tests/test_hist_pallas.py:72-122), (d) 128 bins
+K4_SHAPES = {
+    "a_narrow": (2048, 918, 2, 6, 128),
+    "b_wide": (2048, 10, 32, 6, 128),
+    "c_ragged": (200, 11, 8, 3, 4),
+    "d_128_bins": (2048, 64, 128, 2, 128),
+}
 #: the training table: 16384 rows (above the 4096 where the reference
 #: leaves the GEMM histogram) at the flagship vector's width, 10 continuous
 #: columns (3 with ~20% NaN) and 918 indicator columns (~5% ones)
@@ -89,6 +121,16 @@ RF_GRID = [
      "num_trees": 50, "max_bins": 32}
     for d in (3, 6, 12) for gain in (0.001, 0.01, 0.1) for mi in (10, 100)
 ]
+#: the regression selector's tree grids (model_selector.py:166-181,
+#: :493-515) with a 256-bin sketch: 18 points each, 3 depth groups of 6
+#: points over 3 fold masks
+REG_BINS = 256
+GBT_GRID = [
+    {"max_depth": d, "min_info_gain": gain, "min_instances_per_node": mi,
+     "max_iter": 20, "max_bins": REG_BINS}
+    for d in (3, 6, 12) for gain in (0.001, 0.01, 0.1) for mi in (10, 100)
+]
+RFR_GRID = [dict(p, max_bins=REG_BINS) for p in RF_GRID]
 #: leaf values and outputs against the JAX package's stored fit: f32 sums
 #: in the same order, held to a few ulps of values of order 1
 FIXTURE_TOL = 1e-5
@@ -355,14 +397,26 @@ def gemm_library_ms(torch, binned, node, g, h, m, b) -> float:
     return total
 
 
-def hist_accuracy(torch, H, name, args, m, b, got, cpu_check: bool) -> dict:
-    """``got``, K2's histogram of ``args``, against the float64 plain version
-    as the yardstick, each cell within count * 2^-24 * sum|term| (the bound
-    of a sequential f32 sum), and a relaunch bit-identical to it; with
-    ``cpu_check`` also bit-identical to the plain f32 version on the CPU,
-    which adds each cell's rows in ascending order as the kernel does."""
+#: the histogram kernels' wrappers in ``models/hist.py``, by kernel name
+HIST_WRAPPERS = {"hist_binloop": "build_histogram_binloop",
+                 "hist_wide": "build_histogram_wide"}
+
+
+def hist_kernel(H, kernel: str):
+    """The wrapper of histogram kernel ``kernel``, looked up at call time."""
+    return getattr(H, HIST_WRAPPERS[kernel])
+
+
+def hist_accuracy(torch, H, kernel, name, args, m, b, got, cpu_check: bool) -> dict:
+    """``got``, the histogram kernel ``kernel`` built of ``args``, against
+    the float64 plain version as the yardstick, each cell within count *
+    2^-24 * sum|term| (the bound of a sequential f32 sum), and a relaunch
+    bit-identical to it; with ``cpu_check`` also bit-identical to the plain
+    f32 version on the CPU, which adds each cell's rows in ascending order
+    as the kernel does."""
     binned, node, g, h = args
-    again = H.build_histogram_binloop(*args, m, b)
+    name = f"{kernel} {name}"
+    again = hist_kernel(H, kernel)(*args, m, b)
     plain = H.build_histogram_scatter_batched
     want = plain(binned, node, g.double(), h.double(), m, b)
     mag = plain(binned, node, g.abs().double(), h.abs().double(), m, b)
@@ -370,13 +424,13 @@ def hist_accuracy(torch, H, name, args, m, b, got, cpu_check: bool) -> dict:
     count = plain(binned, node, ones, ones, m, b)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-        raise AssertionError(f"hist_binloop {name}: two launches differ")
+        raise AssertionError(f"{name}: two launches differ")
     err = (got.double() - want).abs()
     tol = count * U32 * mag
     ratio = (err / tol.clamp(min=1e-300)).max().item() if err.numel() else 0.0
     if not bool((err <= tol).all()):
         raise AssertionError(
-            f"hist_binloop {name}: max err {err.max().item()} beyond the f32 "
+            f"{name}: max err {err.max().item()} beyond the f32 "
             f"summation bound (max over cells of err/tol {ratio})"
         )
     out = {
@@ -388,24 +442,26 @@ def hist_accuracy(torch, H, name, args, m, b, got, cpu_check: bool) -> dict:
     if cpu_check:
         cpu = plain(*(a.cpu() for a in args), m, b)
         if not torch.equal(got.cpu(), cpu):
-            raise AssertionError(f"hist_binloop {name}: differs from the "
-                                 "sequential plain version")
+            raise AssertionError(f"{name}: differs from the sequential plain "
+                                 "version")
         out["bit_identical_to_cpu_plain"] = True
     return out
 
 
-def hist_times(torch, H, args, m, b, reps: int = 5) -> dict:
-    """On ``args``, with the inputs out of L2: K2's device time per wrapper
-    call (the row-order sort and the kernel; ``kernel_ms``) and its time
-    between CUDA events (``wrapper_ms``, which also holds any wait for the
-    host); the f32 plain version's device time; the GEMM pair's (the
-    library call); and the bound."""
+def hist_times(torch, H, kernel, args, m, b, reps: int = 5,
+               library: bool = True) -> dict:
+    """On ``args``, with the inputs out of L2: the histogram kernel's device
+    time per wrapper call (the row-order sort and the kernel;
+    ``kernel_ms``) and its time between CUDA events (``wrapper_ms``, which
+    also holds any wait for the host); the f32 plain version's device time;
+    the GEMM pair's (the library call; only with ``library``); and the
+    bound."""
     plain = H.build_histogram_scatter_batched
     bound, by, nbytes = hist_bound(torch, *args, m, b)
     cold = l2_cold_copies(args, nbytes)
 
     def k2(*a):
-        return H.build_histogram_binloop(*a, m, b)
+        return hist_kernel(H, kernel)(*a, m, b)
 
     def p32(*a):
         return plain(*a, m, b)
@@ -414,7 +470,7 @@ def hist_times(torch, H, args, m, b, reps: int = 5) -> dict:
         "kernel_ms": device_ms(torch, k2, cold),
         "wrapper_ms": time_ms(torch, k2, cold, reps=reps, rounds=5),
         "plain_ms": device_ms(torch, p32, cold, calls=4),
-        "library_ms": gemm_library_ms(torch, *args, m, b),
+        "library_ms": gemm_library_ms(torch, *args, m, b) if library else None,
         "bound_ms": bound, "bound_by": by, "touched_bytes": nbytes,
         "arg_copies": len(cold),
     }
@@ -422,54 +478,59 @@ def hist_times(torch, H, args, m, b, reps: int = 5) -> dict:
     return out
 
 
-def check_hist(torch, H, name, n, f, b, k, m, timed: bool, seed: int) -> dict:
-    """K2 on the card at a synthetic shape, against its plain version
-    (``hist_accuracy``); with ``timed``, ``hist_times``."""
+def check_hist(torch, H, kernel, name, n, f, b, k, m, timed: bool, seed: int,
+               root: bool = False) -> dict:
+    """A histogram kernel on the card at a synthetic shape, against its
+    plain version (``hist_accuracy``); with ``timed``, ``hist_times``. With
+    ``root`` every live row sits in slot 0 (a root level: about 2/3 of the
+    rows live per fit, as under a 3-fold mask)."""
     args = hist_inputs(torch, n, f, b, k, m, ragged=name.startswith("c"),
                        seed=seed)
-    got = H.build_histogram_binloop(*args, m, b)
+    if root:
+        gen = torch.Generator(device=DEV).manual_seed(seed + 100)
+        live = torch.rand((k, n), generator=gen, device=DEV) < 2 / 3
+        args[1] = torch.where(live, 0, -1).to(torch.int32)
+    got = hist_kernel(H, kernel)(*args, m, b)
     out = {
         "shape": {"N": n, "F": f, "B": b, "K": k, "M": m},
         "tolerance": "per cell: rows * 2^-24 * sum|term| (sequential f32 sum)",
-        **hist_accuracy(torch, H, name, args, m, b, got,
+        **hist_accuracy(torch, H, kernel, name, args, m, b, got,
                         cpu_check=n * f <= 16 * 2**20),
     }
     if timed:
-        out.update(hist_times(torch, H, args, m, b))
+        out.update(hist_times(torch, H, kernel, args, m, b))
     return out
 
 
-class K2Capture:
-    """Records kernel K2's launches on chosen trees of the training path:
-    the inputs the wrapper was given and the histogram it returned, with
-    the tree and the level they belong to. It adds no launch: every call
-    reaches the wrapper once, as the grower made it.
+class KernelCapture:
+    """Records one histogram kernel's launches on chosen trees of the
+    training path: the inputs the wrapper was given and the histogram it
+    returned, with the tree and the level they belong to. It adds no
+    launch: every call reaches the wrapper once, as the grower made it.
 
-    Call ``start(family)`` before each fit. XGBoost: the launches of round
-    ``xgb_round`` (one ``_grow_tree_impl`` call grows every lane's tree of a
-    round). Random forest: the launches of the first tree of each depth
-    group."""
+    ``trees`` maps each family to the tree it captures in every depth group
+    (the grower's calls are counted per ``max_depth``): a boosting round,
+    or 0 for the first tree of a forest. Call ``start(family)`` before each
+    fit."""
 
-    def __init__(self, H, TR, xgb_round: int):
+    def __init__(self, H, TR, kernel: str, trees: dict[str, int]):
         self.H, self.TR = H, TR
-        self.kernel = H.build_histogram_binloop
+        self.attr = HIST_WRAPPERS[kernel]
+        self.kernel = getattr(H, self.attr)
         self.grow = TR._grow_tree_impl
-        self.xgb_round = xgb_round
+        self.trees = trees
         self.family = None
         self.records: list[dict] = []
-        self._trees = 0
-        self._depths: set[int] = set()
+        self._grown: dict[int, int] = {}
         self._tree = None
 
     def _grow_hook(self, *a, **kw):
+        depth = kw["max_depth"]
+        i = self._grown.get(depth, 0)
+        self._grown[depth] = i + 1
         label = None
-        if self.family == "xgb":
-            if self._trees == self.xgb_round:
-                label = f"xgb round {self._trees + 1}"
-        elif self.family == "rf" and kw["max_depth"] not in self._depths:
-            self._depths.add(kw["max_depth"])
-            label = f"rf depth {kw['max_depth']} tree 1"
-        self._trees += 1
+        if i == self.trees[self.family]:
+            label = f"{self.family} depth {depth} tree {i + 1}"
         self._tree = None if label is None else (label, self.TR.host_syncs)
         try:
             return self.grow(*a, **kw)
@@ -477,7 +538,7 @@ class K2Capture:
             self._tree = None
 
     def start(self, family: str) -> None:
-        self.family, self._trees = family, 0
+        self.family, self._grown = family, {}
 
     def __enter__(self):
         def kernel_hook(binned, node, g, h, m, b):
@@ -495,30 +556,34 @@ class K2Capture:
 
         kernel_hook.launches = self.kernel.launches
         self.TR._grow_tree_impl = self._grow_hook
-        self.H.build_histogram_binloop = kernel_hook
+        setattr(self.H, self.attr, kernel_hook)
         return self
 
     def __exit__(self, *exc):
-        self.kernel.launches = self.H.build_histogram_binloop.launches
+        self.kernel.launches = getattr(self.H, self.attr).launches
         self.TR._grow_tree_impl = self.grow
-        self.H.build_histogram_binloop = self.kernel
+        setattr(self.H, self.attr, self.kernel)
         return False
 
 
-def check_main_launches(torch, H, records, weights: dict) -> dict:
-    """Each captured main-path launch of K2 held against its plain version
-    (``hist_accuracy``: the relaunch must equal the main path's own
-    histogram bit for bit; the first launch of each tree also against the
-    CPU's plain version) and timed (``hist_times``). The summary weighs
-    each launch by how often its tree recurs on the path (``weights``:
-    rounds for XGBoost, trees per group for the forest), which estimates
-    the mean launch of the whole path."""
+def check_main_launches(torch, H, kernel, records, weights: dict,
+                        library_per_tree: bool = False) -> dict:
+    """Each captured main-path launch of a histogram kernel held against
+    its plain version (``hist_accuracy``: the relaunch must equal the main
+    path's own histogram bit for bit; the first launch of each tree also
+    against the CPU's plain version) and timed (``hist_times``). The
+    summary weighs each launch by how often its tree recurs on the path
+    (``weights``: rounds for boosting, trees per group for a forest), which
+    estimates the mean launch of the whole path. With ``library_per_tree``
+    the GEMM pair is timed at the first launch of each tree only, and the
+    library mean is taken over those."""
     rows, seen = [], set()
     for rec in records:
         args, m, b = rec["args"], rec["m"], rec["b"]
         binned, node, g, h = args
         counts = H.node_order(node, m, g, h)[2]
         name = f"{rec['tree']} level {rec['level']} B={b}"
+        first = rec["tree"] not in seen
         row = {
             "tree": rec["tree"], "level": rec["level"],
             "N": binned.shape[0], "F": binned.shape[1], "B": b,
@@ -526,20 +591,22 @@ def check_main_launches(torch, H, records, weights: dict) -> dict:
             "slotted_rows": int(((node >= 0) & (node < m)).sum()),
             "live_rows": int(counts.sum()),
             "longest_slot_run": int(counts.max()),
-            **hist_accuracy(torch, H, name, args, m, b, rec["out"],
-                            cpu_check=rec["tree"] not in seen),
-            **hist_times(torch, H, args, m, b, reps=3),
+            **hist_accuracy(torch, H, kernel, name, args, m, b, rec["out"],
+                            cpu_check=first),
+            **hist_times(torch, H, kernel, args, m, b, reps=3,
+                         library=first or not library_per_tree),
         }
         seen.add(rec["tree"])
         row["weight"] = weights[rec["family"]]
         rows.append(row)
         rec["out"] = None
     if not rows:
-        raise AssertionError("no K2 launch of the training path was captured")
-    wsum = sum(r["weight"] for r in rows)
+        raise AssertionError(f"no {kernel} launch of the training path was "
+                             "captured")
 
-    def mean(key):
-        return sum(r["weight"] * r[key] for r in rows) / wsum
+    def mean(key, subset=rows):
+        return (sum(r["weight"] * r[key] for r in subset)
+                / sum(r["weight"] for r in subset))
 
     by_bytes, by_ops = (
         sum(r["weight"] * r["bound_ms"] for r in rows if r["bound_by"] == by)
@@ -549,10 +616,14 @@ def check_main_launches(torch, H, records, weights: dict) -> dict:
         "basis": "mean per launch, each launch weighted by how often its "
                  "tree recurs on the path",
         "weights": weights, "captured_launches": len(rows),
-        "estimated_path_launches": wsum,
+        "estimated_path_launches": sum(r["weight"] for r in rows),
         "ms": mean("kernel_ms"), "wrapper_ms": mean("wrapper_ms"),
         "plain_ms": mean("plain_ms"),
-        "library_ms": mean("library_ms"), "bound_ms": mean("bound_ms"),
+        "library_ms": mean("library_ms", [r for r in rows
+                                          if r["library_ms"] is not None]),
+        "library_basis": ("first launch of each tree" if library_per_tree
+                          else "every captured launch"),
+        "bound_ms": mean("bound_ms"),
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "max_err_over_tol": max(r["max_err_over_tol"] for r in rows),
@@ -561,7 +632,9 @@ def check_main_launches(torch, H, records, weights: dict) -> dict:
 
 
 def train_table(n: int, seed: int = 0):
-    """The training table (``TRAIN_*``): float32 x [n, 928], label y."""
+    """The training table (``TRAIN_*``): float32 x [n, 928], the binary
+    label y, the continuous regression target (the score y thresholds) and
+    3 fold masks."""
     rng = np.random.default_rng(seed)
     x = np.empty((n, TRAIN_CONT + TRAIN_BIN), dtype=np.float32)
     x[:, :TRAIN_CONT] = rng.normal(size=(n, TRAIN_CONT))
@@ -573,7 +646,7 @@ def train_table(n: int, seed: int = 0):
              + 0.7 * z[:, 12] + 0.5 * z[:, 4] * z[:, 5]
              + rng.normal(0.0, 0.7, size=n))
     masks = [(np.arange(n) % 3 != i).astype(np.float32) for i in range(3)]
-    return x, (score > 0).astype(np.float32), masks
+    return x, (score > 0).astype(np.float32), score.astype(np.float32), masks
 
 
 def fit_family(torch, est, x, y, masks, grid):
@@ -598,25 +671,29 @@ def stacks_of(models) -> list[dict]:
     return out
 
 
-def check_lanes_score(x, models, boosted: bool) -> dict:
+def check_lanes_score(x, models, boosted: bool, regression: bool = False) -> dict:
     """Every fitted lane scored through ``predict_arrays`` on the card (the
     serve_trees kernel) against the fit's own training output: margins
     (boosted) or mean leaves (forest) of R trees, summed in another order
     than the fit's, within R * 2^-22 * scale, where scale bounds the sum of
     the terms' magnitudes (eta * R * max|leaf| for a boosted lane, max|leaf|
-    for a forest); predictions and probabilities finite and of the
-    expected shape."""
+    for a forest); predictions finite and of the expected shape, with a
+    probability block for a classifier and none for a ``regression``
+    (whose prediction is the score itself)."""
     worst, n = 0.0, x.shape[0]
     for row in models:
         for m in row:
             core = m.predict_core(x)[:, 0]
             pred, prob, _ = m.predict_arrays(x)
-            if prob.shape != (n, 2) or not np.isfinite(prob).all():
+            if regression:
+                if prob is not None or not np.array_equal(pred, core):
+                    raise AssertionError(f"{m}: a regression predicts its score")
+            elif prob.shape != (n, 2) or not np.isfinite(prob).all():
                 raise AssertionError(f"{m}: bad probability block {prob.shape}")
-            if pred.shape != (n,):
-                raise AssertionError(f"{m}: bad prediction shape {pred.shape}")
+            if pred.shape != (n,) or not np.isfinite(pred).all():
+                raise AssertionError(f"{m}: bad prediction block {pred.shape}")
             want = np.asarray(m._sweep_stack["outputs"][m._sweep_lane], np.float64)
-            trees = m.trees if boosted else m.forests_per_class[0]
+            trees = m._tree_stacks()[0][0]
             rounds = trees.split_feat.shape[0]
             leaf = float(np.nanmax(np.abs(trees.leaf_value)))
             scale = max(1.0, float(np.abs(want).max()),
@@ -637,18 +714,25 @@ def check_train_fixture(torch) -> dict:
     the card: identical split arrays, leaves and outputs within
     ``FIXTURE_TOL``."""
     from transmogrifai_tpu_torch.models import gbdt as G
+    from transmogrifai_tpu_torch.models import hist as H
 
     with np.load(os.path.join(TRAIN_FIXTURE, "table.npz")) as z:
-        x, y, masks = z["x"], z["y"], z["masks"]
+        x, y, target, masks = z["x"], z["y"], z["target"], z["masks"]
     with open(os.path.join(TRAIN_FIXTURE, "config.json")) as fh:
         points = json.load(fh)["points"]
     out = {}
-    for name, cls in (("xgb", G.XGBoostClassifier),
-                      ("rf", G.RandomForestClassifier)):
+    for name, cls, label in (
+        ("xgb", G.XGBoostClassifier, y), ("rf", G.RandomForestClassifier, y),
+        ("gbtr", G.GBTRegressor, target), ("rfr", G.RandomForestRegressor, target),
+    ):
         with np.load(os.path.join(TRAIN_FIXTURE, f"{name}.npz")) as z:
             want = {k: z[k] for k in z.files}
+        k3 = H.build_histogram_wide.launches
         models = cls(device=DEV).fit_arrays_batched_masks(
-            x, y, list(masks), [points[name]])
+            x, label, list(masks), [points[name]])
+        k3 = H.build_histogram_wide.launches - k3
+        if points[name]["max_bins"] > H.BINLOOP_MAX_BINS and k3 == 0:
+            raise AssertionError(f"train_fixture {name}: no hist_wide launch")
         stack = models[0][0]._sweep_stack
         trees = stack["trees"]
         same = (np.array_equal(trees.split_feat, want["split_feat"])
@@ -668,7 +752,9 @@ def check_train_fixture(torch) -> dict:
                 f"{out_err} > {FIXTURE_TOL}"
             )
         out[name] = {"splits_identical": True, "leaf_max_abs_err": leaf_err,
-                     "output_max_abs_err": out_err}
+                     "output_max_abs_err": out_err,
+                     "max_bins": points[name]["max_bins"],
+                     "hist_wide_launches": k3}
     return out
 
 
@@ -689,7 +775,7 @@ def check_gemm_route(torch) -> dict:
     err = (got.double() - want).abs()
     if not bool((err <= n * U32 * mag + 1e-30).all()):
         raise AssertionError(f"gemm route: max err {err.max().item()}")
-    x, y, _ = train_table(3000, seed=3)
+    x, y, _, _ = train_table(3000, seed=3)
     thr = TR.quantile_thresholds(x, 32)
     binned = TR.bin_data(torch.from_numpy(x).to(DEV), torch.from_numpy(thr).to(DEV))
     gg = torch.from_numpy(np.stack([y - 0.5, y - 0.3]).astype(np.float32)).to(DEV)
@@ -704,16 +790,16 @@ def check_gemm_route(torch) -> dict:
     return {"hist_max_abs_err": err.max().item(), "grown_splits": int((sf >= 0).sum())}
 
 
-def where_time_goes_train(torch, x, y, masks) -> dict:
-    """A window of the training path: XGBoost's grid for 10 rounds and the
-    depth-12 random-forest group for 5 trees, run once unprofiled for its
-    wall time and once under ``torch.profiler`` for device time by kernel
-    group (the profiler's own host tracing stretches that run's wall
-    clock, so the busy share is taken against the unprofiled wall), with
-    its host syncs and the host seconds spent drawing bagging masks."""
+def where_time_goes_train(torch, title: str, fits) -> dict:
+    """A window of a training path, ``fits`` a list of (estimator class, x,
+    label, masks, grid): run once unprofiled for its wall time and once
+    under ``torch.profiler`` for device time by kernel group (the
+    profiler's own host tracing stretches that run's wall clock, so the
+    busy share is taken against the unprofiled wall), with its host syncs,
+    its histogram kernels' launches and the host seconds spent drawing
+    bagging masks."""
     from torch.profiler import ProfilerActivity, profile
 
-    from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
     from transmogrifai_tpu_torch.models import trees as TR
 
@@ -727,12 +813,13 @@ def where_time_goes_train(torch, x, y, masks) -> dict:
         finally:
             bag_s[0] += time.perf_counter() - s
 
-    xgb = [dict(p, num_round=10) for p in XGB_GRID]
-    rf = [dict(p, num_trees=5) for p in RF_GRID if p["max_depth"] == 12]
     def window():
-        G.XGBoostClassifier(device=DEV).fit_arrays_batched_masks(x, y, masks, xgb)
-        G.RandomForestClassifier(device=DEV).fit_arrays_batched_masks(x, y, masks, rf)
+        for cls, x, label, masks, grid in fits:
+            cls(device=DEV).fit_arrays_batched_masks(x, label, masks, grid)
         torch.cuda.synchronize()
+
+    def counts():
+        return {k: hist_kernel(H, k).launches for k in HIST_WRAPPERS}
 
     torch.cuda.synchronize()
     s = time.perf_counter()
@@ -741,18 +828,20 @@ def where_time_goes_train(torch, x, y, masks) -> dict:
     TR._bag_masks = timed_bag
     try:
         syncs = TR.host_syncs
-        launches = H.build_histogram_binloop.launches
+        launches = counts()
         torch.cuda.synchronize()
         s = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             window()
         wall = time.perf_counter() - s
         syncs = TR.host_syncs - syncs
-        launches = H.build_histogram_binloop.launches - launches
+        launches = {k: v - launches[k] for k, v in counts().items()}
     finally:
         TR._bag_masks = real_bag
     groups = {"K2 hist_binloop": ("hist_binloop",),
-              "K2 row order (sort, counts)": ("sort", "radix", "scan", "scatter_add"),
+              "K3 hist_wide": ("hist_wide",),
+              "row order for K2/K3 (sort, counts)": ("sort", "radix", "scan",
+                                                     "scatter_add"),
               "GEMM": ("gemm", "matmul", "cutlass"),
               "leaf sums / compaction (index_put, gather)": ("index", "gather", "scatter")}
     dev_ms = {g: 0.0 for g in groups}
@@ -773,30 +862,34 @@ def where_time_goes_train(torch, x, y, masks) -> dict:
                 break
         else:
             dev_ms["elementwise and reductions (split search, routing)"] += t
-    return {
-        "window": "XGBoost grid 10 rounds + RF depth-12 group 5 trees",
+    out = {
+        "window": title,
         "wall_s": plain_wall, "wall_s_profiled": wall,
         "device_ms": dev_ms if total else "not measured",
         "device_busy_share": (total / 1e3 / plain_wall) if total else "not measured",
         "host_syncs": syncs, "bagging_draw_s": bag_s[0],
-        "hist_binloop_launches": launches,
-        "hist_binloop_ms_per_launch": (dev_ms["K2 hist_binloop"] / launches
-                                       if total and launches else "not measured"),
     }
+    for kernel, group in (("hist_binloop", "K2 hist_binloop"),
+                          ("hist_wide", "K3 hist_wide")):
+        out[f"{kernel}_launches"] = launches[kernel]
+        out[f"{kernel}_ms_per_launch"] = (
+            dev_ms[group] / launches[kernel]
+            if total and launches[kernel] else "not measured")
+    return out
 
 
-def train_path(torch) -> dict:
+def train_path(torch, x, y, masks) -> dict:
     """The training main path, with K2's and K1's counts read around it and
-    K2's launches on some of its trees captured (``K2Capture``)."""
+    K2's launches on some of its trees captured (``KernelCapture``)."""
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
     from transmogrifai_tpu_torch.models import serve_trees as ST
     from transmogrifai_tpu_torch.models import trees as TR
 
-    x, y, masks = train_table(TRAIN_ROWS)
     H.build_histogram_binloop.launches = 0
     ST.serve_trees.launches = 0
-    with K2Capture(H, TR, xgb_round=XGB_GRID[0]["num_round"] // 2) as cap:
+    with KernelCapture(H, TR, "hist_binloop",
+                       {"xgb": XGB_GRID[0]["num_round"] // 2, "rf": 0}) as cap:
         cap.start("xgb")
         xgb, xgb_s, xgb_syncs = fit_family(
             torch, G.XGBoostClassifier(device=DEV), x, y, masks, XGB_GRID)
@@ -818,9 +911,7 @@ def train_path(torch) -> dict:
     again, again_s, _ = fit_family(torch, G.XGBoostClassifier(device=DEV),
                                    x, y, masks, XGB_GRID)
     H.build_histogram_binloop.launches = 0
-    a, b = stacks_of(xgb)[0], stacks_of(again)[0]
-    if not (all(np.array_equal(p, q) for p, q in zip(a["trees"], b["trees"]))
-            and np.array_equal(a["outputs"], b["outputs"])):
+    if not same_fits(xgb, again):
         raise AssertionError("a second XGBoost fit is not bit-identical")
     return {
         "rows": TRAIN_ROWS, "features": x.shape[1],
@@ -832,18 +923,197 @@ def train_path(torch) -> dict:
                "hist_binloop_launches": k2 - k2_xgb, "scoring": rf_score},
         "hist_binloop_launches": k2, "serve_trees_launches_scoring": k1,
         "refit_bit_identical": True,
-        "_table": (x, y, masks),
-        "_k2_records": cap.records,
+        "_records": cap.records,
+    }
+
+
+def same_fits(models, again) -> bool:
+    """Every stack of two batched fits equal bit for bit, trees and outputs."""
+    pairs = list(zip(stacks_of(models), stacks_of(again)))
+    return bool(pairs) and all(
+        all(np.array_equal(p, q, equal_nan=True)
+            for p, q in zip(a["trees"], b["trees"]))
+        and np.array_equal(a["outputs"], b["outputs"])
+        for a, b in pairs
+    )
+
+
+def train_regression_path(torch, x, target, masks) -> dict:
+    """The regression training path at a 256-bin sketch: GBT and the
+    random forest at the regression selector's grids over the table's
+    continuous target, with K3's, K2's and K1's counts read around it and
+    K3's launches on the middle GBT round and the first forest tree of each
+    depth group captured (``KernelCapture``)."""
+    from transmogrifai_tpu_torch.models import gbdt as G
+    from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import serve_trees as ST
+    from transmogrifai_tpu_torch.models import trees as TR
+
+    H.build_histogram_wide.launches = 0
+    H.build_histogram_binloop.launches = 0
+    ST.serve_trees.launches = 0
+    out, fitted = {}, {}
+    with KernelCapture(H, TR, "hist_wide",
+                       {"gbt": GBT_GRID[0]["max_iter"] // 2, "rfr": 0}) as cap:
+        for family, cls, grid in (("gbt", G.GBTRegressor, GBT_GRID),
+                                  ("rfr", G.RandomForestRegressor, RFR_GRID)):
+            cap.start(family)
+            k3 = H.build_histogram_wide.launches
+            k2 = H.build_histogram_binloop.launches
+            models, secs, syncs = fit_family(torch, cls(device=DEV), x, target,
+                                             masks, grid)
+            k3 = H.build_histogram_wide.launches - k3
+            k2 = H.build_histogram_binloop.launches - k2
+            if k3 == 0 or k2 == 0:
+                raise AssertionError(
+                    f"{family}: the wide group took {k3} hist_wide launches, "
+                    f"the indicators {k2} hist_binloop launches; both must run")
+            fitted[family] = models
+            out[family] = {"lanes": len(grid) * len(masks),
+                           "groups": len(stacks_of(models)), "seconds": secs,
+                           "host_syncs": syncs, "hist_wide_launches": k3,
+                           "hist_binloop_launches": k2}
+    k3 = H.build_histogram_wide.launches
+    k2 = H.build_histogram_binloop.launches
+    for family, models in fitted.items():
+        out[family]["scoring"] = check_lanes_score(
+            x, models, boosted=family == "gbt", regression=True)
+    k1 = ST.serve_trees.launches
+    if k1 == 0:
+        raise AssertionError("scoring the regression lanes never launched "
+                             "serve_trees")
+    H.build_histogram_wide.launches = 0
+    H.build_histogram_binloop.launches = 0
+    ST.serve_trees.launches = 0
+    again, again_s, _ = fit_family(torch, G.GBTRegressor(device=DEV), x, target,
+                                   masks, GBT_GRID)
+    H.build_histogram_wide.launches = 0
+    H.build_histogram_binloop.launches = 0
+    if not same_fits(fitted["gbt"], again):
+        raise AssertionError("a second GBT fit is not bit-identical")
+    out["gbt"]["seconds_refit"] = again_s
+    return {
+        "rows": x.shape[0], "features": x.shape[1], "max_bins": REG_BINS,
+        **out,
+        "hist_wide_launches": k3, "hist_binloop_launches": k2,
+        "serve_trees_launches_scoring": k1, "refit_bit_identical": True,
+        "_records": cap.records,
+    }
+
+
+def best_split_inputs(n, f, b, k, m, seed: int):
+    """CPU tensors for K4, from a seeded numpy generator as the reference's
+    test makes them (``tests/test_hist_pallas.py:72-122``): codes, slots in
+    [-1, M), grad, hess, a feature mask with feature 0 off in fit 1, and
+    per-fit lambda, gamma and min child weight."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    fmask = np.ones((k, f), np.float32)
+    fmask[1 % k, 0] = 0.0
+    cycle = lambda v: np.resize(np.float32(v), k)  # noqa: E731
+    arrays = (
+        rng.integers(0, b, (n, f)).astype(np.int32),
+        rng.integers(-1, m, (k, n)).astype(np.int32),
+        rng.normal(size=(k, n)).astype(np.float32),
+        rng.uniform(0.1, 1, (k, n)).astype(np.float32),
+        fmask, cycle([1.0, 0.5, 0.0]), cycle([0.0, 0.1, 0.0]),
+        cycle([1.0, 1.0, 2.0]),
+    )
+    return [torch.from_numpy(a) for a in arrays]
+
+
+#: operations per (slot, feature, threshold) of the gain: 2 subtractions,
+#: 3 squares, 3 denominators, 3 divides, the sum, the 0.5 and gamma, and 2
+#: compares; and per (slot, feature, bin) 2 prefix and 2 total adds
+GAIN_OPS, SCAN_OPS = 16, 4
+
+
+def best_split_bound(torch, binned, node, g, h, m, b) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations"): the codes of rows live in some
+    fit, node/grad/hess, the mask and knobs read once and the [K, M]
+    results written once over the memory rate; the histogram's 2 adds per
+    live (fit, row, feature) and the scan and gains of every (fit, slot)
+    that holds a live row over the scalar rate."""
+    n, f = binned.shape
+    k = node.shape[0]
+    live = (node >= 0) & (node < m) & ((g != 0) | (h != 0))
+    slots = torch.zeros((k, m), dtype=torch.bool, device=node.device)
+    slots[torch.nonzero(live)[:, 0], node[live].long()] = True
+    nbytes = (int(live.any(dim=0).sum()) * f * 4 + 3 * k * n * 4 + k * f * 4
+              + 3 * k * 4 + 3 * k * m * 4)
+    ops = (2 * f * int(live.sum())
+           + int(slots.sum()) * f * (GAIN_OPS * (b - 1) + SCAN_OPS * b))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_best_split(torch, H, name, n, f, b, k, m, seed: int) -> dict:
+    """K4 on the card against its plain version on the CPU over copies of
+    the same inputs: the same (feature, bin) everywhere, the gains bit for
+    bit (or, where not, within 1e-6 relative and reported), and a relaunch
+    bit-identical; timed against the card's two-phase route (the histogram
+    the policy picks for N rows, then ``split_search``)."""
+    cpu = best_split_inputs(n, f, b, k, m, seed)
+    args = [a.to(DEV) for a in cpu]
+    got = H.build_best_split(*args, m, b)
+    again = H.build_best_split(*args, m, b)
+    want = H.best_split_plain(*cpu, m, b)
+    torch.cuda.synchronize()
+    label = f"best_split {name}"
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise AssertionError(f"{label}: two launches differ")
+    gain, feat, bin_ = (a.cpu() for a in got)
+    if not (torch.equal(feat, want[1]) and torch.equal(bin_, want[2])):
+        bad = int(((feat != want[1]) | (bin_ != want[2])).sum())
+        raise AssertionError(f"{label}: {bad} (feature, bin) choices differ "
+                             "from the plain version's")
+    bits = torch.equal(gain, want[0])
+    fin = torch.isfinite(want[0])
+    err = (gain[fin].double() - want[0][fin].double()).abs()
+    max_err = err.max().item() if err.numel() else 0.0
+    if not bits and not (
+        torch.equal(torch.isfinite(gain), fin)
+        and bool((err <= 1e-6 * (want[0][fin].double().abs() + 1.0)).all())
+    ):
+        raise AssertionError(f"{label}: gains differ by {max_err}")
+    binned, node, g, h, fmask, lam, gam, mcw = args
+    route = H.histogram_route(binned.device, n, b)
+    c1h = H.codes_one_hot(binned, b) if route == "gemm" else None
+
+    def fused(*a):
+        return H.build_best_split(*a, m, b)
+
+    def two_phase(binned, node, g, h, fmask, lam, gam, mcw):
+        if route == "gemm":
+            hist = H.build_histogram_gemm(c1h, node, g, h, m, b)
+        else:
+            hist = hist_kernel(H, "hist_binloop")(binned, node, g, h, m, b)
+        return H.split_search(hist, fmask, lam, gam, mcw)
+
+    bound, by = best_split_bound(torch, binned, node, g, h, m, b)
+    return {
+        "shape": {"N": n, "F": f, "B": b, "K": k, "M": m},
+        "gain_bit_identical_to_cpu_plain": bits, "max_abs_err": max_err,
+        "same_feat_bin_as_cpu_plain": True, "bit_identical_relaunch": True,
+        "no_valid_split_slots": int((feat == -1).sum()),
+        "kernel_ms": device_ms(torch, fused, [args]),
+        "plain_ms": device_ms(torch, two_phase, [args], calls=4),
+        "plain_route": f"{route} histogram + split_search",
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
     }
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from transmogrifai_tpu_torch import load_workflow_model, score_function
+    from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
     from transmogrifai_tpu_torch.models import serve_trees as ST
     from transmogrifai_tpu_torch.utils import cuda_build
@@ -860,7 +1130,8 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.build(["serve_trees", "hist_binloop"])
+    built = cuda_build.build(["serve_trees", "hist_binloop", "hist_wide",
+                              "best_split"])
     phase("build", seconds=time.perf_counter() - t0, per_source=built)
     for name, log in cuda_build.build_logs.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
@@ -928,27 +1199,70 @@ def main() -> int:
     ST.serve_trees.launches = 0
 
     # kernel K2 at its shapes (launches here are not counted)
-    hist_res = {}
     for i, (label, (n, f, b, k, m)) in enumerate(K2_SHAPES.items()):
-        hist_res[label] = check_hist(torch, H, label, n, f, b, k, m,
-                                     timed=not label.startswith("c"), seed=i)
-        phase(f"hist_binloop {label}", **hist_res[label])
+        phase(f"hist_binloop {label}", **check_hist(
+            torch, H, "hist_binloop", label, n, f, b, k, m,
+            timed=not label.startswith("c"), seed=i))
     phase("gemm_route", **check_gemm_route(torch))
+    # kernel K3 at its shapes (launches here are not counted)
+    for i, (label, (n, f, b, k, m)) in enumerate(K3_SHAPES.items()):
+        phase(f"hist_wide {label}", **check_hist(
+            torch, H, "hist_wide", label, n, f, b, k, m, timed=True,
+            seed=10 + i, root=label.startswith("a")))
+    H.build_histogram_wide.launches = 0
 
     # the training path, with the counts read around exactly this run
-    train = train_path(torch)
-    x, y, masks = train.pop("_table")
-    records = train.pop("_k2_records")
+    x, y, target, masks = train_table(TRAIN_ROWS)
+    train = train_path(torch, x, y, masks)
+    records = train.pop("_records")
     phase("train", **train)
     # K2 at the training path's own launches (relaunches are not counted)
-    k2 = check_main_launches(torch, H, records, weights={
+    k2 = check_main_launches(torch, H, "hist_binloop", records, weights={
         "xgb": XGB_GRID[0]["num_round"], "rf": RF_GRID[0]["num_trees"]})
     del records
     phase("hist_binloop main_path", **k2)
+
+    # the regression path at a 256-bin sketch, its counts read around it
+    reg = train_regression_path(torch, x, target, masks)
+    records = reg.pop("_records")
+    phase("train_regression", **reg)
+    # K3 at the regression path's own launches (relaunches are not counted)
+    k3 = check_main_launches(torch, H, "hist_wide", records, weights={
+        "gbt": GBT_GRID[0]["max_iter"], "rfr": RFR_GRID[0]["num_trees"]},
+        library_per_tree=True)
+    del records
+    phase("hist_wide main_path", **k3)
     phase("train_fixture", **check_train_fixture(torch))
-    phase("where_time_goes train", **where_time_goes_train(torch, x, y, masks))
+    phase("where_time_goes train", **where_time_goes_train(
+        torch, "XGBoost grid 10 rounds + RF depth-12 group 5 trees", [
+            (G.XGBoostClassifier, x, y, masks,
+             [dict(p, num_round=10) for p in XGB_GRID]),
+            (G.RandomForestClassifier, x, y, masks,
+             [dict(p, num_trees=5) for p in RF_GRID if p["max_depth"] == 12]),
+        ]))
+    phase("where_time_goes train_regression", **where_time_goes_train(
+        torch, "GBT depth-12 group 5 rounds + RF depth-12 group 5 trees, "
+        f"{REG_BINS} bins", [
+            (G.GBTRegressor, x, target, masks,
+             [dict(p, max_iter=5) for p in GBT_GRID if p["max_depth"] == 12]),
+            (G.RandomForestRegressor, x, target, masks,
+             [dict(p, num_trees=5) for p in RFR_GRID if p["max_depth"] == 12]),
+        ]))
     H.build_histogram_binloop.launches = 0
+    H.build_histogram_wide.launches = 0
     ST.serve_trees.launches = 0
+
+    # kernel K4 at the reference's fused-route shapes: on no path, so its
+    # launches are counted in these phases alone
+    H.build_best_split.launches = 0
+    k4 = {}
+    for i, (label, (n, f, b, k, m)) in enumerate(K4_SHAPES.items()):
+        k4[label] = check_best_split(torch, H, label, n, f, b, k, m,
+                                     seed=3 if label.startswith("c") else 20 + i)
+        phase(f"best_split {label}", **k4[label])
+    k4_launches = H.build_best_split.launches
+    H.build_best_split.launches = 0
+    phase("wall", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [{
         "name": "serve_trees",
@@ -956,6 +1270,12 @@ def main() -> int:
         "source": "transmogrifai_tpu_torch/csrc/serve_trees.cu",
         "replaces": "transmogrifai_tpu/models/serve_pallas.py:146",
         "launches": launches,
+        "launches_by_path": {
+            "serving": launches,
+            "training (scoring the lanes)": train["serve_trees_launches_scoring"],
+            "regression training (scoring the lanes)":
+                reg["serve_trees_launches_scoring"],
+        },
         "max_abs_err": main["max_abs_err"],
         "ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
@@ -967,13 +1287,41 @@ def main() -> int:
         "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/hist_binloop.cu",
         "replaces": "transmogrifai_tpu/models/hist_pallas.py:427",
-        "launches": train["hist_binloop_launches"],
+        "launches": train["hist_binloop_launches"] + reg["hist_binloop_launches"],
+        "launches_by_path": {"training": train["hist_binloop_launches"],
+                             "regression training": reg["hist_binloop_launches"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
+    }, {
+        "name": "hist_wide",
+        "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/hist_wide.cu",
+        "replaces": "transmogrifai_tpu/models/hist_pallas.py:244",
+        "launches": reg["hist_wide_launches"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
+    }, {
+        "name": "best_split",
+        "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/best_split.cu",
+        "replaces": "transmogrifai_tpu/models/hist_pallas.py:711",
+        "path": "on no path of the reference (models/trees.py:333, :355-361); "
+                "launches and times are its own phases', times at (a)",
+        "launches": k4_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
+        "ms": k4["a_narrow"]["kernel_ms"],
+        "plain_ms": k4["a_narrow"]["plain_ms"],
+        "bound_ms": k4["a_narrow"]["bound_ms"],
+        "bound_by": k4["a_narrow"]["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -152,8 +152,8 @@ def test_route_follows_the_reference_policy():
     assert H.histogram_route(cuda, 4096, 256) == "gemm"
     assert H.histogram_route(cuda, 4097, 64) == "binloop"
     assert H.histogram_route(cuda, 16384, 2) == "binloop"
-    with pytest.raises(NotImplementedError, match="K3"):
-        H.histogram_route(cuda, 4097, 65)
+    assert H.histogram_route(cuda, 4097, 65) == "wide"
+    assert H.histogram_route(cuda, 16384, 256) == "wide"
 
 
 class TestWrapperGuards:

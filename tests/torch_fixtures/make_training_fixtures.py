@@ -7,15 +7,17 @@ Run from the repository root, on the CPU (it trains with the JAX package):
 
 It writes ``tests/fixtures/torch_training/``:
 
-* ``table.npz``: ``x`` [N, F] float32, ``y`` [N] float32 (0/1) and
-  ``masks`` [3, N] float32, the training masks of 3 folds (row r is held
-  out of fold ``r % 3``);
-* ``config.json``: the two families' grid points;
-* ``xgb.npz`` and ``rf.npz``: the JAX package's
-  ``fit_arrays_batched_masks(x, y, masks, [point])`` for each family, as
-  the stacked lanes (one per fold): ``split_feat``, ``split_bin``,
+* ``table.npz``: ``x`` [N, F] float32, ``y`` [N] float32 (0/1), the
+  continuous regression target ``target`` [N] float32 and ``masks``
+  [3, N] float32, the training masks of 3 folds (row r is held out of fold
+  ``r % 3``);
+* ``config.json``: the four families' grid points;
+* ``xgb.npz``, ``rf.npz``, ``gbtr.npz`` and ``rfr.npz``: the JAX
+  package's ``fit_arrays_batched_masks(x, label, masks, [point])`` for
+  each family (``y`` for the classifiers, ``target`` for the regressors),
+  as the stacked lanes (one per fold): ``split_feat``, ``split_bin``,
   ``leaf_value`` [3, T, ...] and ``outputs`` [3, N], each lane's training
-  margin (XGBoost) or mean-leaf output (random forest) on every row.
+  margin (boosting) or mean-leaf output (random forest) on every row.
 
 The table (``SEED = 5``, ``N_ROWS = 5000``, above the 4096 rows where the
 reference's histogram policy leaves the one-hot GEMM, so the card builds
@@ -25,17 +27,26 @@ its histograms with kernel K2) has ``F = 40`` columns:
   (a Titanic-Age-like missing rate);
 * 10-39 binary indicators, ``rng.uniform < 0.05`` (one-hot pivots and
   hashed-text indicators);
-* ``y = 1`` where ``x0 - 0.8 x3 + 1.5 x10 - x11 + 0.7 x12 + 0.5 x4 * x5
-  + normal(0, 0.7) > 0``, with NaN read as 0.
+* ``target = x0 - 0.8 x3 + 1.5 x10 - x11 + 0.7 x12 + 0.5 x4 * x5
+  + normal(0, 0.7)``, with NaN read as 0, and ``y = 1`` where
+  ``target > 0``.
 
-The grid points (32 bins; with 3 masks each family is one batched fit of 3
-lanes):
+The grid points (with 3 masks each family is one batched fit of 3 lanes):
 
 * ``xgb``: ``XGBoostClassifier`` ``num_round=20, eta=0.3, gamma=0.0,
-  max_depth=6, min_child_weight=1.0``;
+  max_depth=6, min_child_weight=1.0, max_bins=32``;
 * ``rf``: ``RandomForestClassifier`` ``num_trees=10, max_depth=6,
-  min_instances_per_node=10, min_info_gain=0.001, seed=42`` (Poisson(1)
-  bootstrap, sqrt(F) exact-count feature subsets per tree).
+  min_instances_per_node=10, min_info_gain=0.001, max_bins=32, seed=42``
+  (Poisson(1) bootstrap, sqrt(F) exact-count feature subsets per tree);
+* ``gbtr``: ``GBTRegressor`` ``max_iter=10, max_depth=6,
+  min_instances_per_node=10, max_bins=256`` (step size 0.1; lambda 0,
+  gamma 0, min child weight 10; each fold's base score its mean target);
+* ``rfr``: ``RandomForestRegressor`` ``num_trees=10, max_depth=6,
+  min_instances_per_node=10, min_info_gain=0.001, max_bins=256, seed=42``
+  (Poisson(1) bootstrap, exact-count feature subsets of a third).
+
+At 256 bins the 10 continuous columns form the wide group, which the card
+builds with kernel K3, and the indicators the 2-bin group (K2).
 """
 from __future__ import annotations
 
@@ -58,7 +69,13 @@ POINTS = {
             "min_child_weight": 1.0, "max_bins": 32},
     "rf": {"num_trees": 10, "max_depth": 6, "min_instances_per_node": 10,
            "min_info_gain": 0.001, "max_bins": 32, "seed": 42},
+    "gbtr": {"max_iter": 10, "max_depth": 6, "min_instances_per_node": 10,
+             "max_bins": 256},
+    "rfr": {"num_trees": 10, "max_depth": 6, "min_instances_per_node": 10,
+            "min_info_gain": 0.001, "max_bins": 256, "seed": 42},
 }
+#: the families whose label is the continuous target
+REGRESSORS = ("gbtr", "rfr")
 
 
 def table():
@@ -76,16 +93,18 @@ def table():
     masks = np.stack([
         (np.arange(N_ROWS) % 3 != i).astype(np.float32) for i in range(3)
     ])
-    return x, y, masks
+    return x, y, score.astype(np.float32), masks
 
 
-def fit(name, x, y, masks):
+def fit(name, x, label, masks):
     from transmogrifai_tpu.models.gbdt import (
-        RandomForestClassifier, XGBoostClassifier, _host_trees,
+        GBTRegressor, RandomForestClassifier, RandomForestRegressor,
+        XGBoostClassifier, _host_trees,
     )
 
-    est = {"xgb": XGBoostClassifier, "rf": RandomForestClassifier}[name]()
-    models = est.fit_arrays_batched_masks(x, y, list(masks), [POINTS[name]])
+    est = {"xgb": XGBoostClassifier, "rf": RandomForestClassifier,
+           "gbtr": GBTRegressor, "rfr": RandomForestRegressor}[name]()
+    models = est.fit_arrays_batched_masks(x, label, list(masks), [POINTS[name]])
     stack = models[0][0]._sweep_stack
     trees = _host_trees(stack["trees"])
     return {
@@ -98,15 +117,16 @@ def fit(name, x, y, masks):
 
 def main() -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
-    x, y, masks = table()
+    x, y, target, masks = table()
     np.savez_compressed(os.path.join(OUT_DIR, "table.npz"), x=x, y=y,
-                        masks=masks)
+                        target=target, masks=masks)
     with open(os.path.join(OUT_DIR, "config.json"), "w") as fh:
         json.dump({"seed": SEED, "n_rows": N_ROWS, "points": POINTS}, fh,
                   indent=1)
     for name in POINTS:
         path = os.path.join(OUT_DIR, f"{name}.npz")
-        np.savez_compressed(path, **fit(name, x, y, masks))
+        label = target if name in REGRESSORS else y
+        np.savez_compressed(path, **fit(name, x, label, masks))
         print(f"{name}: wrote {path} ({os.path.getsize(path)} bytes)")
 
 

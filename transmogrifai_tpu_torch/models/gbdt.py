@@ -1,5 +1,6 @@
 """Tree-ensemble predictor stages: the binary XGBoost and random-forest
-classifiers (estimators and fitted models).
+classifiers and the XGBoost, GBT and random-forest regressors (estimators
+and fitted models).
 
 A model holds its quantile thresholds and stacked trees as numpy arrays,
 from a saved model or from a fit; ``to(device)`` validates them once and
@@ -12,7 +13,7 @@ reduces per family, and finishes with the float64 host epilogue
 The estimators bin the training matrix on the device once, then grow
 trees through ``trees.py``; ``fit_arrays_batched_masks`` fits folds x grid
 points that share their static shape as the K lanes of one batched fit.
-Multiclass labels and the regressors are not ported yet.
+Multiclass labels are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from . import trees as TR
 from .base import PredictorEstimator, PredictorModel
 
 _NOT_PORTED = (
-    "{what} is not ported yet: only binary labels train in the port "
-    "(ROADMAP.md, A4: multiclass and regressor tree fits)"
+    "{what} is not ported yet: the port's classifiers train on binary "
+    "labels only (ROADMAP.md, A4: multiclass tree fits)"
 )
 
 
@@ -98,9 +99,7 @@ class _BinnedModel(PredictorModel):
             _validate_stack(t, num_f)
 
         def put(a, dtype):
-            return torch.as_tensor(
-                np.ascontiguousarray(a, dtype=dtype), device=device
-            )
+            return torch.tensor(np.asarray(a, dtype=dtype), device=device)
 
         self._dev_thr = put(self.thresholds, np.float32)
         self.device_stacks = [
@@ -194,6 +193,63 @@ class ForestClassifierModel(_BinnedModel):
         return prob.argmax(axis=1).astype(np.float64), prob, raw
 
 
+def _stack_arrays(thresholds, trees: TR.Tree) -> dict:
+    """The saved arrays of a model with one (host) tree stack."""
+    return {"thresholds": thresholds,
+            **{name: np.asarray(a) for name, a in trees._asdict().items()}}
+
+
+class BoostedRegressionModel(_BinnedModel):
+    """Boosted regression trees: prediction = base + eta * sum of rounds."""
+
+    def __init__(self, thresholds, trees: TR.Tree, eta: float, base_score: float,
+                 uid=None):
+        super().__init__("xgbRegressor", thresholds, uid=uid)
+        self.trees = trees
+        self.eta = float(eta)
+        self.base_score = float(base_score)
+
+    @classmethod
+    def from_params(cls, params, arrays):
+        return cls(
+            arrays["thresholds"], _tree_from_arrays(arrays),
+            params["eta"], params["base_score"],
+        )
+
+    def get_params(self):
+        return {"eta": self.eta, "base_score": self.base_score}
+
+    def get_arrays(self):
+        return _stack_arrays(self.thresholds, self.trees)
+
+    def _tree_stacks(self):
+        return [self.trees], True
+
+    def predictions_from_core(self, core):
+        return np.asarray(core, dtype=np.float64)[:, 0], None, None
+
+
+class ForestRegressionModel(_BinnedModel):
+    """Random-forest regression: prediction = mean leaf over the trees."""
+
+    def __init__(self, thresholds, trees: TR.Tree, uid=None):
+        super().__init__("rfRegressor", thresholds, uid=uid)
+        self.trees = trees
+
+    @classmethod
+    def from_params(cls, params, arrays):
+        return cls(arrays["thresholds"], _tree_from_arrays(arrays))
+
+    def get_arrays(self):
+        return _stack_arrays(self.thresholds, self.trees)
+
+    def _tree_stacks(self):
+        return [self.trees], False
+
+    def predictions_from_core(self, core):
+        return np.asarray(core, dtype=np.float64)[:, 0], None, None
+
+
 # ---------------------------------------------------------------------------
 # estimators
 # ---------------------------------------------------------------------------
@@ -268,7 +324,7 @@ class _TreeEstimator(PredictorEstimator):
         that share static shapes (deepest group first). Returns
         models[mask][point]."""
         masks = np.stack([np.asarray(m, dtype=np.float32) for m in masks])
-        y = np.asarray(y, dtype=np.float32)
+        y = np.asarray(y)
         groups: dict[tuple, list[int]] = {}
         for i, p in enumerate(points):
             merged = {**self.get_params(), **p}
@@ -289,16 +345,19 @@ class _TreeEstimator(PredictorEstimator):
         return models
 
     def _batched_group_fit(self, x, masks, group_points, run_batched,
-                           make_model):
-        """Bin once, merge params, stack the float knobs
+                           make_model, normalize=None):
+        """Bin once, merge (and ``normalize``) params, stack the float knobs
         mask-major (lane k = mask_index * n_points + point_index), run the
         family's batched trainer, and slice the lanes back out.
         ``run_batched(binned, m0, row_mask_K, knob, fgroups)`` returns
-        ([K, ...] trees, [K, N] training outputs); each model keeps the
-        host stack and its lane in ``_sweep_stack`` / ``_sweep_lane``."""
+        ([K, ...] trees, [K, N] training outputs);
+        ``make_model(thresholds, trees, merged_params, mask_index)``. Each
+        model keeps the host stack and its lane in ``_sweep_stack`` /
+        ``_sweep_lane``."""
         base = self.with_params(**group_points[0])
         dev, thresholds, binned, fgroups = base._binned(x)
-        merged = [{**self.get_params(), **p} for p in group_points]
+        norm = normalize or (lambda m: m)
+        merged = [norm({**self.get_params(), **p}) for p in group_points]
         n_masks, n_pts = masks.shape[0], len(merged)
         row_mask_k = torch.from_numpy(np.repeat(masks, n_pts, axis=0)).to(dev)
 
@@ -321,7 +380,7 @@ class _TreeEstimator(PredictorEstimator):
                 lane = mi * n_pts + j
                 model = make_model(
                     thresholds, TR.Tree(*(a[lane].copy() for a in stack["trees"])),
-                    merged[j],
+                    merged[j], mi,
                 )
                 model.default_device = dev
                 model._sweep_stack = stack
@@ -331,19 +390,18 @@ class _TreeEstimator(PredictorEstimator):
         return models
 
 
-class XGBoostClassifier(_TreeEstimator):
-    """Binary XGBoost (OpXGBoostClassifier parity: eta 0.3, maxDepth 6,
-    lambda 1 by default)."""
+class _BoostedEstimator(_TreeEstimator):
+    """XGBoost-style boosting: the families differ in their objective, the
+    labels they take, their base scores and their model class."""
 
-    model_type = "OpXGBoostClassifier"
     _STATIC_GRID_KEYS = ("num_round", "max_depth", "max_bins")
+    _OBJECTIVE = ""
 
-    def __init__(self, num_round: int = 100, eta: float = 0.3,
-                 max_depth: int = 6, reg_lambda: float = 1.0,
-                 gamma: float = 0.0, min_child_weight: float = 1.0,
-                 min_info_gain: float = 0.0, max_bins: int = 32,
+    def __init__(self, operation_name: str, num_round: int, eta: float,
+                 max_depth: int, reg_lambda: float, gamma: float,
+                 min_child_weight: float, min_info_gain: float, max_bins: int,
                  device=None, uid: str | None = None):
-        super().__init__("xgbClassifier", max_depth, max_bins, device=device,
+        super().__init__(operation_name, max_depth, max_bins, device=device,
                          uid=uid)
         self.num_round = num_round
         self.eta = eta
@@ -360,59 +418,185 @@ class XGBoostClassifier(_TreeEstimator):
             "min_info_gain": self.min_info_gain, "max_bins": self.max_bins,
         }
 
+    def _normalize_boost(self, merged: dict) -> dict:
+        """This family's params as the boosting knobs (GBT renames them)."""
+        return merged
+
+    def _check_labels(self, y: np.ndarray, row_mask: np.ndarray) -> None:
+        """Raise on labels this family does not train on."""
+
+    def _base_score(self, y: np.ndarray, row_mask: np.ndarray) -> float:
+        """The starting margin of ``fit_arrays``."""
+        return 0.0
+
+    def _base_scores(self, y: np.ndarray, masks: np.ndarray) -> np.ndarray:
+        """The starting margin of each mask's fit in a batched fit,
+        [masks] float64."""
+        return np.zeros(masks.shape[0])
+
+    def _model(self, thresholds, trees: TR.Tree, eta: float, base: float):
+        raise NotImplementedError
+
     def fit_arrays(self, x, y, row_mask):
-        y = np.asarray(y, dtype=np.float32)
         row_mask = np.asarray(row_mask, dtype=np.float32)
-        if _num_classes(y, row_mask) != 2:
-            raise NotImplementedError(_NOT_PORTED.format(what="multiclass XGBoost"))
+        self._check_labels(y, row_mask)
+        base = self._base_score(y, row_mask)
         dev, thresholds, binned, fgroups = self._binned(x)
         trees, _ = TR.fit_boosted(
-            binned, y, row_mask, num_rounds=int(self.num_round),
-            max_depth=int(self.max_depth), num_bins=int(self.max_bins),
-            eta=float(self.eta), reg_lambda=float(self.reg_lambda),
-            gamma=float(self.gamma),
+            binned, np.asarray(y, dtype=np.float32), row_mask,
+            num_rounds=int(self.num_round), max_depth=int(self.max_depth),
+            num_bins=int(self.max_bins), eta=float(self.eta),
+            reg_lambda=float(self.reg_lambda), gamma=float(self.gamma),
             min_child_weight=float(self.min_child_weight),
-            min_info_gain=float(self.min_info_gain),
-            objective="binary:logistic", feature_groups=fgroups,
+            min_info_gain=float(self.min_info_gain), base_score=base,
+            objective=self._OBJECTIVE, feature_groups=fgroups,
         )
-        model = BoostedBinaryModel(thresholds, _host_tree(trees),
-                                   float(self.eta), 0.0)
+        model = self._model(thresholds, _host_tree(trees), float(self.eta), base)
         model.default_device = dev
         return model
 
     def _fit_group_masks(self, x, y, masks, group_points):
-        if _num_classes(y, masks.max(axis=0)) != 2:
-            raise NotImplementedError(_NOT_PORTED.format(what="multiclass XGBoost"))
+        self._check_labels(y, masks.max(axis=0))
+        base = self._base_scores(y, masks)
+        base_k = np.repeat(base, len(group_points)).astype(np.float32)
+        yj = np.asarray(y, dtype=np.float32)
 
         def run_batched(binned, m0, row_mask_k, knob, fgroups):
             # the final margin is each lane's raw output on every row
             return TR.fit_boosted_batched(
-                binned, y, row_mask_k, num_rounds=int(m0["num_round"]),
+                binned, yj, row_mask_k, num_rounds=int(m0["num_round"]),
                 max_depth=int(m0["max_depth"]), num_bins=int(m0["max_bins"]),
                 eta=knob("eta"), reg_lambda=knob("reg_lambda"),
                 gamma=knob("gamma"), min_child_weight=knob("min_child_weight"),
-                min_info_gain=knob("min_info_gain"),
-                objective="binary:logistic", feature_groups=fgroups,
+                min_info_gain=knob("min_info_gain"), base_score=base_k,
+                objective=self._OBJECTIVE, feature_groups=fgroups,
             )
 
         return self._batched_group_fit(
             x, masks, group_points, run_batched,
-            lambda th, tr, m: BoostedBinaryModel(th, tr, float(m["eta"]), 0.0),
+            lambda th, tr, m, mi: self._model(th, tr, float(m["eta"]),
+                                              float(base[mi])),
+            normalize=self._normalize_boost,
         )
 
 
-class RandomForestClassifier(_TreeEstimator):
-    """Binary random forest (OpRandomForestClassifier parity: Spark's
-    featureSubsetStrategy 'auto' = sqrt for classification)."""
+class XGBoostClassifier(_BoostedEstimator):
+    """Binary XGBoost (OpXGBoostClassifier parity: eta 0.3, maxDepth 6,
+    lambda 1 by default)."""
 
-    model_type = "OpRandomForestClassifier"
+    model_type = "OpXGBoostClassifier"
+    _OBJECTIVE = "binary:logistic"
+
+    def __init__(self, num_round: int = 100, eta: float = 0.3,
+                 max_depth: int = 6, reg_lambda: float = 1.0,
+                 gamma: float = 0.0, min_child_weight: float = 1.0,
+                 min_info_gain: float = 0.0, max_bins: int = 32,
+                 device=None, uid: str | None = None):
+        super().__init__("xgbClassifier", num_round, eta, max_depth,
+                         reg_lambda, gamma, min_child_weight, min_info_gain,
+                         max_bins, device=device, uid=uid)
+
+    def _check_labels(self, y, row_mask):
+        if _num_classes(np.asarray(y), row_mask) != 2:
+            raise NotImplementedError(_NOT_PORTED.format(what="multiclass XGBoost"))
+
+    def _model(self, thresholds, trees, eta, base):
+        return BoostedBinaryModel(thresholds, trees, eta, base)
+
+
+class XGBoostRegressor(_BoostedEstimator):
+    """XGBoost regression (OpXGBoostRegressor parity): squared error, each
+    fit starting from the mean target over its rows."""
+
+    model_type = "OpXGBoostRegressor"
+    _OBJECTIVE = "reg:squarederror"
+
+    def __init__(self, num_round: int = 100, eta: float = 0.3,
+                 max_depth: int = 6, reg_lambda: float = 1.0,
+                 gamma: float = 0.0, min_child_weight: float = 1.0,
+                 min_info_gain: float = 0.0, max_bins: int = 32,
+                 device=None, uid: str | None = None):
+        super().__init__("xgbRegressor", num_round, eta, max_depth,
+                         reg_lambda, gamma, min_child_weight, min_info_gain,
+                         max_bins, device=device, uid=uid)
+
+    # the mean target as the reference takes it: numpy's mean in y's own
+    # dtype for one fit, float64 sums over float32 counts for a batch
+    def _base_score(self, y, row_mask):
+        on = row_mask > 0
+        return float(np.mean(np.asarray(y)[on])) if on.any() else 0.0
+
+    def _base_scores(self, y, masks):
+        sums = masks @ np.asarray(y).astype(np.float64)
+        cnts = masks.sum(axis=1)
+        return np.where(cnts > 0, sums / np.maximum(cnts, 1), 0.0)
+
+    def _model(self, thresholds, trees, eta, base):
+        return BoostedRegressionModel(thresholds, trees, eta, base)
+
+
+class GBTRegressor(XGBoostRegressor):
+    """OpGBTRegressor parity: Spark GBT defaults maxIter 20, stepSize 0.1,
+    maxDepth 5; variance-style gain with no regularization (lambda 0,
+    gamma 0, min_child_weight = minInstancesPerNode)."""
+
+    model_type = "OpGBTRegressor"
+    _STATIC_GRID_KEYS = ("max_iter", "max_depth", "max_bins")
+
+    def __init__(self, max_iter: int = 20, step_size: float = 0.1,
+                 max_depth: int = 5, min_instances_per_node: int = 1,
+                 min_info_gain: float = 0.0, max_bins: int = 32,
+                 device=None, uid: str | None = None):
+        super().__init__(
+            num_round=max_iter, eta=step_size, max_depth=max_depth,
+            reg_lambda=0.0, gamma=0.0,
+            min_child_weight=float(min_instances_per_node),
+            min_info_gain=min_info_gain, max_bins=max_bins, device=device,
+            uid=uid,
+        )
+        self.max_iter = max_iter
+        self.step_size = step_size
+        self.min_instances_per_node = min_instances_per_node
+
+    def get_params(self):
+        return {
+            "max_iter": self.max_iter, "step_size": self.step_size,
+            "max_depth": self.max_depth,
+            "min_instances_per_node": self.min_instances_per_node,
+            "min_info_gain": self.min_info_gain, "max_bins": self.max_bins,
+        }
+
+    def fit_arrays(self, x, y, row_mask):
+        # keep the boosting knobs in step with the Spark-named params
+        self.num_round = self.max_iter
+        self.eta = self.step_size
+        self.min_child_weight = float(self.min_instances_per_node)
+        return super().fit_arrays(x, y, row_mask)
+
+    def _normalize_boost(self, merged):
+        return {
+            "num_round": merged["max_iter"], "eta": merged["step_size"],
+            "reg_lambda": 0.0, "gamma": 0.0,
+            "min_child_weight": float(merged["min_instances_per_node"]),
+            "min_info_gain": merged["min_info_gain"],
+            "max_depth": merged["max_depth"], "max_bins": merged["max_bins"],
+        }
+
+
+class _ForestEstimator(_TreeEstimator):
+    """Bagged forests: the families differ in their target, their feature
+    subset rate and their model class."""
+
     _STATIC_GRID_KEYS = ("num_trees", "max_depth", "max_bins", "seed")
+    #: the GEMM route may round the weighted one-hots to bf16 (exact for
+    #: indicator targets)
+    _LOWP = False
 
-    def __init__(self, num_trees: int = 20, max_depth: int = 5,
-                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
-                 subsampling_rate: float = 1.0, max_bins: int = 32,
-                 seed: int = 42, device=None, uid: str | None = None):
-        super().__init__("rfClassifier", max_depth, max_bins, device=device,
+    def __init__(self, operation_name: str, num_trees: int, max_depth: int,
+                 min_instances_per_node: int, min_info_gain: float,
+                 subsampling_rate: float, max_bins: int, seed: int,
+                 device=None, uid: str | None = None):
+        super().__init__(operation_name, max_depth, max_bins, device=device,
                          uid=uid)
         self.num_trees = num_trees
         self.min_instances_per_node = min_instances_per_node
@@ -431,34 +615,36 @@ class RandomForestClassifier(_TreeEstimator):
 
     @staticmethod
     def _colsample(num_features: int) -> float:
-        return 1.0 / np.sqrt(max(num_features, 1))
+        raise NotImplementedError
+
+    def _target(self, y: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
+        """The float32 value each tree's leaves average."""
+        raise NotImplementedError
+
+    def _model(self, thresholds, trees: TR.Tree):
+        raise NotImplementedError
 
     def fit_arrays(self, x, y, row_mask):
-        y = np.asarray(y, dtype=np.float32)
         row_mask = np.asarray(row_mask, dtype=np.float32)
-        if _num_classes(y, row_mask) != 2:
-            raise NotImplementedError(_NOT_PORTED.format(what="multiclass random forest"))
+        target = self._target(np.asarray(y), row_mask)
         dev, thresholds, binned, fgroups = self._binned(x)
         trees = TR.fit_forest(
-            binned, (y == 1).astype(np.float32), row_mask,
+            binned, target, row_mask,
             num_trees=int(self.num_trees), max_depth=int(self.max_depth),
             num_bins=int(self.max_bins),
             subsample_rate=float(self.subsampling_rate),
             colsample_rate=float(self._colsample(x.shape[1])),
             min_instances=float(self.min_instances_per_node),
             min_info_gain=float(self.min_info_gain), seed=int(self.seed),
-            lowp=True,  # indicator targets are bf16-exact
-            feature_groups=fgroups,
+            lowp=self._LOWP, feature_groups=fgroups,
         )
-        model = ForestClassifierModel(thresholds, [_host_tree(trees)])
+        model = self._model(thresholds, _host_tree(trees))
         model.default_device = dev
         return model
 
     def _fit_group_masks(self, x, y, masks, group_points):
-        if _num_classes(y, masks.max(axis=0)) != 2:
-            raise NotImplementedError(_NOT_PORTED.format(what="multiclass random forest"))
+        target = self._target(np.asarray(y), masks.max(axis=0))
         colsample = self._colsample(x.shape[1])
-        target = (y == 1).astype(np.float32)
 
         def run_batched(binned, m0, row_mask_k, knob, fgroups):
             # mixed depths ride the lane axis as per-lane caps
@@ -471,12 +657,67 @@ class RandomForestClassifier(_TreeEstimator):
                 colsample_rate=float(colsample),
                 min_instances=knob("min_instances_per_node"),
                 min_info_gain=knob("min_info_gain"), seed=int(m0["seed"]),
-                lowp=True, feature_groups=fgroups,
+                lowp=self._LOWP, feature_groups=fgroups,
                 max_depth_v=None if uniform else depth.astype(np.int32),
                 return_outputs=True,
             )
 
         return self._batched_group_fit(
             x, masks, group_points, run_batched,
-            lambda th, tr, m: ForestClassifierModel(th, [tr]),
+            lambda th, tr, m, mi: self._model(th, tr),
         )
+
+
+class RandomForestClassifier(_ForestEstimator):
+    """Binary random forest (OpRandomForestClassifier parity: Spark's
+    featureSubsetStrategy 'auto' = sqrt for classification)."""
+
+    model_type = "OpRandomForestClassifier"
+    _LOWP = True  # indicator targets are bf16-exact
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 subsampling_rate: float = 1.0, max_bins: int = 32,
+                 seed: int = 42, device=None, uid: str | None = None):
+        super().__init__("rfClassifier", num_trees, max_depth,
+                         min_instances_per_node, min_info_gain,
+                         subsampling_rate, max_bins, seed, device=device,
+                         uid=uid)
+
+    @staticmethod
+    def _colsample(num_features: int) -> float:
+        return 1.0 / np.sqrt(max(num_features, 1))
+
+    def _target(self, y, row_mask):
+        if _num_classes(y, row_mask) != 2:
+            raise NotImplementedError(_NOT_PORTED.format(what="multiclass random forest"))
+        return (y == 1).astype(np.float32)
+
+    def _model(self, thresholds, trees):
+        return ForestClassifierModel(thresholds, [trees])
+
+
+class RandomForestRegressor(_ForestEstimator):
+    """Random-forest regression (OpRandomForestRegressor parity: Spark's
+    featureSubsetStrategy 'auto' = onethird for regression)."""
+
+    model_type = "OpRandomForestRegressor"
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 subsampling_rate: float = 1.0, max_bins: int = 32,
+                 seed: int = 42, device=None, uid: str | None = None):
+        super().__init__("rfRegressor", num_trees, max_depth,
+                         min_instances_per_node, min_info_gain,
+                         subsampling_rate, max_bins, seed, device=device,
+                         uid=uid)
+
+    @staticmethod
+    def _colsample(num_features: int) -> float:
+        return 1.0 / 3.0
+
+    def _target(self, y, row_mask):
+        return np.asarray(y, dtype=np.float32)
+
+    def _model(self, thresholds, trees):
+        return ForestRegressionModel(thresholds, trees)

@@ -1,5 +1,6 @@
-"""Gradient histograms for tree growth: the port of ``models/hist_pallas.py``
-(kernel K2) and of the one-hot GEMM histogram in ``models/trees.py``.
+"""Gradient histograms and split search for tree growth: the port of
+``models/hist_pallas.py`` (kernels K2, K3 and K4) and of the one-hot GEMM
+histogram and the split search in ``models/trees.py``.
 
 Every histogram here computes the same function::
 
@@ -12,22 +13,30 @@ shared by the K fits, node slots ``node`` [K, N] int32 (-1, and any slot
 
 * ``build_histogram_scatter_batched`` is the plain version: one
   ``index_add_`` per fit, which sums every cell in ascending row order.
-* ``build_histogram_binloop`` is K2. On a CUDA tensor it launches the
-  hand-written kernel ``csrc/hist_binloop.cu`` (built at first use) or
-  raises; on a CPU tensor it runs the plain version. The kernel also sums
-  every cell in ascending row order, so the two agree bit for bit and the
-  result never depends on scheduling (the rows it leaves out, those of
-  zero grad and hess, change no sum: see ``node_order``).
+* ``build_histogram_binloop`` is K2 (up to ``BINLOOP_MAX_BINS`` bins) and
+  ``build_histogram_wide`` is K3 (any bin count up to
+  ``HIST_WIDE_MAX_BINS``). On a CUDA tensor each launches its hand-written
+  kernel (``csrc/hist_binloop.cu``, ``csrc/hist_wide.cu``, built at first
+  use) or raises; on a CPU tensor it runs the plain version. Both kernels
+  also sum every cell in ascending row order, so they agree with the plain
+  version bit for bit and never depend on scheduling (the rows they leave
+  out, those of zero grad and hess, change no sum: see ``node_order``).
 * ``build_histogram_gemm`` is the reference's formulation for small row
   counts: a node one-hot [K, N, M] times a prebuilt code one-hot
   [N, F*B], as two matrix products. It runs in float64 (which TF32 never
   touches, whatever the caller's matmul settings) and rounds to float32.
 
+``split_search`` turns a histogram into each slot's best split, in the
+reference's arithmetic order; the grower calls it after every histogram.
+``build_best_split`` is K4, the reference's fused histogram and split
+search (``csrc/best_split.cu`` on the card; on the CPU the scatter
+histogram followed by ``split_search``). As in the reference, the grower
+never calls it.
+
 ``histogram_route`` is the reference's policy (``trees.py:333``,
 ``:444-464``), applied by tensor device: the plain version on the CPU; on
 the card the GEMM pair up to ``GEMM_MAX_ROWS`` rows, K2 above that for up
-to ``BINLOOP_MAX_BINS`` bins, and for more bins the lane-packed kernel K3,
-which is not ported yet, so that raises.
+to ``BINLOOP_MAX_BINS`` bins, and K3 for more bins.
 """
 from __future__ import annotations
 
@@ -38,16 +47,32 @@ import torch
 
 from ..utils import cuda_build
 
-_KERNEL = "hist_binloop"
 #: the reference builds histograms as one-hot GEMMs up to this many rows
 GEMM_MAX_ROWS = 4096
-#: the bin-loop kernel's range; wider sketches take the lane-packed K3
+#: the bin-loop kernel's range; wider sketches take K3
 BINLOOP_MAX_BINS = 64
+#: K3 keeps one feature's cells in shared memory: its bin-count limit
+HIST_WIDE_MAX_BINS = 16384
+#: K4's domain: the reference's 128-lane bin packing
+FUSED_SPLIT_MAX_BINS = 128
+#: features per K4 block (the reference's SPLIT_FEAT_TILE)
+SPLIT_FEAT_TILE = 32
+
+_HIST_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: each kernel library's C entry point and argument types
+_ENTRY = {
+    "hist_binloop": ("tp_hist_binloop", _HIST_ARGS),
+    "hist_wide": ("tp_hist_wide", _HIST_ARGS),
+    "best_split": (
+        "tp_best_split",
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    ),
+}
 
 
 def histogram_route(device: torch.device, num_rows: int, num_bins: int) -> str:
-    """'scatter', 'gemm' or 'binloop': the implementation the reference's
-    policy picks for this device and shape. Raises where that is K3."""
+    """'scatter', 'gemm', 'binloop' or 'wide': the implementation the
+    reference's policy picks for this device and shape."""
     if device.type == "cpu":
         return "scatter"
     if device.type != "cuda":
@@ -56,12 +81,7 @@ def histogram_route(device: torch.device, num_rows: int, num_bins: int) -> str:
         return "gemm"
     if num_bins <= BINLOOP_MAX_BINS:
         return "binloop"
-    raise NotImplementedError(
-        f"histograms with {num_bins} > {BINLOOP_MAX_BINS} bins above "
-        f"{GEMM_MAX_ROWS} rows take the lane-packed kernel K3 "
-        "(hist_pallas._build_histogram_pallas_batched), which is not ported "
-        "yet (ROADMAP.md, section B)"
-    )
+    return "wide"
 
 
 def _check(binned, node, grad, hess, num_nodes, num_bins) -> None:
@@ -167,19 +187,127 @@ def build_histogram_gemm(
     return torch.stack(outs, dim=-1).reshape(k_fits, num_nodes, f, num_bins, 2)
 
 
+# --------------------------------------------------------------------------
+# the split search, in the order XLA's CPU backend takes the reference's
+# reductions (so that where the histograms agree, the splits agree)
+# --------------------------------------------------------------------------
+#: XLA's CPU backend reduces a long axis in windows of this many elements
+_REDUCE_WINDOW = 32
+#: ... and takes ``jnp.cumsum`` in blocks of this many elements
+_CUMSUM_BLOCK = 16
+
+
+def _seq_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, one element after another from 0."""
+    tot = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        tot = tot + x[..., j]
+    return tot
+
+
+def _xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in the order XLA's CPU backend takes a reduction:
+    an axis longer than 32 is zero-padded to whole windows of 32 (half the
+    padding in front), each window summed in order, and the window sums
+    reduced the same way, until 32 or fewer remain and are summed in order."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > _REDUCE_WINDOW:
+        n = x.shape[-1]
+        nb = -(-n // _REDUCE_WINDOW)
+        pad = nb * _REDUCE_WINDOW - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = _seq_sum_last(x.reshape(*x.shape[:-1], nb, _REDUCE_WINDOW))
+    return _seq_sum_last(x)
+
+
+def _cumsum_bins(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum over axis 3 of [K, M, F, B, ...], in the order
+    XLA's CPU backend takes ``jnp.cumsum``: sequential within blocks of 16
+    bins (zero-padded at the end), each block then offset by the cumsum of
+    the block totals before it, itself taken the same way (so sequentially
+    up to 16 blocks, 256 bins). Exact f32 adds in a fixed order on every
+    device, so an empty bin repeats its neighbour's value exactly, and a
+    prefix of the input has the same cumsum as a prefix of the output."""
+    b = x.shape[3]
+    blk_len = _CUMSUM_BLOCK
+    if b <= blk_len:
+        w = x.clone()
+        for j in range(1, b):
+            w[:, :, :, j] += w[:, :, :, j - 1]
+        return w
+    nb = -(-b // blk_len)
+    pad = nb * blk_len - b
+    xp = x if pad == 0 else torch.cat(
+        [x, x.new_zeros((*x.shape[:3], pad, *x.shape[4:]))], dim=3
+    )
+    w = xp.reshape(*x.shape[:3], nb, blk_len, *x.shape[4:]).clone()
+    for j in range(1, blk_len):
+        w[:, :, :, :, j] += w[:, :, :, :, j - 1]
+    totals = _cumsum_bins(w[:, :, :, :, blk_len - 1])
+    w[:, :, :, 1:] += totals[:, :, :, :-1].unsqueeze(4)
+    return w.reshape(*xp.shape)[:, :, :, :b]
+
+
+def split_search(hist: torch.Tensor, gmask: torch.Tensor, lam: torch.Tensor,
+                 gam: torch.Tensor, mcw: torch.Tensor):
+    """(best_gain [K, M] f32, best_feat, best_bin [K, M] int32) over a
+    histogram [K, M, F, B, 2] (B >= 2), the reference's two-phase split
+    search (``trees.py:469-493``): prefix sums over bins 0..B-2, the bin
+    total, the XGBoost gain ``0.5·(GL²/(HL+λ) + GR²/(HR+λ) − G²/(H+λ)) − γ``
+    with per-fit ``lam``, ``gam``, ``mcw`` ([K] or [1] f32), -inf where a
+    child weighs less than ``mcw`` or ``gmask`` [K, F] disables the
+    feature, and the first flat (feature, bin) index at the maximum (a NaN
+    counts as the maximum, as ``argmax`` takes it). Where every gain is
+    -inf the index is 0."""
+    k_fits, m = hist.shape[:2]
+    b = hist.shape[3]
+    lam4, gam4, mcw4 = (v[:, None, None, None] for v in (lam, gam, mcw))
+    # the prefix sums split search reads, bins [0, B-1): the last bin's
+    # prefix is the total, and no earlier prefix depends on it
+    csum = _cumsum_bins(hist[:, :, :, :-1])
+    tot = _xla_sum(hist, 3).unsqueeze(3)
+    gl, hl = csum[..., 0], csum[..., 1]
+    gt, ht = tot[..., 0], tot[..., 1]
+    gr = gt - gl
+    hr = ht - hl
+    parent = (gt * gt) / (ht + lam4)
+    gain = 0.5 * (gl * gl / (hl + lam4) + gr * gr / (hr + lam4) - parent) - gam4
+    valid = (hl >= mcw4) & (hr >= mcw4) & (gmask[:, None, :, None] > 0)
+    gain = torch.where(valid, gain, torch.full_like(gain, -torch.inf))
+    flat = gain.reshape(k_fits, m, -1)
+    best = torch.argmax(flat, dim=2)
+    best_gain = torch.gather(flat, 2, best[..., None])[..., 0]
+    return (best_gain, (best // (b - 1)).to(torch.int32),
+            (best % (b - 1)).to(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# the kernels
+# --------------------------------------------------------------------------
 def _on_cuda(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load_library(_KERNEL)
-    fn = lib.tp_hist_binloop
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _library(name: str) -> ctypes.CDLL:
+    lib = cuda_build.load_library(name)
+    entry, argtypes = _ENTRY[name]
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     lib.tp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tp_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current stream, raising on a refused
+    launch."""
+    lib = _library(name)
+    rc = getattr(lib, _ENTRY[name][0])(*args)
+    if rc != 0:
+        msg = lib.tp_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
 
 
 def node_order(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
@@ -208,6 +336,34 @@ def node_order(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
     )
 
 
+def _sorted_rows_histogram(name, binned, node, grad, hess, num_nodes,
+                           num_bins) -> torch.Tensor:
+    """Launch histogram kernel ``name`` over ``node_order``'s runs."""
+    n, f = binned.shape
+    k_fits = node.shape[0]
+    _library(name)  # build or load before any work is queued
+    order, start, count = node_order(node, num_nodes, grad, hess)
+    out = torch.empty((k_fits, num_nodes, f, num_bins, 2), dtype=torch.float32,
+                      device=binned.device)
+    _launch(
+        name, binned.data_ptr(), order.data_ptr(), start.data_ptr(),
+        count.data_ptr(), grad.data_ptr(), hess.data_ptr(), out.data_ptr(),
+        n, f, k_fits, num_nodes, num_bins,
+        torch.cuda.current_stream(binned.device).cuda_stream,
+    )
+    return out
+
+
+def _plain_on_cpu(binned: torch.Tensor) -> bool:
+    """True for a CPU tensor (run the plain version), False for a CUDA one
+    (launch the kernel); any other device raises."""
+    if _on_cuda(binned):
+        return False
+    if binned.device.type != "cpu":
+        raise ValueError(f"histogram: unsupported device {binned.device}")
+    return True
+
+
 def build_histogram_binloop(
     binned: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
     hess: torch.Tensor, num_nodes: int, num_bins: int,
@@ -217,9 +373,7 @@ def build_histogram_binloop(
     has no counterpart: the kernel sums in float32 directly, with no bf16
     split to skip."""
     _check(binned, node, grad, hess, num_nodes, num_bins)
-    if not _on_cuda(binned):
-        if binned.device.type != "cpu":
-            raise ValueError(f"histogram: unsupported device {binned.device}")
+    if _plain_on_cpu(binned):
         return build_histogram_scatter_batched(
             binned, node, grad, hess, num_nodes, num_bins
         )
@@ -228,24 +382,123 @@ def build_histogram_binloop(
             f"hist_binloop: {num_bins} bins > {BINLOOP_MAX_BINS}; see "
             "histogram_route"
         )
-    lib = _library()
-    n, f = binned.shape
-    k_fits = node.shape[0]
-    order, start, count = node_order(node, num_nodes, grad, hess)
-    out = torch.empty((k_fits, num_nodes, f, num_bins, 2), dtype=torch.float32,
-                      device=binned.device)
-    stream = torch.cuda.current_stream(binned.device).cuda_stream
-    rc = lib.tp_hist_binloop(
-        binned.data_ptr(), order.data_ptr(), start.data_ptr(),
-        count.data_ptr(), grad.data_ptr(), hess.data_ptr(), out.data_ptr(),
-        n, f, k_fits, num_nodes, num_bins, stream,
-    )
-    if rc != 0:
-        msg = lib.tp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"hist_binloop kernel launch failed: {msg} ({rc})")
+    out = _sorted_rows_histogram("hist_binloop", binned, node, grad, hess,
+                                 num_nodes, num_bins)
     build_histogram_binloop.launches += 1
     return out
 
 
-#: kernel launches since the last reset (the plain CPU version is not counted)
+def build_histogram_wide(
+    binned: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
+    hess: torch.Tensor, num_nodes: int, num_bins: int,
+) -> torch.Tensor:
+    """K3: hist [K, num_nodes, F, num_bins, 2] float32, the contract of
+    ``hist_pallas.build_histogram_pallas_batched`` (which the reference
+    takes for more than 64 bins), for up to ``HIST_WIDE_MAX_BINS`` bins.
+    The reference's ``lowp`` has no counterpart, as in K2."""
+    _check(binned, node, grad, hess, num_nodes, num_bins)
+    if _plain_on_cpu(binned):
+        return build_histogram_scatter_batched(
+            binned, node, grad, hess, num_nodes, num_bins
+        )
+    if num_bins > HIST_WIDE_MAX_BINS:
+        raise ValueError(
+            f"hist_wide: {num_bins} bins > {HIST_WIDE_MAX_BINS}, the most "
+            "one feature's cells in shared memory can hold"
+        )
+    out = _sorted_rows_histogram("hist_wide", binned, node, grad, hess,
+                                 num_nodes, num_bins)
+    build_histogram_wide.launches += 1
+    return out
+
+
+def _per_fit(v, k_fits: int, device, name: str) -> torch.Tensor:
+    """A scalar, [1] or [K] knob -> contiguous float32 [K] on ``device``."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+    if t.shape[0] == 1:
+        t = t.expand(k_fits)
+    if t.shape[0] != k_fits:
+        raise ValueError(f"best_split: {name} has {t.shape[0]} values, not K={k_fits}")
+    return t.contiguous()
+
+
+def best_split_plain(binned, node, grad, hess, feat_mask, reg_lambda, gamma,
+                     min_child_weight, num_nodes, num_bins):
+    """K4's plain version: the scatter histogram, then ``split_search``;
+    ``best_feat`` is -1 (and ``best_bin`` 0) where no gain beats -inf,
+    i.e. where no threshold is valid, as in the reference's kernel."""
+    k_fits = node.shape[0]
+    knobs = (_per_fit(v, k_fits, binned.device, name) for v, name in (
+        (reg_lambda, "reg_lambda"), (gamma, "gamma"),
+        (min_child_weight, "min_child_weight")))
+    hist = build_histogram_scatter_batched(binned, node, grad, hess,
+                                           num_nodes, num_bins)
+    gain, feat, bin_ = split_search(hist, feat_mask, *knobs)
+    none = gain == -torch.inf
+    return gain, torch.where(none, -1, feat), torch.where(none, 0, bin_)
+
+
+def build_best_split(binned, node, grad, hess, feat_mask, reg_lambda, gamma,
+                     min_child_weight, num_nodes, num_bins):
+    """K4: (best_gain [K, M] f32, best_feat [K, M] i32, best_bin [K, M] i32),
+    the contract of ``hist_pallas.build_best_split_pallas``: each slot's
+    best split over the features ``feat_mask`` [K, F] (> 0) enables, with
+    per-fit ``reg_lambda``, ``gamma`` and ``min_child_weight`` (scalars or
+    [K]), the lowest (feature, bin) on equal gain, and ``best_feat = -1``
+    where no threshold is valid. Any row count; 2 to
+    ``FUSED_SPLIT_MAX_BINS`` bins. The kernel computes what
+    ``best_split_plain`` computes, in the same order, bit for bit."""
+    _check(binned, node, grad, hess, num_nodes, num_bins)
+    k_fits = node.shape[0]
+    n, f = binned.shape
+    if (not isinstance(feat_mask, torch.Tensor)
+            or feat_mask.dtype != torch.float32
+            or tuple(feat_mask.shape) != (k_fits, f)
+            or feat_mask.device != binned.device
+            or not feat_mask.is_contiguous()):
+        raise ValueError(
+            f"best_split: feat_mask must be a contiguous float32 [K, F] = "
+            f"[{k_fits}, {f}] tensor on {binned.device}"
+        )
+    if num_bins < 2:
+        raise ValueError(f"best_split: a split needs >= 2 bins, got {num_bins}")
+    if _plain_on_cpu(binned):
+        return best_split_plain(binned, node, grad, hess, feat_mask, reg_lambda,
+                                gamma, min_child_weight, num_nodes, num_bins)
+    if num_bins > FUSED_SPLIT_MAX_BINS:
+        raise ValueError(
+            f"best_split: {num_bins} bins > {FUSED_SPLIT_MAX_BINS}, the "
+            "kernel's domain (the reference's 128-lane bin packing)"
+        )
+    dev = binned.device
+    lam, gam, mcw = (_per_fit(v, k_fits, dev, name) for v, name in (
+        (reg_lambda, "reg_lambda"), (gamma, "gamma"),
+        (min_child_weight, "min_child_weight")))
+    _library("best_split")
+    order, start, count = node_order(node, num_nodes, grad, hess)
+    tiles = -(-f // SPLIT_FEAT_TILE)
+    part_gain = torch.empty((k_fits, tiles, num_nodes), dtype=torch.float32,
+                            device=dev)
+    part_feat = torch.empty_like(part_gain, dtype=torch.int32)
+    part_bin = torch.empty_like(part_feat)
+    gain = torch.empty((k_fits, num_nodes), dtype=torch.float32, device=dev)
+    feat = torch.empty_like(gain, dtype=torch.int32)
+    bin_ = torch.empty_like(feat)
+    _launch(
+        "best_split", binned.data_ptr(), order.data_ptr(), start.data_ptr(),
+        count.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+        feat_mask.data_ptr(), lam.data_ptr(), gam.data_ptr(), mcw.data_ptr(),
+        part_gain.data_ptr(), part_feat.data_ptr(), part_bin.data_ptr(),
+        gain.data_ptr(), feat.data_ptr(), bin_.data_ptr(),
+        n, f, k_fits, num_nodes, num_bins, SPLIT_FEAT_TILE,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build_best_split.launches += 1
+    return gain, feat, bin_
+
+
+#: kernel launches since the last reset (the plain CPU versions are not
+#: counted)
 build_histogram_binloop.launches = 0
+build_histogram_wide.launches = 0
+build_best_split.launches = 0

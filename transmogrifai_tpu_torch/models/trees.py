@@ -9,10 +9,12 @@ searched at 2 bins), node compaction to ``cap`` live slots, node chunks
 under a histogram memory budget, the per-chunk occupancy skip and the
 early exit once a level makes no split, per-lane depth caps, routing and
 leaf sums. Histograms come from ``hist.py`` (the plain scatter version on
-the CPU; on the card the one-hot GEMM pair up to 4096 rows and kernel K2
-above). Split search keeps the reference's expression order, its bin-axis
-sums in the order XLA's CPU backend takes them, and ``jnp.argmax``'s
-first-index tie-break, so where the histograms agree the splits agree.
+the CPU; on the card the one-hot GEMM pair up to 4096 rows, and above it
+kernel K2 up to 64 bins and K3 for wider sketches). Split search
+(``hist.split_search``) keeps the reference's expression order, its
+bin-axis sums in the order XLA's CPU backend takes them, and
+``jnp.argmax``'s first-index tie-break, so where the histograms agree the
+splits agree.
 
 Control flow that the reference runs as ``lax.cond`` on the device is a
 Python ``if`` on a device value here: one host sync per grown level
@@ -28,6 +30,7 @@ import torch
 from ..utils import prng
 from . import hist as H
 from . import serve_trees as ST
+from .hist import _REDUCE_WINDOW, _xla_sum
 
 
 class Tree(NamedTuple):
@@ -42,9 +45,10 @@ class Tree(NamedTuple):
 #: device-to-host reads that steer growth (one per grown level)
 host_syncs = 0
 
-#: node slots per histogram build on the card's bin-loop path: the cap the
-#: reference's TPU kernel path takes (trees.py:395-403)
-BINLOOP_NODE_CAP = 256
+#: node slots per histogram build on the card's kernel routes (K2, K3):
+#: the reference's TPU kernel cap, max(8, min(256, 2^19 / (8 b_pad))) with
+#: b_pad the bin count rounded up to 128 (trees.py:395-403)
+KERNEL_NODE_CAP = 256
 #: the GEMM path's chunk ceiling (trees.py:383-394)
 GEMM_NODE_CAP = 128
 #: histogram elements per node chunk, over all K fits, and the per-fit
@@ -124,33 +128,6 @@ def _occupancy(idx: torch.Tensor, size: int) -> torch.Tensor:
 #: (trees.py:79-91); the choice fixes the order of its leaf sums
 _ONEHOT_MAX_WIDTH = 512
 _ONEHOT_OPS_BUDGET = 1 << 28
-#: XLA's CPU backend reduces a long axis in windows of this many elements
-_REDUCE_WINDOW = 32
-
-
-def _seq_sum_last(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, one element after another from 0."""
-    tot = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-    for j in range(x.shape[-1]):
-        tot = tot + x[..., j]
-    return tot
-
-
-def _xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` in the order XLA's CPU backend takes a reduction:
-    an axis longer than 32 is zero-padded to whole windows of 32 (half the
-    padding in front), each window summed in order, and the window sums
-    reduced the same way, until 32 or fewer remain and are summed in order."""
-    x = x.movedim(dim, -1)
-    while x.shape[-1] > _REDUCE_WINDOW:
-        n = x.shape[-1]
-        nb = -(-n // _REDUCE_WINDOW)
-        pad = nb * _REDUCE_WINDOW - n
-        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-        x = _seq_sum_last(x.reshape(*x.shape[:-1], nb, _REDUCE_WINDOW))
-    return _seq_sum_last(x)
-
-
 def _segment_sum_small(values: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
     """out[k, m] = Σ_r values[k, r]·1[idx[k, r] == m], idx in [0, size),
     in the reference's order: its one-hot form is a reduction over rows
@@ -177,33 +154,6 @@ def _segment_sum_small(values: torch.Tensor, idx: torch.Tensor, size: int) -> to
         accumulate=True,
     )
     return _xla_sum(part, 1)
-
-
-def _cumsum_bins(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum over axis 3 of [K, M, F, B, ...], in the order
-    XLA's CPU backend takes ``jnp.cumsum``: sequential within blocks of 16
-    bins, each block then offset by the running total of the blocks before
-    it. Exact f32 adds in a fixed order on every device, so an empty bin
-    repeats its neighbour's value exactly."""
-    b = x.shape[3]
-    if b <= 16:
-        w = x.clone()
-        for j in range(1, b):
-            w[:, :, :, j] += w[:, :, :, j - 1]
-        return w
-    nb = -(-b // 16)
-    pad = nb * 16 - b
-    xp = x if pad == 0 else torch.cat(
-        [x, x.new_zeros((*x.shape[:3], pad, *x.shape[4:]))], dim=3
-    )
-    w = xp.reshape(*x.shape[:3], nb, 16, *x.shape[4:]).clone()
-    for j in range(1, 16):
-        w[:, :, :, :, j] += w[:, :, :, :, j - 1]
-    for blk in range(1, nb):
-        # the last entry of the block before, once offset, is the running
-        # total of the block totals up to it
-        w[:, :, :, blk] += w[:, :, :, blk - 1, 15].unsqueeze(3)
-    return w.reshape(*xp.shape)[:, :, :, :b]
 
 
 def _fma32(a, b, c) -> torch.Tensor:
@@ -326,9 +276,8 @@ def _grow_tree_impl(
         groups = [(binned, feat_mask, b, None)]
 
     lam = _vec(reg_lambda, dev)
-    lam4 = lam[:, None, None, None]
-    gam4 = _vec(gamma, dev)[:, None, None, None]
-    mcw4 = _vec(min_child_weight, dev)[:, None, None, None]
+    gam = _vec(gamma, dev)
+    mcw = _vec(min_child_weight, dev)
     mig = _vec(min_info_gain, dev)[:, None]
 
     if max_depth == 0:
@@ -365,8 +314,10 @@ def _grow_tree_impl(
     if "gemm" in routes:
         m_cap = max(8, min(GEMM_NODE_CAP, (1 << 24) // max(k_fits * n, 1)))
         chunk_cap = min(chunk_cap, 1 << (m_cap.bit_length() - 1))
-    elif "binloop" in routes:
-        chunk_cap = min(chunk_cap, BINLOOP_NODE_CAP)
+    elif "binloop" in routes or "wide" in routes:
+        b_pad = -(-b // 128) * 128
+        m_cap = max(8, min(KERNEL_NODE_CAP, (1 << 19) // (8 * b_pad)))
+        chunk_cap = min(chunk_cap, 1 << (m_cap.bit_length() - 1))
     n_nodes = cap
     chunk_nodes = min(chunk_cap, n_nodes)
     num_chunks = -(-n_nodes // chunk_nodes)
@@ -377,25 +328,11 @@ def _grow_tree_impl(
             hist = H.build_histogram_gemm(c1h, loc, g, h, m, gb, lowp=lowp)
         elif route == "binloop":
             hist = H.build_histogram_binloop(gbin, loc, g, h, m, gb)
+        elif route == "wide":
+            hist = H.build_histogram_wide(gbin, loc, g, h, m, gb)
         else:
             hist = H.build_histogram_scatter_batched(gbin, loc, g, h, m, gb)
-        # the prefix sums split search reads, bins [0, B-1): the last
-        # bin's prefix is the total, and no earlier prefix depends on it
-        csum = _cumsum_bins(hist[:, :, :, :-1])
-        tot = _xla_sum(hist, 3).unsqueeze(3)
-        gl, hl = csum[..., 0], csum[..., 1]
-        gt, ht = tot[..., 0], tot[..., 1]
-        gr = gt - gl
-        hr = ht - hl
-        parent = (gt * gt) / (ht + lam4)
-        gain = 0.5 * (gl * gl / (hl + lam4) + gr * gr / (hr + lam4) - parent) - gam4
-        valid = (hl >= mcw4) & (hr >= mcw4) & (gmask[:, None, :, None] > 0)
-        gain = torch.where(valid, gain, torch.full_like(gain, -torch.inf))
-        flat = gain.reshape(k_fits, m, -1)
-        best = torch.argmax(flat, dim=2)
-        best_gain = torch.gather(flat, 2, best[..., None])[..., 0]
-        best_feat = (best // (gb - 1)).to(torch.int32)
-        best_bin = (best % (gb - 1)).to(torch.int32)
+        best_gain, best_feat, best_bin = H.split_search(hist, gmask, lam, gam, mcw)
         if gidx is not None:
             best_feat = gidx[best_feat.long()].to(torch.int32)
         return best_gain, best_feat, best_bin

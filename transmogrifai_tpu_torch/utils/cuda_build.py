@@ -51,9 +51,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """``_build/lib<name>-<hash>.so`` for ``csrc/<name>.cu``."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
-        h = hashlib.sha256(fh.read())
+    """``_build/lib<name>-<hash>.so`` for ``csrc/<name>.cu``; the hash
+    covers the source, the headers beside it and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(p for p in os.listdir(CSRC_DIR) if p.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -16,7 +16,10 @@ import numpy as np
 
 from .. import types as T
 from ..features.feature import Feature, FeatureGeneratorStage
-from ..models.gbdt import BoostedBinaryModel, ForestClassifierModel
+from ..models.gbdt import (
+    BoostedBinaryModel, BoostedRegressionModel, ForestClassifierModel,
+    ForestRegressionModel,
+)
 from ..ops.categorical import OneHotModel
 from ..ops.combiner import VectorsCombiner
 from ..ops.numeric import BinaryVectorizer, NumericVectorizerModel, RealNNVectorizer
@@ -37,7 +40,8 @@ STAGE_CLASSES: dict[str, type] = {
     for cls in (
         NumericVectorizerModel, BinaryVectorizer, RealNNVectorizer,
         OneHotModel, VectorsCombiner, FeatureRemovalModel, SelectedModel,
-        BoostedBinaryModel, ForestClassifierModel,
+        BoostedBinaryModel, ForestClassifierModel, BoostedRegressionModel,
+        ForestRegressionModel,
     )
 }
 
