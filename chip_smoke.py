@@ -79,12 +79,14 @@ U32 = 2.0 ** -24
 #: kernel K2 shapes: (N, F, B, K, M). (a) the flagship vector's indicator
 #: group, (b) its continuous group, both with the XGBoost grid's 6 lanes;
 #: (c) ragged, with dead rows and slots >= M; (d) the reference kernel's
-#: own tuning shape (hist_pallas.py:390-393)
+#: own tuning shape (hist_pallas.py:390-393); (e) the continuous group's
+#: root level (the 256-slot chunk, every live row in slot 0)
 K2_SHAPES = {
     "a_narrow": (16384, 918, 2, 6, 64),
     "b_wide": (16384, 10, 32, 6, 64),
     "c_ragged": (4099, 7, 5, 2, 3),
     "d_tuning": (1 << 20, 500, 32, 1, 64),
+    "e_root": (16384, 10, 32, 6, 256),
 }
 #: kernel K3 shapes: (N, F, B, K, M). (a) the GBT grid's root level over
 #: the 10 continuous columns at 256 bins (18 lanes, the 256-slot chunk,
@@ -95,6 +97,17 @@ K3_SHAPES = {
     "b_deep": (16384, 10, 256, 18, 256),
     "c_ragged": (4099, 3, 300, 2, 3),
     "d_large": (1 << 20, 64, 256, 1, 64),
+}
+#: row-order kernel shapes: (N, K, M, slots drawn). (a) a root level of
+#: the XGBoost grid (every live row in one slot); (b) the RF grid's
+#: 256-slot chunk; (c) ragged, with slots >= M; (d) a large single fit;
+#: (e) more slots than the grower's chunks hold
+ORDER_SHAPES = {
+    "a_root": (16384, 6, 256, 1),
+    "b_chunk": (16384, 18, 256, 256),
+    "c_ragged": (4099, 2, 3, 5),
+    "d_tiled": (1 << 20, 1, 64, 64),
+    "e_many_slots": (5000, 2, 3000, 2900),
 }
 #: kernel K4 shapes: (N, F, B, K, M), the reference's fused route (N <=
 #: 2048, B <= 128) at the flagship width: (a) the indicator group, (b) the
@@ -182,11 +195,23 @@ def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
     return total / 1e3 / calls
 
 
+def same_layout_clone(a):
+    """A copy of ``a`` with its strides: a view of the first columns of a
+    wider row-major array (the grower's padded codes, ``hist.pad_codes``)
+    is copied into an array as wide, so the kernels read it as they read the
+    grower's."""
+    if a.dim() == 2 and a.stride(1) == 1 and a.stride(0) > a.shape[1]:
+        wide = a.new_zeros((a.shape[0], a.stride(0)))
+        wide[:, :a.shape[1]] = a
+        return wide[:, :a.shape[1]]
+    return a.clone()
+
+
 def l2_cold_copies(args, touched_bytes: int) -> list:
     """``args`` and enough clones of it that one pass over them touches at
     least four times the L2, so that a timed call reads from HBM."""
     k = min(64, max(2, -(-4 * L2_BYTES // max(touched_bytes, 1))))
-    return [args] + [[a.clone() for a in args] for _ in range(k - 1)]
+    return [args] + [[same_layout_clone(a) for a in args] for _ in range(k - 1)]
 
 
 def random_stack(rng, t, depth, f, bins):
@@ -448,34 +473,107 @@ def hist_accuracy(torch, H, kernel, name, args, m, b, got, cpu_check: bool) -> d
     return out
 
 
+def order_bound(torch, node, m) -> tuple[float, str]:
+    """(bound ms, "bytes"): ``node_order`` reads node, grad and hess once
+    and writes order, start and count once."""
+    k, n = node.shape
+    nbytes = 4 * (3 * k * n + k * n + 2 * k * m)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def hist_times(torch, H, kernel, args, m, b, reps: int = 5,
                library: bool = True) -> dict:
     """On ``args``, with the inputs out of L2: the histogram kernel's device
-    time per wrapper call (the row-order sort and the kernel;
-    ``kernel_ms``) and its time between CUDA events (``wrapper_ms``, which
-    also holds any wait for the host); the f32 plain version's device time;
-    the GEMM pair's (the library call; only with ``library``); and the
-    bound."""
+    time per wrapper call (the row-order kernel and the histogram kernel;
+    ``kernel_ms``), the histogram kernel's alone given the row order
+    (``kernel_only_ms``, as the grower calls it once a chunk's order is
+    made) and the row order's alone (``order_ms``), and the wrapper's time
+    between CUDA events (``wrapper_ms``, which also holds any wait for the
+    host); the f32 plain version's device time; the GEMM pair's (the
+    library call; only with ``library``); and the bound."""
     plain = H.build_histogram_scatter_batched
     bound, by, nbytes = hist_bound(torch, *args, m, b)
     cold = l2_cold_copies(args, nbytes)
+    ordered = [a + [H.node_order(a[1], m, a[2], a[3])] for a in cold]
 
     def k2(*a):
         return hist_kernel(H, kernel)(*a, m, b)
+
+    def k2_ordered(*a):
+        return hist_kernel(H, kernel)(*a[:4], m, b, order=a[4])
+
+    def order(*a):
+        return H.node_order(a[1], m, a[2], a[3])
 
     def p32(*a):
         return plain(*a, m, b)
 
     out = {
         "kernel_ms": device_ms(torch, k2, cold),
+        "kernel_only_ms": device_ms(torch, k2_ordered, ordered),
+        "order_ms": device_ms(torch, order, cold),
         "wrapper_ms": time_ms(torch, k2, cold, reps=reps, rounds=5),
         "plain_ms": device_ms(torch, p32, cold, calls=4),
         "library_ms": gemm_library_ms(torch, *args, m, b) if library else None,
         "bound_ms": bound, "bound_by": by, "touched_bytes": nbytes,
         "arg_copies": len(cold),
     }
+    del cold, ordered
+    return out
+
+
+def check_node_order(torch, H, node, g, h, m) -> dict:
+    """The row-order kernel (``node_order``) on card tensors against its
+    plain version on the same tensors and on the CPU: order, start and count
+    equal element for element, and a relaunch equal too; then timed with
+    the inputs out of L2 against the plain version, one stable
+    ``torch.sort`` of the slots (the library call: it gives the order, not
+    the runs) and the bound."""
+    got = H.node_order(node, m, g, h)
+    again = H.node_order(node, m, g, h)
+    want = H.node_order_plain(node, m, g, h)
+    cpu = H.node_order_plain(node.cpu(), m, g.cpu(), h.cpu())
+    torch.cuda.synchronize()
+    err = 0
+    for name, a, b, c, d in zip(("order", "start", "count"), got, again, want,
+                                cpu):
+        diff = max(int((a - other.to(a.device)).abs().max()) if a.numel() else 0
+                   for other in (b, c, d))
+        if diff:
+            raise AssertionError(f"node_order: {name} differs from the plain "
+                                 "version's or between launches by up to "
+                                 f"{diff}")
+        err = max(err, diff)
+    bound, by = order_bound(torch, node, m)
+    cold = l2_cold_copies([node, g, h], 16 * node.numel())
+    out = {
+        "bit_identical_to_plain": True, "max_abs_err": err,
+        "ms": device_ms(torch, lambda a, b, c: H.node_order(a, m, b, c), cold),
+        "plain_ms": device_ms(
+            torch, lambda a, b, c: H.node_order_plain(a, m, b, c), cold,
+            calls=4),
+        "library_ms": device_ms(
+            torch, lambda a, b, c: torch.sort(a, dim=1, stable=True), cold),
+        "bound_ms": bound, "bound_by": by,
+    }
     del cold
     return out
+
+
+def check_order_shape(torch, H, n, k, m, slots, seed: int) -> dict:
+    """The row-order kernel at a synthetic shape (``check_node_order``):
+    slots drawn from [-1, slots), about a tenth of the rows of zero grad and
+    hess."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    node = torch.randint(-1, slots, (k, n), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    g = torch.randn((k, n), generator=gen, device=DEV)
+    h = torch.rand((k, n), generator=gen, device=DEV) * 0.9 + 0.1
+    zero = torch.rand((k, n), generator=gen, device=DEV) < 0.1
+    g[zero] = 0.0
+    h[zero] = 0.0
+    return {"shape": {"N": n, "K": k, "M": m, "slots_drawn": slots},
+            **check_node_order(torch, H, node, g, h, m)}
 
 
 def check_hist(torch, H, kernel, name, n, f, b, k, m, timed: bool, seed: int,
@@ -483,9 +581,12 @@ def check_hist(torch, H, kernel, name, n, f, b, k, m, timed: bool, seed: int,
     """A histogram kernel on the card at a synthetic shape, against its
     plain version (``hist_accuracy``); with ``timed``, ``hist_times``. With
     ``root`` every live row sits in slot 0 (a root level: about 2/3 of the
-    rows live per fit, as under a 3-fold mask)."""
-    args = hist_inputs(torch, n, f, b, k, m, ragged=name.startswith("c"),
-                       seed=seed)
+    rows live per fit, as under a 3-fold mask). The codes are padded to
+    16-byte rows as the grower pads them, except at a ragged shape."""
+    ragged = name.startswith("c")
+    args = hist_inputs(torch, n, f, b, k, m, ragged=ragged, seed=seed)
+    if not ragged:  # the grower's layout; ragged shapes keep unpadded rows
+        args[0] = H.pad_codes(args[0])
     if root:
         gen = torch.Generator(device=DEV).manual_seed(seed + 100)
         live = torch.rand((k, n), generator=gen, device=DEV) < 2 / 3
@@ -493,6 +594,7 @@ def check_hist(torch, H, kernel, name, n, f, b, k, m, timed: bool, seed: int,
     got = hist_kernel(H, kernel)(*args, m, b)
     out = {
         "shape": {"N": n, "F": f, "B": b, "K": k, "M": m},
+        "slots": "every live row in slot 0" if root else "spread",
         "tolerance": "per cell: rows * 2^-24 * sum|term| (sequential f32 sum)",
         **hist_accuracy(torch, H, kernel, name, args, m, b, got,
                         cpu_check=n * f <= 16 * 2**20),
@@ -541,10 +643,10 @@ class KernelCapture:
         self.family, self._grown = family, {}
 
     def __enter__(self):
-        def kernel_hook(binned, node, g, h, m, b):
+        def kernel_hook(binned, node, g, h, m, b, order=None):
             # the wrapper counts its launch on the name it is called by,
             # which is this hook while the capture is on
-            out = self.kernel(binned, node, g, h, m, b)
+            out = self.kernel(binned, node, g, h, m, b, order=order)
             if self._tree is not None:
                 label, syncs = self._tree
                 self.records.append({
@@ -567,7 +669,8 @@ class KernelCapture:
 
 
 def check_main_launches(torch, H, kernel, records, weights: dict,
-                        library_per_tree: bool = False) -> dict:
+                        library_per_tree: bool = False,
+                        cpu_check: bool = True) -> dict:
     """Each captured main-path launch of a histogram kernel held against
     its plain version (``hist_accuracy``: the relaunch must equal the main
     path's own histogram bit for bit; the first launch of each tree also
@@ -576,7 +679,8 @@ def check_main_launches(torch, H, kernel, records, weights: dict,
     (``weights``: rounds for boosting, trees per group for a forest), which
     estimates the mean launch of the whole path. With ``library_per_tree``
     the GEMM pair is timed at the first launch of each tree only, and the
-    library mean is taken over those."""
+    library mean is taken over those; without ``cpu_check`` no launch is
+    held against the CPU's plain version."""
     rows, seen = [], set()
     for rec in records:
         args, m, b = rec["args"], rec["m"], rec["b"]
@@ -592,9 +696,10 @@ def check_main_launches(torch, H, kernel, records, weights: dict,
             "live_rows": int(counts.sum()),
             "longest_slot_run": int(counts.max()),
             **hist_accuracy(torch, H, kernel, name, args, m, b, rec["out"],
-                            cpu_check=first),
+                            cpu_check=first and cpu_check),
             **hist_times(torch, H, kernel, args, m, b, reps=3,
                          library=first or not library_per_tree),
+            "node_order": check_node_order(torch, H, node, g, h, m),
         }
         seen.add(rec["tree"])
         row["weight"] = weights[rec["family"]]
@@ -618,6 +723,7 @@ def check_main_launches(torch, H, kernel, records, weights: dict,
         "weights": weights, "captured_launches": len(rows),
         "estimated_path_launches": sum(r["weight"] for r in rows),
         "ms": mean("kernel_ms"), "wrapper_ms": mean("wrapper_ms"),
+        "kernel_only_ms": mean("kernel_only_ms"), "order_ms": mean("order_ms"),
         "plain_ms": mean("plain_ms"),
         "library_ms": mean("library_ms", [r for r in rows
                                           if r["library_ms"] is not None]),
@@ -627,8 +733,37 @@ def check_main_launches(torch, H, kernel, records, weights: dict,
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "max_err_over_tol": max(r["max_err_over_tol"] for r in rows),
+        "node_order": {
+            **{key: mean(key, [r["node_order"] | {"weight": r["weight"]}
+                               for r in rows])
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "max_abs_err": max(r["node_order"]["max_abs_err"] for r in rows),
+        },
         "launches": rows,
     }
+
+
+#: the main-path summaries' per-launch means that ``combine_paths`` merges
+PATH_MEANS = ("ms", "wrapper_ms", "kernel_only_ms", "order_ms", "plain_ms",
+              "library_ms", "bound_ms")
+
+
+def combine_paths(summaries: dict, weights: dict,
+                  keys=PATH_MEANS) -> dict:
+    """Main-path summaries of several paths (``check_main_launches``) as
+    one: each per-launch mean in ``keys`` weighted by the path's estimated
+    launches (``weights``), the worst error, and each path's ``ms``."""
+    total = sum(weights.values())
+    out = {key: sum(weights[p] * s[key] for p, s in summaries.items()) / total
+           for key in keys}
+    by_bytes = sum(weights[p] * s["bound_ms"] for p, s in summaries.items()
+                   if s.get("bound_by", "bytes") == "bytes")
+    out["bound_by"] = "bytes" if 2 * by_bytes >= out["bound_ms"] * total \
+        else "operations"
+    out["max_abs_err"] = max(s["max_abs_err"] for s in summaries.values())
+    out["ms_by_path"] = {p: s["ms"] for p, s in summaries.items()}
+    out["estimated_path_launches"] = total
+    return out
 
 
 def train_table(n: int, seed: int = 0):
@@ -819,7 +954,8 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
         torch.cuda.synchronize()
 
     def counts():
-        return {k: hist_kernel(H, k).launches for k in HIST_WRAPPERS}
+        return {**{k: hist_kernel(H, k).launches for k in HIST_WRAPPERS},
+                "node_order": H.node_order.launches}
 
     torch.cuda.synchronize()
     s = time.perf_counter()
@@ -831,7 +967,8 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
         launches = counts()
         torch.cuda.synchronize()
         s = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                OrderAudit(H) as audit:
             window()
         wall = time.perf_counter() - s
         syncs = TR.host_syncs - syncs
@@ -840,10 +977,14 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
         TR._bag_masks = real_bag
     groups = {"K2 hist_binloop": ("hist_binloop",),
               "K3 hist_wide": ("hist_wide",),
-              "row order for K2/K3 (sort, counts)": ("sort", "radix", "scan",
-                                                     "scatter_add"),
+              "row order for K2/K3 (node_order)": ("node_order",),
               "GEMM": ("gemm", "matmul", "cutlass"),
               "leaf sums / compaction (index_put, gather)": ("index", "gather", "scatter")}
+    # the kernels a row order made of torch calls (a sort, a scatter_add
+    # of counts, a cumsum) would be found by, by name; the keys also catch
+    # every other sort, scan or scatter_add of the window
+    name_keys = ("node_order", "sort", "radix", "scan", "scatter_add")
+    name_keys_ms = 0.0
     dev_ms = {g: 0.0 for g in groups}
     dev_ms["elementwise and reductions (split search, routing)"] = 0.0
     total = 0.0
@@ -856,6 +997,8 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
         t = t / 1e3
         total += t
         name = evt.key.lower()
+        if any(k in name for k in name_keys):
+            name_keys_ms += t
         for g, keys in groups.items():
             if any(k in name for k in keys):
                 dev_ms[g] += t
@@ -867,8 +1010,14 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
         "wall_s": plain_wall, "wall_s_profiled": wall,
         "device_ms": dev_ms if total else "not measured",
         "device_busy_share": (total / 1e3 / plain_wall) if total else "not measured",
+        "row_order_by_name_keys_ms": name_keys_ms if total else "not measured",
         "host_syncs": syncs, "bagging_draw_s": bag_s[0],
     }
+    if audit.faults or audit.orders != launches["node_order"]:
+        raise AssertionError(f"{title}: row order not shared per chunk: "
+                             f"{sorted(set(audit.faults))}")
+    out["node_order_launches"] = launches["node_order"]
+    out["histograms_per_node_order"] = audit.hists / max(audit.orders, 1)
     for kernel, group in (("hist_binloop", "K2 hist_binloop"),
                           ("hist_wide", "K3 hist_wide")):
         out[f"{kernel}_launches"] = launches[kernel]
@@ -887,6 +1036,7 @@ def train_path(torch, x, y, masks) -> dict:
     from transmogrifai_tpu_torch.models import trees as TR
 
     H.build_histogram_binloop.launches = 0
+    H.node_order.launches = 0
     ST.serve_trees.launches = 0
     with KernelCapture(H, TR, "hist_binloop",
                        {"xgb": XGB_GRID[0]["num_round"] // 2, "rf": 0}) as cap:
@@ -897,11 +1047,13 @@ def train_path(torch, x, y, masks) -> dict:
         cap.start("rf")
         rf, rf_s, rf_syncs = fit_family(
             torch, G.RandomForestClassifier(device=DEV), x, y, masks, RF_GRID)
+    orders = H.node_order.launches
     xgb_score = check_lanes_score(x, xgb, boosted=True)
     rf_score = check_lanes_score(x, rf, boosted=False)
     k2 = H.build_histogram_binloop.launches
     k1 = ST.serve_trees.launches
     H.build_histogram_binloop.launches = 0
+    H.node_order.launches = 0
     ST.serve_trees.launches = 0
     if k2 == 0 or k2_xgb == 0 or k2 == k2_xgb:
         raise AssertionError(f"training did not launch hist_binloop in both "
@@ -921,10 +1073,67 @@ def train_path(torch, x, y, masks) -> dict:
         "rf": {"lanes": len(RF_GRID) * 3, "groups": len(stacks_of(rf)),
                "seconds": rf_s, "host_syncs": rf_syncs,
                "hist_binloop_launches": k2 - k2_xgb, "scoring": rf_score},
-        "hist_binloop_launches": k2, "serve_trees_launches_scoring": k1,
+        "hist_binloop_launches": k2, "node_order_launches": orders,
+        "serve_trees_launches_scoring": k1,
         "refit_bit_identical": True,
         "_records": cap.records,
     }
+
+
+class OrderAudit:
+    """Follows the grower's calls of ``node_order`` and of the histogram
+    wrappers in order: every histogram must be given the row order of the
+    last ``node_order`` call, made over the same slot tensor, and every
+    ``node_order`` call must serve at least one histogram. It adds no
+    launch (each hook calls its wrapper once and keeps its count)."""
+
+    NAMES = ("node_order", *HIST_WRAPPERS.values())
+
+    def __init__(self, H):
+        self.H = H
+        self.real = {name: getattr(H, name) for name in self.NAMES}
+        self.orders = self.hists = 0
+        self.faults: list[str] = []
+        self._last = None  # (slot tensor, histograms served)
+
+    def _order_hook(self):
+        def hook(node, m, g, h):
+            self._close()
+            self.orders += 1
+            out = self.real["node_order"](node, m, g, h)
+            self._last = [node, out, 0]
+            return out
+        return hook
+
+    def _hist_hook(self, name):
+        def hook(binned, node, g, h, m, b, order=None):
+            self.hists += 1
+            last = self._last
+            if last is None or node is not last[0] or order is not last[1]:
+                self.faults.append(f"{name} without its chunk's order")
+            else:
+                last[2] += 1
+            return self.real[name](binned, node, g, h, m, b, order=order)
+        return hook
+
+    def _close(self):
+        if self._last is not None and self._last[2] == 0:
+            self.faults.append("a node_order call served no histogram")
+
+    def __enter__(self):
+        hooks = {"node_order": self._order_hook(),
+                 **{n: self._hist_hook(n) for n in HIST_WRAPPERS.values()}}
+        for name, hook in hooks.items():
+            hook.launches = self.real[name].launches
+            setattr(self.H, name, hook)
+        return self
+
+    def __exit__(self, *exc):
+        self._close()
+        for name, real in self.real.items():
+            real.launches = getattr(self.H, name).launches
+            setattr(self.H, name, real)
+        return False
 
 
 def same_fits(models, again) -> bool:
@@ -942,8 +1151,8 @@ def train_regression_path(torch, x, target, masks) -> dict:
     """The regression training path at a 256-bin sketch: GBT and the
     random forest at the regression selector's grids over the table's
     continuous target, with K3's, K2's and K1's counts read around it and
-    K3's launches on the middle GBT round and the first forest tree of each
-    depth group captured (``KernelCapture``)."""
+    K3's and K2's launches on the middle GBT round and the first forest
+    tree of each depth group captured (``KernelCapture``)."""
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
     from transmogrifai_tpu_torch.models import serve_trees as ST
@@ -951,13 +1160,16 @@ def train_regression_path(torch, x, target, masks) -> dict:
 
     H.build_histogram_wide.launches = 0
     H.build_histogram_binloop.launches = 0
+    H.node_order.launches = 0
     ST.serve_trees.launches = 0
     out, fitted = {}, {}
-    with KernelCapture(H, TR, "hist_wide",
-                       {"gbt": GBT_GRID[0]["max_iter"] // 2, "rfr": 0}) as cap:
+    trees = {"gbt": GBT_GRID[0]["max_iter"] // 2, "rfr": 0}
+    with KernelCapture(H, TR, "hist_wide", trees) as cap, \
+            KernelCapture(H, TR, "hist_binloop", trees) as cap2:
         for family, cls, grid in (("gbt", G.GBTRegressor, GBT_GRID),
                                   ("rfr", G.RandomForestRegressor, RFR_GRID)):
             cap.start(family)
+            cap2.start(family)
             k3 = H.build_histogram_wide.launches
             k2 = H.build_histogram_binloop.launches
             models, secs, syncs = fit_family(torch, cls(device=DEV), x, target,
@@ -975,6 +1187,7 @@ def train_regression_path(torch, x, target, masks) -> dict:
                            "hist_binloop_launches": k2}
     k3 = H.build_histogram_wide.launches
     k2 = H.build_histogram_binloop.launches
+    orders = H.node_order.launches
     for family, models in fitted.items():
         out[family]["scoring"] = check_lanes_score(
             x, models, boosted=family == "gbt", regression=True)
@@ -984,11 +1197,13 @@ def train_regression_path(torch, x, target, masks) -> dict:
                              "serve_trees")
     H.build_histogram_wide.launches = 0
     H.build_histogram_binloop.launches = 0
+    H.node_order.launches = 0
     ST.serve_trees.launches = 0
     again, again_s, _ = fit_family(torch, G.GBTRegressor(device=DEV), x, target,
                                    masks, GBT_GRID)
     H.build_histogram_wide.launches = 0
     H.build_histogram_binloop.launches = 0
+    H.node_order.launches = 0
     if not same_fits(fitted["gbt"], again):
         raise AssertionError("a second GBT fit is not bit-identical")
     out["gbt"]["seconds_refit"] = again_s
@@ -996,8 +1211,9 @@ def train_regression_path(torch, x, target, masks) -> dict:
         "rows": x.shape[0], "features": x.shape[1], "max_bins": REG_BINS,
         **out,
         "hist_wide_launches": k3, "hist_binloop_launches": k2,
+        "node_order_launches": orders,
         "serve_trees_launches_scoring": k1, "refit_bit_identical": True,
-        "_records": cap.records,
+        "_records": cap.records, "_records_k2": cap2.records,
     }
 
 
@@ -1130,8 +1346,8 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.build(["serve_trees", "hist_binloop", "hist_wide",
-                              "best_split"])
+    built = cuda_build.build(["serve_trees", "node_order", "hist_binloop",
+                              "hist_wide", "best_split"])
     phase("build", seconds=time.perf_counter() - t0, per_source=built)
     for name, log in cuda_build.build_logs.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
@@ -1202,14 +1418,20 @@ def main() -> int:
     for i, (label, (n, f, b, k, m)) in enumerate(K2_SHAPES.items()):
         phase(f"hist_binloop {label}", **check_hist(
             torch, H, "hist_binloop", label, n, f, b, k, m,
-            timed=not label.startswith("c"), seed=i))
+            timed=not label.startswith("c"), seed=i, root=label.endswith("root")))
     phase("gemm_route", **check_gemm_route(torch))
     # kernel K3 at its shapes (launches here are not counted)
     for i, (label, (n, f, b, k, m)) in enumerate(K3_SHAPES.items()):
         phase(f"hist_wide {label}", **check_hist(
             torch, H, "hist_wide", label, n, f, b, k, m, timed=True,
-            seed=10 + i, root=label.startswith("a")))
+            seed=10 + i, root=label.endswith("root")))
+    # the row-order kernel at its shapes (launches here are not counted)
+    for i, (label, (n, k, m, slots)) in enumerate(ORDER_SHAPES.items()):
+        phase(f"node_order {label}", **check_order_shape(
+            torch, H, n, k, m, slots, seed=30 + i))
     H.build_histogram_wide.launches = 0
+    H.build_histogram_binloop.launches = 0
+    H.node_order.launches = 0
 
     # the training path, with the counts read around exactly this run
     x, y, target, masks = train_table(TRAIN_ROWS)
@@ -1225,13 +1447,27 @@ def main() -> int:
     # the regression path at a 256-bin sketch, its counts read around it
     reg = train_regression_path(torch, x, target, masks)
     records = reg.pop("_records")
+    records_k2 = reg.pop("_records_k2")
     phase("train_regression", **reg)
-    # K3 at the regression path's own launches (relaunches are not counted)
-    k3 = check_main_launches(torch, H, "hist_wide", records, weights={
-        "gbt": GBT_GRID[0]["max_iter"], "rfr": RFR_GRID[0]["num_trees"]},
-        library_per_tree=True)
+    # K3 and K2 at the regression path's own launches (relaunches are not
+    # counted); K2's 2-bin launches there are held against the CPU's plain
+    # version at the classifiers' launches and through the fixtures
+    reg_weights = {"gbt": GBT_GRID[0]["max_iter"],
+                   "rfr": RFR_GRID[0]["num_trees"]}
+    k3 = check_main_launches(torch, H, "hist_wide", records, reg_weights,
+                             library_per_tree=True)
     del records
     phase("hist_wide main_path", **k3)
+    k2r = check_main_launches(torch, H, "hist_binloop", records_k2,
+                              reg_weights, library_per_tree=True,
+                              cpu_check=False)
+    del records_k2
+    phase("hist_binloop main_path regression", **k2r)
+    k2_weights = {"training": k2["estimated_path_launches"],
+                  "regression training": k2r["estimated_path_launches"]}
+    k2_paths = combine_paths({"training": k2, "regression training": k2r},
+                             k2_weights)
+    phase("hist_binloop main_path both", **k2_paths)
     phase("train_fixture", **check_train_fixture(torch))
     phase("where_time_goes train", **where_time_goes_train(
         torch, "XGBoost grid 10 rounds + RF depth-12 group 5 trees", [
@@ -1264,6 +1500,9 @@ def main() -> int:
     H.build_best_split.launches = 0
     phase("wall", seconds=time.perf_counter() - t_start)
 
+    orders = combine_paths(
+        {"training": k2["node_order"], "regression training": k2r["node_order"]},
+        k2_weights, keys=("ms", "plain_ms", "library_ms", "bound_ms"))
     print(json.dumps({"kernels": [{
         "name": "serve_trees",
         "route": "cuda",
@@ -1290,12 +1529,15 @@ def main() -> int:
         "launches": train["hist_binloop_launches"] + reg["hist_binloop_launches"],
         "launches_by_path": {"training": train["hist_binloop_launches"],
                              "regression training": reg["hist_binloop_launches"]},
-        "max_abs_err": k2["max_abs_err"],
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"],
-        "library_ms": k2["library_ms"],
+        "max_abs_err": k2_paths["max_abs_err"],
+        "ms": k2_paths["ms"],
+        "ms_by_path": k2_paths["ms_by_path"],
+        "order_ms": k2_paths["order_ms"],
+        "kernel_only_ms": k2_paths["kernel_only_ms"],
+        "plain_ms": k2_paths["plain_ms"],
+        "bound_ms": k2_paths["bound_ms"],
+        "bound_by": k2_paths["bound_by"],
+        "library_ms": k2_paths["library_ms"],
     }, {
         "name": "hist_wide",
         "route": "cuda",
@@ -1304,10 +1546,30 @@ def main() -> int:
         "launches": reg["hist_wide_launches"],
         "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"],
+        "order_ms": k3["order_ms"],
+        "kernel_only_ms": k3["kernel_only_ms"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+    }, {
+        "name": "node_order",
+        "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/node_order.cu",
+        "replaces": None,
+        "path": "the row order of K2 and K3; it replaces no TPU kernel (the "
+                "reference's hist_pallas.py:427 and :244 one-hot every row "
+                "instead); times at K2's captured launches of both paths, "
+                "library = one stable torch.sort of the slots",
+        "launches": train["node_order_launches"] + reg["node_order_launches"],
+        "launches_by_path": {"training": train["node_order_launches"],
+                             "regression training": reg["node_order_launches"]},
+        "max_abs_err": orders["max_abs_err"],
+        "ms": orders["ms"],
+        "plain_ms": orders["plain_ms"],
+        "bound_ms": orders["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": orders["library_ms"],
     }, {
         "name": "best_split",
         "route": "cuda",

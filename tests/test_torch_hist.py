@@ -111,16 +111,36 @@ def test_gemm_path_matches_the_reference_gemm(n, f, b, k, m, lowp):
         np.testing.assert_allclose(got, plain, rtol=0, atol=ATOL)
 
 
-def test_node_order_is_a_stable_sort_by_slot():
-    _, node, g, h = _data(200, 1, 2, 3, 4, seed=5)
+@pytest.mark.parametrize("n,k,m,case", [
+    (200, 3, 4, "spread"),       # the original case
+    (1500, 2, 5, "one_slot"),    # every row in one slot
+    (1025, 2, 3, "all_dead"),    # -1 and slots >= M only
+    (777, 2, 1, "spread"),       # M = 1
+    (2049, 2, 6, "zero_weight"),
+])
+def test_node_order_is_a_stable_sort_by_slot(n, k, m, case):
+    _, node, g, h = _data(n, 1, 2, k, m, seed=5)
+    if case == "one_slot":
+        node[:] = m - 1
+    elif case == "all_dead":
+        node[:] = np.where(np.arange(n) % 2 == 0, -1, m)
+    elif case == "zero_weight":
+        zero = np.random.default_rng(n).uniform(size=g.shape) < 0.4
+        g[zero] = 0.0
+        h[zero] = -0.0
+    live = (g != 0) | (h != 0)
     order, start, count = (
         a.numpy() for a in H.node_order(
-            torch.from_numpy(node), 4, torch.from_numpy(g), torch.from_numpy(h))
+            torch.from_numpy(node), m, torch.from_numpy(g), torch.from_numpy(h))
     )
-    for k in range(3):
-        for m in range(4):
-            rows = order[k, start[k, m]:start[k, m] + count[k, m]]
-            assert np.array_equal(rows, np.nonzero(node[k] == m)[0])
+    for kk in range(k):
+        for s in range(m):
+            rows = order[kk, start[kk, s]:start[kk, s] + count[kk, s]]
+            assert np.array_equal(rows, np.nonzero((node[kk] == s) & live[kk])[0])
+        # the dead tail holds every other row, in ascending order
+        tail = order[kk, int(count[kk].sum()):]
+        assert np.array_equal(tail, np.nonzero(
+            ~((node[kk] >= 0) & (node[kk] < m) & live[kk]))[0])
 
 
 def test_zero_weight_rows_change_no_sum():

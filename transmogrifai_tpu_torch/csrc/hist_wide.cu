@@ -17,176 +17,107 @@
 // one writer per cell, so the result is the same bits on every launch and
 // equal to the plain scatter version's.
 //
-// Layout. The wrapper sorts each fit's live rows by slot (stably) and
-// passes where each slot's run starts and how long it is. One block takes
-// one (tile of up to 8 features, slot m, fit k); it has one warp per
-// feature and walks the slot's run in tiles of 128 rows:
-//  * every thread stages whole rows of the next tile (its grad, hess and
-//    the tile's codes) into shared memory with cp.async while the current
-//    tile is summed, and reads the row ids of the tile after that;
-//  * each warp owns its feature's B x 2 cells in shared memory and adds
-//    the tile 32 rows at a time with warp_ordered_add: lanes hold
-//    consecutive rows, lanes with distinct codes add at once, lanes that
-//    share a code add in lane (= row) order. K2's layout, one thread per
-//    feature, would leave a 256-bin group of 3-10 features with 3-10 busy
-//    threads per block walking every row serially.
+// Layout. Persistent blocks walk (feature tile of up to 8, slot, fit) work
+// items through the ring of hist_ring.cuh: two producer warps stream each
+// run's rows (its codes feature-major, grad and hess) into shared-memory
+// stages, up to S tiles of 128 rows ahead. One consumer warp per feature
+// owns that feature's B x 2 cells in shared memory and adds a stage 32
+// rows at a time (OrderedConsumer, with warp_ordered_add.cuh): lanes
+// hold consecutive rows, lanes with distinct codes add at once, lanes that
+// share a code add in lane (= row) order.
 //
 // What bounds it: writing K*M*F*B*8 bytes of output (every slot of the
 // chunk, live or not: at a 256-slot chunk and 256 bins that dwarfs the
 // K*N*12 bytes of row data and the live codes read), and otherwise the
-// serial walk of the longest run (the root level's single slot).
+// serial walk of the longest run (the root level's single slot), which the
+// ring keeps fed so that it runs at the pace of the ordered adds.
 //
-// Shapes: binned [N, F] int32; order [K, N] int32; start, count [K, M]
-// int32; grad, hess [K, N] f32; out [K, M, F, B, 2] f32, every element
-// written.
+// Shapes: binned [N, F] int32, rows ldb >= F apart; order [K, N] int32;
+// start, count [K, M] int32; grad, hess [K, N] f32; out [K, M, F, B, 2]
+// f32, every element written.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hist_ring.cuh"
 #include "warp_ordered_add.cuh"
 
 namespace {
 
+using ring::kTile;
+
 constexpr int kMaxWarps = 8;   // features per block
-constexpr int kTile = 128;     // rows staged per tile
-constexpr int kRowsPerThread = kTile / 32;  // at least one warp per block
 constexpr int kMaxBins = 16384;
+constexpr int kCodeStride = kTile + 1;  // a feature's staged codes, padded
+constexpr size_t kRingBudget = 48 * 1024;  // shared memory for the stages
 
-__host__ __device__ inline size_t smem_bytes(int fpb, int bins) {
-  // codes [2][fpb][kTile], grad and hess [2][kTile], cells [fpb][2][bins]
-  return (2 * static_cast<size_t>(fpb) * kTile + 4 * kTile +
-          2 * static_cast<size_t>(fpb) * bins) * sizeof(float);
-}
+// One consumer warp per feature, owning that feature's cells [2][bins] in
+// shared memory (grad, then hess): a stage's rows go 32 at a time through
+// warp_ordered_add.cuh (lanes hold consecutive rows, lanes with distinct
+// codes add at once, lanes that share a code add in lane = row order), and
+// a stage's (up to) four groups are read and ranked before the first is
+// added, so their reads and lane matches overlap.
+struct OrderedConsumer {
+  const ring::Params& p;
+  float* cg;  // this warp's grad cells (hess cells follow)
+  int lane, w, fw;
 
-struct Tile {
-  int32_t* code;  // [2][fpb][kTile]
-  float* g;       // [2][kTile]
-  float* h;       // [2][kTile]
+  __device__ void begin(int item_fw) {
+    fw = item_fw;
+    if (w < fw) {
+      for (int b = lane; b < p.bins; b += 32) {
+        cg[b] = 0.0f;
+        cg[p.bins + b] = 0.0f;
+      }
+    }
+    __syncwarp();
+  }
+
+  __device__ void tile(const ring::Stage& st, int cnt) {
+    if (w >= fw) return;
+    const int32_t* codes = st.code + w * p.code_cs;
+    constexpr int kGroups = kTile / 32;
+    int c[kGroups];
+    float gv[kGroups], hv[kGroups];
+    bool ok[kGroups];
+    OrderedAdd a[kGroups];
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) {
+      const int j = 32 * u + lane;
+      ok[u] = j < cnt;
+      c[u] = ok[u] ? codes[j * p.code_rs] : -1;
+      gv[u] = ok[u] ? st.g[j] : 0.0f;
+      hv[u] = ok[u] ? st.h[j] : 0.0f;
+      ok[u] = ok[u] && static_cast<unsigned>(c[u]) < static_cast<unsigned>(p.bins);
+    }
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) a[u] = ordered_add_plan(c[u], ok[u], lane);
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) {
+      ordered_add_apply(cg, cg + p.bins, c[u], gv[u], hv[u], ok[u], a[u]);
+    }
+  }
+
+  __device__ void finish(float* out) {
+    // out: this item's [fw][bins][2] cells, 8-byte aligned
+    if (w >= fw) return;
+    float2* o = reinterpret_cast<float2*>(out) + static_cast<size_t>(w) * p.bins;
+    for (int b = lane; b < p.bins; b += 32) o[b] = make_float2(cg[b], cg[p.bins + b]);
+  }
 };
 
-// Row ids of tile `tile` (-1 past the run) for this thread's staging rows.
-__device__ __forceinline__ void load_rows(int (&r)[kRowsPerThread], int tile,
-                                          int len, int t, int nthr,
-                                          const int32_t* __restrict__ rows) {
-#pragma unroll
-  for (int u = 0; u < kRowsPerThread; ++u) {
-    const int j = t + u * nthr;
-    const int idx = tile * kTile + j;
-    r[u] = (j < kTile && idx < len) ? __ldg(rows + idx) : -1;
-  }
-}
-
-// Async copies of this thread's rows (ids in r) into buffer `buf`.
-__device__ __forceinline__ void stage(const Tile& st, int buf,
-                                      const int (&r)[kRowsPerThread], int t,
-                                      int nthr, int fpb, int fw,
-                                      const int32_t* __restrict__ binned,
-                                      int f, int f0,
-                                      const float* __restrict__ gk,
-                                      const float* __restrict__ hk) {
-#pragma unroll
-  for (int u = 0; u < kRowsPerThread; ++u) {
-    const int j = t + u * nthr;
-    if (j < kTile && r[u] >= 0) {
-      const int row = r[u];
-      __pipeline_memcpy_async(st.g + buf * kTile + j, gk + row, sizeof(float));
-      __pipeline_memcpy_async(st.h + buf * kTile + j, hk + row, sizeof(float));
-      const int32_t* src = binned + static_cast<size_t>(row) * f + f0;
-      int32_t* dst = st.code + static_cast<size_t>(buf) * fpb * kTile + j;
-      for (int c = 0; c < fw; ++c) {
-        __pipeline_memcpy_async(dst + c * kTile, src + c, sizeof(int32_t));
-      }
-    }
-  }
-  __pipeline_commit();
-}
-
-__global__ void __launch_bounds__(kMaxWarps * 32)
-hist_wide_kernel(const int32_t* __restrict__ binned,
-                 const int32_t* __restrict__ order,
-                 const int32_t* __restrict__ start,
-                 const int32_t* __restrict__ count,
-                 const float* __restrict__ grad,
-                 const float* __restrict__ hess,
-                 float* __restrict__ out,
-                 int n, int f, int m_slots, int bins, int fpb) {
+__global__ void __launch_bounds__(kMaxWarps * 32 + 64)
+hist_wide_kernel(ring::Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Tile st;
-  st.code = reinterpret_cast<int32_t*>(smem);
-  st.g = reinterpret_cast<float*>(st.code + 2 * fpb * kTile);
-  st.h = st.g + 2 * kTile;
-  float* cells = st.h + 2 * kTile;
-
   const int t = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int lane = t & 31;
+  float* cells = reinterpret_cast<float*>(
+      smem + ring::ring_bytes(p.stages, p.stage_words));
   const int w = t >> 5;
-  const int f0 = blockIdx.x * fpb;
-  const int fw = min(fpb, f - f0);
-  const int m = blockIdx.y;
-  const int k = blockIdx.z;
-  const int run0 = __ldg(start + static_cast<size_t>(k) * m_slots + m);
-  const int len = __ldg(count + static_cast<size_t>(k) * m_slots + m);
-  const int32_t* rows = order + static_cast<size_t>(k) * n + run0;
-  const float* gk = grad + static_cast<size_t>(k) * n;
-  const float* hk = hess + static_cast<size_t>(k) * n;
-  const bool mine = w < fw;
-  float* cg = cells + static_cast<size_t>(w) * 2 * bins;
-  float* ch = cg + bins;
-
-  if (mine) {
-    for (int b = lane; b < bins; b += 32) {
-      cg[b] = 0.0f;
-      ch[b] = 0.0f;
-    }
-  }
-  const int tiles = (len + kTile - 1) / kTile;
-  int r_next[kRowsPerThread];
-#pragma unroll
-  for (int u = 0; u < kRowsPerThread; ++u) r_next[u] = -1;
-  if (tiles > 0) {
-    int r0[kRowsPerThread];
-    load_rows(r0, 0, len, t, nthr, rows);
-    stage(st, 0, r0, t, nthr, fpb, fw, binned, f, f0, gk, hk);
-    if (tiles > 1) load_rows(r_next, 1, len, t, nthr, rows);
-    __pipeline_wait_prior(0);
-  }
-  __syncthreads();
-  for (int i = 0; i < tiles; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < tiles) {
-      // stage tile i+1 (ids read an iteration ago), then read tile i+2's ids
-      stage(st, buf ^ 1, r_next, t, nthr, fpb, fw, binned, f, f0, gk, hk);
-      if (i + 2 < tiles) load_rows(r_next, i + 2, len, t, nthr, rows);
-    }
-    if (mine) {
-      const int cnt = min(kTile, len - i * kTile);
-      const int32_t* codes = st.code + (static_cast<size_t>(buf) * fpb + w) * kTile;
-      const float* sg = st.g + buf * kTile;
-      const float* sh = st.h + buf * kTile;
-      for (int j0 = 0; j0 < cnt; j0 += 32) {
-        const int j = j0 + lane;
-        int c = -1;
-        float gv = 0.0f, hv = 0.0f;
-        if (j < cnt) {
-          c = codes[j];
-          gv = sg[j];
-          hv = sh[j];
-        }
-        const bool ok = static_cast<unsigned>(c) < static_cast<unsigned>(bins);
-        warp_ordered_add(cg, ch, c, gv, hv, ok, lane);
-      }
-    }
-    __pipeline_wait_prior(0);
-    __syncthreads();
-  }
-  if (mine) {
-    float2* o = reinterpret_cast<float2*>(
-        out + ((static_cast<size_t>(k) * m_slots + m) * f + f0 + w) *
-                  static_cast<size_t>(bins) * 2);
-    for (int b = lane; b < bins; b += 32) o[b] = make_float2(cg[b], ch[b]);
-  }
+  OrderedConsumer con{p, cells + static_cast<size_t>(w) * 2 * p.bins, t & 31, w,
+                      0};
+  ring::walk(p, smem, con);
 }
 
 }  // namespace
@@ -197,40 +128,73 @@ extern "C" {
 // (0 when the launch was accepted). Requires 1 <= bins <= 16384.
 int tp_hist_wide(const void* binned, const void* order, const void* start,
                  const void* count, const void* grad, const void* hess,
-                 void* out, int n, int f, int k_fits, int m_slots, int bins,
-                 void* stream) {
-  if (bins < 1 || bins > kMaxBins || m_slots > 65535 || k_fits > 65535) {
+                 void* out, int n, int f, int ldb, int k_fits, int m_slots,
+                 int bins, void* stream) {
+  if (bins < 1 || bins > kMaxBins || ldb < f) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (f > 0 && m_slots > 0 && k_fits > 0) {
-    int dev = 0, max_smem = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // features per block: the fewest blocks of at most 8, balanced, and
-    // as many as the shared memory holds
-    const int feat_tiles = (f + kMaxWarps - 1) / kMaxWarps;
-    int fpb = (f + feat_tiles - 1) / feat_tiles;
-    while (fpb > 1 && smem_bytes(fpb, bins) > static_cast<size_t>(max_smem)) --fpb;
-    const size_t smem = smem_bytes(fpb, bins);
-    if (smem > static_cast<size_t>(max_smem)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    err = cudaFuncSetAttribute(hist_wide_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((f + fpb - 1) / fpb, m_slots, k_fits);
-    hist_wide_kernel<<<grid, 32 * fpb, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(binned),
-        static_cast<const int32_t*>(order),
-        static_cast<const int32_t*>(start),
-        static_cast<const int32_t*>(count), static_cast<const float*>(grad),
-        static_cast<const float*>(hess), static_cast<float*>(out), n, f,
-        m_slots, bins, fpb);
+  if (f <= 0 || m_slots <= 0 || k_fits <= 0) {
+    return static_cast<int>(cudaGetLastError());
   }
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring::Params p{};
+  p.binned = static_cast<const int32_t*>(binned);
+  p.order = static_cast<const int32_t*>(order);
+  p.start = static_cast<const int32_t*>(start);
+  p.count = static_cast<const int32_t*>(count);
+  p.grad = static_cast<const float*>(grad);
+  p.hess = static_cast<const float*>(hess);
+  p.out = static_cast<float*>(out);
+  p.n = n;
+  p.f = f;
+  p.ldb = ldb;
+  p.vec = false;  // the feature-major stage takes single codes
+  p.k_fits = k_fits;
+  p.m_slots = m_slots;
+  p.bins = bins;
+  p.producers = 64;
+  p.code_rs = 1;
+  p.code_cs = kCodeStride;
+  // features per block: the fewest tiles of at most 8, balanced, and as
+  // many as the shared memory holds beside a ring of at least 4 stages
+  const int tiles0 = (f + kMaxWarps - 1) / kMaxWarps;
+  int fpb = (f + tiles0 - 1) / tiles0;
+  size_t smem = 0;
+  for (;; --fpb) {
+    p.stage_words = ring::stage_words_for(fpb * kCodeStride);
+    const size_t stage_bytes = static_cast<size_t>(p.stage_words) * 4;
+    p.stages = static_cast<int>(
+        std::min<size_t>(8, std::max<size_t>(4, kRingBudget / stage_bytes)));
+    smem = ring::ring_bytes(p.stages, p.stage_words) +
+           2 * static_cast<size_t>(fpb) * bins * sizeof(float);
+    if (smem <= static_cast<size_t>(max_smem) || fpb == 1) break;
+  }
+  if (smem > static_cast<size_t>(max_smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.fpb = fpb;
+  p.feat_tiles = (f + fpb - 1) / fpb;
+  p.consumers = 32 * fpb;
+  // no more producer warps than stages: each stage has one filler at a time
+  p.producers = std::min(p.producers, 32 * p.stages);
+  const int threads = p.consumers + p.producers;
+  err = cudaFuncSetAttribute(hist_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items =
+      static_cast<long long>(p.feat_tiles) * m_slots * k_fits;
+  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  err = ring::persistent_grid(hist_wide_kernel, threads, smem,
+                              static_cast<int>(items), &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hist_wide_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,19 +16,39 @@
 
 #include <cuda_runtime.h>
 
-__device__ __forceinline__ void warp_ordered_add(float* cg, float* ch,
-                                                 int code, float gv, float hv,
-                                                 bool ok, int lane) {
+// The two halves of warp_ordered_add, so that a caller can rank several
+// groups of 32 rows before it adds any of them: plan() ranks this lane among
+// the lanes sharing its code and finds the warp's step count; apply() adds.
+struct OrderedAdd {
+  int rank;
+  unsigned steps;
+};
+
+__device__ __forceinline__ OrderedAdd ordered_add_plan(int code, bool ok,
+                                                       int lane) {
   // a lane that adds nothing gets a key no code can take (codes are >= 0)
   const unsigned peers = __match_any_sync(0xffffffffu, ok ? code : -1 - lane);
-  const int rank = __popc(peers & ((1u << lane) - 1u));
-  const unsigned steps =
+  OrderedAdd a;
+  a.rank = __popc(peers & ((1u << lane) - 1u));
+  a.steps =
       __reduce_max_sync(0xffffffffu, ok ? static_cast<unsigned>(__popc(peers)) : 0u);
-  for (unsigned s = 0; s < steps; ++s) {
-    if (ok && rank == static_cast<int>(s)) {
+  return a;
+}
+
+__device__ __forceinline__ void ordered_add_apply(float* cg, float* ch,
+                                                  int code, float gv, float hv,
+                                                  bool ok, OrderedAdd a) {
+  for (unsigned s = 0; s < a.steps; ++s) {
+    if (ok && a.rank == static_cast<int>(s)) {
       cg[code] = __fadd_rn(cg[code], gv);
       ch[code] = __fadd_rn(ch[code], hv);
     }
     __syncwarp();
   }
+}
+
+__device__ __forceinline__ void warp_ordered_add(float* cg, float* ch,
+                                                 int code, float gv, float hv,
+                                                 bool ok, int lane) {
+  ordered_add_apply(cg, ch, code, gv, hv, ok, ordered_add_plan(code, ok, lane));
 }

@@ -21,6 +21,10 @@ shared by the K fits, node slots ``node`` [K, N] int32 (-1, and any slot
   also sum every cell in ascending row order, so they agree with the plain
   version bit for bit and never depend on scheduling (the rows they leave
   out, those of zero grad and hess, change no sum: see ``node_order``).
+  Both walk each slot's rows in the order ``node_order`` gives (a stable
+  counting sort by slot, ``csrc/node_order.cu`` on the card); a caller
+  that builds several histograms over the same slots passes that order in
+  once (``order=``), as the grower does per node chunk.
 * ``build_histogram_gemm`` is the reference's formulation for small row
   counts: a node one-hot [K, N, M] times a prebuilt code one-hot
   [N, F*B], as two matrix products. It runs in float64 (which TF32 never
@@ -58,9 +62,11 @@ FUSED_SPLIT_MAX_BINS = 128
 #: features per K4 block (the reference's SPLIT_FEAT_TILE)
 SPLIT_FEAT_TILE = 32
 
-_HIST_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_HIST_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 #: each kernel library's C entry point and argument types
 _ENTRY = {
+    "node_order": ("tp_node_order", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p]),
     "hist_binloop": ("tp_hist_binloop", _HIST_ARGS),
     "hist_wide": ("tp_hist_wide", _HIST_ARGS),
     "best_split": (
@@ -84,7 +90,11 @@ def histogram_route(device: torch.device, num_rows: int, num_bins: int) -> str:
     return "wide"
 
 
-def _check(binned, node, grad, hess, num_nodes, num_bins) -> None:
+def _check(binned, node, grad, hess, num_nodes, num_bins,
+           padded_rows: bool = False) -> None:
+    """Types, shapes and devices of a histogram's inputs; with
+    ``padded_rows`` ``binned`` may be a view of the first F columns of a
+    row-major array with longer rows (``pad_codes``)."""
     for name, x, want in (
         ("binned", binned, torch.int32), ("node", node, torch.int32),
         ("grad", grad, torch.float32), ("hess", hess, torch.float32),
@@ -94,7 +104,9 @@ def _check(binned, node, grad, hess, num_nodes, num_bins) -> None:
                 f"histogram: {name} must be a {want} tensor, got "
                 f"{getattr(x, 'dtype', type(x).__name__)}"
             )
-        if not x.is_contiguous():
+        rows_ok = (name == "binned" and padded_rows and x.dim() == 2
+                   and x.stride(1) == 1 and x.stride(0) >= x.shape[1])
+        if not (x.is_contiguous() or rows_ok):
             raise ValueError(f"histogram: {name} must be contiguous")
         if x.device != binned.device:
             raise ValueError(
@@ -122,6 +134,17 @@ def _check(binned, node, grad, hess, num_nodes, num_bins) -> None:
     k = node.shape[0]
     if max(n * f, k * n, k * num_nodes * f * num_bins * 2) >= 2**31:
         raise ValueError("histogram: more than 2^31 elements in one array")
+
+
+def pad_codes(binned: torch.Tensor) -> torch.Tensor:
+    """``binned`` [N, F] as a view of the first F columns of a zero-padded
+    [N, F'] int32 array, F' = F rounded up to a multiple of 4: its rows are
+    16-byte aligned, so K2 copies its codes 16 bytes at a time."""
+    n, f = binned.shape
+    padded = torch.zeros((n, -(-f // 4) * 4), dtype=torch.int32,
+                         device=binned.device)
+    padded[:, :f] = binned
+    return padded[:, :f]
 
 
 def build_histogram_scatter_batched(
@@ -310,17 +333,11 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
 
 
-def node_order(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
-               hess: torch.Tensor):
-    """(order [K, N] int32, start [K, M] int32, count [K, M] int32): the
-    live rows of each fit sorted by node slot, ascending row order within a
-    slot (a stable sort), and where each slot's run starts and how long it
-    is. Dead rows (-1, or >= M) sort to the end and belong to no run.
-
-    Rows whose grad and hess are both zero (rows a fold or a bootstrap
-    draw left out) are dead too: a sequential f32 sum starts at +0.0 and
-    never becomes -0.0, and adding +0.0 or -0.0 to it leaves its bits
-    unchanged, so dropping them changes no cell."""
+def node_order_plain(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
+                     hess: torch.Tensor):
+    """``node_order``'s plain version: a stable ``torch.sort`` of the keys
+    (the slot, or M for a dead row), a ``scatter_add_`` of the counts and a
+    ``cumsum``."""
     k_fits, _ = node.shape
     live = (node >= 0) & (node < num_nodes) & ((grad != 0) | (hess != 0))
     key = torch.where(live, node, num_nodes).long()
@@ -336,43 +353,129 @@ def node_order(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
     )
 
 
+def _check_rows(node, grad, hess, num_nodes) -> None:
+    for name, x, want in (("node", node, torch.int32),
+                          ("grad", grad, torch.float32),
+                          ("hess", hess, torch.float32)):
+        if not isinstance(x, torch.Tensor) or x.dtype != want:
+            raise TypeError(
+                f"node_order: {name} must be a {want} tensor, got "
+                f"{getattr(x, 'dtype', type(x).__name__)}"
+            )
+        if not x.is_contiguous() or x.dim() != 2:
+            raise ValueError(f"node_order: {name} must be a contiguous [K, N] "
+                             "tensor")
+        if x.device != node.device:
+            raise ValueError(f"node_order: {name} is on {x.device}, node on "
+                             f"{node.device}")
+    if grad.shape != node.shape or hess.shape != node.shape:
+        raise ValueError(
+            f"node_order: grad {tuple(grad.shape)} / hess {tuple(hess.shape)} "
+            f"!= node {tuple(node.shape)}"
+        )
+    if num_nodes < 1:
+        raise ValueError(f"node_order: num_nodes {num_nodes} must be >= 1")
+
+
+def node_order(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
+               hess: torch.Tensor):
+    """(order [K, N] int32, start [K, M] int32, count [K, M] int32): the
+    live rows of each fit sorted by node slot, ascending row order within a
+    slot (a stable sort), and where each slot's run starts and how long it
+    is. Dead rows (-1, or >= M) sort to the end and belong to no run: the
+    tail holds them in ascending row order, so all three arrays equal
+    ``node_order_plain``'s, on the card (``csrc/node_order.cu``, a stable
+    counting sort) as on the CPU.
+
+    Rows whose grad and hess are both zero (rows a fold or a bootstrap
+    draw left out) are dead too: a sequential f32 sum starts at +0.0 and
+    never becomes -0.0, and adding +0.0 or -0.0 to it leaves its bits
+    unchanged, so dropping them changes no cell."""
+    _check_rows(node, grad, hess, num_nodes)
+    if _plain_on_cpu(node):
+        return node_order_plain(node, num_nodes, grad, hess)
+    k_fits, n = node.shape
+    dev = node.device
+    if k_fits * n >= 2**31:
+        raise ValueError("node_order: more than 2^31 rows in all")
+    _library("node_order")  # build or load before any work is queued
+    order = torch.empty((k_fits, n), dtype=torch.int32, device=dev)
+    if n == 0 or k_fits == 0:
+        zeros = torch.zeros((k_fits, num_nodes), dtype=torch.int32, device=dev)
+        return order, zeros, zeros.clone()
+    start = torch.empty((k_fits, num_nodes), dtype=torch.int32, device=dev)
+    count = torch.empty_like(start)
+    _launch(
+        "node_order", node.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+        order.data_ptr(), start.data_ptr(), count.data_ptr(), n, k_fits,
+        num_nodes, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    node_order.launches += 1
+    return order, start, count
+
+
+def _check_order(rows, node, num_nodes) -> None:
+    """A precomputed ``node_order`` result must match the slots it sorts."""
+    k_fits, n = node.shape
+    if len(rows) != 3:
+        raise ValueError("histogram: order must be node_order's (order, "
+                         "start, count)")
+    for name, x, shape in zip(("order", "start", "count"), rows,
+                              ((k_fits, n), (k_fits, num_nodes),
+                               (k_fits, num_nodes))):
+        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int32
+                or tuple(x.shape) != shape or not x.is_contiguous()
+                or x.device != node.device):
+            raise ValueError(
+                f"histogram: order's {name} must be a contiguous int32 "
+                f"{list(shape)} tensor on {node.device}"
+            )
+
+
 def _sorted_rows_histogram(name, binned, node, grad, hess, num_nodes,
-                           num_bins) -> torch.Tensor:
-    """Launch histogram kernel ``name`` over ``node_order``'s runs."""
+                           num_bins, rows) -> torch.Tensor:
+    """Launch histogram kernel ``name`` over ``node_order``'s runs (``rows``,
+    or computed here when None)."""
     n, f = binned.shape
     k_fits = node.shape[0]
     _library(name)  # build or load before any work is queued
-    order, start, count = node_order(node, num_nodes, grad, hess)
+    if rows is None:
+        rows = node_order(node, num_nodes, grad, hess)
+    order, start, count = rows
     out = torch.empty((k_fits, num_nodes, f, num_bins, 2), dtype=torch.float32,
                       device=binned.device)
     _launch(
         name, binned.data_ptr(), order.data_ptr(), start.data_ptr(),
         count.data_ptr(), grad.data_ptr(), hess.data_ptr(), out.data_ptr(),
-        n, f, k_fits, num_nodes, num_bins,
+        n, f, binned.stride(0), k_fits, num_nodes, num_bins,
         torch.cuda.current_stream(binned.device).cuda_stream,
     )
     return out
 
 
-def _plain_on_cpu(binned: torch.Tensor) -> bool:
+def _plain_on_cpu(x: torch.Tensor) -> bool:
     """True for a CPU tensor (run the plain version), False for a CUDA one
     (launch the kernel); any other device raises."""
-    if _on_cuda(binned):
+    if _on_cuda(x):
         return False
-    if binned.device.type != "cpu":
-        raise ValueError(f"histogram: unsupported device {binned.device}")
+    if x.device.type != "cpu":
+        raise ValueError(f"histogram: unsupported device {x.device}")
     return True
 
 
 def build_histogram_binloop(
     binned: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
-    hess: torch.Tensor, num_nodes: int, num_bins: int,
+    hess: torch.Tensor, num_nodes: int, num_bins: int, order=None,
 ) -> torch.Tensor:
     """K2: hist [K, num_nodes, F, num_bins, 2] float32, the contract of
-    ``hist_pallas.build_histogram_pallas_binloop``. The reference's ``lowp``
-    has no counterpart: the kernel sums in float32 directly, with no bf16
-    split to skip."""
-    _check(binned, node, grad, hess, num_nodes, num_bins)
+    ``hist_pallas.build_histogram_pallas_binloop``. ``order`` is
+    ``node_order(node, num_nodes, grad, hess)``'s result where the caller
+    has it (computed here otherwise; the plain version needs none). The
+    reference's ``lowp`` has no counterpart: the kernel sums in float32
+    directly, with no bf16 split to skip."""
+    _check(binned, node, grad, hess, num_nodes, num_bins, padded_rows=True)
+    if order is not None:
+        _check_order(order, node, num_nodes)
     if _plain_on_cpu(binned):
         return build_histogram_scatter_batched(
             binned, node, grad, hess, num_nodes, num_bins
@@ -383,20 +486,22 @@ def build_histogram_binloop(
             "histogram_route"
         )
     out = _sorted_rows_histogram("hist_binloop", binned, node, grad, hess,
-                                 num_nodes, num_bins)
+                                 num_nodes, num_bins, order)
     build_histogram_binloop.launches += 1
     return out
 
 
 def build_histogram_wide(
     binned: torch.Tensor, node: torch.Tensor, grad: torch.Tensor,
-    hess: torch.Tensor, num_nodes: int, num_bins: int,
+    hess: torch.Tensor, num_nodes: int, num_bins: int, order=None,
 ) -> torch.Tensor:
     """K3: hist [K, num_nodes, F, num_bins, 2] float32, the contract of
     ``hist_pallas.build_histogram_pallas_batched`` (which the reference
     takes for more than 64 bins), for up to ``HIST_WIDE_MAX_BINS`` bins.
-    The reference's ``lowp`` has no counterpart, as in K2."""
-    _check(binned, node, grad, hess, num_nodes, num_bins)
+    ``order`` and ``lowp`` as in K2."""
+    _check(binned, node, grad, hess, num_nodes, num_bins, padded_rows=True)
+    if order is not None:
+        _check_order(order, node, num_nodes)
     if _plain_on_cpu(binned):
         return build_histogram_scatter_batched(
             binned, node, grad, hess, num_nodes, num_bins
@@ -407,7 +512,7 @@ def build_histogram_wide(
             "one feature's cells in shared memory can hold"
         )
     out = _sorted_rows_histogram("hist_wide", binned, node, grad, hess,
-                                 num_nodes, num_bins)
+                                 num_nodes, num_bins, order)
     build_histogram_wide.launches += 1
     return out
 
@@ -499,6 +604,7 @@ def build_best_split(binned, node, grad, hess, feat_mask, reg_lambda, gamma,
 
 #: kernel launches since the last reset (the plain CPU versions are not
 #: counted)
+node_order.launches = 0
 build_histogram_binloop.launches = 0
 build_histogram_wide.launches = 0
 build_best_split.launches = 0

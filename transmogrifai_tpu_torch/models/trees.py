@@ -264,16 +264,16 @@ def _grow_tree_impl(
         narrow_idx, wide_idx = (_index(a, dev) for a in feature_groups)
         if narrow_idx.shape[0]:
             groups.append((
-                (binned[:, narrow_idx] > 0).to(torch.int32).contiguous(),
+                H.pad_codes((binned[:, narrow_idx] > 0).to(torch.int32)),
                 feat_mask[:, narrow_idx], 2, narrow_idx,
             ))
         if wide_idx.shape[0]:
             groups.append((
-                binned[:, wide_idx].contiguous(), feat_mask[:, wide_idx], b,
+                H.pad_codes(binned[:, wide_idx]), feat_mask[:, wide_idx], b,
                 wide_idx,
             ))
     if not groups:
-        groups = [(binned, feat_mask, b, None)]
+        groups = [(H.pad_codes(binned), feat_mask, b, None)]
 
     lam = _vec(reg_lambda, dev)
     gam = _vec(gamma, dev)
@@ -300,6 +300,7 @@ def _grow_tree_impl(
         cap = min(cap, max_nodes)
 
     routes = [H.histogram_route(dev, n, gb) for _, _, gb, _ in groups]
+    sorted_routes = "binloop" in routes or "wide" in routes
     codes1h = [
         H.codes_one_hot(gbin, gb) if route == "gemm" else None
         for (gbin, _, gb, _), route in zip(groups, routes)
@@ -322,14 +323,14 @@ def _grow_tree_impl(
     chunk_nodes = min(chunk_cap, n_nodes)
     num_chunks = -(-n_nodes // chunk_nodes)
 
-    def group_stats(gbin, gmask, gb, gidx, c1h, route, loc, m):
+    def group_stats(gbin, gmask, gb, gidx, c1h, route, loc, m, rows):
         """(gain, original feature, bin) of the best split per slot."""
         if route == "gemm":
             hist = H.build_histogram_gemm(c1h, loc, g, h, m, gb, lowp=lowp)
         elif route == "binloop":
-            hist = H.build_histogram_binloop(gbin, loc, g, h, m, gb)
+            hist = H.build_histogram_binloop(gbin, loc, g, h, m, gb, order=rows)
         elif route == "wide":
-            hist = H.build_histogram_wide(gbin, loc, g, h, m, gb)
+            hist = H.build_histogram_wide(gbin, loc, g, h, m, gb, order=rows)
         else:
             hist = H.build_histogram_scatter_batched(gbin, loc, g, h, m, gb)
         best_gain, best_feat, best_bin = H.split_search(hist, gmask, lam, gam, mcw)
@@ -342,9 +343,12 @@ def _grow_tree_impl(
         feature groups (tie-break: lowest original feature id)."""
         in_chunk = (local >= c0) & (local < c0 + m)
         loc = torch.where(in_chunk, local - c0, -1).to(torch.int32).contiguous()
+        # the kernels' row order, shared by every group of the chunk
+        rows = H.node_order(loc, m, g, h) if sorted_routes else None
         bg = bf = bb = None
         for (gbin, gmask, gb, gidx), c1h, route in zip(groups, codes1h, routes):
-            gg, gf, gbn = group_stats(gbin, gmask, gb, gidx, c1h, route, loc, m)
+            gg, gf, gbn = group_stats(gbin, gmask, gb, gidx, c1h, route, loc, m,
+                                      rows)
             if bg is None:
                 bg, bf, bb = gg, gf, gbn
             else:
