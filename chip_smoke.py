@@ -13,7 +13,12 @@ paths:
   (``tests/fixtures/torch_serving/{xgb,rf}``, trained and saved by the JAX
   package) are loaded with ``load_workflow_model`` and answer requests
   through ``score_function`` on ``cuda``; their scores are held to the ones
-  the JAX package stored;
+  the JAX package stored. Kernel K1 (the traversal) walks the stacks the
+  models packed once; it is checked bit for bit, per call and over packed
+  stacks, at synthetic shapes ((a)-(f): a depth-15 stack, a width only the
+  two-word layout holds, codes past 16 bits among them) and at the main
+  path's own trees, the packing is timed on its own, and the predictor's
+  device span is broken down by kernel group;
 * training: ``XGBoostClassifier`` and ``RandomForestClassifier`` fit the
   default selector's grids over 3 fold masks of a seeded 16384 x 928 table
   at the flagship vector's width (``fit_arrays_batched_masks``), every
@@ -24,7 +29,9 @@ paths:
   launches of one XGBoost round and of the first tree of each forest depth
   group are captured during that run, then each is relaunched, held
   against the plain version and timed; their mean, weighted by how often
-  each tree recurs on the path, is K2's entry in the kernels line;
+  each tree recurs on the path, is K2's entry in the kernels line. K1's
+  launches while the lanes are scored are captured the same way, one per
+  (family, depth, trees) group, weighted by the group's launches;
 * regression training: ``GBTRegressor`` and ``RandomForestRegressor`` fit
   the regression selector's grids on the same table's continuous target
   with a 256-bin sketch: the continuous columns' histograms through kernel
@@ -32,7 +39,10 @@ paths:
   GBT fit is bit-identical, the fixture's 256-bin regression fits are
   reproduced, and K3's launches of the middle GBT round and the first
   forest tree of each depth group are captured, relaunched and timed as
-  K2's are.
+  K2's are;
+* small fits: 3000-row XGBoost and RF fits take K2 on the card and equal
+  the same fits on the CPU bit for bit; their histograms are timed through
+  K2 and through the one-hot GEMM pair over the same launches.
 
 Kernel K4, the fused split search, is on no path of the reference (its
 policy never takes it); it is held against the two-phase split search it
@@ -144,6 +154,18 @@ GBT_GRID = [
     for d in (3, 6, 12) for gain in (0.001, 0.01, 0.1) for mi in (10, 100)
 ]
 RFR_GRID = [dict(p, max_bins=REG_BINS) for p in RF_GRID]
+#: fits at or below the reference's GEMM row count (4096): the training
+#: table's first rows, 32 bins, 3 fold masks, one small grid point each
+SMALL_ROWS = 3000
+SMALL_FITS = {
+    "xgb": ("XGBoostClassifier", {"num_round": 10, "eta": 0.3, "gamma": 0.0,
+                                  "max_depth": 6, "min_child_weight": 1.0,
+                                  "max_bins": 32}),
+    "rf": ("RandomForestClassifier", {"num_trees": 10, "max_depth": 6,
+                                      "min_info_gain": 0.001,
+                                      "min_instances_per_node": 10,
+                                      "max_bins": 32}),
+}
 #: leaf values and outputs against the JAX package's stored fit: f32 sums
 #: in the same order, held to a few ulps of values of order 1
 FIXTURE_TOL = 1e-5
@@ -174,25 +196,62 @@ def time_ms(torch, fn, arg_sets, reps: int = 20, rounds: int = 7) -> float:
     return statistics.median(times)
 
 
+#: profiler sessions ``device_ms`` tries before it turns to CUDA events
+PROFILE_TRIES = 3
+
+
 def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
-    """Device time per call of ``fn`` (every kernel it launches, from
-    ``torch.profiler``), successive calls taking successive entries of
-    ``arg_sets``, after one warm-up call. Unlike ``time_ms`` it leaves out
-    the gaps in which the card waits for the host to issue the next
-    kernel."""
+    """Device time per call of ``fn`` from ``torch.profiler``, successive
+    calls taking successive entries of ``arg_sets``, after one warm-up
+    call: for each kernel (or copy) the calls launch, its mean device time
+    times the launches it makes per call, summed. Unlike ``time_ms`` it
+    leaves out the gaps in which the card waits for the host to issue the
+    next kernel.
+
+    On the card a session sometimes misses a few of its activities, or all
+    of them. The mean per kernel is unmoved by a missed launch, where a sum
+    over the session would fall short; launches per call are rounded from
+    the count, so a kernel seen fewer than 3/4 of the expected times (or a
+    session that saw none) makes the session be taken again, after a
+    growing pause. After ``PROFILE_TRIES`` such sessions the reading is
+    taken with CUDA events (``time_ms``, which holds any host gaps) and
+    reported in a ``device_ms fallback`` phase of its own: a dropped
+    capture is never returned as a reading."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*arg_sets[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    total = sum(
-        evt.self_device_time_total for evt in prof.key_averages()
-        if evt.device_type == torch.autograd.DeviceType.CUDA
-    )
-    return total / 1e3 / calls
+    for attempt in range(PROFILE_TRIES):
+        time.sleep(0.25 * attempt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        per_call, seen, expected = 0.0, 0, 0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA or not evt.count:
+                continue
+            launches = max(1, round(evt.count / calls))
+            per_call += evt.self_device_time_total / evt.count * launches
+            seen += evt.count
+            expected += launches * calls
+        device_ms.missed_activities += expected - seen
+        if per_call > 0 and 4 * seen >= 3 * expected:
+            return per_call / 1e3
+        device_ms.empty_sessions += 1
+    ms = time_ms(torch, fn, arg_sets, reps=calls, rounds=3)
+    device_ms.event_fallbacks += 1
+    phase("device_ms fallback", fn=getattr(fn, "__name__", str(fn)),
+          empty_sessions=PROFILE_TRIES, event_ms=ms)
+    return ms
+
+
+#: activities the sessions of ``device_ms`` missed (of the launches their
+#: calls made), sessions it took again, and readings it took with CUDA
+#: events after ``PROFILE_TRIES`` of them
+device_ms.missed_activities = 0
+device_ms.empty_sessions = 0
+device_ms.event_fallbacks = 0
 
 
 def same_layout_clone(a):
@@ -222,6 +281,49 @@ def random_stack(rng, t, depth, f, bins):
         rng.integers(0, bins, size=(t, depth, w)).astype(np.int32),
         rng.normal(size=(t, w)).astype(np.float32),
     )
+
+
+#: K1 shapes: (N, F, T, depth, bins). (a) the default XGBoost point at
+#: the flagship vector's width and the scoring bucket cap; (b) the RF grid's
+#: deepest point; (c) ragged, with leaf-only trees; (d) trees deeper than
+#: shared memory holds (levels 10-14 read from global memory); (e) a width
+#: only the wide (two-word) layout holds (feature 65536 needs 17 bits);
+#: (f) split bins at the packed word's limit and codes past 16 bits, which
+#: the models' path also walks as two-word nodes. (a), (b) and the main
+#: path are timed
+K1_SHAPES = {
+    "a_xgb_flagship": (BUCKET_ROWS, 928, 200, 10, 32),
+    "b_rf": (BUCKET_ROWS, 928, 50, 12, 32),
+    "c_ragged": (133, 7, 5, 3, 8),
+    "d_deep": (2000, 50, 5, 15, 32),
+    "e_wide_features": (256, 65537, 12, 8, 32),
+    "f_codes_past_16_bits": (1024, 40, 16, 8, 1 << 16),
+}
+K1_TIMED = ("a_xgb_flagship", "b_rf", "main_path")
+
+
+def k1_inputs() -> dict:
+    """{label: (binned, split_feat, split_bin, leaf_value, timed)} numpy
+    inputs of K1's phases, from a seeded generator; ``main_path`` is the
+    xgb serving fixture's 200 depth-10 trees over an [8192, 10] plane of
+    its bins."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for label, (n, f, t, depth, bins) in K1_SHAPES.items():
+        sf, sb, lv = random_stack(rng, t, depth, f, bins)
+        if label.startswith("c"):
+            sf[[1, 3]] = -1  # leaf-only trees
+        top = 80000 if label.startswith("f") else bins
+        binned = rng.integers(0, top, size=(n, f)).astype(np.int32)
+        out[label] = (binned, sf, sb, lv, label in K1_TIMED)
+    with np.load(os.path.join(FIXTURES, "xgb", "arrays.npz")) as z:
+        arrays = {k.rsplit("__", 1)[-1]: z[k] for k in z.files
+                  if "__best__" in k}
+    bins = arrays["thresholds"].shape[1] + 1
+    binned = rng.integers(0, bins, size=(BUCKET_ROWS, arrays["thresholds"].shape[0]))
+    out["main_path"] = (binned.astype(np.int32), arrays["split_feat"],
+                        arrays["split_bin"], arrays["leaf_value"], True)
+    return out
 
 
 def traversal_touched_bytes(torch, binned, split_feat, split_bin) -> int:
@@ -265,38 +367,163 @@ def traversal_bound_ms(nbytes, n, t, depth) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_traversal(torch, ST, name, binned, sf, sb, lv, timed: bool) -> dict:
-    """Kernel against the plain walk on the same card tensors: bit-identical
-    or raise; with ``timed``, the kernel's and the plain walk's times with
-    the inputs out of L2 (and the kernel's with them L2-resident too)."""
-    args = [torch.from_numpy(a).to(DEV) for a in (binned, sf, sb, lv)]
-    got = ST.serve_trees(*args)
+def same_values(torch, a, b) -> bool:
+    """Equal shapes and values, NaN where the other has NaN (a forest's leaf
+    that no training row reached holds 0/0)."""
+    return a.shape == b.shape and torch.equal(a.isnan(), b.isnan()) and \
+        torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def packed_clone(packed):
+    """A copy of a ``PackedTrees`` in new device memory."""
+    return packed._replace(top=packed.top.clone(), bottom=packed.bottom.clone(),
+                           leaf_value=packed.leaf_value.clone(),
+                           leaf_tiles=packed.leaf_tiles.clone())
+
+
+def traversal_accuracy(torch, ST, name, args, packed) -> dict:
+    """K1 per call (``serve_trees``: the split arrays packed into two-word
+    nodes on the card, then the walk) and over the stack packed once on the
+    host (``serve_trees_packed``) against the plain walk on the same card
+    tensors, bit for bit; raise where either differs."""
     want = ST.serve_trees_reference(*args)
+    got = ST.serve_trees(*args)
+    got_packed = ST.serve_trees_packed(args[0], packed)
     torch.cuda.synchronize()
-    if got.shape != want.shape or not torch.equal(got, want):
-        bad = (got != want).sum().item() if got.shape == want.shape else "shape"
-        raise AssertionError(f"serve_trees {name}: kernel != plain walk ({bad})")
+    for label, out in (("per call", got), ("packed", got_packed)):
+        if not same_values(torch, out, want):
+            bad = (out != want).sum().item() if out.shape == want.shape else "shape"
+            raise AssertionError(f"serve_trees {name} ({label}): kernel != "
+                                 f"plain walk ({bad})")
+    return {"max_abs_err": max(
+        (out - want).nan_to_num().abs().max().item() if want.numel() else 0.0
+        for out in (got, got_packed))}
+
+
+def traversal_times(torch, ST, args, packed, host_pack_s=None) -> dict:
+    """K1 with the inputs out of L2, on both yardsticks: CUDA-event groups
+    (``time_ms``, PRs 1-4's) and the profiler's device time
+    (``device_ms``), per call (``kernel_ms``: the per-call packing and the
+    walk) and over the packed stack (``packed_ms``: the models' path); the
+    per-call packing alone (``pack_device_ms``); the plain walk; the
+    bound."""
+    n, _ = args[0].shape
+    t, depth, _ = args[1].shape
+    nbytes = traversal_touched_bytes(torch, *args[:3])
+    bound, by = traversal_bound_ms(nbytes, n, t, depth)
+    cold = l2_cold_copies(args, nbytes)
+    cold_packed = [[c[0], packed if i == 0 else packed_clone(packed)]
+                   for i, c in enumerate(cold)]
+    out = {
+        "kernel_ms": time_ms(torch, ST.serve_trees, cold),
+        "kernel_device_ms": device_ms(torch, ST.serve_trees, cold),
+        "packed_ms": time_ms(torch, ST.serve_trees_packed, cold_packed),
+        "packed_device_ms": device_ms(torch, ST.serve_trees_packed, cold_packed),
+        "packed_ms_l2_warm": time_ms(torch, ST.serve_trees_packed,
+                                     [[args[0], packed]]),
+        "pack_device_ms": device_ms(
+            torch, lambda sf, sb, lv: ST.pack_trees_plain(sf, sb, lv, True),
+            [c[1:] for c in cold]),
+        "plain_ms": time_ms(torch, ST.serve_trees_reference, cold, reps=3,
+                            rounds=5),
+        "layout": "wide" if packed.wide else "32-bit words",
+        "launch": ST.launch_shape(packed, n, args[0].shape[1]),
+        "traversal_touched_bytes": nbytes, "arg_copies": len(cold),
+        "bound_ms": bound, "bound_by": by,
+    }
+    if host_pack_s is not None:
+        out["host_pack_s"] = host_pack_s
+    del cold, cold_packed
+    return out
+
+
+def check_traversal(torch, ST, name, binned, sf, sb, lv, timed: bool) -> dict:
+    """K1 on numpy inputs: the stack packed on the host as a model packs
+    it (``pack_trees``, timed), the card's results against the plain walk
+    (``traversal_accuracy``); with ``timed``, ``traversal_times``."""
+    host = [torch.from_numpy(a) for a in (sf, sb, lv)]
+    s = time.perf_counter()
+    packed = ST.pack_trees(*host, num_features=binned.shape[1]).to(DEV)
+    torch.cuda.synchronize()
+    host_pack_s = time.perf_counter() - s
+    args = [torch.from_numpy(binned).to(DEV)] + [a.to(DEV) for a in host]
     n, f = binned.shape
     t, depth, _ = sf.shape
-    out = {
-        "shape": {"N": n, "F": f, "T": t, "depth": depth},
-        "max_abs_err": (got - want).abs().max().item() if got.numel() else 0.0,
-    }
+    out = {"shape": {"N": n, "F": f, "T": t, "depth": depth},
+           "top_levels": packed.top_levels,
+           **traversal_accuracy(torch, ST, name, args, packed)}
     if timed:
-        nbytes = traversal_touched_bytes(torch, *args[:3])
-        bound, by = traversal_bound_ms(nbytes, n, t, depth)
-        cold = l2_cold_copies(args, nbytes)
-        out.update(
-            kernel_ms=time_ms(torch, ST.serve_trees, cold),
-            kernel_ms_l2_warm=time_ms(torch, ST.serve_trees, [args]),
-            plain_ms=time_ms(
-                torch, ST.serve_trees_reference, cold, reps=3, rounds=5
-            ),
-            touched_bytes=nbytes, arg_copies=len(cold),
-            bound_ms=bound, bound_by=by,
-        )
-        del cold
+        out.update(traversal_times(torch, ST, args, packed, host_pack_s))
     return out
+
+
+class K1Capture:
+    """Records the first K1 launch of every (family, depth, trees) group
+    that scoring the fitted lanes makes (``serve_trees_packed``, the
+    models' path), with how many launches each group makes. It adds no
+    launch: every call reaches the wrapper once."""
+
+    def __init__(self, ST):
+        self.ST = ST
+        self.real = ST.serve_trees_packed
+        self.family = None
+        self.records: dict[tuple, dict] = {}
+
+    def __enter__(self):
+        def hook(binned, packed):
+            key = (self.family, packed.depth, packed.num_trees)
+            rec = self.records.get(key)
+            if rec is None:
+                self.records[key] = {"binned": binned, "packed": packed,
+                                     "count": 1}
+            else:
+                rec["count"] += 1
+            return self.real(binned, packed)
+
+        self.ST.serve_trees_packed = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.ST.serve_trees_packed = self.real
+        return False
+
+
+def check_k1_launches(torch, ST, records: dict) -> dict:
+    """Each captured training launch of K1 relaunched against the plain walk
+    (``traversal_accuracy``) and timed (``traversal_times``); the summary
+    weighs each by how many launches its group made."""
+    rows = []
+    for (family, depth, t), rec in records.items():
+        binned, packed = rec["binned"], rec["packed"]
+        args = [binned, *ST.unpack_trees(packed)]
+        name = f"{family} depth {depth} T={t}"
+        rows.append({
+            "family": family, "depth": depth, "T": t, "N": binned.shape[0],
+            "F": binned.shape[1], "weight": rec["count"],
+            **traversal_accuracy(torch, ST, name, args, packed),
+            **traversal_times(torch, ST, args, packed),
+        })
+        rec["binned"] = rec["packed"] = None
+    if not rows:
+        raise AssertionError("no serve_trees launch of the training path was "
+                             "captured")
+    total = sum(r["weight"] for r in rows)
+
+    def mean(key):
+        return sum(r["weight"] * r[key] for r in rows) / total
+
+    return {
+        "basis": "mean per launch, each captured launch weighted by the "
+                 "launches of its (family, depth, trees) group",
+        "launches": total,
+        **{key: mean(key) for key in (
+            "packed_ms", "packed_device_ms", "kernel_ms", "kernel_device_ms",
+            "pack_device_ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "captured": rows,
+    }
 
 
 def load_fixture(name: str):
@@ -352,11 +579,61 @@ def stage_seconds(torch, model, rows: list[dict]) -> dict[str, float]:
         out[key] = out.get(key, 0.0) + time.perf_counter() - s
         if isinstance(stage, PredictorModel):
             out["predictor_device_span"] = start.elapsed_time(end) / 1e3
+            out["predictor_breakdown"] = predictor_breakdown(
+                torch, stage, args, len(rows), out["predictor_device_span"])
     s = time.perf_counter()
     for f in model.result_features:
         cols[f.name].to_list()
     out["render"] = time.perf_counter() - s
     return out
+
+
+def predictor_breakdown(torch, stage, args, num_rows: int,
+                        span_s: float) -> dict:
+    """The predictor's device span (``span_s``, between CUDA events, run
+    unprofiled) broken down from one run of the stage under
+    ``torch.profiler``: device ms of the upload and the download (memcpy),
+    of ``bin_data``'s loop over thresholds (the kernels under its range),
+    of K1, and of the rest (the per-family reduction and the epilogue's
+    device part); the host gaps are the span less all of them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from transmogrifai_tpu_torch.models import trees as TR
+
+    real_bin = TR.bin_data
+
+    def bin_data(*a, **kw):
+        with record_function("predictor.bin_data"):
+            return real_bin(*a, **kw)
+
+    TR.bin_data = bin_data
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stage.transform_columns(*args, num_rows=num_rows)
+            torch.cuda.synchronize()
+    finally:
+        TR.bin_data = real_bin
+    ms = {"upload": 0.0, "download": 0.0, "K1 serve_trees": 0.0}
+    total = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", 0.0)
+        if not t or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += t / 1e3
+        name = evt.key.lower()
+        key = ("upload" if "htod" in name else "download" if "dtoh" in name
+               else "K1 serve_trees" if "serve_trees" in name else None)
+        if key:
+            ms[key] += t / 1e3
+    ms["bin_data"] = sum(e.device_time_total for e in prof.events()
+                         if e.name == "predictor.bin_data") / 1e3
+    if not total:
+        return {"device_ms": "not measured"}
+    ms["reduction and epilogue"] = total - sum(ms.values())
+    return {"device_ms": ms, "device_total_ms": total,
+            "span_ms": span_s * 1e3,
+            "host_gaps_ms": span_s * 1e3 - total}
 
 
 def hist_inputs(torch, n, f, b, k, m, ragged: bool, seed: int):
@@ -748,11 +1025,11 @@ PATH_MEANS = ("ms", "wrapper_ms", "kernel_only_ms", "order_ms", "plain_ms",
               "library_ms", "bound_ms")
 
 
-def combine_paths(summaries: dict, weights: dict,
-                  keys=PATH_MEANS) -> dict:
+def combine_paths(summaries: dict, weights: dict, keys=PATH_MEANS,
+                  ms_key: str = "ms") -> dict:
     """Main-path summaries of several paths (``check_main_launches``) as
     one: each per-launch mean in ``keys`` weighted by the path's estimated
-    launches (``weights``), the worst error, and each path's ``ms``."""
+    launches (``weights``), the worst error, and each path's ``ms_key``."""
     total = sum(weights.values())
     out = {key: sum(weights[p] * s[key] for p, s in summaries.items()) / total
            for key in keys}
@@ -761,7 +1038,7 @@ def combine_paths(summaries: dict, weights: dict,
     out["bound_by"] = "bytes" if 2 * by_bytes >= out["bound_ms"] * total \
         else "operations"
     out["max_abs_err"] = max(s["max_abs_err"] for s in summaries.values())
-    out["ms_by_path"] = {p: s["ms"] for p, s in summaries.items()}
+    out["ms_by_path"] = {p: s[ms_key] for p, s in summaries.items()}
     out["estimated_path_launches"] = total
     return out
 
@@ -814,10 +1091,15 @@ def check_lanes_score(x, models, boosted: bool, regression: bool = False) -> dic
     the terms' magnitudes (eta * R * max|leaf| for a boosted lane, max|leaf|
     for a forest); predictions finite and of the expected shape, with a
     probability block for a classifier and none for a ``regression``
-    (whose prediction is the score itself)."""
-    worst, n = 0.0, x.shape[0]
+    (whose prediction is the score itself). Each model is first placed on
+    its fit's device on its own, so that the host seconds of placement (the
+    packing of its stacks, then the copy to the card) are reported apart."""
+    worst, n, place_s = 0.0, x.shape[0], 0.0
     for row in models:
         for m in row:
+            s = time.perf_counter()
+            m.to(m.default_device)
+            place_s += time.perf_counter() - s
             core = m.predict_core(x)[:, 0]
             pred, prob, _ = m.predict_arrays(x)
             if regression:
@@ -841,7 +1123,9 @@ def check_lanes_score(x, models, boosted: bool, regression: bool = False) -> dic
                     f"{err} > {tol}"
                 )
             worst = max(worst, err / tol)
-    return {"lanes": sum(len(r) for r in models), "max_err_over_tol": worst}
+    lanes = sum(len(r) for r in models)
+    return {"lanes": lanes, "max_err_over_tol": worst,
+            "placement_s": place_s, "placement_s_per_model": place_s / lanes}
 
 
 def check_train_fixture(torch) -> dict:
@@ -893,36 +1177,68 @@ def check_train_fixture(torch) -> dict:
     return out
 
 
-def check_gemm_route(torch) -> dict:
-    """The card's GEMM route (N <= 4096): the one-hot products against the
-    float64 plain version at the flagship width (N=4096, the indicator
-    group, XGBoost's 6 lanes, the GEMM chunk of 128 slots), within the f32
-    summation bound; and one batched tree grown through it."""
+def check_small_fits(torch) -> dict:
+    """Fits of 4096 rows or fewer, which the card now gives K2 (the
+    port's former route took the float64 one-hot GEMM pair there): an
+    XGBoost fit and an RF fit of ``SMALL_ROWS`` rows of the training table
+    at 32 bins over 3 fold masks on the card equal the same fits on the CPU,
+    splits exactly and leaves and outputs bit for bit. Their histograms are
+    then timed on the card both ways over the same launches: K2 as the
+    grower runs it (each chunk's row order, then each group's histogram)
+    against the former route's GEMM pair (``build_histogram_gemm``, with
+    the code one-hots built outside the timed calls, once per fit as that
+    route built them)."""
+    from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
-    from transmogrifai_tpu_torch.models import trees as TR
 
-    n, f, b, k, m = 4096, 918, 2, 6, 128
-    binned, node, g, h = hist_inputs(torch, n, f, b, k, m, ragged=False, seed=7)
-    got = H.build_histogram_gemm(H.codes_one_hot(binned, b), node, g, h, m, b)
-    plain = H.build_histogram_scatter_batched
-    want = plain(binned, node, g.double(), h.double(), m, b)
-    mag = plain(binned, node, g.abs().double(), h.abs().double(), m, b)
-    err = (got.double() - want).abs()
-    if not bool((err <= n * U32 * mag + 1e-30).all()):
-        raise AssertionError(f"gemm route: max err {err.max().item()}")
-    x, y, _, _ = train_table(3000, seed=3)
-    thr = TR.quantile_thresholds(x, 32)
-    binned = TR.bin_data(torch.from_numpy(x).to(DEV), torch.from_numpy(thr).to(DEV))
-    gg = torch.from_numpy(np.stack([y - 0.5, y - 0.3]).astype(np.float32)).to(DEV)
-    tree = TR.grow_tree_batched(
-        binned, gg, torch.full_like(gg, 0.25), torch.ones_like(gg),
-        torch.ones((2, x.shape[1]), device=DEV), max_depth=6, num_bins=32,
-    )
-    sf = tree.split_feat
-    if not (bool((sf < x.shape[1]).all()) and bool((sf >= 0).any())
-            and bool(torch.isfinite(tree.leaf_value).any())):
-        raise AssertionError("gemm route: grown tree is malformed")
-    return {"hist_max_abs_err": err.max().item(), "grown_splits": int((sf >= 0).sum())}
+    x, y, _, masks = train_table(SMALL_ROWS, seed=3)
+    out = {"rows": SMALL_ROWS, "features": x.shape[1], "masks": len(masks)}
+    for name, (cls_name, point) in SMALL_FITS.items():
+        cls = getattr(G, cls_name)
+        cpu = cls(device="cpu").fit_arrays_batched_masks(x, y, masks, [point])
+        records, real = [], H.build_histogram_binloop
+
+        def hook(binned, node, g, h, m, b, order=None, real=real,
+                 records=records):
+            hist = real(binned, node, g, h, m, b, order=order)
+            records.append((binned, node, g, h, m, b, order))
+            return hist
+
+        hook.launches = real.launches
+        H.build_histogram_binloop = hook
+        try:
+            card = cls(device=DEV).fit_arrays_batched_masks(x, y, masks, [point])
+        finally:
+            real.launches = hook.launches
+            H.build_histogram_binloop = real
+        if not records:
+            raise AssertionError(f"small fit {name}: no hist_binloop launch")
+        if not same_fits(card, cpu):
+            raise AssertionError(f"small fit {name}: the card's trees differ "
+                                 "from the CPU's")
+        one_hots = {id(r[0]): H.codes_one_hot(r[0], r[5]) for r in records}
+
+        def via_k2():
+            orders = {}
+            for binned, node, g, h, m, b, order in records:
+                if id(order) not in orders:
+                    orders[id(order)] = H.node_order(node, m, g, h)
+                H.build_histogram_binloop(binned, node, g, h, m, b,
+                                          order=orders[id(order)])
+
+        def via_gemm(lowp=name == "rf"):
+            for binned, node, g, h, m, b, _ in records:
+                H.build_histogram_gemm(one_hots[id(binned)], node, g, h, m, b,
+                                       lowp=lowp)
+
+        out[name] = {
+            "point": point, "splits_and_leaves_equal_cpu": True,
+            "histograms": len(records),
+            "k2_ms": device_ms(torch, via_k2, [[]], calls=3),
+            "gemm_pair_ms": device_ms(torch, via_gemm, [[]], calls=3),
+        }
+        del records, one_hots
+    return out
 
 
 def where_time_goes_train(torch, title: str, fits) -> dict:
@@ -1048,8 +1364,11 @@ def train_path(torch, x, y, masks) -> dict:
         rf, rf_s, rf_syncs = fit_family(
             torch, G.RandomForestClassifier(device=DEV), x, y, masks, RF_GRID)
     orders = H.node_order.launches
-    xgb_score = check_lanes_score(x, xgb, boosted=True)
-    rf_score = check_lanes_score(x, rf, boosted=False)
+    with K1Capture(ST) as k1cap:
+        k1cap.family = "xgb"
+        xgb_score = check_lanes_score(x, xgb, boosted=True)
+        k1cap.family = "rf"
+        rf_score = check_lanes_score(x, rf, boosted=False)
     k2 = H.build_histogram_binloop.launches
     k1 = ST.serve_trees.launches
     H.build_histogram_binloop.launches = 0
@@ -1076,7 +1395,7 @@ def train_path(torch, x, y, masks) -> dict:
         "hist_binloop_launches": k2, "node_order_launches": orders,
         "serve_trees_launches_scoring": k1,
         "refit_bit_identical": True,
-        "_records": cap.records,
+        "_records": cap.records, "_k1_records": k1cap.records,
     }
 
 
@@ -1188,9 +1507,11 @@ def train_regression_path(torch, x, target, masks) -> dict:
     k3 = H.build_histogram_wide.launches
     k2 = H.build_histogram_binloop.launches
     orders = H.node_order.launches
-    for family, models in fitted.items():
-        out[family]["scoring"] = check_lanes_score(
-            x, models, boosted=family == "gbt", regression=True)
+    with K1Capture(ST) as k1cap:
+        for family, models in fitted.items():
+            k1cap.family = family
+            out[family]["scoring"] = check_lanes_score(
+                x, models, boosted=family == "gbt", regression=True)
     k1 = ST.serve_trees.launches
     if k1 == 0:
         raise AssertionError("scoring the regression lanes never launched "
@@ -1214,6 +1535,7 @@ def train_regression_path(torch, x, target, masks) -> dict:
         "node_order_launches": orders,
         "serve_trees_launches_scoring": k1, "refit_bit_identical": True,
         "_records": cap.records, "_records_k2": cap2.records,
+        "_k1_records": k1cap.records,
     }
 
 
@@ -1295,17 +1617,13 @@ def check_best_split(torch, H, name, n, f, b, k, m, seed: int) -> dict:
     ):
         raise AssertionError(f"{label}: gains differ by {max_err}")
     binned, node, g, h, fmask, lam, gam, mcw = args
-    route = H.histogram_route(binned.device, n, b)
-    c1h = H.codes_one_hot(binned, b) if route == "gemm" else None
+    route = H.histogram_route(binned.device, b)
 
     def fused(*a):
         return H.build_best_split(*a, m, b)
 
     def two_phase(binned, node, g, h, fmask, lam, gam, mcw):
-        if route == "gemm":
-            hist = H.build_histogram_gemm(c1h, node, g, h, m, b)
-        else:
-            hist = hist_kernel(H, "hist_binloop")(binned, node, g, h, m, b)
+        hist = hist_kernel(H, f"hist_{route}")(binned, node, g, h, m, b)
         return H.split_search(hist, fmask, lam, gam, mcw)
 
     bound, by = best_split_bound(torch, binned, node, g, h, m, b)
@@ -1321,6 +1639,30 @@ def check_best_split(torch, H, name, n, f, b, k, m, seed: int) -> dict:
     }
 
 
+def start_on_card(torch, sources: list[str]) -> None:
+    """Print the environment and the card's name and power limit, and
+    build the kernels of ``sources`` (one nvcc each, all started together),
+    printing ptxas's report."""
+    from transmogrifai_tpu_torch.utils import cuda_build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    phase(
+        "environment", python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        package=os.path.dirname(os.path.dirname(cuda_build.__file__)),
+    )
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    built = cuda_build.build(sources)
+    phase("build", seconds=time.perf_counter() - t0, per_source=built)
+    for name, log in cuda_build.build_logs.items():
+        print(f"nvcc {name}:\n{log.strip()}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1332,41 +1674,19 @@ def main() -> int:
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
     from transmogrifai_tpu_torch.models import serve_trees as ST
-    from transmogrifai_tpu_torch.utils import cuda_build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    phase(
-        "environment", python=sys.version.split()[0], torch=torch.__version__,
-        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-    )
-    print(smi, flush=True)
+    start_on_card(torch, ["serve_trees", "node_order", "hist_binloop",
+                          "hist_wide", "best_split"])
 
-    t0 = time.perf_counter()
-    built = cuda_build.build(["serve_trees", "node_order", "hist_binloop",
-                              "hist_wide", "best_split"])
-    phase("build", seconds=time.perf_counter() - t0, per_source=built)
-    for name, log in cuda_build.build_logs.items():
-        print(f"nvcc {name}:\n{log.strip()}", flush=True)
-
-    rng = np.random.default_rng(0)
-    shapes = {
-        "a_xgb_flagship": (BUCKET_ROWS, 928, 200, 10, 32),
-        "b_rf": (BUCKET_ROWS, 928, 50, 12, 32),
-        "c_ragged": (133, 7, 5, 3, 8),
-    }
-    for label, (n, f, t, depth, bins) in shapes.items():
-        sf, sb, lv = random_stack(rng, t, depth, f, bins)
-        if label == "c_ragged":
-            sf[[1, 3]] = -1  # leaf-only trees
-        binned = rng.integers(0, bins, size=(n, f)).astype(np.int32)
-        res = check_traversal(
-            torch, ST, label, binned, sf, sb, lv, timed=label != "c_ragged"
-        )
-        phase(f"serve_trees {label}", **res)
+    k1_shapes = k1_inputs()
+    k1_timed = {}
+    for label, (binned, sf, sb, lv, timed) in k1_shapes.items():
+        if label != "main_path":
+            row = check_traversal(torch, ST, label, binned, sf, sb, lv,
+                                  timed=timed)
+            phase(f"serve_trees {label}", **row)
+            if timed:
+                k1_timed[label] = row
 
     # the main path: fixtures scored on the card through the port's entry
     # points, with the launch count read around exactly this run
@@ -1402,24 +1722,25 @@ def main() -> int:
 
     # the kernel at the main path's own shape: the xgb winner's trees over
     # a [8192, F] plane of its width (launches here are not counted)
-    best = models["xgb"].stage_plan()[-1].best_model
-    trees = best.device_stacks[0]
-    num_f = best.thresholds.shape[0]
-    binned = rng.integers(0, best.thresholds.shape[1] + 1,
-                          size=(BUCKET_ROWS, num_f)).astype(np.int32)
-    main = check_traversal(
-        torch, ST, "main_path", binned,
-        *(a.cpu().numpy() for a in trees), timed=True,
-    )
+    main = check_traversal(torch, ST, "main_path", *k1_shapes["main_path"][:4],
+                           timed=True)
     phase("serve_trees main_path", **main)
+    k1_timed["main_path"] = main
     ST.serve_trees.launches = 0
+    phase("serve_trees packing", basis=(
+        "host_pack_s: a model's packing of its stacks at placement "
+        "(pack_trees, on the host, then the copy to the card); "
+        "pack_device_ms: the per-call packing of serve_trees on the card"),
+          **{label: {"host_pack_s": row["host_pack_s"],
+                     "pack_device_ms": row["pack_device_ms"]}
+             for label, row in k1_timed.items()})
 
     # kernel K2 at its shapes (launches here are not counted)
     for i, (label, (n, f, b, k, m)) in enumerate(K2_SHAPES.items()):
         phase(f"hist_binloop {label}", **check_hist(
             torch, H, "hist_binloop", label, n, f, b, k, m,
             timed=not label.startswith("c"), seed=i, root=label.endswith("root")))
-    phase("gemm_route", **check_gemm_route(torch))
+    phase("small_fits", **check_small_fits(torch))
     # kernel K3 at its shapes (launches here are not counted)
     for i, (label, (n, f, b, k, m)) in enumerate(K3_SHAPES.items()):
         phase(f"hist_wide {label}", **check_hist(
@@ -1437,6 +1758,7 @@ def main() -> int:
     x, y, target, masks = train_table(TRAIN_ROWS)
     train = train_path(torch, x, y, masks)
     records = train.pop("_records")
+    k1_records = train.pop("_k1_records")
     phase("train", **train)
     # K2 at the training path's own launches (relaunches are not counted)
     k2 = check_main_launches(torch, H, "hist_binloop", records, weights={
@@ -1448,7 +1770,15 @@ def main() -> int:
     reg = train_regression_path(torch, x, target, masks)
     records = reg.pop("_records")
     records_k2 = reg.pop("_records_k2")
+    k1_records_reg = reg.pop("_k1_records")
     phase("train_regression", **reg)
+    # K1 at both training paths' own launches (relaunches are not counted)
+    k1_train = check_k1_launches(torch, ST, k1_records)
+    phase("serve_trees main_path training", **k1_train)
+    k1_reg = check_k1_launches(torch, ST, k1_records_reg)
+    phase("serve_trees main_path regression training", **k1_reg)
+    del k1_records, k1_records_reg
+    ST.serve_trees.launches = 0
     # K3 and K2 at the regression path's own launches (relaunches are not
     # counted); K2's 2-bin launches there are held against the CPU's plain
     # version at the classifiers' launches and through the fixtures
@@ -1498,7 +1828,17 @@ def main() -> int:
         phase(f"best_split {label}", **k4[label])
     k4_launches = H.build_best_split.launches
     H.build_best_split.launches = 0
-    phase("wall", seconds=time.perf_counter() - t_start)
+    phase("wall", seconds=time.perf_counter() - t_start,
+          profiler_missed_activities=device_ms.missed_activities,
+          profiler_sessions_retaken=device_ms.empty_sessions,
+          device_ms_event_fallbacks=device_ms.event_fallbacks)
+
+    k1_weights = {"serving": launches, "training": k1_train["launches"],
+                  "regression training": k1_reg["launches"]}
+    k1_paths = combine_paths(
+        {"serving": main, "training": k1_train, "regression training": k1_reg},
+        k1_weights, keys=("packed_ms", "packed_device_ms", "kernel_ms",
+                          "plain_ms", "bound_ms"), ms_key="packed_ms")
 
     orders = combine_paths(
         {"training": k2["node_order"], "regression training": k2r["node_order"]},
@@ -1508,18 +1848,21 @@ def main() -> int:
         "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/serve_trees.cu",
         "replaces": "transmogrifai_tpu/models/serve_pallas.py:146",
+        "path": "times over the models' packed stacks (serve_trees_packed), "
+                "weighted by launches over serving and both training paths' "
+                "lane scoring; ms on CUDA-event groups, device_ms the "
+                "profiler's",
         "launches": launches,
-        "launches_by_path": {
-            "serving": launches,
-            "training (scoring the lanes)": train["serve_trees_launches_scoring"],
-            "regression training (scoring the lanes)":
-                reg["serve_trees_launches_scoring"],
-        },
-        "max_abs_err": main["max_abs_err"],
-        "ms": main["kernel_ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
+        "launches_by_path": k1_weights,
+        "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
+                           k1_reg["max_abs_err"]),
+        "ms": k1_paths["packed_ms"],
+        "ms_by_path": k1_paths["ms_by_path"],
+        "device_ms": k1_paths["packed_device_ms"],
+        "per_call_ms": k1_paths["kernel_ms"],
+        "plain_ms": k1_paths["plain_ms"],
+        "bound_ms": k1_paths["bound_ms"],
+        "bound_by": k1_paths["bound_by"],
         "library_ms": None,
     }, {
         "name": "hist_binloop",

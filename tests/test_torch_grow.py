@@ -4,8 +4,8 @@ same seeded, tie-free numpy inputs: IDENTICAL ``split_feat``/``split_bin``
 and leaf values within ``LEAF_TOL``, with and without feature groups, with
 mixed per-lane depth caps, at depth 0, with a lane whose root does not
 split, and above 4096 rows with the node chunks cut small so that the
-chunk loop, the occupancy skip and the card's bin-loop and GEMM routes
-(their plain versions on the CPU) all run."""
+chunk loop, the occupancy skip and the card's bin-loop route (its plain
+version on the CPU) all run, above and below 4096 rows."""
 import functools
 
 import numpy as np
@@ -135,7 +135,7 @@ def test_above_4096_rows_in_small_chunks(monkeypatch, route):
     binned, g, h, rm, fm, groups = _problem(4500, 5, 4, 2, seed=9)
     monkeypatch.setattr(PTR, "HIST_BUDGET_ELEMS", 2 * 2 * 9 * 32)
     monkeypatch.setattr(PTR, "HIST_BUDGET_FLOOR", 1)
-    monkeypatch.setattr(H, "histogram_route", lambda dev, n, b: route)
+    monkeypatch.setattr(H, "histogram_route", lambda dev, b: route)
     calls = []
     real = H.build_histogram_binloop
 
@@ -152,9 +152,12 @@ def test_above_4096_rows_in_small_chunks(monkeypatch, route):
 
 
 def test_gemm_route_matches_the_reference_gemm(monkeypatch):
-    """The card's GEMM route (float64 one-hot products) grows the trees
-    that the reference grows with its float32 GEMM histograms."""
-    monkeypatch.setattr(H, "histogram_route", lambda dev, n, b: "gemm")
+    """At N <= 4096, where the reference grows with its float32 GEMM
+    histograms, the card's route (K2's plain version here) grows the same
+    trees."""
+    card_route = functools.partial(H.histogram_route, torch.device("cuda"))
+    monkeypatch.setattr(H, "histogram_route", lambda dev, b: card_route(b))
+    assert H.histogram_route(None, 32) == "binloop"
     binned, g, h, rm, fm, groups = _problem(900, 4, 4, 3, seed=5)
     _assert_same(*_grow_both(binned, g, h, rm, fm, groups, hist_impl="gemm",
                              max_depth=4, **KNOBS))

@@ -3,7 +3,8 @@ hist``) against the JAX package's: the plain version of kernel K2 is held
 to JAX's scatter histograms (bit for bit: both add each cell's rows in
 ascending order) and to the Pallas bin-loop kernel in interpret mode
 within ``ATOL``, across dead rows, slots >= M, unaligned N and F, and K=2.
-The one-hot GEMM path is held to the reference's GEMM formulation. The
+The one-hot GEMM pair (the card's yardstick) is held to the reference's GEMM
+formulation, and shown to differ from the f32 scatter in the last ulps. The
 policy (``histogram_route``) and the wrapper's guards run without a card;
 the CUDA kernel itself is compared with the plain version only where a
 card is present."""
@@ -111,6 +112,50 @@ def test_gemm_path_matches_the_reference_gemm(n, f, b, k, m, lowp):
         np.testing.assert_allclose(got, plain, rtol=0, atol=ATOL)
 
 
+def test_gemm_pair_and_f32_scatter_differ_at_4096_rows():
+    """Why the card takes K2/K3 at N <= 4096 too: the float64 GEMM pair
+    rounds each exact cell sum once to f32, the plain scatter (and K2, K3
+    and the JAX package's CPU sums) adds the rows in f32 one by one, so on
+    the same seeded input some cells differ (in the last ulps), which can
+    flip a split at a near-tie. The route now sends a CUDA device to the
+    kernels at every N <= 4096."""
+    n, f, b, k, m = 4096, 6, 32, 2, 4
+    binned, node, g, h = _data(n, f, b, k, m, seed=41)
+    gemm = H.build_histogram_gemm(
+        H.codes_one_hot(torch.from_numpy(binned), b),
+        *(torch.from_numpy(a) for a in (node, g, h)), m, b,
+    ).numpy()
+    plain = _port(H.build_histogram_scatter_batched, binned, node, g, h, m, b)
+    differ = gemm != plain
+    assert differ.any()
+    np.testing.assert_allclose(gemm, plain, rtol=0, atol=ATOL)
+    cuda = torch.device("cuda")
+    assert H.histogram_route(cuda, 32) == "binloop"
+    assert H.histogram_route(cuda, 256) == "wide"
+
+
+def test_lowp_values_are_bf16_exact_so_kernel_sums_match_the_reference():
+    """The RF classifier (the reference's ``lowp``) gives the grower grad
+    -(y == 1) and hess 1, times bagging counts and a fold mask: small
+    integers, bf16-exact, whose f32 sums are exact in any order. So the
+    reference's bf16 GEMM and the plain f32 scatter (K2's order) agree bit
+    for bit on them."""
+    n, f, b, k, m = 3000, 5, 32, 3, 4
+    rng = np.random.default_rng(17)
+    binned, node, _, _ = _data(n, f, b, k, m, seed=17)
+    y = (rng.uniform(size=n) < 0.4).astype(np.float32)
+    weight = (rng.poisson(1.0, size=(k, n))
+              * (np.arange(n) % 3 != np.arange(k)[:, None])).astype(np.float32)
+    g, h = -y[None, :] * weight, np.ones((k, n), np.float32) * weight
+    for v in (g, h):
+        assert np.array_equal(
+            np.asarray(jnp.asarray(v).astype(jnp.bfloat16).astype(jnp.float32)), v)
+    want = _reference_gemm(*(jnp.asarray(a) for a in (binned, node, g, h)),
+                           m, b, lowp=True)
+    got = _port(H.build_histogram_binloop, binned, node, g, h, m, b)
+    assert np.array_equal(got, want)
+
+
 @pytest.mark.parametrize("n,k,m,case", [
     (200, 3, 4, "spread"),       # the original case
     (1500, 2, 5, "one_slot"),    # every row in one slot
@@ -167,13 +212,15 @@ def test_zero_weight_rows_change_no_sum():
 
 
 def test_route_follows_the_reference_policy():
+    """The reference's policy by bin count, at every row count on the card
+    (the reference's one-hot GEMMs at N <= 4096 sum in another order)."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    assert H.histogram_route(cpu, 10**6, 256) == "scatter"
-    assert H.histogram_route(cuda, 4096, 256) == "gemm"
-    assert H.histogram_route(cuda, 4097, 64) == "binloop"
-    assert H.histogram_route(cuda, 16384, 2) == "binloop"
-    assert H.histogram_route(cuda, 4097, 65) == "wide"
-    assert H.histogram_route(cuda, 16384, 256) == "wide"
+    assert H.histogram_route(cpu, 256) == "scatter"
+    assert H.histogram_route(cuda, 256) == "wide"
+    assert H.histogram_route(cuda, 32) == "binloop"
+    assert H.histogram_route(cuda, 64) == "binloop"
+    assert H.histogram_route(cuda, 2) == "binloop"
+    assert H.histogram_route(cuda, 65) == "wide"
 
 
 class TestWrapperGuards:

@@ -57,7 +57,7 @@ REQUIRED = (
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "chip_ab.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -126,7 +126,7 @@ def test_grower_shares_one_order_per_chunk_and_reproduces_fixture(
     equal the JAX package's stored ones."""
     monkeypatch.setattr(
         H, "histogram_route",
-        lambda dev, n, nb: "binloop" if nb <= H.BINLOOP_MAX_BINS else "wide")
+        lambda dev, nb: "binloop" if nb <= H.BINLOOP_MAX_BINS else "wide")
     calls = []
     real_order = H.node_order
 

@@ -3,9 +3,10 @@ classifiers and the XGBoost, GBT and random-forest regressors (estimators
 and fitted models).
 
 A model holds its quantile thresholds and stacked trees as numpy arrays,
-from a saved model or from a fit; ``to(device)`` validates them once and
-places them on the device as int32/float32 tensors (a fitted model places
-itself on its fit's device at its first predict). Every predict bins the
+from a saved model or from a fit; ``to(device)`` validates them once, packs
+each stack into the traversal kernel's node layout on the host
+(``serve_trees.pack_trees``) and places it on the device (a fitted model
+places itself on its fit's device at its first predict). Every predict bins the
 batch there, runs the traversal (the ``serve_trees`` kernel on the card),
 reduces per family, and finishes with the float64 host epilogue
 ``predictions_from_core``, whatever the batch size.
@@ -83,7 +84,7 @@ class _BinnedModel(PredictorModel):
         #: where a fitted model places itself at its first predict
         self.default_device: torch.device | None = None
         self._dev_thr: torch.Tensor | None = None
-        self.device_stacks: list[TR.Tree] = []
+        self.device_stacks: list[ST.PackedTrees] = []
 
     def _tree_stacks(self) -> tuple[list[TR.Tree], bool]:
         """(host tree stacks, one per output column; boosted?)"""
@@ -98,15 +99,16 @@ class _BinnedModel(PredictorModel):
         for t in stacks:
             _validate_stack(t, num_f)
 
-        def put(a, dtype):
-            return torch.tensor(np.asarray(a, dtype=dtype), device=device)
+        def host(a, dtype):
+            return torch.tensor(np.asarray(a, dtype=dtype))
 
-        self._dev_thr = put(self.thresholds, np.float32)
+        self._dev_thr = host(self.thresholds, np.float32).to(device)
+        # the kernel's node layout, packed here once from the host arrays
         self.device_stacks = [
-            TR.Tree(
-                put(t.split_feat, np.int32), put(t.split_bin, np.int32),
-                put(t.leaf_value, np.float32),
-            )
+            ST.pack_trees(
+                host(t.split_feat, np.int32), host(t.split_bin, np.int32),
+                host(t.leaf_value, np.float32), num_f,
+            ).to(device)
             for t in stacks
         ]
         self.device = device
@@ -588,9 +590,6 @@ class _ForestEstimator(_TreeEstimator):
     subset rate and their model class."""
 
     _STATIC_GRID_KEYS = ("num_trees", "max_depth", "max_bins", "seed")
-    #: the GEMM route may round the weighted one-hots to bf16 (exact for
-    #: indicator targets)
-    _LOWP = False
 
     def __init__(self, operation_name: str, num_trees: int, max_depth: int,
                  min_instances_per_node: int, min_info_gain: float,
@@ -636,7 +635,7 @@ class _ForestEstimator(_TreeEstimator):
             colsample_rate=float(self._colsample(x.shape[1])),
             min_instances=float(self.min_instances_per_node),
             min_info_gain=float(self.min_info_gain), seed=int(self.seed),
-            lowp=self._LOWP, feature_groups=fgroups,
+            feature_groups=fgroups,
         )
         model = self._model(thresholds, _host_tree(trees))
         model.default_device = dev
@@ -657,7 +656,7 @@ class _ForestEstimator(_TreeEstimator):
                 colsample_rate=float(colsample),
                 min_instances=knob("min_instances_per_node"),
                 min_info_gain=knob("min_info_gain"), seed=int(m0["seed"]),
-                lowp=self._LOWP, feature_groups=fgroups,
+                feature_groups=fgroups,
                 max_depth_v=None if uniform else depth.astype(np.int32),
                 return_outputs=True,
             )
@@ -673,7 +672,6 @@ class RandomForestClassifier(_ForestEstimator):
     featureSubsetStrategy 'auto' = sqrt for classification)."""
 
     model_type = "OpRandomForestClassifier"
-    _LOWP = True  # indicator targets are bf16-exact
 
     def __init__(self, num_trees: int = 20, max_depth: int = 5,
                  min_instances_per_node: int = 1, min_info_gain: float = 0.0,

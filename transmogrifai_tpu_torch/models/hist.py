@@ -27,8 +27,10 @@ shared by the K fits, node slots ``node`` [K, N] int32 (-1, and any slot
   once (``order=``), as the grower does per node chunk.
 * ``build_histogram_gemm`` is the reference's formulation for small row
   counts: a node one-hot [K, N, M] times a prebuilt code one-hot
-  [N, F*B], as two matrix products. It runs in float64 (which TF32 never
-  touches, whatever the caller's matmul settings) and rounds to float32.
+  [N, F*B], as two matrix products, in float64 (which TF32 never touches,
+  whatever the caller's matmul settings) rounded to float32. No route
+  takes it: it stays as the yardstick that ``chip_smoke.py`` times the
+  kernels against.
 
 ``split_search`` turns a histogram into each slot's best split, in the
 reference's arithmetic order; the grower calls it after every histogram.
@@ -37,10 +39,13 @@ search (``csrc/best_split.cu`` on the card; on the CPU the scatter
 histogram followed by ``split_search``). As in the reference, the grower
 never calls it.
 
-``histogram_route`` is the reference's policy (``trees.py:333``,
-``:444-464``), applied by tensor device: the plain version on the CPU; on
-the card the GEMM pair up to ``GEMM_MAX_ROWS`` rows, K2 above that for up
-to ``BINLOOP_MAX_BINS`` bins, and K3 for more bins.
+``histogram_route`` picks by tensor device: the plain version on the CPU;
+on the card K2 up to ``BINLOOP_MAX_BINS`` bins and K3 for more, at every
+row count. The reference builds histograms of 4096 rows or fewer as
+one-hot GEMMs (``trees.py:333``); the kernels sum every cell in f32 in
+ascending row order, as the JAX package's own sums on the CPU do, where a
+float64 product rounded to f32 can differ in the last ulp and flip a split
+at a near-tie.
 """
 from __future__ import annotations
 
@@ -51,8 +56,6 @@ import torch
 
 from ..utils import cuda_build
 
-#: the reference builds histograms as one-hot GEMMs up to this many rows
-GEMM_MAX_ROWS = 4096
 #: the bin-loop kernel's range; wider sketches take K3
 BINLOOP_MAX_BINS = 64
 #: K3 keeps one feature's cells in shared memory: its bin-count limit
@@ -76,18 +79,14 @@ _ENTRY = {
 }
 
 
-def histogram_route(device: torch.device, num_rows: int, num_bins: int) -> str:
-    """'scatter', 'gemm', 'binloop' or 'wide': the implementation the
-    reference's policy picks for this device and shape."""
+def histogram_route(device: torch.device, num_bins: int) -> str:
+    """'scatter', 'binloop' or 'wide': the implementation for this device
+    and bin count, the same at every row count."""
     if device.type == "cpu":
         return "scatter"
     if device.type != "cuda":
         raise ValueError(f"histograms: unsupported device {device}")
-    if num_rows <= GEMM_MAX_ROWS:
-        return "gemm"
-    if num_bins <= BINLOOP_MAX_BINS:
-        return "binloop"
-    return "wide"
+    return "binloop" if num_bins <= BINLOOP_MAX_BINS else "wide"
 
 
 def _check(binned, node, grad, hess, num_nodes, num_bins,

@@ -9,8 +9,8 @@ searched at 2 bins), node compaction to ``cap`` live slots, node chunks
 under a histogram memory budget, the per-chunk occupancy skip and the
 early exit once a level makes no split, per-lane depth caps, routing and
 leaf sums. Histograms come from ``hist.py`` (the plain scatter version on
-the CPU; on the card the one-hot GEMM pair up to 4096 rows, and above it
-kernel K2 up to 64 bins and K3 for wider sketches). Split search
+the CPU; on the card kernel K2 up to 64 bins and K3 for wider sketches, at
+every row count, where the reference takes one-hot GEMMs up to 4096 rows). Split search
 (``hist.split_search``) keeps the reference's expression order, its
 bin-axis sums in the order XLA's CPU backend takes them, and
 ``jnp.argmax``'s first-index tie-break, so where the histograms agree the
@@ -49,8 +49,6 @@ host_syncs = 0
 #: the reference's TPU kernel cap, max(8, min(256, 2^19 / (8 b_pad))) with
 #: b_pad the bin count rounded up to 128 (trees.py:395-403)
 KERNEL_NODE_CAP = 256
-#: the GEMM path's chunk ceiling (trees.py:383-394)
-GEMM_NODE_CAP = 128
 #: histogram elements per node chunk, over all K fits, and the per-fit
 #: floor (trees.py:369): the Spark maxMemoryInMB node-group equivalent
 HIST_BUDGET_ELEMS = 1 << 25
@@ -217,7 +215,7 @@ def grow_tree(binned, grad, hess, row_mask, feat_mask, max_depth, num_bins,
 
 def grow_tree_batched(binned, grad, hess, row_mask, feat_mask, max_depth,
                       num_bins, reg_lambda=1.0, gamma=0.0, min_child_weight=1.0,
-                      min_info_gain=0.0, lowp=False, feature_groups=None,
+                      min_info_gain=0.0, feature_groups=None,
                       max_depth_v=None) -> Tree:
     """Grow K trees at once, one per batched fit (grid point x fold), over
     codes shared by the fits. Returned arrays carry a leading K axis."""
@@ -225,7 +223,7 @@ def grow_tree_batched(binned, grad, hess, row_mask, feat_mask, max_depth,
         binned, grad, hess, row_mask, feat_mask, max_depth=max_depth,
         num_bins=num_bins, reg_lambda=reg_lambda, gamma=gamma,
         min_child_weight=min_child_weight, min_info_gain=min_info_gain,
-        lowp=lowp, feature_groups=feature_groups, max_depth_v=max_depth_v,
+        feature_groups=feature_groups, max_depth_v=max_depth_v,
     )[0]
 
 
@@ -238,7 +236,6 @@ def _grow_tree_impl(
     max_depth: int,
     num_bins: int,
     reg_lambda=1.0, gamma=0.0, min_child_weight=1.0, min_info_gain=0.0,
-    lowp: bool = False,
     feature_groups=None,      # (narrow_idx, wide_idx) original feature ids
     max_depth_v=None,         # [K] int per-lane depth caps
 ) -> tuple[Tree, torch.Tensor]:
@@ -299,12 +296,8 @@ def _grow_tree_impl(
             cap <<= 1
         cap = min(cap, max_nodes)
 
-    routes = [H.histogram_route(dev, n, gb) for _, _, gb, _ in groups]
+    routes = [H.histogram_route(dev, gb) for _, _, gb, _ in groups]
     sorted_routes = "binloop" in routes or "wide" in routes
-    codes1h = [
-        H.codes_one_hot(gbin, gb) if route == "gemm" else None
-        for (gbin, _, gb, _), route in zip(groups, routes)
-    ]
     # per-chunk histogram memory scales with K: the node chunk keeps
     # [K, chunk, F, B, 2] inside the budget (trees.py:363-373)
     hist_width = sum(gbin.shape[1] * gb for gbin, _, gb, _ in groups)
@@ -312,10 +305,7 @@ def _grow_tree_impl(
     chunk_cap = max(1, budget_elems // max(hist_width, 1))
     chunk_cap = 1 << (chunk_cap.bit_length() - 1)
     chunk_cap = min(chunk_cap, cap)
-    if "gemm" in routes:
-        m_cap = max(8, min(GEMM_NODE_CAP, (1 << 24) // max(k_fits * n, 1)))
-        chunk_cap = min(chunk_cap, 1 << (m_cap.bit_length() - 1))
-    elif "binloop" in routes or "wide" in routes:
+    if sorted_routes:
         b_pad = -(-b // 128) * 128
         m_cap = max(8, min(KERNEL_NODE_CAP, (1 << 19) // (8 * b_pad)))
         chunk_cap = min(chunk_cap, 1 << (m_cap.bit_length() - 1))
@@ -323,11 +313,9 @@ def _grow_tree_impl(
     chunk_nodes = min(chunk_cap, n_nodes)
     num_chunks = -(-n_nodes // chunk_nodes)
 
-    def group_stats(gbin, gmask, gb, gidx, c1h, route, loc, m, rows):
+    def group_stats(gbin, gmask, gb, gidx, route, loc, m, rows):
         """(gain, original feature, bin) of the best split per slot."""
-        if route == "gemm":
-            hist = H.build_histogram_gemm(c1h, loc, g, h, m, gb, lowp=lowp)
-        elif route == "binloop":
+        if route == "binloop":
             hist = H.build_histogram_binloop(gbin, loc, g, h, m, gb, order=rows)
         elif route == "wide":
             hist = H.build_histogram_wide(gbin, loc, g, h, m, gb, order=rows)
@@ -346,9 +334,8 @@ def _grow_tree_impl(
         # the kernels' row order, shared by every group of the chunk
         rows = H.node_order(loc, m, g, h) if sorted_routes else None
         bg = bf = bb = None
-        for (gbin, gmask, gb, gidx), c1h, route in zip(groups, codes1h, routes):
-            gg, gf, gbn = group_stats(gbin, gmask, gb, gidx, c1h, route, loc, m,
-                                      rows)
+        for (gbin, gmask, gb, gidx), route in zip(groups, routes):
+            gg, gf, gbn = group_stats(gbin, gmask, gb, gidx, route, loc, m, rows)
             if bg is None:
                 bg, bf, bb = gg, gf, gbn
             else:
@@ -575,7 +562,7 @@ def _bag_masks(tkey, sub, col, row_mask, n, f, bootstrap):
 def _forest_trees(binned, target, row_mask, seed, sub, col, min_instances,
                   min_info_gain, feature_groups=None, max_depth_v=None,
                   subset_n=None, subset_w=None, *, num_trees, max_depth,
-                  num_bins, bootstrap, lowp):
+                  num_bins, bootstrap):
     """The bagged forest tree by tree (``_forest_trees_scan``): per-tree
     keys split from ``seed``, masks drawn per tree, one batched growth per
     tree. Returns (trees [K, T, ...], each lane's mean-leaf output on every
@@ -602,7 +589,7 @@ def _forest_trees(binned, target, row_mask, seed, sub, col, min_instances,
         grp = (subset_n[t], subset_w[t]) if subset_n is not None else feature_groups
         tree, node = _grow_tree_impl(
             binned, gneg, ones, _upload(rm_t, dev), _upload(fm_t, dev),
-            max_depth=max_depth, num_bins=num_bins, lowp=lowp,
+            max_depth=max_depth, num_bins=num_bins,
             feature_groups=grp, max_depth_v=max_depth_v, **knobs,
         )
         preds.append(_small_table_lookup(tree.leaf_value, node))
@@ -616,7 +603,7 @@ def _forest_trees(binned, target, row_mask, seed, sub, col, min_instances,
 def fit_forest_batched(binned, target, row_mask, num_trees, max_depth,
                        num_bins, subsample_rate=1.0, colsample_rate=1.0,
                        min_instances=1.0, min_info_gain=0.0, seed=42,
-                       bootstrap=True, lowp=False, feature_groups=None,
+                       bootstrap=True, feature_groups=None,
                        max_depth_v=None, return_outputs=False):
     """K random forests batched over the fit axis. Returns trees
     [K, T, ...]; with ``return_outputs`` also the [K, N] mean-leaf training
@@ -667,14 +654,14 @@ def fit_forest_batched(binned, target, row_mask, num_trees, max_depth,
         vec_np(colsample_rate), min_instances, min_info_gain,
         feature_groups=feature_groups, max_depth_v=max_depth_v,
         subset_n=subset_n, subset_w=subset_w, num_trees=num_trees,
-        max_depth=max_depth, num_bins=num_bins, bootstrap=bootstrap, lowp=lowp,
+        max_depth=max_depth, num_bins=num_bins, bootstrap=bootstrap,
     )
     return (trees, outs) if return_outputs else trees
 
 
 def fit_forest(binned, target, row_mask, num_trees, max_depth, num_bins,
                subsample_rate=1.0, colsample_rate=1.0, min_instances=1.0,
-               min_info_gain=0.0, seed=42, bootstrap=True, lowp=False,
+               min_info_gain=0.0, seed=42, bootstrap=True,
                feature_groups=None) -> Tree:
     """Random forest of mean-target trees: the K=1 case of
     ``fit_forest_batched``. Returns stacked trees [T, ...]."""
@@ -683,6 +670,6 @@ def fit_forest(binned, target, row_mask, num_trees, max_depth, num_bins,
         max_depth=max_depth, num_bins=num_bins, subsample_rate=subsample_rate,
         colsample_rate=colsample_rate, min_instances=min_instances,
         min_info_gain=min_info_gain, seed=int(seed), bootstrap=bootstrap,
-        lowp=lowp, feature_groups=feature_groups,
+        feature_groups=feature_groups,
     )
     return Tree(*(a[0] for a in trees))
