@@ -10,10 +10,11 @@ against its plain PyTorch version on the card, then drives the port's two
 paths:
 
 * serving: the committed fixture models
-  (``tests/fixtures/torch_serving/{xgb,rf}``, trained and saved by the JAX
-  package) are loaded with ``load_workflow_model`` and answer requests
+  (``tests/fixtures/torch_serving/{xgb,rf,lr}``, trained and saved by the
+  JAX package) are loaded with ``load_workflow_model`` and answer requests
   through ``score_function`` on ``cuda``; their scores are held to the ones
-  the JAX package stored. Kernel K1 (the traversal) walks the stacks the
+  the JAX package stored (the tree models' equal, the logistic model's
+  within 1e-6). Kernel K1 (the traversal) walks the stacks the
   models packed once; it is checked bit for bit, per call and over packed
   stacks, at synthetic shapes ((a)-(f): a depth-15 stack, a width only the
   two-word layout holds, codes past 16 bits among them) and at the main
@@ -42,7 +43,22 @@ paths:
   K2's are;
 * small fits: 3000-row XGBoost and RF fits take K2 on the card and equal
   the same fits on the CPU bit for bit; their histograms are timed through
-  K2 and through the one-hot GEMM pair over the same launches.
+  K2 and through the one-hot GEMM pair over the same launches;
+* the tree sum: every tree model's [N, T] leaf values are reduced per row
+  in tree order by the ``tree_sum`` kernel (``csrc/tree_sum.cu``), the
+  JAX package's serving arithmetic, so the xgb and rf fixtures' scores
+  equal the stored ones. The kernel is held bit for bit against its plain
+  version at synthetic shapes and at the calls captured on the serving and
+  both training paths, and timed there;
+* GLM serving and training: the ``lr`` fixture (a JAX-saved flagship twin
+  whose selector picked ``LogisticRegression``) is served on the card
+  within 1e-6 of its stored scores; ``LogisticRegression`` and
+  ``LinearRegression`` sweep the selectors' default 8-point grid over the
+  training table's 3 fold masks (24 lanes run as 32) on the card, with one
+  host sync per sweep (counted by CUDA's sync debug mode), a bit-identical
+  second sweep, every lane scored through ``predict_arrays`` on the card,
+  and the training fixture's JAX-fitted lanes reproduced within the
+  tests' tolerances.
 
 Kernel K4, the fused split search, is on no path of the reference (its
 policy never takes it); it is held against the two-phase split search it
@@ -77,10 +93,11 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 #: H100 SXM L2 cache, bytes
 L2_BYTES = 50 * 2**20
-#: probability tolerance against the JAX package's stored scores: f32 sums
-#: of up to 200 per-tree values taken in another order (see
-#: tests/test_torch_scoring.py)
-PROB_ATOL = 1e-5
+#: score tolerance against the JAX package's stored scores, per serving
+#: fixture: the tree models are summed in the reference's own order (the
+#: tree_sum kernel), so their scores are equal; the logistic model's core
+#: is float64 x @ w + b in another summation order (tests/test_torch_glm.py)
+PROB_ATOL = {"xgb": 0.0, "rf": 0.0, "lr": 1e-6}
 BUCKET_ROWS = 8192  # the reference's scoring bucket cap
 #: unit roundoff of float32: a sequential f32 sum of n terms is within
 #: n * U32 * sum|term| of the exact sum
@@ -526,6 +543,269 @@ def check_k1_launches(torch, ST, records: dict) -> dict:
     }
 
 
+#: tree-sum shapes: (N, T, boosted). (a) the main path's xgb winner (200
+#: rounds) and (b) its rf (50 trees) at the scoring bucket cap; (c) ragged;
+#: (d) more trees than one staged tile holds, a row count off the block
+TREE_SUM_SHAPES = {
+    "a_boosted_main": (BUCKET_ROWS, 200, True),
+    "b_forest_main": (BUCKET_ROWS, 50, False),
+    "c_ragged": (1001, 7, True),
+    "d_two_tiles": (333, 257, False),
+}
+
+
+def tree_sum_bound_ms(n: int, t: int) -> tuple[float, str]:
+    """The tree sum reads [N, T] f32 once and writes [N] f32; it adds N*T
+    values and takes N epilogues (two operations each)."""
+    by_bytes = (n * t + n) * 4 / HBM_BYTES_PER_S * 1e3
+    by_ops = (n * t + 2 * n) / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_tree_sum(torch, TS, name, per_tree, boosted, eta, base,
+                   timed: bool) -> dict:
+    """The tree-sum kernel against its plain version on the same card
+    tensor and on a CPU copy, bit for bit (NaN where the other has NaN: a
+    forest leaf no training row reached holds 0/0); with ``timed``, its
+    time on both yardsticks with the inputs out of L2, the plain version's,
+    one ``torch.sum(dim=1)``'s (the library call for the sum alone) and the
+    bound."""
+    got = TS.tree_sum(per_tree, boosted, eta, base)
+    want = TS.tree_sum_plain(per_tree, boosted, eta, base)
+    cpu = TS.tree_sum_plain(per_tree.cpu(), boosted, eta, base)
+    torch.cuda.synchronize()
+    if not (same_values(torch, got, want) and same_values(torch, got.cpu(), cpu)):
+        bad = int((got != want).sum().item())
+        raise AssertionError(f"tree_sum {name}: kernel != plain version "
+                             f"({bad} rows)")
+    n, t = per_tree.shape
+    out = {"shape": {"N": n, "T": t}, "boosted": bool(boosted),
+           "max_abs_err": float((got - want).nan_to_num().abs().max().item())
+           if n else 0.0, "bit_identical": True}
+    if timed:
+        bound, by = tree_sum_bound_ms(n, t)
+        cold = l2_cold_copies([per_tree], per_tree.numel() * 4)
+
+        def kernel(pt):
+            return TS.tree_sum(pt, boosted, eta, base)
+
+        def plain(pt):
+            return TS.tree_sum_plain(pt, boosted, eta, base)
+
+        def library(pt):
+            return torch.sum(pt, dim=1)
+
+        out.update({
+            "ms": time_ms(torch, kernel, cold),
+            "device_ms": device_ms(torch, kernel, cold),
+            "plain_ms": time_ms(torch, plain, cold, reps=3, rounds=5),
+            "library_ms": time_ms(torch, library, cold),
+            "library_device_ms": device_ms(torch, library, cold),
+            "bound_ms": bound, "bound_by": by, "arg_copies": len(cold),
+        })
+        del cold
+    return out
+
+
+class TreeSumCapture:
+    """Records the first tree-sum call of every (path, N, T, boosted) group
+    that the predictors make (through ``serve_trees``'s name for it), with
+    how many calls each group makes. It adds no launch."""
+
+    def __init__(self, ST):
+        self.ST = ST
+        self.real = ST.tree_sum
+        self.path = None
+        self.records: dict[tuple, dict] = {}
+
+    def __enter__(self):
+        def hook(per_tree, boosted, eta=0.0, base_score=0.0):
+            key = (self.path, per_tree.shape[0], per_tree.shape[1], bool(boosted))
+            rec = self.records.get(key)
+            if rec is None:
+                self.records[key] = {"per_tree": per_tree.clone(), "eta": eta,
+                                     "base": base_score, "count": 1}
+            else:
+                rec["count"] += 1
+            return self.real(per_tree, boosted, eta, base_score)
+
+        self.ST.tree_sum = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.ST.tree_sum = self.real
+        return False
+
+
+def check_tree_sum_path(torch, TS, records: dict, path: str) -> dict:
+    """Each tree-sum call captured on ``path`` relaunched against the plain
+    version and timed (right after the path ran: the profiler misses more
+    activities late in a long run); the means weighted by each group's
+    calls."""
+    rows = []
+    for key in [k for k in records if k[0] == path]:
+        _, n, t, boosted = key
+        rec = records.pop(key)
+        rows.append({"weight": rec["count"], **check_tree_sum(
+            torch, TS, f"{path} N={n} T={t}", rec["per_tree"], boosted,
+            rec["eta"], rec["base"], timed=True)})
+    if not rows:
+        raise AssertionError(f"no tree_sum call of the {path} path was captured")
+    total = sum(r["weight"] for r in rows)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms")
+    return {
+        "basis": "mean per launch, each captured call weighted by the calls "
+                 "of its (N, T, boosted) group",
+        "launches": total,
+        **{k: sum(r["weight"] * r[k] for r in rows) / total for k in keys},
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "captured": rows,
+    }
+
+
+def count_syncs(torch, fn):
+    """(fn(), the host syncs it made): CUDA's sync debug mode warns at every
+    operation that makes the host wait for the card (a device-to-host copy,
+    a blocking upload, ``.item()``); the warnings are counted."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return out, len(syncs), sorted({str(w.message)[:120] for w in syncs})
+
+
+#: the selectors' default GLM grid (selector/model_selector.py:51-53:
+#: REGULARIZATION x ELASTIC_NET, MAX_ITER_LIN, FIT_INTERCEPT), the binary
+#: selector's LogisticRegression and the regression selector's
+#: LinearRegression (:497-506) alike; 8 points x 3 folds = 24 lanes, run
+#: padded to 32
+GLM_GRID = [
+    {"reg_param": r, "elastic_net_param": e, "max_iter": 50,
+     "fit_intercept": True}
+    for e in (0.1, 0.5) for r in (0.001, 0.01, 0.1, 0.2)
+]
+#: against the JAX package's stored lanes (tests/test_torch_glm.py): linear
+#: (rtol, atol) = (1e-5, 2e-6); logistic rtol = atol = 0.0135
+GLM_LINEAR_TOL = (1e-5, 2e-6)
+GLM_LOGISTIC_TOL = 0.0135
+GLM_PREDICT_ATOL = 1e-6
+
+
+def glm_lane_errors(models, want_w, want_b) -> tuple:
+    """(weights' and intercepts' max abs difference, the lanes' weights
+    [masks, points, D] and intercepts [masks, points])."""
+    got_w = np.array([[m.weights for m in row] for row in models])
+    got_b = np.array([[m.intercept for m in row] for row in models])
+    return (float(np.abs(got_w - want_w).max()),
+            float(np.abs(got_b - want_b).max()), got_w, got_b)
+
+
+def glm_within(family, got, want) -> bool:
+    rtol, atol = ((GLM_LOGISTIC_TOL, GLM_LOGISTIC_TOL) if family == "lr"
+                  else GLM_LINEAR_TOL)
+    return bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+
+
+def glm_train_path(torch, x, y, target, masks) -> dict:
+    """The GLM slice's training path: ``LogisticRegression`` and
+    ``LinearRegression`` sweep the default grid over the 3 fold masks of
+    the training table (NaN read as 0), on the card; seconds per sweep on
+    the host clock, ending in the collector's download, and the host syncs
+    a sweep makes; a second sweep bit-identical; every lane scored through
+    ``predict_arrays`` on the card against the float64 ``x @ w + b``; then
+    the training fixture's lanes against the JAX package's."""
+    from transmogrifai_tpu_torch.models.linear import LinearRegression
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegression
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the GLM fits need float32")
+    xg = np.nan_to_num(x)
+    out = {"rows": xg.shape[0], "features": xg.shape[1],
+           "lanes": len(GLM_GRID) * len(masks), "padded_lanes": 32}
+    for family, cls, label in (("lr", LogisticRegression, y),
+                               ("linr", LinearRegression, target)):
+        est = cls(device=DEV)
+        s = time.perf_counter()
+        first, syncs, kinds = count_syncs(
+            torch, lambda: est.fit_arrays_batched_masks(xg, label, masks, GLM_GRID))
+        first_s = time.perf_counter() - s
+        secs = []
+        for _ in range(2):
+            s = time.perf_counter()
+            again = est.fit_arrays_batched_masks(xg, label, masks, GLM_GRID)
+            secs.append(time.perf_counter() - s)
+        same = all(np.array_equal(a.weights, b.weights)
+                   and np.array_equal(a.intercept, b.intercept)
+                   for ra, rb in zip(first, again) for a, b in zip(ra, rb))
+        if not same:
+            raise AssertionError(f"glm_train {family}: a second sweep is not "
+                                 "bit-identical")
+        if syncs != 1:
+            raise AssertionError(f"glm_train {family}: a sweep made {syncs} "
+                                 f"host syncs, not 1: {kinds}")
+        worst = 0.0
+        xd = xg.astype(np.float64)
+        for row in first:
+            for m in row:
+                pred, prob, raw = m.predict_arrays(xg)
+                if m.device is None or m.device.type != torch.device(DEV).type:
+                    raise AssertionError(f"{m}: predicted off the card")
+                core = xd @ m.weights + m.intercept
+                got = raw[:, 1] if family == "lr" else pred
+                if not np.isfinite(got).all() or got.shape != (xg.shape[0],):
+                    raise AssertionError(f"{m}: bad predictions {got.shape}")
+                worst = max(worst, float(np.abs(got - core).max()))
+        if worst > GLM_PREDICT_ATOL:
+            raise AssertionError(f"glm_train {family}: predict_arrays differs "
+                                 f"from x @ w + b by {worst}")
+        out[family] = {"seconds_first": first_s, "seconds": secs,
+                       "host_syncs_per_sweep": syncs,
+                       "refit_bit_identical": True,
+                       "predict_max_abs_err_vs_f64_core": worst}
+    out["fixture"] = check_glm_fixture(torch)
+    return out
+
+
+def check_glm_fixture(torch) -> dict:
+    """The JAX package's stored GLM sweeps of the training fixture (5000
+    rows, NaN read as 0, 3 folds x the default grid), reproduced on the
+    card within the tests' tolerances; the measured differences."""
+    from transmogrifai_tpu_torch.models.linear import LinearRegression
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegression
+
+    with np.load(os.path.join(TRAIN_FIXTURE, "table.npz")) as z:
+        x, y, target, masks = (np.nan_to_num(z["x"]), z["y"], z["target"],
+                               z["masks"])
+    with open(os.path.join(TRAIN_FIXTURE, "config.json")) as fh:
+        grids = json.load(fh)["glm_grids"]
+    out = {}
+    for family, cls, label in (("lr", LogisticRegression, y),
+                               ("linr", LinearRegression, target)):
+        with np.load(os.path.join(TRAIN_FIXTURE, f"{family}.npz")) as z:
+            want_w, want_b = z["weights"], z["intercept"]
+        models = cls(device=DEV).fit_arrays_batched_masks(
+            x, label, list(masks), grids[family])
+        dw, db, got_w, got_b = glm_lane_errors(models, want_w, want_b)
+        out[family] = {"weights_max_abs_err": dw, "intercept_max_abs_err": db}
+        if not (glm_within(family, got_w, want_w)
+                and glm_within(family, got_b, want_b)):
+            raise AssertionError(
+                f"glm fixture {family}: lanes differ from the JAX package's "
+                f"(weights {dw}, intercepts {db})")
+    return out
+
+
 def load_fixture(name: str):
     path = os.path.join(FIXTURES, name)
     with open(os.path.join(path, "rows.json")) as fh:
@@ -535,20 +815,28 @@ def load_fixture(name: str):
     return path, rows, want
 
 
-def check_scores(name: str, out: list[dict], want: dict) -> None:
+def check_scores(name: str, out: list[dict], want: dict) -> float:
+    """The scores of ``out`` against the stored ones (tiled to its length):
+    equal predictions, probabilities and raw scores within the fixture's
+    ``PROB_ATOL``; returns the largest difference."""
     preds = [next(iter(r.values())) for r in out]
     prob = np.array([[p["probability_0"], p["probability_1"]] for p in preds])
+    raw = np.array([[p["rawPrediction_0"], p["rawPrediction_1"]] for p in preds])
     pred = np.array([p["prediction"] for p in preds])
     reps = -(-len(preds) // len(want["prediction"]))
     w_prob = np.tile(want["probability"], (reps, 1))[: len(preds)]
+    w_raw = np.tile(want["raw"], (reps, 1))[: len(preds)]
     w_pred = np.tile(want["prediction"], reps)[: len(preds)]
     if prob.shape != w_prob.shape or not np.isfinite(prob).all():
         raise AssertionError(f"{name}: bad probability block {prob.shape}")
-    err = float(np.abs(prob - w_prob).max())
-    if err > PROB_ATOL or not np.array_equal(pred, w_pred):
+    err = max(float(np.abs(prob - w_prob).max()),
+              float(np.abs(raw - w_raw).max()))
+    if err > PROB_ATOL[name] or not np.array_equal(pred, w_pred):
         raise AssertionError(
-            f"{name}: scores differ from the JAX package's (max prob err {err})"
+            f"{name}: scores differ from the JAX package's (max err {err} > "
+            f"{PROB_ATOL[name]})"
         )
+    return err
 
 
 def stage_seconds(torch, model, rows: list[dict]) -> dict[str, float]:
@@ -614,7 +902,8 @@ def predictor_breakdown(torch, stage, args, num_rows: int,
             torch.cuda.synchronize()
     finally:
         TR.bin_data = real_bin
-    ms = {"upload": 0.0, "download": 0.0, "K1 serve_trees": 0.0}
+    ms = {"upload": 0.0, "download": 0.0, "K1 serve_trees": 0.0,
+          "tree_sum": 0.0}
     total = 0.0
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", 0.0)
@@ -623,7 +912,8 @@ def predictor_breakdown(torch, stage, args, num_rows: int,
         total += t / 1e3
         name = evt.key.lower()
         key = ("upload" if "htod" in name else "download" if "dtoh" in name
-               else "K1 serve_trees" if "serve_trees" in name else None)
+               else "K1 serve_trees" if "serve_trees" in name
+               else "tree_sum" if "tree_sum" in name else None)
         if key:
             ms[key] += t / 1e3
     ms["bin_data"] = sum(e.device_time_total for e in prof.events()
@@ -1674,9 +1964,20 @@ def main() -> int:
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
     from transmogrifai_tpu_torch.models import serve_trees as ST
+    from transmogrifai_tpu_torch.models import tree_sum as TS
 
-    start_on_card(torch, ["serve_trees", "node_order", "hist_binloop",
-                          "hist_wide", "best_split"])
+    start_on_card(torch, ["serve_trees", "tree_sum", "node_order",
+                          "hist_binloop", "hist_wide", "best_split"])
+
+    # the tree-sum kernel at its shapes (launches here are not counted)
+    rng = np.random.default_rng(7)
+    for label, (n, t, boosted) in TREE_SUM_SHAPES.items():
+        per_tree = torch.from_numpy(
+            (rng.normal(size=(n, t)) * 10.0 ** rng.integers(-3, 2, (n, t)))
+            .astype(np.float32)).to(DEV)
+        phase(f"tree_sum {label}", **check_tree_sum(
+            torch, TS, label, per_tree, boosted, 0.02, 0.37,
+            timed=not label.startswith(("c", "d"))))
 
     k1_shapes = k1_inputs()
     k1_timed = {}
@@ -1689,30 +1990,54 @@ def main() -> int:
                 k1_timed[label] = row
 
     # the main path: fixtures scored on the card through the port's entry
-    # points, with the launch count read around exactly this run
+    # points, with the launch counts read around exactly this run; the tree
+    # models' scores must equal the JAX package's, the logistic model's
+    # lie within 1e-6 (its float64 core in another summation order)
+    TS.tree_sum.launches = 0
     ST.serve_trees.launches = 0
-    models, rates = {}, {}
-    for name in ("xgb", "rf"):
-        path, rows, want = load_fixture(name)
-        model = load_workflow_model(path)
-        fn = score_function(model)
-        check_scores(name, [fn(rows[0])], {k: v[:1] for k, v in want.items()})
-        check_scores(name, fn.batch(rows), want)
-        big = (rows * (-(-BUCKET_ROWS // len(rows))))[:BUCKET_ROWS]
-        check_scores(name, fn.batch(big), want)
-        secs = []
-        for _ in range(3):
-            s = time.perf_counter()
-            fn.batch(big)
-            secs.append(time.perf_counter() - s)
-        rates[name] = BUCKET_ROWS / statistics.median(secs)
-        models[name] = model
+    models, rates, score_err = {}, {}, {}
+    ts_cap = TreeSumCapture(ST)
+    with ts_cap:
+        ts_cap.path = "serving"
+        for name in ("xgb", "rf", "lr"):
+            path, rows, want = load_fixture(name)
+            model = load_workflow_model(path)
+            fn = score_function(model)
+            errs = [check_scores(name, [fn(rows[0])],
+                                 {k: v[:1] for k, v in want.items()}),
+                    check_scores(name, fn.batch(rows), want)]
+            big = (rows * (-(-BUCKET_ROWS // len(rows))))[:BUCKET_ROWS]
+            errs.append(check_scores(name, fn.batch(big), want))
+            secs = []
+            for _ in range(3):
+                s = time.perf_counter()
+                fn.batch(big)
+                secs.append(time.perf_counter() - s)
+            rates[name] = BUCKET_ROWS / statistics.median(secs)
+            score_err[name] = max(errs)
+            models[name] = model
     launches = ST.serve_trees.launches
+    ts_launches = TS.tree_sum.launches
     ST.serve_trees.launches = 0
+    TS.tree_sum.launches = 0
     if launches == 0:
         raise AssertionError("the main path never launched serve_trees")
-    phase("end_to_end", launches=launches, batch_rows=BUCKET_ROWS,
-          rows_per_s=rates)
+    if ts_launches == 0:
+        raise AssertionError("the main path never launched tree_sum")
+    lr_best = next(s for s in models["lr"].fitted.values()
+                   if hasattr(s, "best_model")).best_model
+    if lr_best.device is None or lr_best.device.type != torch.device(DEV).type:
+        raise AssertionError("the lr fixture's model did not predict on the card")
+    phase("end_to_end", launches=launches, tree_sum_launches=ts_launches,
+          batch_rows=BUCKET_ROWS, rows_per_s=rates,
+          score_max_abs_err_vs_jax=score_err,
+          score_tolerance=PROB_ATOL)
+    # the tree-sum kernel at the serving path's own calls (relaunches are
+    # not counted)
+    ts_sums = {"serving": check_tree_sum_path(torch, TS, ts_cap.records,
+                                              "serving")}
+    TS.tree_sum.launches = 0
+    phase("tree_sum main_path serving", **ts_sums["serving"])
     for name, model in models.items():
         _, rows, _ = load_fixture(name)
         big = (rows * (-(-BUCKET_ROWS // len(rows))))[:BUCKET_ROWS]
@@ -1756,10 +2081,18 @@ def main() -> int:
 
     # the training path, with the counts read around exactly this run
     x, y, target, masks = train_table(TRAIN_ROWS)
-    train = train_path(torch, x, y, masks)
+    TS.tree_sum.launches = 0
+    with ts_cap:
+        ts_cap.path = "training"
+        train = train_path(torch, x, y, masks)
+    ts_train = TS.tree_sum.launches
     records = train.pop("_records")
     k1_records = train.pop("_k1_records")
     phase("train", **train)
+    ts_sums["training"] = check_tree_sum_path(torch, TS, ts_cap.records,
+                                              "training")
+    TS.tree_sum.launches = 0
+    phase("tree_sum main_path training", **ts_sums["training"])
     # K2 at the training path's own launches (relaunches are not counted)
     k2 = check_main_launches(torch, H, "hist_binloop", records, weights={
         "xgb": XGB_GRID[0]["num_round"], "rf": RF_GRID[0]["num_trees"]})
@@ -1767,11 +2100,24 @@ def main() -> int:
     phase("hist_binloop main_path", **k2)
 
     # the regression path at a 256-bin sketch, its counts read around it
-    reg = train_regression_path(torch, x, target, masks)
+    TS.tree_sum.launches = 0
+    with ts_cap:
+        ts_cap.path = "regression training"
+        reg = train_regression_path(torch, x, target, masks)
+    ts_reg = TS.tree_sum.launches
+    TS.tree_sum.launches = 0
+    if not (ts_train and ts_reg):
+        raise AssertionError(f"scoring the fitted lanes launched tree_sum "
+                             f"{ts_train} and {ts_reg} times")
     records = reg.pop("_records")
     records_k2 = reg.pop("_records_k2")
     k1_records_reg = reg.pop("_k1_records")
     phase("train_regression", **reg)
+    ts_sums["regression training"] = check_tree_sum_path(
+        torch, TS, ts_cap.records, "regression training")
+    TS.tree_sum.launches = 0
+    phase("tree_sum main_path regression training",
+          **ts_sums["regression training"])
     # K1 at both training paths' own launches (relaunches are not counted)
     k1_train = check_k1_launches(torch, ST, k1_records)
     phase("serve_trees main_path training", **k1_train)
@@ -1799,6 +2145,16 @@ def main() -> int:
                              k2_weights)
     phase("hist_binloop main_path both", **k2_paths)
     phase("train_fixture", **check_train_fixture(torch))
+    # the tree sum over the three paths, weighted by their launches
+    ts_counts = {"serving": ts_launches, "training": ts_train,
+                 "regression training": ts_reg}
+    ts_all = combine_paths(ts_sums, ts_counts,
+                           keys=("ms", "device_ms", "plain_ms", "library_ms",
+                                 "bound_ms"))
+    phase("tree_sum main_path", **{k: v for k, v in ts_all.items()},
+          launches_by_path=ts_counts)
+    # the GLM slice: both families' sweeps on the card
+    phase("glm_train", **glm_train_path(torch, x, y, target, masks))
     phase("where_time_goes train", **where_time_goes_train(
         torch, "XGBoost grid 10 rounds + RF depth-12 group 5 trees", [
             (G.XGBoostClassifier, x, y, masks,
@@ -1844,6 +2200,28 @@ def main() -> int:
         {"training": k2["node_order"], "regression training": k2r["node_order"]},
         k2_weights, keys=("ms", "plain_ms", "library_ms", "bound_ms"))
     print(json.dumps({"kernels": [{
+        "name": "tree_sum",
+        "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/tree_sum.cu",
+        "replaces": None,
+        "path": "the per-row tree-order sum after K1; it replaces no TPU "
+                "kernel (the reference adds the trees on the host, "
+                "native/tptpu_native.cpp tp_tree_predict_sum, and on its "
+                "device route in XLA); times over the captured calls of "
+                "serving and both training paths' lane scoring, weighted by "
+                "launches; ms on CUDA-event groups, device_ms the "
+                "profiler's; library = one torch.sum(dim=1)",
+        "launches": ts_launches,
+        "launches_by_path": ts_counts,
+        "max_abs_err": ts_all["max_abs_err"],
+        "ms": ts_all["ms"],
+        "ms_by_path": ts_all["ms_by_path"],
+        "device_ms": ts_all["device_ms"],
+        "plain_ms": ts_all["plain_ms"],
+        "bound_ms": ts_all["bound_ms"],
+        "bound_by": ts_all["bound_by"],
+        "library_ms": ts_all["library_ms"],
+    }, {
         "name": "serve_trees",
         "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/serve_trees.cu",

@@ -1,0 +1,359 @@
+"""The PyTorch port's GLM estimators and models (``transmogrifai_tpu_torch.
+models.logistic`` / ``models.linear``) against the JAX package's: the same
+numpy inputs through ``fit_arrays``, ``fit_arrays_batched_masks`` (mixed
+static grids, a sequential point, padded lanes) and ``fit_model``; the
+JAX-fitted training fixture (``tests/fixtures/torch_training/{lr,linr}.npz``)
+reproduced lane by lane; and the JAX-saved ``lr`` serving fixture loaded
+with ``load_workflow_model`` and scored through ``score_function``.
+
+Tolerances (``tests/test_torch_solvers.py`` says where the differences come
+from): linear lanes within ``LINEAR_TOL`` (atol 2e-6, rtol 1e-5, the
+reference's sharded-versus-single bound; measured at most 1.7e-6 on the
+fixture's lanes); logistic lanes within ``LOGISTIC_TOL``, 10x the largest
+difference measured here (1.35e-3 in the weights, on the fixture's 24
+lanes; 8.6e-4 on this module's mixed grid, 6.5e-4 through ``fit_arrays``;
+jax 0.9.0, torch 2.13 CPU), inside the reference's own
+batched-versus-sequential bound of 0.02. Lanes padded onto a lane bucket
+equal the same lanes at the same padded shape whatever the pad holds; at
+another lane count the GEMMs block differently, so padded and unpadded
+sweeps agree within ``LINEAR_TOL`` and ``PAD_LOGISTIC_TOL`` (10x the
+measured 1.42e-3). Predictions are float64 ``x @ w + b`` on each side, in
+another summation order: within ``PREDICT_ATOL`` (1e-6) of the
+reference's ``predict_arrays``.
+"""
+import json
+import os
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from transmogrifai_tpu.local.scoring import score_function as jax_score_function
+from transmogrifai_tpu.models import linear as JLin
+from transmogrifai_tpu.models import logistic as JLog
+from transmogrifai_tpu.workflow.persistence import (
+    load_workflow_model as jax_load_workflow_model,
+)
+from transmogrifai_tpu_torch.local.scoring import score_function
+from transmogrifai_tpu_torch.models import linear as PLin
+from transmogrifai_tpu_torch.models import logistic as PLog
+from transmogrifai_tpu_torch.workflow.persistence import (
+    STAGE_CLASSES, construct_stage, load_workflow_model,
+)
+
+torch.set_num_threads(1)
+
+pytestmark = [pytest.mark.torch_port]
+
+LINEAR_TOL = dict(rtol=1e-5, atol=2e-6)
+LOGISTIC_TOL = dict(rtol=0.0135, atol=0.0135)
+PAD_LOGISTIC_TOL = dict(rtol=0.0142, atol=0.0142)
+PREDICT_ATOL = 1e-6
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SERVING = os.path.join(ROOT, "fixtures", "torch_serving", "lr")
+TRAINING = os.path.join(ROOT, "fixtures", "torch_training")
+
+
+def _table(n=450, d=10, seed=11):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[:, 6:] = rng.uniform(size=(n, 4)) < 0.25
+    z = (x @ rng.normal(size=d) + rng.normal(size=n)).astype(np.float32)
+    return x, (z > 0).astype(np.float32), z
+
+
+X, Y, Z = _table()
+MASKS = [(np.arange(len(Y)) % 3 != i).astype(np.float32) for i in range(3)]
+FAMILIES = {
+    "lr": (JLog.LogisticRegression, PLog.LogisticRegression, Y, LOGISTIC_TOL),
+    "linr": (JLin.LinearRegression, PLin.LinearRegression, Z, LINEAR_TOL),
+}
+#: two static groups (max_iter 50 and 100) and a point with a key the
+#: batched sweep does not know (fitted sequentially on both sides)
+MIXED_GRID = [
+    {"reg_param": 0.01, "elastic_net_param": 0.1, "max_iter": 50},
+    {"reg_param": 0.1, "elastic_net_param": 0.5, "max_iter": 50},
+    {"reg_param": 0.2, "elastic_net_param": 0.1, "max_iter": 50},
+    {"reg_param": 0.01, "elastic_net_param": 0.5, "max_iter": 100},
+    {"reg_param": 0.05, "operation_name": "sequential"},
+]
+
+
+def _coef(model):
+    return (np.asarray(model.weights, np.float64),
+            np.asarray(model.intercept, np.float64))
+
+
+def _assert_same_model(jm, pm, tol):
+    jw, jb = _coef(jm)
+    pw, pb = _coef(pm)
+    np.testing.assert_allclose(pw, jw, **tol)
+    np.testing.assert_allclose(pb, jb, **tol)
+    pm.to("cpu")
+    # each side's own coefficients through each side's predict: the float64
+    # cores agree to summation order
+    for got, want in zip(pm.predict_arrays(X), _ref_predict(pm, X)):
+        if want is None:
+            assert got is None
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=PREDICT_ATOL)
+
+
+def _ref_predict(pm, x):
+    """The JAX package's predict over the port model's coefficients."""
+    if isinstance(pm, PLog.LogisticRegressionModel):
+        ref = JLog.LogisticRegressionModel(pm.weights, pm.intercept, pm.num_classes)
+    else:
+        ref = JLin.LinearRegressionModel(pm.weights, pm.intercept)
+    return ref.predict_arrays(x)
+
+
+@pytest.mark.parametrize("family", ["lr", "linr"])
+def test_fit_arrays_matches_reference(family):
+    jcls, pcls, label, tol = FAMILIES[family]
+    params = dict(reg_param=0.01, elastic_net_param=0.3, max_iter=50)
+    jm = jcls(**params).fit_arrays(X, label, MASKS[1])
+    pm = pcls(**params, device="cpu").fit_arrays(X, label, MASKS[1])
+    assert type(pm).__name__ == type(jm).__name__
+    _assert_same_model(jm, pm, tol)
+
+
+@pytest.mark.parametrize("family", ["lr", "linr"])
+def test_batched_masks_with_mixed_static_grids_match_reference(family):
+    jcls, pcls, label, tol = FAMILIES[family]
+    jms = jcls().fit_arrays_batched_masks(X, label, MASKS, MIXED_GRID)
+    pms = pcls(device="cpu").fit_arrays_batched_masks(X, label, MASKS, MIXED_GRID)
+    assert len(pms) == 3 and all(len(row) == len(MIXED_GRID) for row in pms)
+    for jrow, prow in zip(jms, pms):
+        for jm, pm in zip(jrow, prow):
+            _assert_same_model(jm, pm, tol)
+    # one mask, many points: the same lanes as the first mask's row
+    one = pcls(device="cpu").fit_arrays_batched(X, label, MASKS[0], MIXED_GRID)
+    for a, b in zip(one, pms[0]):
+        np.testing.assert_allclose(_coef(a)[0], _coef(b)[0], **tol)
+
+
+@pytest.mark.parametrize("family", ["lr", "linr"])
+def test_padded_lanes_do_not_depend_on_the_pad(family, monkeypatch):
+    """3 masks x 8 points = 24 lanes run as 32, the pad copies of lane 0.
+    At that shape the real lanes are the same bits whatever the pad holds
+    (each lane is its own GEMM column and its own row of every update);
+    with padding off (24 lanes) they agree within the family's tolerance."""
+    from transmogrifai_tpu_torch.compiler import bucketing
+    from transmogrifai_tpu_torch.models import solvers as PS
+
+    _, pcls, label, tol = FAMILIES[family]
+    grid = [{"reg_param": r, "elastic_net_param": e, "max_iter": 50}
+            for e in (0.1, 0.5) for r in (0.001, 0.01, 0.1, 0.2)]
+    rm = np.repeat(np.stack(MASKS), len(grid), axis=0)
+    regs = np.tile([p["reg_param"] for p in grid], 3).astype(np.float32)
+    ens = np.tile([p["elastic_net_param"] for p in grid], 3).astype(np.float32)
+    k, (prm, pregs, pens) = bucketing.bucket_sweep_lanes(rm, regs, ens)
+    assert (k, prm.shape[0]) == (24, 32)
+    other = (prm.copy(), pregs.copy(), pens.copy())
+    other[0][k:] = np.random.default_rng(0).random((32 - k, len(label))) < 0.5
+    other[1][k:], other[2][k:] = 0.7, 0.9
+    fit = (PS.fit_logistic_binary_batched if family == "lr"
+           else PS.fit_linear_batched)
+    iters = 50 if family == "lr" else 200
+    a = fit(X, label, prm, pregs, pens, num_iters=iters, device="cpu")
+    b = fit(X, label, *other, num_iters=iters, device="cpu")
+    assert torch.equal(a.weights[:k], b.weights[:k])
+    assert torch.equal(a.intercept[:k], b.intercept[:k])
+    # through the estimator: padded (the default) and unpadded sweeps
+    padded = pcls(device="cpu").fit_arrays_batched_masks(X, label, MASKS, grid)
+    for row, lanes in zip(padded, a.weights[:k].reshape(3, 8, -1)):
+        for m, w in zip(row, lanes):
+            assert np.array_equal(m.weights, w.numpy().astype(np.float64))
+    monkeypatch.setenv("TPTPU_LANE_BUCKETS", "0")
+    plain = pcls(device="cpu").fit_arrays_batched_masks(X, label, MASKS, grid)
+    pad_tol = PAD_LOGISTIC_TOL if family == "lr" else tol
+    for prow, row in zip(padded, plain):
+        for m, u in zip(prow, row):
+            np.testing.assert_allclose(m.weights, u.weights, **pad_tol)
+            np.testing.assert_allclose(m.intercept, u.intercept, **pad_tol)
+
+
+def _dataset(label_values):
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features.feature import Feature
+    from transmogrifai_tpu_torch.types.columns import NumericColumn, VectorColumn
+
+    ds = Dataset.of({
+        "label": NumericColumn(T.RealNN, label_values.astype(np.float64),
+                               np.ones(len(label_values), bool)),
+        "vec": VectorColumn(T.OPVector, X),
+    })
+    return (ds, Feature(name="label", ftype=T.RealNN, is_response=True),
+            Feature(name="vec", ftype=T.OPVector))
+
+
+def _fit_model_on(est, label_values):
+    """``est`` fitted through ``fit_model`` on a (label, vector) dataset."""
+    ds, label, vec = _dataset(label_values)
+    return est.set_input(label, vec).fit(ds)
+
+
+def test_fit_model_through_a_dataset():
+    ds, _, _ = _dataset(Y)
+    est = PLog.LogisticRegression(reg_param=0.01, max_iter=50, device="cpu")
+    model = _fit_model_on(est, Y)
+    want = PLog.LogisticRegression(reg_param=0.01, max_iter=50, device="cpu"
+                                   ).fit_arrays(X, Y, np.ones(len(Y), np.float32))
+    assert np.array_equal(model.weights, want.weights)
+    assert model.output_name == est.output_name
+    out = model.transform_columns(ds["label"], ds["vec"], num_rows=len(Y))
+    assert np.array_equal(out.prediction, want.predict_arrays(X)[0])
+    assert np.array_equal(out.probability, want.predict_arrays(X)[1])
+
+
+@pytest.mark.parametrize("family", ["lr", "linr"])
+def test_training_fixture_reproduced(family):
+    """The JAX package's stored sweep of the 5000-row fixture table (NaN
+    read as 0), 3 folds x the default 8-point grid, lane by lane."""
+    with np.load(os.path.join(TRAINING, "table.npz")) as z:
+        x, masks = np.nan_to_num(z["x"]), z["masks"]
+        label = z["target"] if family == "linr" else z["y"]
+    with open(os.path.join(TRAINING, "config.json")) as fh:
+        grid = json.load(fh)["glm_grids"][family]
+    with np.load(os.path.join(TRAINING, f"{family}.npz")) as z:
+        want_w, want_b = z["weights"], z["intercept"]
+    _, pcls, _, tol = FAMILIES[family]
+    models = pcls(device="cpu").fit_arrays_batched_masks(x, label, list(masks), grid)
+    got_w = np.array([[m.weights for m in row] for row in models])
+    got_b = np.array([[m.intercept for m in row] for row in models])
+    assert got_w.shape == want_w.shape == (3, 8, x.shape[1])
+    np.testing.assert_allclose(got_w, want_w, **tol)
+    np.testing.assert_allclose(got_b, want_b, **tol)
+
+
+def test_lr_serving_fixture_loads_and_scores():
+    """The JAX-saved flagship twin whose selector picked LogisticRegression
+    loads in the port and scores within PREDICT_ATOL of the stored scores
+    and of the JAX package's own load of the same directory."""
+    with open(os.path.join(SERVING, "rows.json")) as fh:
+        rows = json.load(fh)
+    with np.load(os.path.join(SERVING, "expected.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    model = load_workflow_model(SERVING, device="cpu")
+    best = next(s for s in model.fitted.values() if hasattr(s, "best_model"))
+    assert isinstance(best.best_model, PLog.LogisticRegressionModel)
+    out = score_function(model, device="cpu").batch(rows)
+    jout = jax_score_function(jax_load_workflow_model(SERVING)).batch(rows)
+    for result in (out, [score_function(model, device="cpu")(r) for r in rows[:5]]):
+        preds = [next(iter(r.values())) for r in result]
+        jpreds = [next(iter(r.values())) for r in jout[:len(preds)]]
+        for key, n in (("probability", 2), ("rawPrediction", 2)):
+            got = np.array([[p[f"{key}_{j}"] for j in range(n)] for p in preds])
+            ref = np.array([[p[f"{key}_{j}"] for j in range(n)] for p in jpreds])
+            stored = want["probability" if key == "probability" else "raw"][:len(preds)]
+            np.testing.assert_allclose(got, stored, rtol=0, atol=PREDICT_ATOL)
+            np.testing.assert_allclose(got, ref, rtol=0, atol=PREDICT_ATOL)
+        assert np.array_equal([p["prediction"] for p in preds],
+                              want["prediction"][:len(preds)])
+
+
+def test_jax_saved_glm_arrays_construct_port_models():
+    """Both GLM model classes are registered for loading, and a model built
+    from the JAX package's saved params and arrays predicts as the
+    reference's does."""
+    assert {"LogisticRegressionModel", "LinearRegressionModel"} <= set(STAGE_CLASSES)
+    jlin = JLin.LinearRegression(reg_param=0.01).fit_arrays(X, Z, MASKS[0])
+    jlog = JLog.LogisticRegression(reg_param=0.01, max_iter=30).fit_arrays(X, Y, MASKS[0])
+    for jm in (jlin, jlog):
+        params = jm.get_params() if hasattr(jm, "get_params") else {}
+        pm = construct_stage(type(jm).__name__, params, jm.get_arrays()).to("cpu")
+        for got, want in zip(pm.predict_arrays(X), jm.predict_arrays(X)):
+            if want is None:
+                assert got is None
+            else:
+                np.testing.assert_allclose(got, want, rtol=0, atol=PREDICT_ATOL)
+        # the port's model gives back the arrays it was made from
+        for k, v in jm.get_arrays().items():
+            assert np.array_equal(np.asarray(pm.get_arrays()[k]), np.asarray(v))
+
+
+def test_multinomial_predicts_and_does_not_fit_yet():
+    """Multinomial predict is ported (softmax host epilogue); multinomial
+    fits are A9."""
+    rng = np.random.default_rng(3)
+    w, b = rng.normal(size=(X.shape[1], 3)), rng.normal(size=3)
+    pm = PLog.LogisticRegressionModel(w, b, 3).to("cpu")
+    jm = JLog.LogisticRegressionModel(w, b, 3)
+    for got, want in zip(pm.predict_arrays(X), jm.predict_arrays(X)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=PREDICT_ATOL)
+    y3 = (np.arange(len(Y)) % 3).astype(np.float32)
+    est = PLog.LogisticRegression(device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        est.fit_arrays(X, y3, MASKS[0])
+    with pytest.raises(NotImplementedError, match="A9"):
+        est.fit_arrays_batched_masks(X, y3, MASKS, MIXED_GRID[:1])
+
+
+def test_estimators_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    for est in (PLog.LogisticRegression(), PLin.LinearRegression()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            est.fit_arrays(X, Y, MASKS[0])
+
+
+def test_a_fitted_model_predicts_on_its_fit_device():
+    model = PLin.LinearRegression(device="cpu").fit_arrays(X, Z, MASKS[0])
+    assert model.device is None and model.default_device == torch.device("cpu")
+    pred, prob, raw = model.predict_arrays(X)
+    assert model.device == torch.device("cpu") and model._dev_w.dtype == torch.float64
+    assert pred.dtype == np.float64 and prob is None and raw is None
+    with pytest.raises(ValueError, match="features"):
+        model.predict_arrays(X[:, :3])
+
+
+def test_glm_fit_on_the_card():
+    """Needs a CUDA card (skips here): both families' sweeps fit on the
+    card with one host sync each (the collector's download), two fits are
+    bit-identical, and the lanes agree with the JAX package's within the
+    tolerances above; the fitted models predict on the card; ``fit_arrays``
+    agrees with the JAX package's, and ``fit_model`` equals it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = [{"reg_param": r, "elastic_net_param": e, "max_iter": 50}
+            for e in (0.1, 0.5) for r in (0.001, 0.01, 0.1, 0.2)]
+    for family in ("lr", "linr"):
+        jcls, pcls, label, tol = FAMILIES[family]
+        est = pcls()
+        est.sweep_dispatch_masks(X, label, MASKS, grid)()  # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                first = est.fit_arrays_batched_masks(X, label, MASKS, grid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+        again = est.fit_arrays_batched_masks(X, label, MASKS, grid)
+        want = jcls().fit_arrays_batched_masks(X, label, MASKS, grid)
+        for row, arow, jrow in zip(first, again, want):
+            for m, a, jm in zip(row, arow, jrow):
+                assert np.array_equal(m.weights, a.weights)
+                assert np.array_equal(m.intercept, a.intercept)
+                np.testing.assert_allclose(_coef(m)[0], _coef(jm)[0], **tol)
+                np.testing.assert_allclose(_coef(m)[1], _coef(jm)[1], **tol)
+        pred = first[0][0].predict_arrays(X)
+        assert first[0][0].device.type == "cuda"
+        for got, ref in zip(pred, _ref_predict(first[0][0], X)):
+            if ref is not None:
+                np.testing.assert_allclose(got, ref, rtol=0, atol=PREDICT_ATOL)
+        # a single fit (a selector's refit of its winner) and the same fit
+        # through a dataset, on the card
+        params = dict(reg_param=0.01, elastic_net_param=0.3, max_iter=50)
+        one = pcls(**params).fit_arrays(X, label, MASKS[1])
+        _assert_same_model(jcls(**params).fit_arrays(X, label, MASKS[1]),
+                           one, tol)
+        via_dataset = _fit_model_on(pcls(**params), label)
+        assert np.array_equal(via_dataset.weights, pcls(**params).fit_arrays(
+            X, label, np.ones(len(label), np.float32)).weights)

@@ -51,8 +51,9 @@ def _imports(path: str) -> list[str]:
 #: modules the walk must reach (the training slice's among them)
 REQUIRED = (
     "models/hist.py", "models/trees.py", "models/gbdt.py", "models/base.py",
-    "models/serve_trees.py", "stages/base.py", "utils/prng.py",
-    "utils/cuda_build.py",
+    "models/serve_trees.py", "models/tree_sum.py", "models/solvers.py",
+    "models/logistic.py", "models/linear.py", "compiler/bucketing.py",
+    "stages/base.py", "utils/prng.py", "utils/cuda_build.py",
 )
 
 
@@ -91,6 +92,10 @@ y = (x[:, 0] > 0).astype(np.float32)
 mask = np.ones(120, np.float32)
 XGBoostClassifier(num_round=2, max_depth=2, device="cpu").fit_arrays(x, y, mask)
 RandomForestClassifier(num_trees=2, max_depth=2, device="cpu").fit_arrays(x, y, mask)
+from transmogrifai_tpu_torch.models.linear import LinearRegression
+from transmogrifai_tpu_torch.models.logistic import LogisticRegression
+LogisticRegression(max_iter=5, device="cpu").fit_arrays(x, y, mask)
+LinearRegression(max_iter=5, device="cpu").fit_arrays(x, x[:, 1], mask)
 loaded = sorted(
     m for m in sys.modules
     if any(m == b or m.startswith(b + ".") for b in {FORBIDDEN!r})

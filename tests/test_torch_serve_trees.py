@@ -3,7 +3,8 @@ serve_trees``) against the JAX package's Pallas kernel in interpret mode and
 its gather walk: the same numpy inputs through both, BIT-IDENTICAL per
 (row, tree) leaf values across depths 1-10, ragged shapes, leaf-only trees
 and -1 routing. The forest mean and boosted sum hold to the Pallas wrappers
-within ``SUM_ATOL``. The kernel's packed node layout (``PackedTrees``:
+(the reference's device route, another summation order) within
+``SUM_TOL``. The kernel's packed node layout (``PackedTrees``:
 32-bit words in heap order, or word pairs where a model's features or bins
 do not fit 16 bits, trees interleaved in tiles, the levels below 10 outside
 the top array)
@@ -35,10 +36,13 @@ torch.set_num_threads(1)
 
 pytestmark = [pytest.mark.torch_port]
 
-#: f32 sums of up to 200 per-tree values taken in another order than the
-#: reference's: each order is within (T-1)·2^-24 of the exact sum relative
-#: to Σ|leaf|, which stays below 1e-5 for these leaf magnitudes
-SUM_ATOL = 1e-5
+#: the Pallas wrappers' reductions (the reference's device route) sum the
+#: trees in another order than the port's tree order: the results differ in
+#: the last ulp (measured: up to 3.8e-06 absolute, 7.5e-07 relative on
+#: boosted margins up to 8.6; 1.3e-08 on forest means), held to the
+#: reference's own host-versus-device bound, rtol = atol = 1e-6
+#: (tests/test_predict_host.py)
+SUM_TOL = 1e-6
 
 
 def _random_stack(rng, t, depth, f, bins):
@@ -131,13 +135,13 @@ class TestReductions:
         ref = np.asarray(
             SP.predict_forest_pallas(jnp.asarray(binned), jtrees, interpret=True)
         )
-        np.testing.assert_allclose(fmean, ref, rtol=0, atol=SUM_ATOL)
+        np.testing.assert_allclose(fmean, ref, rtol=SUM_TOL, atol=SUM_TOL)
         boosted = ST.predict_boosted(pb, ptrees, 0.3, 0.5).numpy()
         ref = np.asarray(SP.predict_boosted_pallas(
             jnp.asarray(binned), jtrees, jnp.float32(0.3), jnp.float32(0.5),
             interpret=True,
         ))
-        np.testing.assert_allclose(boosted, ref, rtol=0, atol=SUM_ATOL)
+        np.testing.assert_allclose(boosted, ref, rtol=SUM_TOL, atol=SUM_TOL)
 
 
 def _tensors(rng):
@@ -411,7 +415,9 @@ def test_packing_at_to_cpu_leaves_fixture_scores_unchanged(name):
     out = score_function(model, device="cpu").batch(rows)
     prob = np.array([[p["probability_0"], p["probability_1"]]
                      for p in (next(iter(r.values())) for r in out)])
-    np.testing.assert_allclose(prob, want, rtol=0, atol=SUM_ATOL)
+    # the stored scores came from the reference's host route, which sums
+    # in tree order as the port does: equal
+    assert np.array_equal(prob, want)
 
 
 def test_kernel_matches_plain_walk_on_the_card():

@@ -2,7 +2,10 @@
 models.trees``) against the JAX package's ``models/trees.py`` on the same
 seeded numpy inputs: ``bin_data`` BIT-IDENTICAL, including NaN, ±inf,
 -0.0, values equal to a threshold and NaN thresholds; ``predict_tree``
-bit-identical; the fused bin + reduce entry points within ``SUM_ATOL``.
+bit-identical; the fused bin + reduce entry points equal to the
+reference's host twins (``predict_boosted_host`` / ``predict_forest_host``,
+the trees summed in tree order) and within ``SUM_ATOL`` of its jitted
+device route, which sums in another order.
 """
 import numpy as np
 import pytest
@@ -10,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+from transmogrifai_tpu import native
 from transmogrifai_tpu.models import trees as JTR
 from transmogrifai_tpu_torch.models import trees as PTR
 
@@ -17,9 +21,11 @@ torch.set_num_threads(1)
 
 pytestmark = [pytest.mark.torch_port]
 
-#: f32 sums of up to 200 per-tree values in another order than the
-#: reference's (see tests/test_torch_serve_trees.py)
-SUM_ATOL = 1e-5
+#: the reference's device route (``predict_*_raw``) sums the trees in
+#: another order than the tree order both host routes take: its results
+#: differ in the last ulp; held to the reference's own host-versus-device
+#: bound, rtol = atol = 1e-6 (tests/test_predict_host.py)
+SUM_ATOL = 1e-6
 
 
 def _edge_matrix(rng, n, f, bins):
@@ -95,10 +101,19 @@ def test_raw_predicts_match_reference(t, depth):
         np.asarray(JTR.predict_boosted_raw(
             xj, tj, jtrees, jnp.float32(0.02), jnp.float32(0.1)
         )),
-        rtol=0, atol=SUM_ATOL,
+        rtol=SUM_ATOL, atol=SUM_ATOL,
     )
     np.testing.assert_allclose(
         PTR.predict_forest_raw(xt, tt, ptrees).numpy(),
         np.asarray(JTR.predict_forest_raw(xj, tj, jtrees)),
-        rtol=0, atol=SUM_ATOL,
+        rtol=SUM_ATOL, atol=SUM_ATOL,
     )
+    # the reference's host route sums in tree order (its native loop):
+    # equal bit for bit
+    assert native._load() is not None
+    htrees = JTR.Tree(sf, sb, lv)
+    assert np.array_equal(
+        PTR.predict_boosted_raw(xt, tt, ptrees, 0.02, 0.1).numpy(),
+        JTR.predict_boosted_host(x, thr, htrees, 0.02, 0.1))
+    assert np.array_equal(PTR.predict_forest_raw(xt, tt, ptrees).numpy(),
+                          JTR.predict_forest_host(x, thr, htrees))

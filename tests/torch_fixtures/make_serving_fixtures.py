@@ -34,7 +34,10 @@ The grid points (one candidate each, selector seed 42, 3-fold CV):
   ``num_round=200, eta=0.02, gamma=0.8, max_depth=10,
   min_child_weight=1.0, max_bins=32``;
 * ``rf``: ``RandomForestClassifier`` with ``num_trees=50, max_depth=12,
-  min_instances_per_node=10, min_info_gain=0.001, max_bins=32``.
+  min_instances_per_node=10, min_info_gain=0.001, max_bins=32``;
+* ``lr``: ``LogisticRegression`` at the default selector's binary point
+  ``reg_param=0.01, elastic_net_param=0.1, max_iter=50,
+  fit_intercept=True``.
 
 ``ROWS_PER_FIXTURE = 256`` rows (the first rows of the table, label
 included as the reference rows carry it) are kept for scoring.
@@ -97,6 +100,7 @@ def candidates():
     from transmogrifai_tpu.models.gbdt import (
         RandomForestClassifier, XGBoostClassifier,
     )
+    from transmogrifai_tpu.models.logistic import LogisticRegression
 
     return {
         "xgb": (
@@ -113,6 +117,13 @@ def candidates():
                 "num_trees": [50], "max_depth": [12],
                 "min_instances_per_node": [10], "min_info_gain": [0.001],
                 "max_bins": [32],
+            },
+        ),
+        "lr": (
+            LogisticRegression(),
+            {
+                "reg_param": [0.01], "elastic_net_param": [0.1],
+                "max_iter": [50], "fit_intercept": [True],
             },
         ),
     }

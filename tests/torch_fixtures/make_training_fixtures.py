@@ -47,6 +47,24 @@ The grid points (with 3 masks each family is one batched fit of 3 lanes):
 
 At 256 bins the 10 continuous columns form the wide group, which the card
 builds with kernel K3, and the indicators the 2-bin group (K2).
+
+The GLM fixtures fit the same table with NaN read as 0 (``np.nan_to_num``:
+the GLMs take a transmogrified vector, which has no NaN) and the same 3
+folds, at the selectors' default GLM grids (``GLM_GRIDS``: ``reg_param``
+in {0.001, 0.01, 0.1, 0.2} x ``elastic_net_param`` in {0.1, 0.5},
+``max_iter=50``, ``fit_intercept=True``; the 8 points in that order, reg
+varying fastest), one batched sweep of 24 lanes each:
+
+* ``lr.npz``: ``LogisticRegression().fit_arrays_batched_masks(x, y,
+  masks, grid)``;
+* ``linr.npz``: ``LinearRegression().fit_arrays_batched_masks(x, target,
+  masks, grid)``;
+
+each as ``weights`` [3, 8, F] float32 and ``intercept`` [3, 8] float32
+(fold, grid point). ``config.json`` lists the grids under ``glm_grids``.
+
+Run with family names (``... make_training_fixtures.py lr linr``) to
+rewrite only those families and ``config.json``.
 """
 from __future__ import annotations
 
@@ -75,7 +93,16 @@ POINTS = {
             "min_info_gain": 0.001, "max_bins": 256, "seed": 42},
 }
 #: the families whose label is the continuous target
-REGRESSORS = ("gbtr", "rfr")
+REGRESSORS = ("gbtr", "rfr", "linr")
+#: the default GLM grid of the binary and regression selectors
+#: (selector/model_selector.py: REGULARIZATION x ELASTIC_NET, MAX_ITER_LIN,
+#: FIT_INTERCEPT)
+GLM_GRID = [
+    {"reg_param": r, "elastic_net_param": e, "max_iter": 50,
+     "fit_intercept": True}
+    for e in (0.1, 0.5) for r in (0.001, 0.01, 0.1, 0.2)
+]
+GLM_GRIDS = {"lr": GLM_GRID, "linr": GLM_GRID}
 
 
 def table():
@@ -115,18 +142,37 @@ def fit(name, x, label, masks):
     }
 
 
-def main() -> None:
+def fit_glm(name, x, label, masks):
+    from transmogrifai_tpu.models.linear import LinearRegression
+    from transmogrifai_tpu.models.logistic import LogisticRegression
+
+    est = {"lr": LogisticRegression, "linr": LinearRegression}[name]()
+    models = est.fit_arrays_batched_masks(
+        np.nan_to_num(x), label, list(masks), GLM_GRIDS[name])
+    return {
+        "weights": np.asarray(
+            [[m.weights for m in row] for row in models], np.float32),
+        "intercept": np.asarray(
+            [[m.intercept for m in row] for row in models], np.float32),
+    }
+
+
+def main(names: list[str]) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     x, y, target, masks = table()
-    np.savez_compressed(os.path.join(OUT_DIR, "table.npz"), x=x, y=y,
-                        target=target, masks=masks)
+    if not names:
+        np.savez_compressed(os.path.join(OUT_DIR, "table.npz"), x=x, y=y,
+                            target=target, masks=masks)
     with open(os.path.join(OUT_DIR, "config.json"), "w") as fh:
-        json.dump({"seed": SEED, "n_rows": N_ROWS, "points": POINTS}, fh,
-                  indent=1)
-    for name in POINTS:
+        json.dump({"seed": SEED, "n_rows": N_ROWS, "points": POINTS,
+                   "glm_grids": GLM_GRIDS}, fh, indent=1)
+    for name in [*POINTS, *GLM_GRIDS]:
+        if names and name not in names:
+            continue
         path = os.path.join(OUT_DIR, f"{name}.npz")
         label = target if name in REGRESSORS else y
-        np.savez_compressed(path, **fit(name, x, label, masks))
+        arrays = (fit_glm if name in GLM_GRIDS else fit)(name, x, label, masks)
+        np.savez_compressed(path, **arrays)
         print(f"{name}: wrote {path} ({os.path.getsize(path)} bytes)")
 
 
@@ -134,4 +180,4 @@ if __name__ == "__main__":
     sys.path.insert(
         0, os.path.dirname(os.path.dirname(os.path.dirname(OUT_DIR)))
     )
-    main()
+    main(sys.argv[1:])

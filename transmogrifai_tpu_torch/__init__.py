@@ -2,10 +2,16 @@
 
 It serves models that ``transmogrifai_tpu`` trained and saved: load one
 with ``workflow.persistence.load_workflow_model`` and score rows with
-``local.scoring.score_function``. The tree traversal runs in a
-hand-written CUDA kernel for Hopper (``csrc/serve_trees.cu``). Entry points
-run on the card unless the caller passes ``device="cpu"``, which runs the
-plain PyTorch versions. Training is not ported yet.
+``local.scoring.score_function``. It trains the binary XGBoost and
+random-forest classifiers, the GBT, XGBoost and random-forest regressors
+(``models/gbdt.py``), and binary logistic and linear regression
+(``models/logistic.py``, ``models/linear.py``), through each estimator's
+``fit_arrays``, ``fit_model`` and ``fit_arrays_batched_masks``. The tree
+kernels run as hand-written CUDA for Hopper (``csrc/*.cu``); the GLM
+solvers are PyTorch tensor code. Entry points run on the card unless the
+caller passes ``device="cpu"``, which runs the plain PyTorch versions. The
+model selector, ``Workflow.train()`` and the fused scoring graph are not
+ported yet (``ROADMAP.md`` A).
 """
 from . import types  # noqa: F401
 from .dataset import Dataset  # noqa: F401

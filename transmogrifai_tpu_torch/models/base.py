@@ -7,6 +7,7 @@ import copy
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..stages.base import Estimator, Model
 from ..types import OPVector, Prediction, RealNN
@@ -79,3 +80,94 @@ class PredictorEstimator(Estimator):
                 raise AttributeError(f"{type(self).__name__} has no param {k}")
             setattr(c, k, v)
         return c
+
+
+def num_classes(y: np.ndarray, mask: np.ndarray) -> int:
+    """Classes in the labels the mask keeps (at least 2)."""
+    present = np.asarray(y)[np.asarray(mask) > 0]
+    return max(int(present.max()) + 1 if len(present) else 2, 2)
+
+
+def collect_lanes(groups, lanes: np.ndarray, n_masks: int, n_points: int,
+                  make_model) -> list[list]:
+    """models[mask][point] from a sweep's downloaded lanes: ``groups`` is
+    [(point indices, lanes of the group)] in download order, each group's
+    lanes mask-major (lane = mask * len(indices) + j); ``make_model(lane
+    row)`` builds a model from its weights and intercept. Points of no
+    group stay None."""
+    models: list[list] = [[None] * n_points for _ in range(n_masks)]
+    at = 0
+    for idxs, n_lanes in groups:
+        for mi in range(n_masks):
+            for j, i in enumerate(idxs):
+                models[mi][i] = make_model(lanes[at + mi * len(idxs) + j])
+        at += n_lanes
+    return models
+
+
+def group_grid_by_statics(points, known_keys, statics_of):
+    """Group grid-point indices by their static (shape-affecting) params,
+    so the dynamic params batch as lanes of one fit; points carrying
+    unknown keys fall out to a sequential list. Shared by the logistic and
+    linear sweeps. ``statics_of(point) -> hashable key``; returns
+    ``(groups, sequential)``, groups mapping key -> [point indices]."""
+    groups: dict[Any, list[int]] = {}
+    sequential: list[int] = []
+    for i, p in enumerate(points):
+        if set(p) - known_keys:
+            sequential.append(i)
+            continue
+        groups.setdefault(statics_of(p), []).append(i)
+    return groups, sequential
+
+
+class LinearCoreModel(PredictorModel):
+    """A fitted GLM whose core is ``x @ weights + intercept``: the
+    reference's float64 host arithmetic, here in float64 on the model's
+    device. ``to(device)`` places the coefficients there; a fitted model
+    places itself on its fit's device at its first predict. The epilogue
+    ``predictions_from_core`` runs on the host in float64."""
+
+    def __init__(self, operation_name: str, uid=None):
+        super().__init__(operation_name, uid=uid)
+        self.device: torch.device | None = None
+        #: where a fitted model places itself at its first predict
+        self.default_device: torch.device | None = None
+        self._dev_w: torch.Tensor | None = None
+        self._dev_b: torch.Tensor | None = None
+
+    def _coefficients(self) -> tuple[np.ndarray, np.ndarray]:
+        """(weights [D] or [D, C], intercept scalar or [C]), float64."""
+        raise NotImplementedError
+
+    def to(self, device) -> "LinearCoreModel":
+        device = torch.device(device)
+        if self.device == device:
+            return self
+        w, b = self._coefficients()
+        self._dev_w = torch.from_numpy(np.ascontiguousarray(w, np.float64)).to(device)
+        self._dev_b = torch.from_numpy(
+            np.ascontiguousarray(b, np.float64).reshape(np.shape(b))).to(device)
+        self.device = device
+        return self
+
+    def predict_core(self, x: np.ndarray) -> np.ndarray:
+        """float64 ``x @ w + b`` on the model's device: [N] (binary margin,
+        regression) or [N, C] (multinomial logits)."""
+        if self.device is None and self.default_device is not None:
+            self.to(self.default_device)
+        if self.device is None:
+            raise RuntimeError(f"{self}: place the model with .to(device) first")
+        x = np.asarray(x, dtype=np.float32)
+        d = self._dev_w.shape[0]
+        if x.ndim != 2 or x.shape[1] != d:
+            raise ValueError(f"{self}: expected [N, {d}] features, got {x.shape}")
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        core = xt.double() @ self._dev_w + self._dev_b
+        return core.cpu().numpy()
+
+    def predictions_from_core(self, core: np.ndarray):
+        raise NotImplementedError
+
+    def predict_arrays(self, x):
+        return self.predictions_from_core(self.predict_core(x))

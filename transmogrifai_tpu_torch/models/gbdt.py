@@ -27,6 +27,7 @@ from ..utils.device import resolve_device
 from . import serve_trees as ST
 from . import trees as TR
 from .base import PredictorEstimator, PredictorModel
+from .base import num_classes as _num_classes
 
 _NOT_PORTED = (
     "{what} is not ported yet: the port's classifiers train on binary "
@@ -266,11 +267,6 @@ def _feature_bin_groups(x: np.ndarray):
     if len(narrow) == 0:
         return None
     return narrow, wide
-
-
-def _num_classes(y: np.ndarray, mask: np.ndarray) -> int:
-    present = y[mask > 0]
-    return max(int(present.max()) + 1 if len(present) else 2, 2)
 
 
 def _host_tree(t: TR.Tree) -> TR.Tree:

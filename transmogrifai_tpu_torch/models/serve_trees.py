@@ -23,8 +23,9 @@ over the split arrays; ``serve_packed_plain``, the same walk over the
 packed layout). The result is bit-identical every way: the walk is integer
 compare logic.
 
-The forest mean and the boosted ``base + eta * sum`` are PyTorch reductions
-over the kernel's output, as in the reference.
+The forest mean and the boosted ``base + eta * sum`` reduce the kernel's
+output per row in tree order (``tree_sum.tree_sum``, a kernel of its own on
+the card), as the reference's serving route does.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import cuda_build
+from .tree_sum import tree_sum
 
 _KERNEL = "serve_trees"
 
@@ -530,13 +532,13 @@ def _per_tree(binned: torch.Tensor, trees) -> torch.Tensor:
 
 def predict_forest(binned: torch.Tensor, trees) -> torch.Tensor:
     """Mean leaf value across the stacked forest (a ``Tree`` stack or
-    ``PackedTrees``) -> [N] float32."""
-    return _per_tree(binned, trees).mean(dim=1)
+    ``PackedTrees``) -> [N] float32: the trees summed in order, then
+    divided by T (``tree_sum``)."""
+    return tree_sum(_per_tree(binned, trees), boosted=False)
 
 
 def predict_boosted(binned: torch.Tensor, trees, eta, base_score) -> torch.Tensor:
-    """``base + eta * Σ rounds`` -> [N] float32."""
-    per_tree = _per_tree(binned, trees)
-    eta = torch.as_tensor(eta, dtype=torch.float32, device=binned.device)
-    base = torch.as_tensor(base_score, dtype=torch.float32, device=binned.device)
-    return base + eta * per_tree.sum(dim=1)
+    """``base + eta * Σ rounds`` -> [N] float32, the rounds summed in
+    order (``tree_sum``)."""
+    return tree_sum(_per_tree(binned, trees), boosted=True, eta=float(eta),
+                    base_score=float(base_score))

@@ -1,0 +1,543 @@
+"""Training solvers for the binary logistic and linear GLMs, in PyTorch on
+an explicit device: the port of the JAX package's ``models/solvers.py``.
+
+Losses follow Spark semantics: mean log-loss / squared error over the
+unmasked rows + lambda * (alpha*||w||_1 + (1-alpha)/2*||w||_2^2), the
+intercept unregularized, features standardized internally (per lane, and
+implicitly: the shared matrix is never copied per lane) with the
+coefficients mapped back to the original scale.
+
+The reference runs each solver as one scanned XLA program: a fixed
+iteration count, ``jnp.where`` in place of every branch, converged lanes
+frozen in place. The port keeps that shape: each optimizer is a Python
+``for`` over the iteration count whose body issues device work only, with
+no ``.item()``, ``bool(tensor)`` or host ``if`` on a tensor value, so a fit
+runs without a host sync until its caller downloads the result. The K
+fits of a sweep (folds x grid points) advance together as the rows of one
+[K, P] parameter matrix, every product a GEMM over the shared x.
+
+The products run in float32 (``torch.matmul``: cuBLAS on the card, the CPU
+BLAS here), whose blocking differs from XLA's, so fits agree with the
+reference within stated tolerances, not bit for bit
+(``tests/test_torch_solvers.py``). On the card they must run in full
+float32: ``_check_precision`` refuses a fit while TF32 matmuls are on.
+
+Not ported here: ``fit_logistic_multinomial``, ``fit_linear_svc`` and
+``fit_glm_irls`` (``ROADMAP.md`` A9).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .trees import _xla_sigmoid
+
+
+class GLMParams(NamedTuple):
+    weights: torch.Tensor    # [D] or [K, D]
+    intercept: torch.Tensor  # scalar or [K]
+
+
+def _check_precision(dev: torch.device) -> None:
+    """Every float32 GEMM of a fit must run in full float32 on the card: a
+    TF32 setting made anywhere in the process would round the products'
+    inputs to 10 mantissa bits."""
+    if dev.type != "cuda":
+        return
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "GLM fits need full-float32 matmuls on the card: "
+            "torch.backends.cuda.matmul.allow_tf32 is "
+            f"{torch.backends.cuda.matmul.allow_tf32} and the float32 matmul "
+            f"precision is '{torch.get_float32_matmul_precision()}' (need "
+            "False and 'highest')"
+        )
+
+
+def to_device(a, dev: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """A numpy array (or tensor) as a tensor of ``dtype`` on ``dev``. The
+    host-to-card copy is issued without blocking (the card's copy engine
+    takes it from a staging buffer), so an upload is not a host sync."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=dtype)
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dtype)
+    return t.to(dev, non_blocking=True)
+
+
+def packed_lanes(params: GLMParams) -> torch.Tensor:
+    """A fit's lanes as one [K, D + 1] tensor on its device: the weights,
+    then the intercept (one lane for a single fit)."""
+    d = params.weights.shape[-1]
+    return torch.cat([params.weights.reshape(-1, d),
+                      params.intercept.reshape(-1, 1)], dim=1)
+
+
+def download_lanes(lanes: list[torch.Tensor]) -> np.ndarray:
+    """Packed lanes (``packed_lanes``) of one or more fits, [sum K, D + 1]
+    float32, in one device-to-host copy: the sweep's one host sync."""
+    return torch.cat(lanes).cpu().numpy()
+
+
+def _f32(v) -> float:
+    """A Python float holding the float32 rounding of ``v``."""
+    return float(np.float32(v))
+
+
+def _effectively_constant(std: torch.Tensor, scale: torch.Tensor,
+                          rel_tol: float = 1e-5) -> torch.Tensor:
+    """Columns whose std is ~float noise relative to their magnitude
+    (a column stuck at c within the mask computes var ~ (c eps)^2 > 0)."""
+    return std <= torch.clamp_min(rel_tol * scale, 1e-12)
+
+
+def _masked_minmax(x: torch.Tensor, rm: torch.Tensor):
+    """Per-(lane, column) masked min/max: ``([K, D] min, [K, D] max)`` for
+    x [N, D] under masks rm [K, N].
+
+    Memory: the broadcast form would make a [K, N, D] temporary (1.9 GB at
+    32 lanes x 16384 x 928); this loops over the lanes as the reference's
+    ``lax.map`` does, so the peak extra memory is one [N, D] buffer. min
+    and max are exact under any order, so the result equals the
+    reference's bit for bit, and the constant-column gate built on it
+    agrees exactly."""
+    big = torch.finfo(x.dtype).max
+    mins, maxs = [], []
+    for k in range(rm.shape[0]):
+        mb = rm[k][:, None] > 0
+        mins.append(torch.where(mb, x, big).amin(dim=0))
+        maxs.append(torch.where(mb, x, -big).amax(dim=0))
+    if not mins:
+        empty = x.new_empty((0, x.shape[1]))
+        return empty, empty
+    return torch.stack(mins), torch.stack(maxs)
+
+
+def _standardize(x: torch.Tensor, row_mask: torch.Tensor):
+    n = torch.clamp_min(row_mask.sum(), 1.0)
+    mean = (x * row_mask[:, None]).sum(0) / n
+    var = ((x - mean) ** 2 * row_mask[:, None]).sum(0) / n
+    std = torch.sqrt(var)
+    const = _effectively_constant(std, torch.sqrt(var + mean**2))
+    safe = torch.where(const, 1.0, std)
+    xs = torch.where(row_mask[:, None] != 0, (x - mean) / safe, 0.0)
+    # zero the constant columns entirely: (x - mean) there is pure noise
+    xs = torch.where(const[None, :], 0.0, xs)
+    return xs, mean, safe, const
+
+
+def _scale_only(x: torch.Tensor, row_mask: torch.Tensor, std, const):
+    """Scale without centering, for fit_intercept=False (Spark parity:
+    centering would bake an implicit mean*w offset into training that
+    predict never applies); constant columns stay zeroed."""
+    xs = torch.where(row_mask[:, None] > 0, x / std, 0.0)
+    return torch.where(const[None, :], 0.0, xs)
+
+
+def _soft_threshold(w: torch.Tensor, t) -> torch.Tensor:
+    # torch.sign(0) == 0, as jnp.sign(0)
+    return torch.sign(w) * torch.clamp_min(torch.abs(w) - t, 0.0)
+
+
+def _fista(grad_fn, prox_fn, w0, step, num_iters: int):
+    """Accelerated proximal gradient, fixed iterations. The momentum
+    sequence t_k does not depend on the data, so it is taken on the host in
+    float32 (the reference's scalar carry) and enters as a scalar."""
+    w_prev, z = w0, w0
+    t = np.float32(1.0)
+    for _ in range(num_iters):
+        g = grad_fn(z)
+        w_next = prox_fn(z - step * g, step)
+        t_next = np.float32(0.5) * (
+            np.float32(1.0) + np.sqrt(np.float32(1.0) + np.float32(4.0) * t * t))
+        z = w_next + float((t - np.float32(1.0)) / t_next) * (w_next - w_prev)
+        w_prev, t = w_next, np.float32(t_next)
+    return w_prev
+
+
+def fit_linear_batched(
+    x, y, row_masks, reg_params, elastic_nets, num_iters: int = 200,
+    fit_intercept: bool = True, device=None,
+) -> GLMParams:
+    """K elastic-net linear regressions sharing one feature matrix x [N, D]
+    (y [N], row_masks [K, N], reg_params and elastic_nets [K]), as lanes of
+    one FISTA: per iteration one [N, K] forward GEMM and one [K, D]
+    gradient GEMM on the shared x, with each lane's standardization applied
+    implicitly (x globally shifted so the one-pass lane moments do not
+    cancel in float32). Returns weights [K, D], intercept [K] on the
+    device."""
+    dev = resolve_device(device)
+    _check_precision(dev)
+    x = to_device(x, dev)
+    y = to_device(y, dev)
+    rm = to_device(row_masks, dev)
+    reg_params = to_device(reg_params, dev)
+    elastic_nets = to_device(elastic_nets, dev)
+    n = torch.clamp_min(rm.sum(dim=1), 1.0)                 # [K]
+    gshift = x.mean(dim=0)
+    xc = x - gshift[None, :]
+    s1 = rm @ xc                                            # [K, D]
+    s2 = rm @ (xc * xc)
+    mean_shift = s1 / n[:, None]
+    var = torch.clamp_min(s2 / n[:, None] - mean_shift**2, 0.0)
+    std = torch.sqrt(var)
+    mean_true = mean_shift + gshift[None, :]
+    # fold-constant detection must be exact (masked min/max): an
+    # all-zero-in-mask column has mean_true ~ 0, where the std-relative
+    # test degenerates
+    xmin, xmax = _masked_minmax(x, rm)                      # [K, D] each
+    const = (xmax <= xmin) | _effectively_constant(
+        std, torch.sqrt(var + mean_true**2))
+    safe = torch.where(const, 1.0, std)
+    if not fit_intercept:
+        # Spark parity: scale only, never center x or y
+        mean_shift = torch.zeros_like(mean_shift)
+        xc = x
+        ym = torch.zeros_like(n)
+    else:
+        ym = (rm @ y) / n                                   # [K]
+    yc = torch.where(rm > 0, y[None, :] - ym[:, None], 0.0)  # [K, N]
+    l1 = (reg_params * elastic_nets)[:, None]
+    l2 = (reg_params * (1.0 - elastic_nets))[:, None]
+
+    def grad(w_std):
+        # w_std [K, D] in standardized space; const columns pinned at 0
+        v = torch.where(const, 0.0, w_std / safe)           # [K, D]
+        logits = xc @ v.T - (mean_shift * v).sum(dim=1)[None, :]  # [N, K]
+        r = (logits.T - yc) * rm                            # [K, N]
+        g_raw = r @ xc - mean_shift * r.sum(dim=1)[:, None]
+        g = torch.where(const, 0.0, g_raw / safe) / n[:, None]
+        return g + l2 * w_std
+
+    def prox(w, step):
+        return _soft_threshold(w, step * l1)
+
+    # per-lane standardized column second moments: 1 for centered columns,
+    # (var + mean^2)/std^2 for the scale-only no-intercept path
+    if fit_intercept:
+        col2 = torch.where(const, 0.0, 1.0)
+    else:
+        col2 = torch.where(const, 0.0, (var + mean_true**2) / (safe * safe))
+    lip = col2.sum(dim=1)[:, None] + l2                     # [K, 1]
+    step = 1.0 / torch.clamp_min(lip, 1e-6)
+    w0 = torch.zeros((rm.shape[0], x.shape[1]), dtype=x.dtype, device=dev)
+    w_std = _fista(grad, prox, w0, step, num_iters)
+    w = torch.where(const, 0.0, w_std / safe)
+    b = ym - (w_std * torch.where(const, 0.0, mean_true / safe)).sum(dim=1)
+    if not fit_intercept:
+        b = torch.zeros_like(b)
+    return GLMParams(weights=w, intercept=b)
+
+
+def fit_linear(
+    x, y, row_mask, reg_param, elastic_net, num_iters: int = 200,
+    fit_intercept: bool = True, device=None,
+) -> GLMParams:
+    """Linear regression with elastic net, one fit (Spark WLS semantics
+    for alpha=0 through converged FISTA). Weights [D], intercept scalar on
+    the device."""
+    dev = resolve_device(device)
+    _check_precision(dev)
+    x = to_device(x, dev)
+    y = to_device(y, dev)
+    row_mask = to_device(row_mask, dev)
+    n = torch.clamp_min(row_mask.sum(), 1.0)
+    xs, mean, std, const = _standardize(x, row_mask)
+    if not fit_intercept:
+        # Spark parity: scale only, never center x or y
+        mean = torch.zeros(x.shape[1], dtype=x.dtype, device=dev)
+        xs = _scale_only(x, row_mask, std, const)
+        ym = torch.zeros((), dtype=x.dtype, device=dev)
+    else:
+        ym = (y * row_mask).sum() / n
+    yc = torch.where(row_mask > 0, y - ym, 0.0)
+    l1 = _f32(np.float32(reg_param) * np.float32(elastic_net))
+    l2 = _f32(np.float32(reg_param) * (np.float32(1.0) - np.float32(elastic_net)))
+
+    def grad(w):
+        r = (xs @ w - yc) * row_mask
+        return xs.T @ r / n + l2 * w
+
+    def prox(w, step):
+        return _soft_threshold(w, step * l1)
+
+    col = (xs * xs).sum(0) / n
+    lip = col.sum() + l2
+    step = 1.0 / torch.clamp_min(lip, 1e-6)
+    w0 = torch.zeros(x.shape[1], dtype=x.dtype, device=dev)
+    w_std = _fista(grad, prox, w0, step, num_iters)
+    w = w_std / std
+    b = ym - (w_std * mean / std).sum()
+    return GLMParams(weights=w, intercept=b if fit_intercept
+                     else torch.zeros_like(b))
+
+
+# --------------------------------------------------------------------------
+# Batched L-BFGS / OWL-QN (Spark LogisticRegression's optimizer). K fits
+# advance in lockstep as rows of one [K, P] parameter matrix; the line
+# search evaluates every step candidate with one GEMM ([T*K] lanes); a
+# fixed iteration count, converged lanes frozen in place. OWL-QN (Andrew &
+# Gao 2007) handles per-lane L1 through the pseudo-gradient and the orthant
+# projection; lanes with l1=0 are plain L-BFGS.
+# --------------------------------------------------------------------------
+
+_LBFGS_M = 8           # history pairs
+_LS_STEPS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003)  # Armijo candidates
+_LS_C1 = 1e-4
+
+
+def _lbfgs_owlqn(
+    value_grad: Callable,        # W [K, P] -> (F [K], g_smooth [K, P])
+    candidates_value: Callable,  # Wc [T, K, P] -> F [T, K]
+    p0: torch.Tensor,            # [K, P] initial params
+    l1_mat: torch.Tensor,        # [K, P] per-component l1 (0 on intercepts)
+    gamma0: torch.Tensor,        # [K] initial inverse-Hessian scale
+    num_iters: int,
+    gtol: float = 1e-7,
+) -> torch.Tensor:
+    """Returns argmin params [K, P]. The loop body is branchless: every
+    decision is a ``torch.where`` on the device, so the loop issues work
+    and never waits for it."""
+    k_fits, p_dim = p0.shape
+    m = _LBFGS_M
+    dev, dt = p0.device, p0.dtype
+    n_steps = len(_LS_STEPS)
+    ts = to_device(np.asarray(_LS_STEPS, dtype=np.float32), dev, dt)
+    step_ids = torch.arange(n_steps, device=dev)
+    l1_on = l1_mat > 0
+
+    def pseudo_grad(w, g):
+        # d(f + l1|w|): the sign(w)-side derivative away from 0; at 0 the
+        # steepest one-sided descent direction, 0 inside the [-l1, l1] band
+        gp = g + l1_mat
+        gm = g - l1_mat
+        at0 = torch.where(gm > 0, gm, torch.where(gp < 0, gp, 0.0))
+        return torch.where(w > 0, gp, torch.where(w < 0, gm, at0))
+
+    def two_loop(pg, S, Y, rho, gamma):
+        q = pg
+        alphas = []
+        for i in range(m - 1, -1, -1):
+            a = rho[i] * (S[i] * q).sum(-1)          # [K]
+            q = q - a[:, None] * Y[i]
+            alphas.append(a)
+        r = gamma[:, None] * q
+        for i in range(m):
+            a = alphas[m - 1 - i]
+            b = rho[i] * (Y[i] * r).sum(-1)
+            r = r + S[i] * (a - b)[:, None]
+        return -r
+
+    gamma00 = gamma0.to(dt)
+    w, (f_cur, g) = p0, value_grad(p0)
+    S = torch.zeros((m, k_fits, p_dim), dtype=dt, device=dev)
+    Y = torch.zeros((m, k_fits, p_dim), dtype=dt, device=dev)
+    rho = torch.zeros((m, k_fits), dtype=dt, device=dev)
+    gamma = gamma00
+    for _ in range(num_iters):
+        pg = pseudo_grad(w, g)
+        d = two_loop(pg, S, Y, rho, gamma)
+        # OWL-QN: keep d a descent direction of the pseudo-gradient on
+        # l1-active components (l1=0 lanes pass through untouched)
+        d = torch.where(l1_on & (d * pg >= 0), 0.0, d)
+        # the orthant: sign(w), or sign(-pg) where w is 0 (sign(0) == 0 on
+        # both sides, so a component with w == 0 and pg == 0 projects any
+        # nonzero candidate to 0, as the reference does)
+        xi = torch.where(w != 0, torch.sign(w), torch.sign(-pg))
+        cand = w[None] + ts[:, None, None] * d[None]          # [T, K, P]
+        cand = torch.where(l1_on & (cand * xi < 0), 0.0, cand)
+        f_cand = candidates_value(cand)                       # [T, K]
+        pgd = ((cand - w[None]) * pg[None]).sum(-1)           # [T, K]
+        accept = f_cand <= f_cur[None] + _LS_C1 * pgd
+        # jnp.argmax over booleans takes the first True (the largest
+        # accepted step); torch.argmax is not defined on bool, so it runs
+        # on int32, where it too returns the first maximal index
+        first_ok = accept.to(torch.int32).argmax(dim=0)
+        fallback = f_cand.argmin(dim=0)
+        idx = torch.where(accept.any(dim=0), first_ok, fallback)
+        # the one-hot selection as the reference writes it: a NaN or inf
+        # candidate in an unselected step turns the sum into NaN (0 * inf),
+        # there as here
+        sel = (step_ids[:, None] == idx[None, :]).to(dt)      # [T, K]
+        w_sel = (cand * sel[:, :, None]).sum(0)
+        f_sel = (f_cand * sel).sum(0)
+        conv = pg.abs().amax(-1) <= gtol * torch.clamp_min(f_cur.abs(), 1.0)
+        move = (f_sel < f_cur) & ~conv
+        w_next = torch.where(move[:, None], w_sel, w)
+        f_next_sel, g_next = value_grad(w_next)
+        f_next = torch.where(move, f_next_sel, f_cur)
+        s = w_next - w
+        yv = g_next - g
+        sy = (s * yv).sum(-1)
+        # relative curvature gate: a tiny positive f32 sy would give a huge
+        # rho and a garbage direction
+        s_nrm = torch.sqrt((s * s).sum(-1))
+        y_nrm = torch.sqrt((yv * yv).sum(-1))
+        valid = move & (sy > 1e-8 * s_nrm * y_nrm + 1e-20)
+        # a failed line search away from convergence resets the lane to
+        # steepest descent with the 1/Lipschitz scale
+        fail = ~move & ~conv
+        s = torch.where(valid[:, None], s, 0.0)
+        yv = torch.where(valid[:, None], yv, 0.0)
+        rho_new = torch.where(valid, 1.0 / torch.where(valid, sy, 1.0), 0.0)
+        vslot = valid[None, :, None]
+        S_next = torch.where(vslot, torch.cat([S[1:], s[None]]), S)
+        Y_next = torch.where(vslot, torch.cat([Y[1:], yv[None]]), Y)
+        rho_next = torch.where(
+            valid[None, :], torch.cat([rho[1:], rho_new[None]]), rho)
+        S = torch.where(fail[None, :, None], 0.0, S_next)
+        Y = torch.where(fail[None, :, None], 0.0, Y_next)
+        rho = torch.where(fail[None, :], 0.0, rho_next)
+        gamma_next = torch.where(
+            valid, sy / torch.clamp_min((yv * yv).sum(-1), 1e-20), gamma)
+        gamma = torch.where(fail, gamma00, gamma_next)
+        w, f_cur, g = w_next, f_next, g_next
+    return w
+
+
+def fit_logistic_binary(
+    x, y, row_mask, reg_param, elastic_net, num_iters: int = 100,
+    fit_intercept: bool = True, standardization: bool = True, device=None,
+) -> GLMParams:
+    """Binary logistic regression by L-BFGS/OWL-QN: the K=1 lane of
+    ``fit_logistic_binary_batched``, so the sweep and the winner's refit
+    run the same math. Weights [D], intercept scalar on the device."""
+    dev = resolve_device(device)
+    out = fit_logistic_binary_batched(
+        x, y, to_device(row_mask, dev)[None, :],
+        np.asarray([reg_param], dtype=np.float32),
+        np.asarray([elastic_net], dtype=np.float32),
+        num_iters=num_iters, fit_intercept=fit_intercept,
+        standardization=standardization, device=dev,
+    )
+    return GLMParams(weights=out.weights[0], intercept=out.intercept[0])
+
+
+def fit_logistic_binary_batched(
+    x, y, row_masks, reg_params, elastic_nets, num_iters: int = 100,
+    fit_intercept: bool = True, standardization: bool = True, device=None,
+) -> GLMParams:
+    """K binary logistic L-BFGS/OWL-QN fits sharing one feature matrix x
+    [N, D] (y [N] in {0, 1}, row_masks [K, N], reg_params and elastic_nets
+    [K]). Lanes batch as GEMM columns on the shared x (per iteration: one
+    [T*K]-lane line-search GEMM and one gradient GEMM pair), each lane's
+    standardization applied implicitly:
+        xs^T r = (x^T (r m) - mean sum(r m)) / std
+    Returns weights [K, D], intercept [K] on the device."""
+    dev = resolve_device(device)
+    _check_precision(dev)
+    x = to_device(x, dev)
+    y = to_device(y, dev)
+    rm = to_device(row_masks, dev)
+    reg_params = to_device(reg_params, dev)
+    elastic_nets = to_device(elastic_nets, dev)
+    k_fits = rm.shape[0]
+    n = torch.clamp_min(rm.sum(dim=1), 1.0)                 # [K]
+    # shifted-data moments: center on the global column means first so the
+    # one-pass per-lane variance does not cancel in f32 for large-mean
+    # columns; without standardization nothing is centered
+    if standardization:
+        gshift = x.mean(dim=0)                              # [D]
+    else:
+        gshift = torch.zeros(x.shape[1], dtype=x.dtype, device=dev)
+    xc = x - gshift[None, :]
+    s1 = rm @ xc                                            # [K, D]
+    s2 = rm @ (xc * xc)                                     # [K, D]
+    mean_raw = s1 / n[:, None]
+    var = torch.clamp_min(s2 / n[:, None] - mean_raw**2, 0.0)
+    std = torch.sqrt(var)
+    # fold-constant detection is exact and order-invariant (masked
+    # min/max), so it equals the reference's
+    xmin, xmax = _masked_minmax(x, rm)                      # [K, D] each
+    const = xmax <= xmin
+    # near-constant columns: clamp std to the one-pass noise floor rather
+    # than gating (a continuous guard)
+    noise_floor = 2e-3 * torch.sqrt(s2 / n[:, None]) + 1e-12
+    if standardization:
+        safe = torch.where(const, 1.0, torch.maximum(std, noise_floor))
+        if fit_intercept:
+            mean_c = mean_raw
+        else:
+            # no intercept: scale only, never center (Spark parity); the
+            # gradients then see raw x
+            mean_c = torch.zeros_like(mean_raw)
+            xc = x
+    else:
+        mean_c = torch.zeros_like(mean_raw)
+        safe = torch.ones_like(std)
+        xc = x
+    l1 = (reg_params * elastic_nets)[:, None]               # [K, 1]
+    l2 = (reg_params * (1.0 - elastic_nets))[:, None]
+    d_cols = x.shape[1]
+    zero = x.new_zeros(())
+
+    def _loss_terms(logits, w_std):
+        # logits [..., K, N], w_std [..., K, D] -> objective [..., K];
+        # jax.nn.softplus is logaddexp(x, 0) (torch's softplus returns x
+        # itself above its threshold of 20)
+        ll = torch.logaddexp(logits, zero) - y * logits
+        f = (ll * rm).sum(-1) / n
+        f = f + 0.5 * l2[:, 0] * (w_std * w_std).sum(-1)
+        return f + l1[:, 0] * torch.abs(w_std).sum(-1)
+
+    def _logits_of(ws, b):
+        # ws [..., K, D] (already scaled by 1/safe) -> logits [..., K, N];
+        # every candidate of the line search in one GEMM
+        lead = ws.shape[:-1]
+        lin = (xc @ ws.reshape(-1, d_cols).T).T.reshape(*lead, -1)
+        out = lin - (mean_c * ws).sum(-1)[..., None]
+        if fit_intercept:
+            out = out + b[..., None]
+        return out
+
+    def candidates_value(cand):                             # [T, K, P]
+        w_std, b = cand[..., :-1], cand[..., -1]
+        return _loss_terms(_logits_of(w_std / safe, b), w_std)
+
+    def value_grad(params):                                 # [K, P]
+        w_std, b = params[:, :-1], params[:, -1]
+        ws = w_std / safe
+        logits = _logits_of(ws, b)
+        f_total = _loss_terms(logits, w_std)
+        # jax.nn.sigmoid as XLA's CPU backend evaluates it (the tree
+        # port's twin), which takes one source of difference out
+        p = _xla_sigmoid(logits)
+        r = (p - y[None, :]) * rm                           # [K, N]
+        xr = r @ xc                                         # [K, D]
+        rsum = r.sum(dim=1)[:, None]
+        gw = (xr - mean_c * rsum) / safe / n[:, None] + l2 * w_std
+        if standardization:
+            # constant columns are cancellation noise: pin them at 0
+            gw = torch.where(const, 0.0, gw)
+        gb = rsum[:, 0] / n if fit_intercept else torch.zeros_like(n)
+        return f_total, torch.cat([gw, gb[:, None]], dim=1)
+
+    # tr(Xs^T Xs)/n per lane: the count of non-constant columns when
+    # centered and standardized; (var + mean^2)/std^2 scaled but not
+    # centered; the raw masked second moment without standardization
+    if standardization and fit_intercept:
+        col_sum = (~const).sum(dim=1).to(x.dtype)
+    elif standardization:
+        raw_second = var + (gshift[None, :] + mean_raw) ** 2
+        col_sum = torch.where(const, 0.0, raw_second / safe**2).sum(dim=1)
+    else:
+        col_sum = (s2 / n[:, None]).sum(dim=1)
+    lip = 0.25 * col_sum + l2[:, 0]
+    gamma0 = 1.0 / torch.clamp_min(lip, 1e-6)              # [K]
+
+    # l1 applies to the weights only, never the intercept slot
+    l1_mat = torch.cat([l1.expand(k_fits, d_cols),
+                        torch.zeros((k_fits, 1), dtype=x.dtype, device=dev)],
+                       dim=1)
+    params0 = torch.zeros((k_fits, d_cols + 1), dtype=x.dtype, device=dev)
+    params = _lbfgs_owlqn(value_grad, candidates_value, params0, l1_mat,
+                          gamma0, num_iters)
+    w_std, b_std = params[:, :-1], params[:, -1]
+    w = w_std / safe
+    mean_total = gshift[None, :] + mean_c
+    b = b_std - (w_std * mean_total / safe).sum(dim=1)
+    return GLMParams(weights=w, intercept=b if fit_intercept
+                     else torch.zeros_like(b))

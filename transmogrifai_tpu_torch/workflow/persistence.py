@@ -20,6 +20,8 @@ from ..models.gbdt import (
     BoostedBinaryModel, BoostedRegressionModel, ForestClassifierModel,
     ForestRegressionModel,
 )
+from ..models.linear import LinearRegressionModel
+from ..models.logistic import LogisticRegressionModel
 from ..ops.categorical import OneHotModel
 from ..ops.combiner import VectorsCombiner
 from ..ops.numeric import BinaryVectorizer, NumericVectorizerModel, RealNNVectorizer
@@ -41,7 +43,7 @@ STAGE_CLASSES: dict[str, type] = {
         NumericVectorizerModel, BinaryVectorizer, RealNNVectorizer,
         OneHotModel, VectorsCombiner, FeatureRemovalModel, SelectedModel,
         BoostedBinaryModel, ForestClassifierModel, BoostedRegressionModel,
-        ForestRegressionModel,
+        ForestRegressionModel, LogisticRegressionModel, LinearRegressionModel,
     )
 }
 
