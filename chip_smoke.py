@@ -49,7 +49,17 @@ paths:
   JAX package's serving arithmetic, so the xgb and rf fixtures' scores
   equal the stored ones. The kernel is held bit for bit against its plain
   version at synthetic shapes and at the calls captured on the serving and
-  both training paths, and timed there;
+  both training paths, and timed there beside one ``torch.sum(dim=1)`` in
+  interleaved pairs of readings (16 at (a), (b) and serving's calls, with
+  the SM clock sampled by ``nvidia-smi`` beside each reading; a sign test
+  over the pairs gives the verdict, phase ``tree_sum against torch.sum``);
+* serving above 16384 rows: the xgb and rf fixtures' models and depth-10
+  twins score a 20000-row batch through ``predict_arrays``, which walks
+  each stack twice (leaf values, leaf windows) and reduces in the JAX
+  package's device-route order (the tree sum's second mode,
+  ``tree_sum_device_route``); every output must equal the same call on the
+  CPU bit for bit. The mode is held against its plain version at
+  synthetic shapes and at the calls captured there, and timed;
 * GLM serving and training: the ``lr`` fixture (a JAX-saved flagship twin
   whose selector picked ``LogisticRegression``) is served on the card
   within 1e-6 of its stored scores; ``LogisticRegression`` and
@@ -74,7 +84,9 @@ where one exists. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -254,10 +266,12 @@ def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
             expected += launches * calls
         device_ms.missed_activities += expected - seen
         if per_call > 0 and 4 * seen >= 3 * expected:
+            device_ms.last_source = "profiler"
             return per_call / 1e3
         device_ms.empty_sessions += 1
     ms = time_ms(torch, fn, arg_sets, reps=calls, rounds=3)
     device_ms.event_fallbacks += 1
+    device_ms.last_source = "cuda_events"
     phase("device_ms fallback", fn=getattr(fn, "__name__", str(fn)),
           empty_sessions=PROFILE_TRIES, event_ms=ms)
     return ms
@@ -269,6 +283,23 @@ def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
 device_ms.missed_activities = 0
 device_ms.empty_sessions = 0
 device_ms.event_fallbacks = 0
+#: where the last reading came from: "profiler" or "cuda_events"
+device_ms.last_source = None
+
+
+def sourced_ms(torch, fn, arg_sets, **kw) -> tuple[float, str]:
+    """``device_ms`` and where the reading came from."""
+    ms = device_ms(torch, fn, arg_sets, **kw)
+    return ms, device_ms.last_source
+
+
+def source_counts(rows, key: str = "device_ms_source") -> dict:
+    """How many of ``rows``' readings came from the profiler and how many
+    from the CUDA-event fallback."""
+    out = {"profiler": 0, "cuda_events": 0}
+    for r in rows:
+        out[r[key]] += 1
+    return out
 
 
 def same_layout_clone(a):
@@ -563,13 +594,14 @@ def tree_sum_bound_ms(n: int, t: int) -> tuple[float, str]:
 
 
 def check_tree_sum(torch, TS, name, per_tree, boosted, eta, base,
-                   timed: bool) -> dict:
+                   timed: bool, pairs: int = 2) -> dict:
     """The tree-sum kernel against its plain version on the same card
     tensor and on a CPU copy, bit for bit (NaN where the other has NaN: a
     forest leaf no training row reached holds 0/0); with ``timed``, its
-    time on both yardsticks with the inputs out of L2, the plain version's,
-    one ``torch.sum(dim=1)``'s (the library call for the sum alone) and the
-    bound."""
+    time and one ``torch.sum(dim=1)``'s (the library call for the sum
+    alone) on both yardsticks, in turns (``compare_device_ms``, ``pairs``
+    pairs of readings), with the inputs out of L2, the plain version's and
+    the bound."""
     got = TS.tree_sum(per_tree, boosted, eta, base)
     want = TS.tree_sum_plain(per_tree, boosted, eta, base)
     cpu = TS.tree_sum_plain(per_tree.cpu(), boosted, eta, base)
@@ -595,15 +627,162 @@ def check_tree_sum(torch, TS, name, per_tree, boosted, eta, base,
         def library(pt):
             return torch.sum(pt, dim=1)
 
+        out.update(compare_device_ms(torch, kernel, library, cold, pairs))
         out.update({
-            "ms": time_ms(torch, kernel, cold),
-            "device_ms": device_ms(torch, kernel, cold),
             "plain_ms": time_ms(torch, plain, cold, reps=3, rounds=5),
-            "library_ms": time_ms(torch, library, cold),
-            "library_device_ms": device_ms(torch, library, cold),
             "bound_ms": bound, "bound_by": by, "arg_copies": len(cold),
         })
         del cold
+    return out
+
+
+#: kernel / library pairs of the tree sum's comparisons that decide whether
+#: it is slower than one torch.sum (the tree order at (a), (b) and
+#: serving's captured calls); the others take 2
+MUST_PAIRS = 16
+#: one-sided sign-test level at which a side is called faster
+SIGN_LEVEL = 0.05
+
+
+class ClockSampler:
+    """The card's SM clock, sampled every ``period_ms`` by ``nvidia-smi``
+    (a process of its own, stopped when the block ends) while a comparison
+    runs; ``between`` gives the samples taken inside a span of wall time.
+    Samples are diagnostics: where ``nvidia-smi`` gives none, readings
+    carry no clock."""
+
+    def __init__(self, period_ms: int = 10):
+        self.period_ms = period_ms
+        self.samples: list[tuple[float, float]] = []
+        self.proc = self.thread = None
+
+    def _read(self):
+        from datetime import datetime
+
+        for line in self.proc.stdout:
+            try:
+                stamp, mhz = line.split(",")
+                at = datetime.strptime(stamp.strip(),
+                                       "%Y/%m/%d %H:%M:%S.%f").timestamp()
+                self.samples.append((at, float(mhz)))
+            except ValueError:
+                continue
+
+    def __enter__(self):
+        import threading
+
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=timestamp,clocks.sm",
+                 "--format=csv,noheader,nounits",
+                 f"--loop-ms={self.period_ms}"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            return self
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+        give_up = time.time() + 5.0
+        while not self.samples and time.time() < give_up \
+                and self.proc.poll() is None:
+            time.sleep(0.01)
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+            self.thread.join(timeout=5)
+        return False
+
+    def between(self, t0: float, t1: float) -> list[float]:
+        return [mhz for at, mhz in list(self.samples) if t0 <= at <= t1]
+
+
+def sign_p(wins: int, n: int) -> float:
+    """One-sided sign-test p-value: at least ``wins`` of ``n`` fair tosses."""
+    return sum(math.comb(n, k) for k in range(wins, n + 1)) / 2 ** n if n \
+        else 1.0
+
+
+def pair_verdict(kernel_runs, library_runs, sources) -> dict:
+    """Pairs of readings taken side by side: how often the kernel took less
+    device time than the library call, over the pairs whose readings both
+    came from the profiler, and the sign test's verdict on that count."""
+    used = [(k, l) for k, l, (sk, sl) in zip(kernel_runs, library_runs, sources)
+            if sk == sl == "profiler" and k != l]
+    wins = sum(k < l for k, l in used)
+    p_fast, p_slow = sign_p(wins, len(used)), sign_p(len(used) - wins, len(used))
+    return {"pairs": len(kernel_runs), "pairs_used": len(used),
+            "kernel_wins": wins,
+            "p_kernel_faster": p_fast, "p_kernel_slower": p_slow,
+            "verdict": "kernel faster" if p_fast < SIGN_LEVEL
+            else "kernel slower" if p_slow < SIGN_LEVEL
+            else "level within the noise"}
+
+
+def compare_device_ms(torch, kernel, library, cold, pairs: int = 2) -> dict:
+    """A kernel and the library call for the same function, timed in turns
+    on the same inputs: each on CUDA-event groups, then ``pairs`` pairs of
+    device-time readings (``device_ms``), the kernel first in the even pairs
+    and the library call first in the odd ones (kernel, library, library,
+    kernel, ...). ``device_ms`` and ``library_device_ms`` are the means of
+    each side's readings. With more than 2 pairs the card's SM clock is
+    sampled beside every reading (``ClockSampler``), the readings and clocks
+    are split by their place in the pair (first or second), and the sign
+    test over the pairs gives the verdict (``pair_verdict``)."""
+    out = {"ms": time_ms(torch, kernel, cold),
+           "library_ms": time_ms(torch, library, cold)}
+    runs = {"kernel": [], "library": []}
+    srcs = {"kernel": [], "library": []}
+    clocks = {"kernel": [], "library": []}
+    places = {"first": [], "second": []}
+    with (ClockSampler() if pairs > 2 else contextlib.nullcontext()) as clk:
+        for i in range(pairs):
+            order = ("kernel", "library") if i % 2 == 0 else ("library", "kernel")
+            for place, side in zip(("first", "second"), order):
+                t0 = time.time()
+                ms, src = sourced_ms(torch, kernel if side == "kernel"
+                                     else library, cold)
+                t1 = time.time()
+                runs[side].append(ms)
+                srcs[side].append(src)
+                mhz = clk.between(t0, t1) if clk is not None else []
+                clocks[side].append(statistics.mean(mhz) if mhz else None)
+                places[place].append((side, ms, clocks[side][-1]))
+    out.update({
+        "device_ms": statistics.mean(runs["kernel"]),
+        "device_ms_runs": runs["kernel"],
+        "device_ms_source": "profiler"
+        if all(s == "profiler" for s in srcs["kernel"]) else "cuda_events",
+        "library_device_ms": statistics.mean(runs["library"]),
+        "library_device_ms_runs": runs["library"],
+        "run_sources": list(zip(srcs["kernel"], srcs["library"])),
+    })
+    if pairs > 2:
+        def place_summary(rows):
+            sides = {side: [ms for sd, ms, _ in rows if sd == side]
+                     for side in ("kernel", "library")}
+            mhz = [c for _, _, c in rows if c is not None]
+            return {**{f"{side}_ms": statistics.mean(v) for side, v in
+                       sides.items()},
+                    "clock_mhz": statistics.mean(mhz) if mhz else None}
+
+        out["paired"] = {
+            **pair_verdict(runs["kernel"], runs["library"], out["run_sources"]),
+            "kernel_median_ms": statistics.median(runs["kernel"]),
+            "library_median_ms": statistics.median(runs["library"]),
+            "sources": source_counts(
+                [{"s": x} for x in srcs["kernel"] + srcs["library"]], "s"),
+            "clock_samples": len(clk.samples),
+            "kernel_clock_mhz": clocks["kernel"],
+            "library_clock_mhz": clocks["library"],
+            "first_in_pair": place_summary(places["first"]),
+            "second_in_pair": place_summary(places["second"]),
+        }
     return out
 
 
@@ -637,27 +816,269 @@ class TreeSumCapture:
         return False
 
 
-def check_tree_sum_path(torch, TS, records: dict, path: str) -> dict:
+def check_tree_sum_path(torch, TS, records: dict, path: str,
+                        pairs: int = 2) -> dict:
     """Each tree-sum call captured on ``path`` relaunched against the plain
     version and timed (right after the path ran: the profiler misses more
     activities late in a long run); the means weighted by each group's
-    calls."""
+    calls. With more than 2 ``pairs``, the weighted sums of each pair's
+    readings over the groups are compared pair by pair too
+    (``pair_verdict``)."""
     rows = []
     for key in [k for k in records if k[0] == path]:
         _, n, t, boosted = key
         rec = records.pop(key)
         rows.append({"weight": rec["count"], **check_tree_sum(
             torch, TS, f"{path} N={n} T={t}", rec["per_tree"], boosted,
-            rec["eta"], rec["base"], timed=True)})
+            rec["eta"], rec["base"], timed=True, pairs=pairs)})
     if not rows:
         raise AssertionError(f"no tree_sum call of the {path} path was captured")
     total = sum(r["weight"] for r in rows)
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
             "bound_ms")
+    extra = {}
+    if pairs > 2:
+        def weighted(key):
+            return [sum(r["weight"] * r[key][i] for r in rows) / total
+                    for i in range(pairs)]
+
+        def source(i):
+            both = all(r["run_sources"][i] == ("profiler", "profiler")
+                       for r in rows)
+            return ("profiler",) * 2 if both else ("cuda_events",) * 2
+
+        extra["paired"] = pair_verdict(
+            weighted("device_ms_runs"), weighted("library_device_ms_runs"),
+            [source(i) for i in range(pairs)])
     return {
+        **extra,
         "basis": "mean per launch, each captured call weighted by the calls "
                  "of its (N, T, boosted) group",
         "launches": total,
+        "device_ms_sources": source_counts(rows),
+        **{k: sum(r["weight"] * r[k] for r in rows) / total for k in keys},
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "captured": rows,
+    }
+
+
+#: the tree sum's device-route mode: (N, T, leaf windows, boosted). (a) 200
+#: depth-6 rounds (2 leaf windows) above the 16384-row threshold; (b) 200
+#: depth-10 rounds (32 windows) at 65536 rows; untimed (c) ragged, depth <= 5
+#: (one window, no window array) and (d) ragged, 2 windows; (e) three levels
+#: of windows (T > 1024); (f) depth 12 (128 windows, three levels)
+ROUTE_SHAPES = {
+    "a_depth6": (20000, 200, 2, True),
+    "b_depth10": (65536, 200, 32, True),
+    "c_ragged_one_window": (16385, 7, 1, False),
+    "d_ragged": (16385, 7, 2, True),
+    "e_many_trees": (1001, 1100, 4, False),
+    "f_depth12": (4099, 50, 128, True),
+}
+#: rows of the device-route serving batch (above the reference's 16384)
+ROUTE_ROWS = 20000
+
+
+def route_bound_ms(n: int, t: int, h: int) -> tuple[float, str]:
+    """The device-route sum reads [N, T] f32 values (and as many leaf
+    windows where H > 1) once and writes [N] f32; it adds N*T values into
+    their windows, folds the windows and takes N epilogues."""
+    arrays = 2 if h > 1 else 1
+    by_bytes = (arrays * n * t + n) * 4 / HBM_BYTES_PER_S * 1e3
+    folds = -(-t // 32) * h
+    by_ops = n * (t + folds + 2) / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_tree_sum_route(torch, TS, name, per_tree, win, h, boosted, eta,
+                         base, timed: bool) -> dict:
+    """The device-route mode against its plain version on the same card
+    tensors and on CPU copies, bit for bit; with ``timed``, its times as
+    ``check_tree_sum`` takes them (the library call: one
+    ``torch.sum(dim=1)``, the same function in another order)."""
+    got = TS.tree_sum_device_route(per_tree, win, h, boosted, eta, base)
+    want = TS.tree_sum_device_route_plain(per_tree, win, h, boosted, eta, base)
+    cpu = TS.tree_sum_device_route_plain(
+        per_tree.cpu(), None if win is None else win.cpu(), h, boosted, eta,
+        base)
+    torch.cuda.synchronize()
+    if not (same_values(torch, got, want) and same_values(torch, got.cpu(), cpu)):
+        bad = int((got != want).sum().item())
+        raise AssertionError(f"tree_sum_device_route {name}: kernel != plain "
+                             f"version ({bad} rows)")
+    n, t = per_tree.shape
+    out = {"shape": {"N": n, "T": t, "H": h}, "boosted": bool(boosted),
+           "max_abs_err": float((got - want).nan_to_num().abs().max().item())
+           if n else 0.0, "bit_identical": True}
+    if timed:
+        bound, by = route_bound_ms(n, t, h)
+        args = [per_tree] if win is None else [per_tree, win]
+        cold = l2_cold_copies(args, sum(a.numel() for a in args) * 4)
+
+        def kernel(pt, w=None):
+            return TS.tree_sum_device_route(pt, w, h, boosted, eta, base)
+
+        def plain(pt, w=None):
+            return TS.tree_sum_device_route_plain(pt, w, h, boosted, eta, base)
+
+        def library(pt, w=None):
+            return torch.sum(pt, dim=1)
+
+        out.update(compare_device_ms(torch, kernel, library, cold))
+        out.update({
+            "plain_ms": time_ms(torch, plain, cold, reps=2, rounds=3),
+            "bound_ms": bound, "bound_by": by, "arg_copies": len(cold),
+        })
+        del cold
+    return out
+
+
+class RouteCapture:
+    """Records the first device-route tree sum of every (N, T, H, boosted)
+    group that the predictors make (through ``serve_trees``'s name for
+    it), with how many calls each group makes. It adds no launch."""
+
+    def __init__(self, ST):
+        self.ST = ST
+        self.real = ST.tree_sum_device_route
+        self.records: dict[tuple, dict] = {}
+
+    def __enter__(self):
+        def hook(per_tree, leaf_window, num_windows, boosted, eta=0.0,
+                 base_score=0.0):
+            key = (per_tree.shape[0], per_tree.shape[1], num_windows,
+                   bool(boosted))
+            rec = self.records.get(key)
+            if rec is None:
+                self.records[key] = {
+                    "per_tree": per_tree.clone(),
+                    "win": None if leaf_window is None else leaf_window.clone(),
+                    "eta": eta, "base": base_score, "count": 1}
+            else:
+                rec["count"] += 1
+            return self.real(per_tree, leaf_window, num_windows, boosted, eta,
+                             base_score)
+
+        self.ST.tree_sum_device_route = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.ST.tree_sum_device_route = self.real
+        return False
+
+
+def plan_vector(model, rows: list[dict], n: int) -> np.ndarray:
+    """The feature vector a model's plan hands its predictor for ``rows``,
+    repeated to ``n`` rows."""
+    from transmogrifai_tpu_torch.types.columns import column_from_values
+
+    cols = {f.name: column_from_values(f.ftype, [r.get(f.name) for r in rows])
+            for f in model.raw_features}
+    plan = model.stage_plan()
+    for stage in plan[:-1]:
+        cols[stage.output_name] = stage.transform_columns(
+            *[cols[name] for name in stage.input_names], num_rows=len(rows))
+    vec = np.asarray(cols[plan[-1].input_names[-1]].values, np.float32)
+    return np.resize(vec, (n, vec.shape[1]))
+
+
+def route_twins(G, TR):
+    """Depth-10 twins of the serving models, from a seed: 200 boosted rounds
+    and a 50-tree forest over 10 features at 32 bins (name -> a function
+    making the model), with their batch of ``ROUTE_ROWS`` rows."""
+    rng = np.random.default_rng(10)
+    f, bins, depth = 10, 32, 10
+    x = rng.normal(size=(ROUTE_ROWS, f)).astype(np.float32)
+    thr = TR.quantile_thresholds(x, max_bins=bins)
+    sf, sb, lv = random_stack(rng, 200, depth, f, bins - 1)
+    boosted = TR.Tree(sf, sb, (lv * 0.1).astype(np.float32))
+    sf, sb, lv = random_stack(rng, 50, depth, f, bins - 1)
+    forest = TR.Tree(sf, sb, (lv * 0.1).astype(np.float32))
+    return x, {
+        "xgb depth-10 twin": lambda: G.BoostedBinaryModel(thr, boosted, 0.02, 0.1),
+        "rf depth-10 twin": lambda: G.ForestClassifierModel(thr, [forest]),
+    }
+
+
+def best_of(model):
+    return next(s for s in model.fitted.values()
+                if hasattr(s, "best_model")).best_model
+
+
+def device_route_path(torch, G, ST, TS, TR, load_workflow_model) -> dict:
+    """The serving path above 16384 rows: the xgb and rf fixtures' models
+    (loaded as a user loads them, so placed on the card) and depth-10 twins
+    score ``ROUTE_ROWS`` rows through ``predict_arrays``, which sums in the
+    reference's device-route order; every output must equal the same call
+    on the CPU bit for bit (the plain route the CPU tests hold to the JAX
+    package). The device-route sum's and K1's counts are read around the
+    card's calls, and the sums captured for timing."""
+    cases = []
+    for name in ("xgb", "rf"):
+        path, rows, _ = load_fixture(name)
+        card = best_of(load_workflow_model(path))
+        cpu = best_of(load_workflow_model(path, device="cpu")).to("cpu")
+        cases.append((f"{name} fixture", card, cpu,
+                      plan_vector(load_workflow_model(path, device="cpu"),
+                                  rows, ROUTE_ROWS)))
+    x, twins = route_twins(G, TR)
+    for name, make in twins.items():
+        cases.append((name, make().to(DEV), make().to("cpu"), x))
+    TS.tree_sum_device_route.launches = 0
+    ST.serve_trees.launches = 0
+    outs = {}
+    with RouteCapture(ST) as cap:
+        for name, card, _, vec in cases:
+            outs[name] = card.predict_arrays(vec)
+    route_launches = TS.tree_sum_device_route.launches
+    k1_launches = ST.serve_trees.launches
+    TS.tree_sum_device_route.launches = 0
+    ST.serve_trees.launches = 0
+    if route_launches == 0 or k1_launches == 0:
+        raise AssertionError(f"the device route launched tree_sum_device_route "
+                             f"{route_launches} and serve_trees {k1_launches} "
+                             "times")
+    result = {"rows": ROUTE_ROWS, "route_launches": route_launches,
+              "serve_trees_launches": k1_launches, "models": {}}
+    for name, card, cpu, vec in cases:
+        if card.device is None or card.device.type != torch.device(DEV).type:
+            raise AssertionError(f"{name}: the model did not predict on the card")
+        want = cpu.predict_arrays(vec)
+        diff = [int(np.count_nonzero(~((a == b) | (np.isnan(a) & np.isnan(b)))))
+                for a, b in zip(outs[name], want)]
+        if any(diff):
+            raise AssertionError(f"{name}: card scores differ from the CPU's "
+                                 f"(differing cells {diff})")
+        stack = card.device_stacks[0]
+        result["models"][name] = {"T": stack.num_trees, "depth": stack.depth,
+                                  "stacks": len(card.device_stacks),
+                                  "differing_cells": 0}
+    result["_records"] = cap.records
+    return result
+
+
+def check_route_path(torch, TS, records: dict) -> dict:
+    """Each device-route sum captured on the serving path relaunched
+    against the plain version and timed; the means weighted by each
+    group's calls."""
+    rows = []
+    for (n, t, h, boosted), rec in records.items():
+        rows.append({"weight": rec["count"], **check_tree_sum_route(
+            torch, TS, f"serving N={n} T={t} H={h}", rec["per_tree"],
+            rec["win"], h, boosted, rec["eta"], rec["base"], timed=True)})
+    if not rows:
+        raise AssertionError("no device-route sum of the serving path was "
+                             "captured")
+    total = sum(r["weight"] for r in rows)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms")
+    return {
+        "basis": "mean per launch, each captured call weighted by the calls "
+                 "of its (N, T, H, boosted) group",
+        "launches": total,
+        "device_ms_sources": source_counts(rows),
         **{k: sum(r["weight"] * r[k] for r in rows) / total for k in keys},
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
         else "operations",
@@ -1113,9 +1534,11 @@ def check_node_order(torch, H, node, g, h, m) -> dict:
         err = max(err, diff)
     bound, by = order_bound(torch, node, m)
     cold = l2_cold_copies([node, g, h], 16 * node.numel())
+    ms, source = sourced_ms(torch, lambda a, b, c: H.node_order(a, m, b, c),
+                            cold)
     out = {
         "bit_identical_to_plain": True, "max_abs_err": err,
-        "ms": device_ms(torch, lambda a, b, c: H.node_order(a, m, b, c), cold),
+        "ms": ms, "device_ms_source": source,
         "plain_ms": device_ms(
             torch, lambda a, b, c: H.node_order_plain(a, m, b, c), cold,
             calls=4),
@@ -1305,6 +1728,7 @@ def check_main_launches(torch, H, kernel, records, weights: dict,
                                for r in rows])
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
             "max_abs_err": max(r["node_order"]["max_abs_err"] for r in rows),
+            "ms_sources": source_counts([r["node_order"] for r in rows]),
         },
         "launches": rows,
     }
@@ -1965,19 +2389,37 @@ def main() -> int:
     from transmogrifai_tpu_torch.models import hist as H
     from transmogrifai_tpu_torch.models import serve_trees as ST
     from transmogrifai_tpu_torch.models import tree_sum as TS
+    from transmogrifai_tpu_torch.models import trees as TR
 
     start_on_card(torch, ["serve_trees", "tree_sum", "node_order",
                           "hist_binloop", "hist_wide", "best_split"])
 
     # the tree-sum kernel at its shapes (launches here are not counted)
     rng = np.random.default_rng(7)
+    ts_paired = {}
     for label, (n, t, boosted) in TREE_SUM_SHAPES.items():
         per_tree = torch.from_numpy(
             (rng.normal(size=(n, t)) * 10.0 ** rng.integers(-3, 2, (n, t)))
             .astype(np.float32)).to(DEV)
-        phase(f"tree_sum {label}", **check_tree_sum(
-            torch, TS, label, per_tree, boosted, 0.02, 0.37,
-            timed=not label.startswith(("c", "d"))))
+        row = check_tree_sum(torch, TS, label, per_tree, boosted, 0.02, 0.37,
+                             timed=not label.startswith(("c", "d")),
+                             pairs=MUST_PAIRS)
+        phase(f"tree_sum {label}", **row)
+        if "paired" in row:
+            ts_paired[label] = row["paired"]
+    # its device-route mode at its shapes (launches here are not counted)
+    route_rows = {}
+    for label, (n, t, h, boosted) in ROUTE_SHAPES.items():
+        per_tree = torch.from_numpy(
+            (rng.normal(size=(n, t)) * 10.0 ** rng.integers(-3, 2, (n, t)))
+            .astype(np.float32)).to(DEV)
+        win = (torch.from_numpy(rng.integers(0, h, (n, t)).astype(np.float32))
+               .to(DEV) if h > 1 else None)
+        route_rows[label] = check_tree_sum_route(
+            torch, TS, label, per_tree, win, h, boosted, 0.02, 0.37,
+            timed=label.startswith(("a", "b")))
+        phase(f"tree_sum_device_route {label}", **route_rows[label])
+        del per_tree, win
 
     k1_shapes = k1_inputs()
     k1_timed = {}
@@ -2035,9 +2477,26 @@ def main() -> int:
     # the tree-sum kernel at the serving path's own calls (relaunches are
     # not counted)
     ts_sums = {"serving": check_tree_sum_path(torch, TS, ts_cap.records,
-                                              "serving")}
+                                              "serving", pairs=MUST_PAIRS)}
     TS.tree_sum.launches = 0
     phase("tree_sum main_path serving", **ts_sums["serving"])
+    ts_paired["serving"] = ts_sums["serving"]["paired"]
+    phase("tree_sum against torch.sum", pairs=MUST_PAIRS,
+          sign_level=SIGN_LEVEL, **{label: {
+              k: v for k, v in p.items()
+              if k in ("pairs_used", "kernel_wins", "p_kernel_faster",
+                       "p_kernel_slower", "verdict")}
+              for label, p in ts_paired.items()})
+    # the serving path above 16384 rows: the reference's device-route order,
+    # its counts read around exactly this run
+    route = device_route_path(torch, G, ST, TS, TR, load_workflow_model)
+    route_records = route.pop("_records")
+    phase("serving_device_route", **route)
+    route_main = check_route_path(torch, TS, route_records)
+    del route_records
+    TS.tree_sum_device_route.launches = 0
+    ST.serve_trees.launches = 0
+    phase("tree_sum_device_route main_path", **route_main)
     for name, model in models.items():
         _, rows, _ = load_fixture(name)
         big = (rows * (-(-BUCKET_ROWS // len(rows))))[:BUCKET_ROWS]
@@ -2221,6 +2680,38 @@ def main() -> int:
         "bound_ms": ts_all["bound_ms"],
         "bound_by": ts_all["bound_by"],
         "library_ms": ts_all["library_ms"],
+        "device_ms_sources": {
+            k: sum(p["device_ms_sources"][k] for p in ts_sums.values())
+            for k in ("profiler", "cuda_events")},
+        "against_library": {label: p["verdict"]
+                            for label, p in ts_paired.items()},
+    }, {
+        "name": "tree_sum_device_route",
+        "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/tree_sum.cu",
+        "replaces": None,
+        "path": "the tree sum's second mode, the reference's device-route "
+                "order for batches above 16384 rows (XLA's windowed "
+                "reduction of its one-hot leaf select, "
+                "transmogrifai_tpu/models/trees.py predict_boosted_raw / "
+                "predict_forest_raw); it replaces no TPU kernel; times over "
+                "the captured calls of the device-route serving phase, "
+                "weighted by launches; ms on CUDA-event groups, device_ms "
+                "the profiler's; library = one torch.sum(dim=1), the same "
+                "function in another order",
+        "launches": route["route_launches"],
+        "max_abs_err": max(route_main["max_abs_err"],
+                           max(r["max_abs_err"] for r in route_rows.values())),
+        "ms": route_main["ms"],
+        "device_ms": route_main["device_ms"],
+        "device_ms_sources": route_main["device_ms_sources"],
+        "plain_ms": route_main["plain_ms"],
+        "bound_ms": route_main["bound_ms"],
+        "bound_by": route_main["bound_by"],
+        "library_ms": route_main["library_ms"],
+        "shapes": {label: {k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                             "library_ms", "bound_ms")}
+                   for label, r in route_rows.items() if "ms" in r},
     }, {
         "name": "serve_trees",
         "route": "cuda",
@@ -2287,6 +2778,9 @@ def main() -> int:
                              "regression training": reg["node_order_launches"]},
         "max_abs_err": orders["max_abs_err"],
         "ms": orders["ms"],
+        "ms_sources": {
+            k: k2["node_order"]["ms_sources"][k] + k2r["node_order"]["ms_sources"][k]
+            for k in ("profiler", "cuda_events")},
         "plain_ms": orders["plain_ms"],
         "bound_ms": orders["bound_ms"],
         "bound_by": "bytes",

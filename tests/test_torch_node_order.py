@@ -211,3 +211,23 @@ def test_kernel_matches_plain_version_on_the_card():
                 got = fn(codes, node, g, h, m, b)
                 torch.cuda.synchronize()
                 assert torch.equal(got.cpu(), want)
+
+
+def test_redesigned_order_matches_plain_version_on_the_card():
+    """Needs a CUDA card (skips here): the node-order kernel equals its
+    plain version in each of its launch shapes: clusters of 16 blocks (few
+    fits) and of 8 (more fits, or counters too large for a cluster of 16),
+    keys held in registers (short shares) and read twice (long ones), and a
+    relaunch gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    shapes = [  # (K, N, M): the main path's, then the other launch shapes
+        (6, 16384, 64), (18, 16384, 256), (6, 16384, 1), (1, 1 << 18, 64),
+        (9, 5000, 7), (2, 4099, 3000), (1, 33, 2)]
+    for k, n, m in shapes:
+        node, g, h = _card_slots(n, k, m, None, seed=k * n + m)
+        got = H.node_order(node, m, g, h)
+        again = H.node_order(node, m, g, h)
+        want = H.node_order_plain(node, m, g, h)
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a, c) and torch.equal(b, c), (k, n, m)

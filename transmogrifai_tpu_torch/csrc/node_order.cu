@@ -13,26 +13,41 @@
 //                 length (m < M; the dead rows fill the tail)
 // the same arrays as the plain version (hist.node_order_plain), bit for bit.
 //
-// One launch. Each fit is one cluster of kCluster blocks (on as many SMs),
-// and each warp of the cluster owns a contiguous share of the fit's rows,
-// in cluster order, with one counter per key in its block's shared memory:
-//  1. each warp counts its rows' keys, 32 rows at a time (__match_any_sync
-//     groups lanes by key and the lowest lane of each group adds its size);
+// One launch. Each fit is one cluster of C blocks (16, a non-portable
+// size, where the fits are few enough for 16 each to find their SMs, else
+// 8), and each warp of the cluster owns a contiguous share of the fit's
+// rows, in cluster order, with one counter per key in its block's shared
+// memory:
+//  1. each warp reads its rows' keys once, all of its 32-row steps' loads
+//     in flight together, and keeps them in registers (up to kCache steps
+//     a warp; a longer share is read in groups of kCache steps, twice);
+//     it counts them, 32 rows at a time (__match_any_sync groups lanes by
+//     key and the lowest lane of each group adds its size);
 //  2. each block takes, per key, the exclusive prefix of its warps' counts
 //     and its total; after a cluster barrier every block reads the other
-//     blocks' totals from their shared memory, and a warp's offset for a
-//     key is the rows of smaller keys (a prefix over the key totals) plus
-//     the key's rows in earlier blocks and in earlier warps of its own
-//     (block 0 writes start and count);
-//  3. each warp walks its rows again: a row goes to its key's running
-//     offset plus the number of lanes below it with the same key, and the
-//     offsets advance by the group sizes.
+//     blocks' totals from their shared memory (all C reads in flight), and
+//     a warp's offset for a key is the rows of smaller keys (a block-wide
+//     scan over the key totals) plus the key's rows in earlier blocks and
+//     in earlier warps of its own (block 0 writes start and count);
+//  3. each warp places its rows from the keys it holds: a row goes to its
+//     key's running offset plus the number of lanes below it with the same
+//     key, and the offsets advance by the group sizes. The barrier that
+//     keeps a block's totals alive until every block has read them is
+//     split: each block arrives once it has read, places its rows, then
+//     waits.
+// The cluster size is a template parameter, so the reads of the other
+// blocks' totals unroll to exactly C (with the size read at run time, the
+// 18-fit launches measured 4% slower on the H100, PERF.md); the 16-block
+// kernel keeps at most 64 registers a thread (two blocks an SM).
 // Positions come from prefix sums and lane ranks alone (no atomics), so
-// the order never depends on scheduling.
+// the order never depends on scheduling. The device's SM count, its
+// shared-memory limit and whether clusters of 16 fit are read once per
+// device, and the kernels' attributes set once.
 //
 // What bounds it: reading node, grad and hess (12 bytes a row and fit) and
-// writing order (4); the walks are serial per warp, 32 rows a step, about
-// N / (32 * kCluster * warps) steps each.
+// writing order (4); the steps are serial per warp, 32 rows each, about
+// N / (32 * C * warps) of them; at the training paths' sizes (16384 rows)
+// the fixed latencies of the phases, not the bytes.
 //
 // Shapes: node [K, N] int32; grad, hess [K, N] f32; order [K, N] int32;
 // start, count [K, M] int32.
@@ -41,13 +56,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;    // blocks per fit
-constexpr int kMaxWarps = 16;  // warps per block, at most
-constexpr int kSteps = 8;      // 32-row steps whose keys load at once
+constexpr int kMaxCluster = 16;  // blocks per fit, at most
+constexpr int kWarps = 16;       // warps per block, at most
+constexpr int kCache = 8;        // 32-row steps whose keys a warp holds
+constexpr int kMaxDevices = 64;
+// the most shared memory a block of a 16-block cluster takes
+constexpr size_t kSmem16 = 48 * 1024;
 
 __device__ __forceinline__ int row_key(const int32_t* __restrict__ node,
                                        const float* __restrict__ grad,
@@ -59,6 +79,22 @@ __device__ __forceinline__ int row_key(const int32_t* __restrict__ node,
   const float g = __ldg(grad + at), h = __ldg(hess + at);
   const bool live = s >= 0 && s < m_slots && (g != 0.0f || h != 0.0f);
   return live ? s : m_slots;
+}
+
+// The keys of the warp's 32-row steps r0, r0 + 32, ... below hi, kCache of
+// them, their loads all in flight together (a negative key, unique to the
+// lane, past hi).
+__device__ __forceinline__ void load_keys(int (&keys)[kCache],
+                                          const int32_t* __restrict__ node,
+                                          const float* __restrict__ grad,
+                                          const float* __restrict__ hess,
+                                          size_t fit, int r0, int hi,
+                                          int m_slots, int lane) {
+#pragma unroll
+  for (int u = 0; u < kCache; ++u) {
+    const int r = r0 + 32 * u + lane;
+    keys[u] = r < hi ? row_key(node, grad, hess, fit + r, m_slots) : -1 - lane;
+  }
 }
 
 // One 32-row step of a warp's walk: lane `lane` holds the key of row `row`
@@ -77,28 +113,24 @@ __device__ __forceinline__ void walk_step(int key, int row, int32_t* order_fit,
   __syncwarp();
 }
 
-// A warp's walk over rows [lo, hi) of the fit at `fit`, kSteps steps of keys
-// loaded at once.
+// The steps of those keys below hi, counting or (kPlace) placing.
 template <bool kPlace>
-__device__ __forceinline__ void warp_walk(const int32_t* __restrict__ node,
-                                          const float* __restrict__ grad,
-                                          const float* __restrict__ hess,
-                                          int32_t* __restrict__ order_fit,
-                                          int32_t* cnt, size_t fit, int lo,
-                                          int hi, int m_slots, int lane) {
-  for (int r0 = lo; r0 < hi; r0 += 32 * kSteps) {
-    int keys[kSteps];
+__device__ __forceinline__ void walk_keys(const int (&keys)[kCache], int r0,
+                                          int hi, int32_t* order_fit,
+                                          int32_t* cnt, int lane) {
 #pragma unroll
-    for (int u = 0; u < kSteps; ++u) {
-      const int r = r0 + 32 * u + lane;
-      keys[u] = r < hi ? row_key(node, grad, hess, fit + r, m_slots) : -1 - lane;
-    }
-#pragma unroll
-    for (int u = 0; u < kSteps; ++u) {
-      if (r0 + 32 * u >= hi) break;
-      walk_step<kPlace>(keys[u], r0 + 32 * u + lane, order_fit, cnt, lane);
-    }
+  for (int u = 0; u < kCache; ++u) {
+    if (r0 + 32 * u >= hi) break;
+    walk_step<kPlace>(keys[u], r0 + 32 * u + lane, order_fit, cnt, lane);
   }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // Inclusive prefix sum of v over the block's threads, in thread order; every
@@ -129,9 +161,11 @@ __device__ __forceinline__ int block_scan(int v, int32_t* warp_sums,
   return incl;
 }
 
-// Fit k = blockIdx.x / kCluster. Dynamic shared memory: tot[M + 1], this
-// block's key totals, then cnt[warp][M + 1].
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxWarps * 32)
+// Fit k = blockIdx.x / kC, in a cluster of kC blocks (a compile-time size,
+// so that the reads of the other blocks' totals unroll exactly). Dynamic
+// shared memory: tot[M + 1], this block's key totals, then cnt[warp][M + 1].
+template <int kC>
+__global__ void __launch_bounds__(kWarps * 32, kC == kMaxCluster ? 2 : 1)
 node_order_kernel(const int32_t* __restrict__ node,
                   const float* __restrict__ grad,
                   const float* __restrict__ hess, int32_t* __restrict__ order,
@@ -143,7 +177,7 @@ node_order_kernel(const int32_t* __restrict__ node,
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int warps = blockDim.x >> 5;
   const int rank = static_cast<int>(cluster.block_rank());
-  const int k = blockIdx.x / kCluster;
+  const int k = blockIdx.x / kC;
   const int nkeys = m_slots + 1;
   const size_t fit = static_cast<size_t>(k) * n;
   int32_t* tot = smem;
@@ -152,12 +186,22 @@ node_order_kernel(const int32_t* __restrict__ node,
   __syncthreads();
   // warp gw of the cluster walks 32-row steps [gw * per, (gw + 1) * per)
   const int steps = (n + 31) / 32;
-  const int per = (steps + kCluster * warps - 1) / (kCluster * warps);
+  const int per = (steps + kC * warps - 1) / (kC * warps);
   const int gw = rank * warps + warp;
   const int lo = min(n, gw * per * 32), hi = min(n, lo + per * 32);
   int32_t* mine = cnt + static_cast<size_t>(warp) * nkeys;
-  warp_walk<false>(node, grad, hess, order + fit, mine, fit, lo, hi, m_slots,
-                   lane);
+  int32_t* order_fit = order + fit;
+  const bool cached = per <= kCache;
+  int keys[kCache];
+  if (cached) {
+    load_keys(keys, node, grad, hess, fit, lo, hi, m_slots, lane);
+    walk_keys<false>(keys, lo, hi, order_fit, mine, lane);
+  } else {
+    for (int r0 = lo; r0 < hi; r0 += 32 * kCache) {
+      load_keys(keys, node, grad, hess, fit, r0, hi, m_slots, lane);
+      walk_keys<false>(keys, r0, hi, order_fit, mine, lane);
+    }
+  }
   __syncthreads();
   for (int key = t; key < nkeys; key += blockDim.x) {
     int sum = 0;
@@ -174,10 +218,11 @@ node_order_kernel(const int32_t* __restrict__ node,
     const int key = key0 + t;
     int all = 0, before = 0;
     if (key < nkeys) {
-      for (int b = 0; b < kCluster; ++b) {
+#pragma unroll
+      for (int b = 0; b < kC; ++b) {
         const int v = cluster.map_shared_rank(tot, b)[key];
         all += v;
-        if (b < rank) before += v;
+        before += b < rank ? v : 0;
       }
     }
     int total;
@@ -191,9 +236,90 @@ node_order_kernel(const int32_t* __restrict__ node,
     }
     carry += total;
   }
-  cluster.sync();  // no block leaves while another reads its totals
-  warp_walk<true>(node, grad, hess, order + fit, mine, fit, lo, hi, m_slots,
-                  lane);
+  // every warp's offsets are in place; this block is done reading the
+  // others' totals, and none leaves before all are (the wait below)
+  __syncthreads();
+  cluster_arrive();
+  if (cached) {
+    walk_keys<true>(keys, lo, hi, order_fit, mine, lane);
+  } else {
+    for (int r0 = lo; r0 < hi; r0 += 32 * kCache) {
+      load_keys(keys, node, grad, hess, fit, r0, hi, m_slots, lane);
+      walk_keys<true>(keys, r0, hi, order_fit, mine, lane);
+    }
+  }
+  cluster_wait();
+}
+
+// Per device, read once: SMs, the dynamic shared memory a block may opt
+// into, and whether clusters of 16 blocks can run; the kernel's attributes
+// are set once.
+struct DeviceInfo {
+  bool ready;
+  int sms, smem_block, cluster16;
+};
+DeviceInfo g_devices[kMaxDevices];
+
+cudaLaunchConfig_t launch_config(unsigned grid, int threads, size_t smem,
+                                 int cluster, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t device_info(const DeviceInfo** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceInfo& d = g_devices[dev];
+  if (!d.ready) {
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&d.smem_block,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    // the dynamic part of the opt-in limit (the kernels' static shared
+    // memory, the same in both, counts against it too)
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, node_order_kernel<kMaxCluster>);
+    if (err != cudaSuccess) return err;
+    d.smem_block -= static_cast<int>(fa.sharedSizeBytes);
+    for (const void* fn :
+         {reinterpret_cast<const void*>(node_order_kernel<kMaxCluster>),
+          reinterpret_cast<const void*>(node_order_kernel<kMaxCluster / 2>)}) {
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem_block);
+      if (err != cudaSuccess) return err;
+    }
+    err = cudaFuncSetAttribute(node_order_kernel<kMaxCluster>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = launch_config(
+        kMaxCluster, kWarps * 32, kSmem16, kMaxCluster, nullptr, &attr);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters,
+                                       node_order_kernel<kMaxCluster>,
+                                       &cfg) != cudaSuccess) {
+      clusters = 0;
+      cudaGetLastError();  // a refused query is an answer, not a fault
+    }
+    d.cluster16 = clusters > 0;
+    d.ready = true;
+  }
+  *out = &d;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -209,31 +335,38 @@ int tp_node_order(const void* node, const void* grad, const void* hess,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0 || k_fits == 0) return static_cast<int>(cudaGetLastError());
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const DeviceInfo* d = nullptr;
+  cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // as many warps as the counters leave room for
+  // as many warps as the counters leave room for; clusters of 16 where the
+  // fits are few enough to find their SMs and the counters fit beside
   const size_t keys_bytes = static_cast<size_t>(m_slots + 1) * sizeof(int32_t);
-  int warps = kMaxWarps;
-  while (warps > 1 && (warps + 1) * keys_bytes > static_cast<size_t>(max_smem)) {
+  int warps = kWarps;
+  while (warps > 1 &&
+         (warps + 1) * keys_bytes > static_cast<size_t>(d->smem_block)) {
     warps >>= 1;
   }
   const size_t smem = (warps + 1) * keys_bytes;
-  if (smem > static_cast<size_t>(max_smem)) {
+  if (smem > static_cast<size_t>(d->smem_block)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = cudaFuncSetAttribute(node_order_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const int cluster = d->cluster16 && k_fits * kMaxCluster <= d->sms &&
+                              smem <= kSmem16
+                          ? kMaxCluster
+                          : kMaxCluster / 2;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(static_cast<unsigned>(k_fits * cluster), 32 * warps, smem,
+                    cluster, static_cast<cudaStream_t>(stream), &attr);
+  const auto kernel = cluster == kMaxCluster ? node_order_kernel<kMaxCluster>
+                                             : node_order_kernel<kMaxCluster / 2>;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int32_t*>(node),
+                           static_cast<const float*>(grad),
+                           static_cast<const float*>(hess),
+                           static_cast<int32_t*>(order),
+                           static_cast<int32_t*>(start),
+                           static_cast<int32_t*>(count), n, m_slots);
   if (err != cudaSuccess) return static_cast<int>(err);
-  node_order_kernel<<<k_fits * kCluster, 32 * warps, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(node), static_cast<const float*>(grad),
-      static_cast<const float*>(hess), static_cast<int32_t*>(order),
-      static_cast<int32_t*>(start), static_cast<int32_t*>(count), n, m_slots);
   return static_cast<int>(cudaGetLastError());
 }
 

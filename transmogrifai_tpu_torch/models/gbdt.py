@@ -9,7 +9,9 @@ each stack into the traversal kernel's node layout on the host
 places itself on its fit's device at its first predict). Every predict bins the
 batch there, runs the traversal (the ``serve_trees`` kernel on the card),
 reduces per family, and finishes with the float64 host epilogue
-``predictions_from_core``, whatever the batch size.
+``predictions_from_core``. The reduction follows the JAX package's route
+for the batch: tree order up to ``TPTPU_HOST_PREDICT_MAX`` rows (default
+16384; its host route), its device route's leaf-window order above.
 
 The estimators bin the training matrix on the device once, then grow
 trees through ``trees.py``; ``fit_arrays_batched_masks`` fits folds x grid
@@ -18,6 +20,7 @@ Multiclass labels are not ported yet.
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -86,6 +89,9 @@ class _BinnedModel(PredictorModel):
         self.default_device: torch.device | None = None
         self._dev_thr: torch.Tensor | None = None
         self.device_stacks: list[ST.PackedTrees] = []
+        #: per stack, its leaf-window stack (the device route's; made at the
+        #: first batch that takes that route)
+        self.window_stacks: list[ST.PackedTrees] = []
 
     def _tree_stacks(self) -> tuple[list[TR.Tree], bool]:
         """(host tree stacks, one per output column; boosted?)"""
@@ -112,8 +118,16 @@ class _BinnedModel(PredictorModel):
             ).to(device)
             for t in stacks
         ]
+        self.window_stacks = []
         self.device = device
         return self
+
+    def _use_host(self, x) -> bool:
+        """Whether the JAX package would score this batch on its host route
+        (tree order) rather than its device route: ``len(x)`` at most
+        ``TPTPU_HOST_PREDICT_MAX`` (default 16384), read per call as the
+        reference reads it."""
+        return len(x) <= int(os.environ.get("TPTPU_HOST_PREDICT_MAX", "16384"))
 
     def predict_core(self, x: np.ndarray) -> np.ndarray:
         """float64 [N, k] of margins (boosted) or mean-leaf values (forest),
@@ -131,11 +145,16 @@ class _BinnedModel(PredictorModel):
         _, boosted = self._tree_stacks()
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         binned = TR.bin_data(xt, self._dev_thr)
-        if boosted:
-            outs = [
-                ST.predict_boosted(binned, t, self.eta, self.base_score)
-                for t in self.device_stacks
-            ]
+        eta, base = ((self.eta, self.base_score) if boosted else (0.0, 0.0))
+        if not self._use_host(x):
+            if not self.window_stacks:
+                self.window_stacks = [ST.window_stack(p)
+                                      for p in self.device_stacks]
+            outs = [ST.predict_device_route(binned, t, w, boosted, eta, base)
+                    for t, w in zip(self.device_stacks, self.window_stacks)]
+        elif boosted:
+            outs = [ST.predict_boosted(binned, t, eta, base)
+                    for t in self.device_stacks]
         else:
             outs = [ST.predict_forest(binned, t) for t in self.device_stacks]
         return torch.stack(outs, dim=1).cpu().numpy().astype(np.float64)

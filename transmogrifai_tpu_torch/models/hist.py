@@ -407,7 +407,7 @@ def node_order(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
     _launch(
         "node_order", node.data_ptr(), grad.data_ptr(), hess.data_ptr(),
         order.data_ptr(), start.data_ptr(), count.data_ptr(), n, k_fits,
-        num_nodes, torch.cuda.current_stream(dev).cuda_stream,
+        num_nodes, torch._C._cuda_getCurrentRawStream(dev.index),
     )
     node_order.launches += 1
     return order, start, count

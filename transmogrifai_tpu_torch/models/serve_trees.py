@@ -25,7 +25,11 @@ compare logic.
 
 The forest mean and the boosted ``base + eta * sum`` reduce the kernel's
 output per row in tree order (``tree_sum.tree_sum``, a kernel of its own on
-the card), as the reference's serving route does.
+the card), as the reference's serving route does for batches of up to
+16384 rows. Above that the reference takes its device route, which sums in
+leaf windows: ``predict_device_route`` walks the stack a second time with
+a leaf table of leaf // 32 (``window_stack``) and reduces both outputs
+through ``tree_sum.tree_sum_device_route``.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import cuda_build
-from .tree_sum import tree_sum
+from .tree_sum import leaf_windows, tree_sum, tree_sum_device_route
 
 _KERNEL = "serve_trees"
 
@@ -186,6 +190,19 @@ def pack_trees_plain(split_feat: torch.Tensor, split_bin: torch.Tensor,
     return PackedTrees(_interleave(nodes[:, :ps], tile, pad),
                        nodes[:, ps:].contiguous(), leaf_value, leaf_tiles,
                        depth, top_levels, tile, wide, code_bytes)
+
+
+def window_stack(packed: PackedTrees) -> PackedTrees:
+    """The stack with every leaf's value replaced by its leaf window,
+    float(leaf // 32) (exact in float32), interleaved as its leaves are:
+    the walk over it gives each (row, tree)'s window. Its nodes are the
+    stack's own tensors."""
+    t, depth = packed.num_trees, packed.depth
+    leaf = torch.arange(1 << depth, device=packed.leaf_value.device)
+    table = (leaf // 32).to(torch.float32).expand(t, -1).contiguous()
+    tiles = (_interleave(table, packed.tile_trees, (0.0,))
+             if depth <= TOP_LEVELS else table.new_zeros((0,)))
+    return packed._replace(leaf_value=table, leaf_tiles=tiles)
 
 
 def pack_trees(split_feat, split_bin, leaf_value,
@@ -345,7 +362,8 @@ def _check_packed(binned, packed: PackedTrees) -> None:
         _check_tensor("binned", binned, torch.int32, binned.device)
         raise ValueError(f"serve_trees: binned [N, F] expected, got "
                          f"{tuple(binned.shape)}")
-    key = id(packed.top)
+    # a window stack shares its nodes with its model's stack
+    key = (id(packed.top), id(packed.leaf_value))
     seen = _VALIDATED.get(key)
     if seen is None or seen[4] != packed[4:] or any(
             ref() is not x for ref, x in zip(seen[:4], packed[:4])):
@@ -542,3 +560,18 @@ def predict_boosted(binned: torch.Tensor, trees, eta, base_score) -> torch.Tenso
     order (``tree_sum``)."""
     return tree_sum(_per_tree(binned, trees), boosted=True, eta=float(eta),
                     base_score=float(base_score))
+
+
+def predict_device_route(binned: torch.Tensor, packed: PackedTrees,
+                         windows: PackedTrees, boosted: bool, eta=0.0,
+                         base_score=0.0) -> torch.Tensor:
+    """[N] float32 in the reference's device-route order
+    (``tree_sum.tree_sum_device_route``): the stack walked for its leaf
+    values and, where the leaves form more than one window
+    (``tree_sum.leaf_windows``), walked again over ``windows``
+    (``window_stack(packed)``) for each leaf's window."""
+    h = leaf_windows(binned.shape[0], packed.depth)
+    per_tree = serve_trees_packed(binned, packed)
+    win = serve_trees_packed(binned, windows) if h > 1 else None
+    return tree_sum_device_route(per_tree, win, h, boosted, eta=float(eta),
+                                 base_score=float(base_score))
