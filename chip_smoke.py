@@ -70,6 +70,24 @@ paths:
   and the training fixture's JAX-fitted lanes reproduced within the
   tests' tolerances.
 
+* the fit side of the flagship flow (``fit_side`` phases): the 891-row
+  typed twin and its CSV twin (``tests/fixtures/torch_fit_side``, written
+  with the JAX package's results by
+  ``tests/torch_fixtures/make_fit_side_fixtures.py``) go through
+  ``infer_csv_dataset`` / ``from_dataset``, ``transmogrify`` and
+  ``sanity_check`` in ``fit_and_transform_dag`` with the SanityChecker's
+  statistics on the card: vectors and metadata equal the JAX package's,
+  keep-sets and drop reasons too, statistics within the CPU tests'
+  tolerances; a JAX-saved model with a ``SmartTextModel`` stage scores its
+  rows on the card equal to the JAX package's scores. A 16384-row table of
+  1423 vector columns (``tests/torch_fixtures/fit_side_tables.py``, the
+  statistics' float32 route) gives host seconds per step and the stats'
+  device time, and its vector and keep-set on the card equal the CPU's and
+  its keep-set the JAX package's. The twin's checked vector then trains
+  ``XGBoostClassifier.fit_arrays`` at the xgb fixture's point and is
+  scored: trees and scores equal the CPU's, with K2, the row order, K1 and
+  the tree sum counted in that run.
+
 Kernel K4, the fused split search, is on no path of the reference (its
 policy never takes it); it is held against the two-phase split search it
 fuses at the reference's fused-route shapes.
@@ -2353,10 +2371,285 @@ def check_best_split(torch, H, name, n, f, b, k, m, seed: int) -> dict:
     }
 
 
-def start_on_card(torch, sources: list[str]) -> None:
+FIT_SIDE = os.path.join(ROOT, "tests", "fixtures", "torch_fit_side")
+#: the fit side's statistics against the JAX package's stored ones, per
+#: route (label correlations absolute, means and variances relative to
+#: their magnitude where it exceeds 1), as the CPU tests hold them (tests/test_torch_fit_side.py,
+#: tests/test_torch_sanity_checker.py): torch and numpy reduce in other
+#: orders on the float64 route; the float32 route's gram is XLA's on the CPU
+FIT_STATS_ATOL = {"float64": 1e-12, "float32": 2e-5}
+#: the xgb serving fixture's grid point (make_serving_fixtures.py)
+TO_TRAIN_POINT = {"num_round": 200, "eta": 0.02, "gamma": 0.8,
+                  "max_depth": 10, "min_child_weight": 1.0, "max_bins": 32}
+
+
+def fit_side_flow(ds, response: str, device):
+    """The flagship flow's feature side through the port's entry points:
+    (vector column, checked column, the SanityChecker's summary, the fitted
+    stages)."""
+    from transmogrifai_tpu_torch.features import from_dataset
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.workflow.fit import fit_and_transform_dag
+
+    resp, preds = from_dataset(ds, response=response)
+    vec = transmogrify(preds)
+    checked = resp.sanity_check(vec, remove_bad_features=True, device=device)
+    data, fitted = fit_and_transform_dag(ds, [checked])
+    summary = fitted[checked.origin_stage.uid].metadata["sanityCheckerSummary"]
+    return data[vec.name], data[checked.name], summary, fitted
+
+
+def keep_and_reasons(summary) -> tuple[list[int], dict]:
+    cols = summary["columns"]
+    return ([j for j, c in enumerate(cols) if not c["dropped"]],
+            {str(j): c["reasons"] for j, c in enumerate(cols) if c["dropped"]})
+
+
+def check_fit_fixture(name: str, vec, summary, route: str) -> dict:
+    """Hold a fit-side run to what the JAX package stored for ``name``:
+    vector bit for bit and metadata column for column (where stored),
+    keep-set, reasons and column names equal, statistics within the
+    route's tolerance. Returns the largest statistic differences."""
+    with open(os.path.join(FIT_SIDE, f"{name}.json")) as fh:
+        want = json.load(fh)
+    arrays = np.load(os.path.join(FIT_SIDE, f"{name}.npz"))
+    if "vector" in arrays.files:
+        if not np.array_equal(vec.values, arrays["vector"]):
+            raise AssertionError(f"fit_side {name}: the vector differs from "
+                                 "the JAX package's")
+        got_meta = [{k: (list(v) if isinstance(v, tuple) else v)
+                     for k, v in c.to_json().items()}
+                    for c in vec.metadata.columns]
+        if got_meta != want["metadata"]:
+            raise AssertionError(f"fit_side {name}: vector metadata differs")
+    keep, reasons = keep_and_reasons(summary)
+    if keep != want["keep"] or reasons != want["reasons"]:
+        raise AssertionError(f"fit_side {name}: keep-set or drop reasons "
+                             "differ from the JAX package's")
+    if [c["name"] for c in summary["columns"]] != want["names"]:
+        raise AssertionError(f"fit_side {name}: column names differ")
+    errs = {}
+    for key in ("mean", "variance", "corr_label"):
+        got = np.array([c[key] for c in summary["columns"]], dtype=np.float64)
+        ref = arrays[key]
+        if key == "corr_label":
+            err = float(np.nanmax(np.abs(got - ref)))
+        else:  # relative to the magnitude where it exceeds 1
+            err = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)))
+        if not err <= FIT_STATS_ATOL[route]:
+            raise AssertionError(f"fit_side {name}: {key} off by {err} "
+                                 f"(tolerance {FIT_STATS_ATOL[route]})")
+        errs[key] = err
+    return {"columns": len(keep) + len(reasons), "kept": len(keep),
+            "vector_equal": "vector" in arrays.files,
+            "stats_max_err": errs, "stats_tolerance": FIT_STATS_ATOL[route],
+            "route": route}
+
+
+def fit_side_flagship(torch, smi: str) -> tuple[dict, np.ndarray, np.ndarray]:
+    """The 891-row typed twin (stored by the fixture generator) and the CSV
+    twin through the feature side on the card, each held to the JAX
+    package's stored results; then the JAX-saved model with a
+    ``SmartTextModel`` stage scores its stored rows on the card. Returns
+    (phase fields, the typed twin's checked vector, its label)."""
+    from transmogrifai_tpu_torch import load_workflow_model, score_function
+    from transmogrifai_tpu_torch import types as PT
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.readers import infer_csv_dataset
+    from transmogrifai_tpu_torch.types.columns import column_from_values
+
+    with open(os.path.join(FIT_SIDE, "flagship_table.json")) as fh:
+        table = json.load(fh)
+    typed = Dataset.of({
+        k: column_from_values(PT.feature_type_by_name(table["schema"][k]), v)
+        for k, v in table["columns"].items()})
+    out = {"card": smi}
+    checked_x = None
+    for name, load, response in (
+            ("flagship", lambda: typed, "label"),
+            ("csv", lambda: infer_csv_dataset(
+                os.path.join(FIT_SIDE, "titanic_twin.csv")), "survived")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = load()
+        vec, checked, summary, _ = fit_side_flow(ds, response, None)
+        torch.cuda.synchronize()
+        row = check_fit_fixture(name, vec, summary, "float64")
+        row["host_s"] = time.perf_counter() - t0
+        row["rows"], row["vector_columns"] = vec.values.shape
+        out[name] = row
+        if name == "flagship":
+            checked_x = np.asarray(checked.values, dtype=np.float32)
+    path = os.path.join(FIT_SIDE, "csv_model")
+    model = load_workflow_model(path)
+    if "SmartTextModel" not in {type(s).__name__ for s in model.fitted.values()}:
+        raise AssertionError("csv_model holds no SmartTextModel stage")
+    with open(os.path.join(path, "rows.json")) as fh:
+        rows = json.load(fh)
+    scored = score_function(model).batch(rows)
+    want = np.load(os.path.join(path, "expected.npz"))
+    label = model.result_features[0].name
+    prob = np.array([[r[label]["probability_0"], r[label]["probability_1"]]
+                     for r in scored])
+    if not np.array_equal(prob, want["probability"]):
+        raise AssertionError("csv_model: the card's scores differ from the "
+                             "JAX package's")
+    out["csv_model"] = {"rows": len(rows), "scores_equal_jax": True}
+    y = np.asarray(typed["label"].values, dtype=np.float32)
+    return out, checked_x, y
+
+
+def stats_device_ms(torch, fit, sessions: int = 3) -> dict:
+    """Device time of one SanityChecker fit on the card from
+    ``torch.profiler`` (every kernel and copy it launched, summed), with
+    the five largest by name. The profiler can miss activities, so the fit
+    is profiled ``sessions`` times and the session that saw the most
+    activities is read (the count of each is reported); CUDA events around
+    one call if no session recorded device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fit()
+    torch.cuda.synchronize()
+    best, seen = None, []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fit()
+            torch.cuda.synchronize()
+        rows = [(evt.key, evt.self_device_time_total / 1e3, evt.count)
+                for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and evt.count]
+        seen.append(sum(c for _, _, c in rows))
+        if best is None or seen[-1] > sum(c for _, _, c in best):
+            best = rows
+    total = sum(ms for _, ms, _ in best)
+    if total > 0:
+        top = sorted(best, key=lambda r: -r[1])[:5]
+        return {"device_ms": total, "source": "profiler",
+                "activities_per_session": seen,
+                "top": [{"name": k[:80], "ms": ms, "count": c}
+                        for k, ms, c in top]}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fit()
+    end.record()
+    torch.cuda.synchronize()
+    return {"device_ms": start.elapsed_time(end), "source": "cuda_events",
+            "activities_per_session": seen}
+
+
+def fit_side_wide(torch, smi: str) -> dict:
+    """The full-width table (``tests/torch_fixtures/fit_side_tables.py``:
+    16384 rows, 1423 vector columns, the float32 statistics route): host
+    seconds of the transmogrify fit and transform and of the
+    SanityChecker's fit on the card, the stats' device time, then the flow
+    through ``fit_and_transform_dag`` on the card and on the CPU: vectors
+    and keep-sets equal bit for bit, and the keep-set and reasons equal to
+    the JAX package's stored ones."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    from fit_side_tables import wide_table
+
+    from transmogrifai_tpu_torch import types as PT
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import from_dataset
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.stages.base import Estimator
+    from transmogrifai_tpu_torch.types.columns import column_from_values
+    from transmogrifai_tpu_torch.workflow.dag import compute_dag
+
+    t0 = time.perf_counter()
+    schema, columns = wide_table()
+    ds = Dataset.of({
+        k: column_from_values(PT.feature_type_by_name(schema[k]), v)
+        for k, v in columns.items()})
+    build_s = time.perf_counter() - t0
+    resp, preds = from_dataset(ds, response="label")
+    vec = transmogrify(preds)
+    checked = resp.sanity_check(vec, remove_bad_features=True)
+    fit_s = transform_s = 0.0
+    data = ds
+    for layer in compute_dag([vec]):
+        t0 = time.perf_counter()
+        models = [s.fit(data) if isinstance(s, Estimator) else s for s in layer]
+        fit_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for m in models:
+            data = m.transform(data)
+        transform_s += time.perf_counter() - t0
+    checker = checked.origin_stage
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checker.fit(data)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    stats = stats_device_ms(torch, lambda: checker.fit(data))
+
+    t0 = time.perf_counter()
+    card_vec, _, card_summary, _ = fit_side_flow(ds, "label", None)
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    cpu_vec, _, cpu_summary, _ = fit_side_flow(ds, "label", "cpu")
+    if not np.array_equal(card_vec.values, cpu_vec.values):
+        raise AssertionError("fit_side wide: the vector differs from the CPU's")
+    if keep_and_reasons(card_summary) != keep_and_reasons(cpu_summary):
+        raise AssertionError("fit_side wide: the card's keep-set or reasons "
+                             "differ from the CPU's")
+    row = check_fit_fixture("wide", card_vec, card_summary, "float32")
+    n, d = card_vec.values.shape
+    return {"card": smi, "rows": n, "vector_columns": d,
+            "correlation_elements": n * (d + 1),
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "table_build_s": build_s, "transmogrify_fit_s": fit_s,
+            "transmogrify_transform_s": transform_s,
+            "sanity_check_fit_s": check_s, "flow_s": flow_s,
+            "stats": stats, "vector_and_keep_equal_cpu": True, **row}
+
+
+def fit_side_to_train(torch, G, H, ST, TS, x, y, smi: str) -> dict:
+    """The flagship twin's checked vector into ``XGBoostClassifier.fit_arrays``
+    at the xgb fixture's point, then scored, on the card with the launch
+    counts of K2, the row order, K1 and the tree sum read around exactly
+    this run; trees and scores equal the same fit on the CPU."""
+    mask = np.ones(len(y), dtype=np.float32)
+    counted = {"hist_binloop": H.build_histogram_binloop, "node_order": H.node_order,
+               "serve_trees": ST.serve_trees, "tree_sum": TS.tree_sum}
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = G.XGBoostClassifier(**TO_TRAIN_POINT).fit_arrays(x, y, mask)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    card_pred = card.predict_arrays(x)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    for fn in counted.values():
+        fn.launches = 0
+    if not all(launches.values()):
+        raise AssertionError(f"fit_side to_train: a kernel never ran {launches}")
+    t0 = time.perf_counter()
+    cpu = G.XGBoostClassifier(device="cpu", **TO_TRAIN_POINT).fit_arrays(x, y, mask)
+    cpu_fit_s = time.perf_counter() - t0
+    cpu_pred = cpu.predict_arrays(x)
+    same_trees = all(np.array_equal(np.asarray(a), np.asarray(b))
+                     for a, b in zip(card.trees, cpu.trees))
+    if not (same_trees and card.base_score == cpu.base_score
+            and np.array_equal(card.thresholds, cpu.thresholds)):
+        raise AssertionError("fit_side to_train: the card's trees differ "
+                             "from the CPU's")
+    if not all(np.array_equal(a, b) for a, b in zip(card_pred, cpu_pred)):
+        raise AssertionError("fit_side to_train: the card's scores differ "
+                             "from the CPU's")
+    return {"card": smi, "rows": x.shape[0], "features": x.shape[1],
+            "point": TO_TRAIN_POINT, "fit_s": fit_s, "cpu_fit_s": cpu_fit_s,
+            "launches": launches, "trees_equal_cpu": True,
+            "scores_equal_cpu": True}
+
+
+def start_on_card(torch, sources: list[str]) -> str:
     """Print the environment and the card's name and power limit, and
     build the kernels of ``sources`` (one nvcc each, all started together),
-    printing ptxas's report."""
+    printing ptxas's report. Returns the name and power limit line."""
     from transmogrifai_tpu_torch.utils import cuda_build
 
     smi = subprocess.run(
@@ -2375,6 +2668,7 @@ def start_on_card(torch, sources: list[str]) -> None:
     phase("build", seconds=time.perf_counter() - t0, per_source=built)
     for name, log in cuda_build.build_logs.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
+    return smi
 
 
 def main() -> int:
@@ -2391,8 +2685,8 @@ def main() -> int:
     from transmogrifai_tpu_torch.models import tree_sum as TS
     from transmogrifai_tpu_torch.models import trees as TR
 
-    start_on_card(torch, ["serve_trees", "tree_sum", "node_order",
-                          "hist_binloop", "hist_wide", "best_split"])
+    smi = start_on_card(torch, ["serve_trees", "tree_sum", "node_order",
+                                "hist_binloop", "hist_wide", "best_split"])
 
     # the tree-sum kernel at its shapes (launches here are not counted)
     rng = np.random.default_rng(7)
@@ -2633,6 +2927,16 @@ def main() -> int:
     H.build_histogram_wide.launches = 0
     ST.serve_trees.launches = 0
 
+    # the fit side of the flagship flow: the twins against the JAX
+    # package's stored results, the full-width table, and the checked
+    # vector into a tree fit with its kernels' counts read around it
+    flagship, checked_x, checked_y = fit_side_flagship(torch, smi)
+    phase("fit_side flagship", **flagship)
+    phase("fit_side wide", **fit_side_wide(torch, smi))
+    to_train = fit_side_to_train(torch, G, H, ST, TS, checked_x, checked_y, smi)
+    phase("fit_side to_train", **to_train)
+    fit_launches = to_train["launches"]
+
     # kernel K4 at the reference's fused-route shapes: on no path, so its
     # launches are counted in these phases alone
     H.build_best_split.launches = 0
@@ -2671,7 +2975,8 @@ def main() -> int:
                 "launches; ms on CUDA-event groups, device_ms the "
                 "profiler's; library = one torch.sum(dim=1)",
         "launches": ts_launches,
-        "launches_by_path": ts_counts,
+        "launches_by_path": {**ts_counts,
+                             "fit_side to_train": fit_launches["tree_sum"]},
         "max_abs_err": ts_all["max_abs_err"],
         "ms": ts_all["ms"],
         "ms_by_path": ts_all["ms_by_path"],
@@ -2722,7 +3027,8 @@ def main() -> int:
                 "lane scoring; ms on CUDA-event groups, device_ms the "
                 "profiler's",
         "launches": launches,
-        "launches_by_path": k1_weights,
+        "launches_by_path": {**k1_weights,
+                             "fit_side to_train": fit_launches["serve_trees"]},
         "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
                            k1_reg["max_abs_err"]),
         "ms": k1_paths["packed_ms"],
@@ -2740,7 +3046,8 @@ def main() -> int:
         "replaces": "transmogrifai_tpu/models/hist_pallas.py:427",
         "launches": train["hist_binloop_launches"] + reg["hist_binloop_launches"],
         "launches_by_path": {"training": train["hist_binloop_launches"],
-                             "regression training": reg["hist_binloop_launches"]},
+                             "regression training": reg["hist_binloop_launches"],
+                             "fit_side to_train": fit_launches["hist_binloop"]},
         "max_abs_err": k2_paths["max_abs_err"],
         "ms": k2_paths["ms"],
         "ms_by_path": k2_paths["ms_by_path"],
@@ -2775,7 +3082,8 @@ def main() -> int:
                 "library = one stable torch.sort of the slots",
         "launches": train["node_order_launches"] + reg["node_order_launches"],
         "launches_by_path": {"training": train["node_order_launches"],
-                             "regression training": reg["node_order_launches"]},
+                             "regression training": reg["node_order_launches"],
+                             "fit_side to_train": fit_launches["node_order"]},
         "max_abs_err": orders["max_abs_err"],
         "ms": orders["ms"],
         "ms_sources": {

@@ -255,6 +255,31 @@ class TestReferenceArithmetic:
         got = PTR._segment_sum_small(torch.from_numpy(v), torch.from_numpy(idx), size)
         assert np.array_equal(got.numpy(), np.asarray(want))
 
+    @pytest.mark.parametrize("n,size", [(891, 1024), (5000, 64), (33, 8)])
+    def test_leaf_sums_crowded_slots(self, n, size):
+        """Most rows in one or two slots (a late boosting round): every
+        window holds up to 32 rows of one slot, added in row order."""
+        rng = np.random.default_rng(n)
+        v = rng.normal(size=(2, n)).astype(np.float32)
+        idx = np.where(rng.random((2, n)) < 0.95, 3, 5).astype(np.int32)
+        want = jax.jit(JTR._segment_sum_small, static_argnums=2)(v, idx, size)
+        got = PTR._segment_sum_small(torch.from_numpy(v), torch.from_numpy(idx), size)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+    def test_leaf_sums_crowded_slots_on_the_card(self):
+        """The card's windowed leaf sums equal the CPU's when a window's 32
+        rows share one slot (an accumulating index_put_ on the card sums
+        such duplicates in another order)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card")
+        rng = np.random.default_rng(7)
+        for n, size in ((891, 1024), (16384, 64), (4000, 512)):
+            v = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+            idx = torch.from_numpy(
+                np.where(rng.random((3, n)) < 0.95, 3, 5).astype(np.int32))
+            card = PTR._segment_sum_small(v.cuda(), idx.cuda(), size).cpu()
+            assert torch.equal(card, PTR._segment_sum_small(v, idx, size))
+
     def test_fused_margin_update(self):
         rng = np.random.default_rng(1)
         m, s = (rng.normal(size=(2, 3000)).astype(np.float32) for _ in range(2))

@@ -10,7 +10,12 @@ import sys
 import pytest
 import torch
 
+from transmogrifai_tpu_torch.features import FeatureBuilder
 from transmogrifai_tpu_torch.local.scoring import score_function
+from transmogrifai_tpu_torch.ops.numeric import RealVectorizer
+from transmogrifai_tpu_torch.prep import SanityChecker
+from transmogrifai_tpu_torch.readers import infer_csv_dataset
+from transmogrifai_tpu_torch.workflow.fit import fit_and_transform_dag
 from transmogrifai_tpu_torch.workflow.persistence import load_workflow_model
 
 torch.set_num_threads(1)
@@ -20,6 +25,8 @@ pytestmark = [pytest.mark.torch_port]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "transmogrifai_tpu_torch")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_serving", "xgb")
+CSV_TWIN = os.path.join(ROOT, "tests", "fixtures", "torch_fit_side",
+                        "titanic_twin.csv")
 FORBIDDEN = ("jax", "jaxlib", "transmogrifai_tpu")
 
 
@@ -54,6 +61,10 @@ REQUIRED = (
     "models/serve_trees.py", "models/tree_sum.py", "models/solvers.py",
     "models/logistic.py", "models/linear.py", "compiler/bucketing.py",
     "stages/base.py", "utils/prng.py", "utils/cuda_build.py",
+    "dsl.py", "features/builder.py", "readers/core.py", "readers/csv.py",
+    "ops/defaults.py", "ops/text.py", "ops/transmogrify.py",
+    "utils/text.py", "utils/stats.py", "prep/sanity_checker.py",
+    "workflow/fit.py",
 )
 
 
@@ -96,6 +107,15 @@ from transmogrifai_tpu_torch.models.linear import LinearRegression
 from transmogrifai_tpu_torch.models.logistic import LogisticRegression
 LogisticRegression(max_iter=5, device="cpu").fit_arrays(x, y, mask)
 LinearRegression(max_iter=5, device="cpu").fit_arrays(x, x[:, 1], mask)
+from transmogrifai_tpu_torch.features import from_dataset
+from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+from transmogrifai_tpu_torch.readers import infer_csv_dataset
+from transmogrifai_tpu_torch.workflow.fit import fit_and_transform_dag
+ds = infer_csv_dataset({CSV_TWIN!r})
+resp, preds = from_dataset(ds, response="survived")
+checked = resp.sanity_check(transmogrify(preds), remove_bad_features=True,
+                            device="cpu")
+fit_and_transform_dag(ds, [checked])
 loaded = sorted(
     m for m in sys.modules
     if any(m == b or m.startswith(b + ".") for b in {FORBIDDEN!r})
@@ -123,3 +143,20 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     model = load_workflow_model(FIXTURE, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         score_function(model)
+
+
+def test_sanity_checker_needs_a_card_unless_asked_for_the_cpu():
+    """``SanityChecker(device=None)`` fits on the card; with no card it
+    raises and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    ds = infer_csv_dataset(CSV_TWIN)
+    label = FeatureBuilder.RealNN("survived").as_response()
+    vec = FeatureBuilder.Real("age").as_predictor().transform_with(
+        RealVectorizer())
+    checked = label.sanity_check(vec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_and_transform_dag(ds, [checked])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SanityChecker().set_input(label, vec).fit(
+            fit_and_transform_dag(ds, [vec])[0])

@@ -8,11 +8,16 @@ random-forest classifiers, the GBT, XGBoost and random-forest regressors
 (``models/logistic.py``, ``models/linear.py``), through each estimator's
 ``fit_arrays``, ``fit_model`` and ``fit_arrays_batched_masks``. The tree
 kernels run as hand-written CUDA for Hopper (``csrc/*.cu``); the GLM
-solvers are PyTorch tensor code. Entry points run on the card unless the
-caller passes ``device="cpu"``, which runs the plain PyTorch versions. The
-model selector, ``Workflow.train()`` and the fused scoring graph are not
-ported yet (``ROADMAP.md`` A).
+solvers are PyTorch tensor code. The feature side of the flagship flow
+runs too: ``readers.infer_csv_dataset``, ``features.from_dataset``,
+``ops.transmogrify`` (numeric, categorical and smart-text vectorizers),
+``label.sanity_check(vec)`` (``prep.SanityChecker``, its statistics on the
+card) and ``workflow.fit.fit_and_transform_dag``. Entry points run on the
+card unless the caller passes ``device="cpu"``, which runs the plain
+PyTorch versions. The model selector, ``Workflow.train()`` and the fused
+scoring graph are not ported yet (``ROADMAP.md`` A).
 """
+from . import dsl  # noqa: F401  (installs Feature.sanity_check)
 from . import types  # noqa: F401
 from .dataset import Dataset  # noqa: F401
 from .local.scoring import score_function  # noqa: F401

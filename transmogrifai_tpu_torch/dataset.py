@@ -1,9 +1,12 @@
 """Columnar Dataset — an ordered mapping feature-name -> Column plus a row
-count. Transformers append columns; all columns share one length."""
+count. Transformers append columns; estimators reduce columns to small
+summaries. All columns share one length."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Iterator
+
+import numpy as np
 
 from .types.columns import Column
 
@@ -32,6 +35,22 @@ class Dataset:
 
     def __iter__(self) -> Iterator[str]:
         return iter(self.columns)
+
+    def with_column(self, name: str, col: Column) -> "Dataset":
+        if len(col) != self.num_rows and self.columns:
+            raise ValueError(
+                f"Column '{name}' has {len(col)} rows, dataset has "
+                f"{self.num_rows}"
+            )
+        cols = dict(self.columns)
+        cols[name] = col
+        return Dataset(cols, self.num_rows if self.num_rows else len(col))
+
+    def take(self, indices: np.ndarray) -> "Dataset":
+        indices = np.asarray(indices)
+        return Dataset(
+            {n: c.take(indices) for n, c in self.columns.items()}, len(indices)
+        )
 
     def rows(self, names: list[str] | None = None) -> list[dict]:
         """Row-wise dict view."""

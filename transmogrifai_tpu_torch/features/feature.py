@@ -7,9 +7,11 @@ features to rebuild the stage DAG.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Iterable
 
+from .. import types as T
 from ..stages.base import PipelineStage, Transformer
-from ..types.columns import Column
+from ..types.columns import Column, column_from_values
 from ..utils import uid as uid_util
 
 
@@ -25,6 +27,15 @@ class Feature:
     def __post_init__(self) -> None:
         if not self.uid:
             self.uid = uid_util.make_uid("Feature")
+
+    @property
+    def is_raw(self) -> bool:
+        return isinstance(self.origin_stage, FeatureGeneratorStage)
+
+    def transform_with(self, stage: PipelineStage, *others: "Feature") -> Any:
+        """Apply a stage to this feature (+ others): its output feature."""
+        stage.set_input(self, *others)
+        return stage.get_output()
 
     def _live_parents(self) -> tuple["Feature", ...]:
         stage = self.origin_stage
@@ -48,6 +59,25 @@ class Feature:
         visit(self, 0)
         return dists
 
+    def raw_features(self) -> list["Feature"]:
+        """All raw-feature leaves under this feature; two distinct raw
+        features sharing a name is an error."""
+        seen: dict[str, Feature] = {}
+
+        def visit(f: "Feature") -> None:
+            if f.is_raw or f.origin_stage is None:
+                prior = seen.get(f.name)
+                if prior is not None and prior.uid != f.uid:
+                    raise ValueError(
+                        f"Two distinct raw features named '{f.name}' in one DAG"
+                    )
+                seen[f.name] = f
+            for p in f._live_parents():
+                visit(p)
+
+        visit(self)
+        return list(seen.values())
+
     def __repr__(self) -> str:
         kind = "response" if self.is_response else "predictor"
         return f"Feature[{self.ftype.__name__}]({self.name!r}, {kind})"
@@ -60,16 +90,19 @@ class Feature:
 
 
 class FeatureGeneratorStage(Transformer):
-    """DAG leaf: one raw feature. Its column is built from the request rows
-    by name, not by the DAG."""
+    """DAG leaf: one raw feature. Its column is built by a reader from the
+    source records (``extract_fn`` maps one record to a raw value; without
+    one, dict records are read by the feature's name), not by the DAG."""
 
     def __init__(
-        self, name: str, ftype: type, is_response: bool = False,
-        uid: str | None = None,
+        self, name: str, ftype: type,
+        extract_fn: Callable[[Any], Any] | None = None,
+        is_response: bool = False, uid: str | None = None,
     ):
         super().__init__(operation_name=f"featureGen_{name}", uid=uid)
         self.feature_name = name
         self.ftype = ftype
+        self.extract_fn = extract_fn
         self.is_response = is_response
 
     @property
@@ -84,6 +117,26 @@ class FeatureGeneratorStage(Transformer):
             parents=(),
             is_response=self.is_response,
         )
+
+    def extract_column(self, records: Iterable[Any]) -> Column:
+        records = list(records)
+        if self.extract_fn:
+            values = [self.extract_fn(r) for r in records]
+        elif records and isinstance(records[0], dict):
+            # row dicts carry every header key in every record; a map
+            # feature's records may be the raw map values themselves
+            if self.feature_name in records[0]:
+                values = [r.get(self.feature_name) for r in records]
+            elif issubclass(self.ftype, T.OPMap):
+                values = records
+            else:
+                raise KeyError(
+                    f"Raw feature '{self.feature_name}' missing from the "
+                    f"record stream (record keys: {sorted(records[0])[:8]}...)"
+                )
+        else:
+            values = records
+        return column_from_values(self.ftype, values)
 
     def transform_columns(self, *cols: Column, num_rows: int) -> Column:
         raise TypeError("FeatureGeneratorStage runs in the reader, not the DAG")

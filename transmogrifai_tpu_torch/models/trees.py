@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils import prng
 from . import hist as H
@@ -130,10 +131,15 @@ def _segment_sum_small(values: torch.Tensor, idx: torch.Tensor, size: int) -> to
     """out[k, m] = Σ_r values[k, r]·1[idx[k, r] == m], idx in [0, size),
     in the reference's order: its one-hot form is a reduction over rows
     (windows of 32 rows summed in order, then the window sums as in
-    ``_xla_sum``); past its ops budget it scatter-adds in row order. Both
-    run as accumulating ``index_put_``s, which add each slot's entries in
-    index order (on the card by sorting the indices stably, not with
-    atomics)."""
+    ``_xla_sum``); past its ops budget it scatter-adds in row order.
+
+    The windowed form adds one row of every window per step, 32 steps in
+    row order: a step's keys (lane, window, slot) are distinct, so each
+    slot's window sum is the in-order sum on any device. (An accumulating
+    ``index_put_`` on the card sums a key's many duplicates in another
+    order.) The scatter-add form is an accumulating ``index_put_``: in row
+    order on the CPU; on the card a slot with many rows can differ in the
+    last ulp (``ROADMAP.md`` C2)."""
     k_fits, n = values.shape
     lane = torch.arange(k_fits, device=values.device)[:, None]
     if size > _ONEHOT_MAX_WIDTH and k_fits * n * size > _ONEHOT_OPS_BUDGET:
@@ -145,13 +151,16 @@ def _segment_sum_small(values: torch.Tensor, idx: torch.Tensor, size: int) -> to
     else:
         nb = -(-n // _REDUCE_WINDOW)
         lo = (nb * _REDUCE_WINDOW - n) // 2
-    window = ((torch.arange(n, device=values.device) + lo) // _REDUCE_WINDOW)
-    part = torch.zeros((k_fits, nb, size), dtype=values.dtype, device=values.device)
-    part.index_put_(
-        (lane.expand_as(idx), window.expand_as(idx), idx.long()), values,
-        accumulate=True,
-    )
-    return _xla_sum(part, 1)
+    # rows laid out [K, window, position]; the padding rows add 0 to an
+    # extra slot that is dropped
+    hi = nb * _REDUCE_WINDOW - n - lo
+    rows = F.pad(values, (lo, hi)).view(k_fits, nb, _REDUCE_WINDOW)
+    slots = F.pad(idx.long(), (lo, hi), value=size).view(k_fits, nb, _REDUCE_WINDOW)
+    part = torch.zeros((k_fits, nb, size + 1), dtype=values.dtype,
+                       device=values.device)
+    for j in range(_REDUCE_WINDOW):
+        part.scatter_add_(2, slots[:, :, j:j + 1], rows[:, :, j:j + 1])
+    return _xla_sum(part[:, :, :size], 1)
 
 
 def _fma32(a, b, c) -> torch.Tensor:

@@ -1,9 +1,13 @@
-"""Fitted one-hot pivot for categorical text: values are cleaned
-(TextUtils.cleanString) when ``clean_text`` is set, and the block holds one
-0/1 column per vocabulary value, an OTHER column for any present value
-outside the vocabulary, and a null-indicator column when ``track_nulls``."""
+"""One-hot pivot for categorical text (OpOneHotVectorizer): values are
+cleaned (TextUtils.cleanString) when ``clean_text`` is set; the vocabulary
+is the values counted at least ``min_support`` times, sorted by
+(-count, value), first ``top_k`` kept; the block holds one 0/1 column per
+vocabulary value, an OTHER column for any present value outside the
+vocabulary, and a null-indicator column when ``track_nulls``. Set-valued
+pivots (MultiPickList) are not ported yet (``ROADMAP.md`` A2)."""
 from __future__ import annotations
 
+from collections import Counter
 from functools import lru_cache
 from typing import Sequence
 
@@ -12,7 +16,15 @@ import numpy as np
 from ..stages.metadata import NULL_STRING, OTHER_STRING, ColumnMeta
 from ..types.columns import Column, TextColumn
 from ..utils.text import clean_string
-from .base import VectorizerModel
+from .base import VectorizerEstimator, VectorizerModel
+
+
+def top_values(counts: Counter, top_k: int, min_support: int) -> list[str]:
+    """Pivot vocabulary: counts >= min_support, sorted by (-count, value),
+    the first top_k kept."""
+    filtered = [(v, c) for v, c in counts.items() if c >= min_support]
+    filtered.sort(key=lambda vc: (-vc[1], vc[0]))
+    return [v for v, _ in filtered[:top_k]]
 
 
 def pivot_codes(values: Sequence, index: dict, clean_text: bool) -> np.ndarray:
@@ -43,6 +55,16 @@ def pivot_block(
     if track_nulls:
         out[codes == -1, other_col + 1] = 1.0
     return out
+
+
+def pivot_metas(
+    name: str, parent_type: type, vocab: list[str], track_nulls: bool,
+) -> list[ColumnMeta]:
+    """Metas for one pivot group: vocab columns + OTHER (+ null
+    indicator)."""
+    return list(
+        _pivot_metas(name, parent_type.__name__, tuple(vocab), track_nulls)
+    )
 
 
 @lru_cache(maxsize=1024)
@@ -84,9 +106,42 @@ class OneHotModel(VectorizerModel):
                 pivot_block(col.values, vocab, self.track_nulls, self.clean_text)
             )
             metas.append(
-                list(_pivot_metas(
-                    feat.name, feat.ftype.__name__, tuple(vocab),
-                    self.track_nulls,
-                ))
+                pivot_metas(feat.name, feat.ftype, vocab, self.track_nulls)
             )
         return blocks, metas
+
+
+class OneHotVectorizer(VectorizerEstimator):
+    """Sequence estimator pivoting categorical text features (defaults
+    TopK=20, MinSupport=10)."""
+
+    def __init__(
+        self,
+        top_k: int = 20,
+        min_support: int = 10,
+        clean_text: bool = True,
+        track_nulls: bool = True,
+        uid: str | None = None,
+    ):
+        super().__init__("pivotText", uid=uid)
+        self.top_k = top_k
+        self.min_support = min_support
+        self.clean_text = clean_text
+        self.track_nulls = track_nulls
+
+    def fit_model(self, dataset) -> OneHotModel:
+        vocabs = []
+        for name in self.input_names:
+            col = dataset[name]
+            if not isinstance(col, TextColumn):
+                raise TypeError(
+                    f"OneHotVectorizer pivots text columns, got "
+                    f"{type(col).__name__} (set columns: ROADMAP.md A2)"
+                )
+            # clean once per distinct raw value, then merge the counts
+            counts: Counter = Counter()
+            for raw, c in Counter(v for v in col.values if v is not None).items():
+                counts[clean_string(raw) if self.clean_text else raw] += c
+            vocabs.append(top_values(counts, self.top_k, self.min_support))
+        self.metadata["vocabs"] = vocabs
+        return OneHotModel(vocabs, self.track_nulls, self.clean_text)

@@ -1,6 +1,10 @@
-"""Fitted numeric vectorizers: imputed value + null indicator per nullable
-feature (Real mean fill and Integral mode fill share one fitted model),
-Binary constant fill, RealNN passthrough."""
+"""Numeric vectorizers: Real/Currency/Percent (mean imputation), Integral
+(mode imputation), Binary (constant fill), RealNN (passthrough). Each
+nullable feature contributes [imputed value, null indicator] columns; the
+mean and mode estimators share one fitted model. The fill statistics are
+computed on the host as the reference computes them (numpy's float64
+pairwise sum for the mean; the smallest of the most frequent values for the
+mode), because they go into the vector bit for bit."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -9,7 +13,7 @@ import numpy as np
 
 from ..stages.metadata import NULL_STRING, ColumnMeta
 from ..types.columns import Column, NumericColumn
-from .base import VectorizerModel, VectorizerTransformer
+from .base import VectorizerEstimator, VectorizerModel, VectorizerTransformer
 
 
 def _value_and_null_meta(
@@ -43,6 +47,21 @@ def _impute_block(
     return vals[:, None]
 
 
+def _fit_ranges(cols: list[NumericColumn]) -> list[list[float]]:
+    """Per-column finite [lo, hi] of the present values (the fit-time
+    scales of the reference's quantized serving plane); an all-null or
+    all-non-finite column gives [0, 0]."""
+    ranges = []
+    for col in cols:
+        present = np.asarray(col.values, dtype=np.float64)[col.mask]
+        finite = present[np.isfinite(present)]
+        if finite.size:
+            ranges.append([float(finite.min()), float(finite.max())])
+        else:
+            ranges.append([0.0, 0.0])
+    return ranges
+
+
 class NumericVectorizerModel(VectorizerModel):
     def __init__(
         self,
@@ -65,6 +84,71 @@ class NumericVectorizerModel(VectorizerModel):
                 _value_and_null_meta(feat.name, feat.ftype, self.track_nulls)
             )
         return blocks, metas
+
+
+class RealVectorizer(VectorizerEstimator):
+    """Mean-imputing vectorizer for Real/Currency/Percent (fillWithMean,
+    trackNulls on by default)."""
+
+    def __init__(
+        self,
+        fill_with_mean: bool = True,
+        fill_value: float = 0.0,
+        track_nulls: bool = True,
+        uid: str | None = None,
+    ):
+        super().__init__("vecReal", uid=uid)
+        self.fill_with_mean = fill_with_mean
+        self.fill_value = fill_value
+        self.track_nulls = track_nulls
+
+    def fit_model(self, dataset) -> NumericVectorizerModel:
+        cols = [_numeric(dataset[name]) for name in self.input_names]
+        fills = []
+        for col in cols:
+            if self.fill_with_mean:
+                cnt = int(col.mask.sum())
+                fills.append(
+                    float(col.values[col.mask].sum() / cnt) if cnt else 0.0
+                )
+            else:
+                fills.append(float(self.fill_value))
+        self.metadata["fills"] = fills
+        return NumericVectorizerModel(
+            fills, self.track_nulls, value_ranges=_fit_ranges(cols)
+        )
+
+
+class IntegralVectorizer(VectorizerEstimator):
+    """Mode-imputing vectorizer for Integral (fillWithMode on by default);
+    a tie goes to the smallest value."""
+
+    def __init__(
+        self,
+        fill_with_mode: bool = True,
+        fill_value: float = 0.0,
+        track_nulls: bool = True,
+        uid: str | None = None,
+    ):
+        super().__init__("vecIntegral", uid=uid)
+        self.fill_with_mode = fill_with_mode
+        self.fill_value = fill_value
+        self.track_nulls = track_nulls
+
+    def fit_model(self, dataset) -> NumericVectorizerModel:
+        cols = [_numeric(dataset[name]) for name in self.input_names]
+        fills = []
+        for col in cols:
+            present = col.values[col.mask]
+            if self.fill_with_mode and len(present):
+                vals, counts = np.unique(present, return_counts=True)
+                fills.append(float(vals[np.argmax(counts)]))
+            else:
+                fills.append(float(self.fill_value))
+        self.metadata["fills"] = fills
+        return NumericVectorizerModel(
+            fills, self.track_nulls, value_ranges=_fit_ranges(cols)
+        )
 
 
 class BinaryVectorizer(VectorizerTransformer):

@@ -3,8 +3,8 @@
 Stages declare typed input features and produce one output feature.
 ``Transformer.transform_columns(*cols, num_rows)`` is columnar: it maps
 whole columns, not rows; per-row scoring runs it over a batch of one.
-``Estimator.fit(dataset)`` learns a ``Model`` from a dataset; of the
-estimators, only the tree predictors are ported so far.
+``Transformer.transform(dataset)`` appends the output column to a
+dataset; ``Estimator.fit(dataset)`` learns a ``Model`` from one.
 """
 from __future__ import annotations
 
@@ -94,6 +94,12 @@ class Transformer(PipelineStage):
 
     def transform_columns(self, *cols: Column, num_rows: int) -> Column:
         raise NotImplementedError
+
+    def transform(self, dataset) -> Any:
+        """Append this stage's output column to ``dataset``."""
+        cols = [dataset[name] for name in self.input_names]
+        out = self.transform_columns(*cols, num_rows=dataset.num_rows)
+        return dataset.with_column(self.output_name, out)
 
 
 class Model(Transformer):

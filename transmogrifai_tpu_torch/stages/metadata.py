@@ -26,6 +26,25 @@ class ColumnMeta:
     descriptor_value: str | None = None
     index: int = 0
 
+    def make_name(self) -> str:
+        """Human-readable column name (OpVectorColumnMetadata.makeColName)."""
+        parts = ["_".join(self.parent_names)]
+        if self.grouping:
+            parts.append(self.grouping)
+        if self.descriptor_value:
+            parts.append(self.descriptor_value)
+        if self.indicator_value:
+            parts.append(self.indicator_value)
+        return "_".join(parts) + f"_{self.index}"
+
+    def grouped_key(self) -> tuple:
+        """The pivot group this column belongs to: the SanityChecker drops
+        a group's columns together."""
+        return (self.parent_names, self.grouping)
+
+    def to_json(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
     @staticmethod
     def from_json(d: dict[str, Any]) -> "ColumnMeta":
         d = dict(d)
@@ -44,6 +63,9 @@ class VectorMetadata:
     def size(self) -> int:
         return len(self.columns)
 
+    def column_names(self) -> list[str]:
+        return [c.make_name() for c in self.columns]
+
     @staticmethod
     def flatten(name: str, parts: Sequence["VectorMetadata"]) -> "VectorMetadata":
         """Concatenate per-vectorizer metadata, reindexing columns."""
@@ -60,6 +82,13 @@ class VectorMetadata:
             for j, i in enumerate(indices)
         ]
         return VectorMetadata(self.name, tuple(cols))
+
+    def index_of_group(self) -> dict[tuple, list[int]]:
+        """Pivot-group key -> column indices (group-wise removal)."""
+        groups: dict[tuple, list[int]] = {}
+        for i, c in enumerate(self.columns):
+            groups.setdefault(c.grouped_key(), []).append(i)
+        return groups
 
     @staticmethod
     def from_json(d: dict[str, Any]) -> "VectorMetadata":

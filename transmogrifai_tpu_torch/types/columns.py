@@ -1,11 +1,12 @@
-"""Columnar physical data model for serving.
+"""Columnar physical data model.
 
 Each feature is a column. Numeric-family columns are (values, validity-mask)
 ndarray pairs, text columns are object arrays of ``str | None``, the vector
 plane is a dense float32 [N, D] matrix carrying provenance metadata, and a
 model's output is a PredictionColumn of dense (prediction, probability,
 raw) arrays. Semantics match ``transmogrifai_tpu.types.columns`` for the
-storages serving reads (numeric, text, vector, prediction).
+numeric, text, vector and prediction storages; set, list and map columns
+are not ported yet (``ROADMAP.md`` A2).
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ class Column:
 
     def to_list(self) -> list:  # pragma: no cover - abstract
         """Row-wise view (None for missing) — for local scoring."""
+        raise NotImplementedError
+
+    def take(self, indices: np.ndarray) -> "Column":  # pragma: no cover
         raise NotImplementedError
 
 
@@ -54,6 +58,11 @@ class NumericColumn(Column):
             for v, m in zip(self.values.tolist(), self.mask.tolist())
         ]
 
+    def take(self, indices: np.ndarray) -> "NumericColumn":
+        return NumericColumn(
+            self.feature_type, self.values[indices], self.mask[indices]
+        )
+
 
 @dataclasses.dataclass
 class TextColumn(Column):
@@ -67,6 +76,9 @@ class TextColumn(Column):
 
     def to_list(self) -> list:
         return list(self.values)
+
+    def take(self, indices: np.ndarray) -> "TextColumn":
+        return TextColumn(self.feature_type, self.values[indices])
 
 
 @dataclasses.dataclass
@@ -83,6 +95,11 @@ class VectorColumn(Column):
 
     def to_list(self) -> list:
         return [np.asarray(row) for row in self.values]
+
+    def take(self, indices: np.ndarray) -> "VectorColumn":
+        return VectorColumn(
+            self.feature_type, np.asarray(self.values)[indices], self.metadata
+        )
 
 
 @dataclasses.dataclass
@@ -113,6 +130,14 @@ class PredictionColumn(Column):
             keys += [f"{key}_{j}" for j in range(arr.shape[1])]
             cols += [arr[:, j].tolist() for j in range(arr.shape[1])]
         return [dict(zip(keys, row)) for row in zip(*cols, strict=True)]
+
+    def take(self, indices: np.ndarray) -> "PredictionColumn":
+        return PredictionColumn(
+            self.feature_type,
+            self.prediction[indices],
+            None if self.probability is None else self.probability[indices],
+            None if self.raw is None else self.raw[indices],
+        )
 
 
 _STORAGE_DTYPE = {
@@ -204,3 +229,52 @@ def column_from_values(feature_type: type, raw: Iterable[Any]) -> Column:
         f"{feature_type.__name__} ({storage.value} storage) has no column "
         "in the serving port"
     )
+
+
+def concat_columns(cols: Sequence[Column]) -> Column:
+    """Row-wise concatenation of same-typed columns, the inverse of
+    ``take`` slicing."""
+    c0 = cols[0]
+    if len(cols) == 1:
+        return c0
+    if isinstance(c0, NumericColumn):
+        return NumericColumn(
+            c0.feature_type,
+            np.concatenate([c.values for c in cols]),
+            np.concatenate([c.mask for c in cols]),
+        )
+    if isinstance(c0, TextColumn):
+        return TextColumn(
+            c0.feature_type, np.concatenate([c.values for c in cols])
+        )
+    if isinstance(c0, VectorColumn):
+        return VectorColumn(
+            c0.feature_type,
+            np.concatenate(
+                [np.asarray(c.values, dtype=np.float32) for c in cols], axis=0
+            ),
+            c0.metadata,
+        )
+    if isinstance(c0, PredictionColumn):
+        def _cat(field):
+            parts = [getattr(c, field) for c in cols]
+            if any(p is None for p in parts):
+                return None  # mixed shapes degrade to prediction-only
+            return np.concatenate([np.asarray(p) for p in parts], axis=0)
+
+        return PredictionColumn(
+            c0.feature_type,
+            np.concatenate([np.asarray(c.prediction) for c in cols]),
+            _cat("probability"),
+            _cat("raw"),
+        )
+    raise TypeError(f"cannot concatenate {type(c0).__name__}")
+
+
+def empty_like(feature_type: type, n: int) -> Column:
+    """An all-missing column of length n."""
+    if feature_type.storage is Storage.VECTOR:
+        return VectorColumn(feature_type, np.zeros((n, 0), dtype=np.float32))
+    if feature_type is Prediction:
+        return PredictionColumn(Prediction, np.zeros(n, dtype=np.float64))
+    return column_from_values(feature_type, [None] * n)

@@ -25,6 +25,7 @@ from ..models.logistic import LogisticRegressionModel
 from ..ops.categorical import OneHotModel
 from ..ops.combiner import VectorsCombiner
 from ..ops.numeric import BinaryVectorizer, NumericVectorizerModel, RealNNVectorizer
+from ..ops.text import SmartTextModel
 from ..prep.derived_filter import FeatureRemovalModel
 from ..selector.model_selector import SelectedModel
 from ..stages.base import PipelineStage
@@ -41,7 +42,8 @@ STAGE_CLASSES: dict[str, type] = {
     cls.__name__: cls
     for cls in (
         NumericVectorizerModel, BinaryVectorizer, RealNNVectorizer,
-        OneHotModel, VectorsCombiner, FeatureRemovalModel, SelectedModel,
+        OneHotModel, SmartTextModel, VectorsCombiner, FeatureRemovalModel,
+        SelectedModel,
         BoostedBinaryModel, ForestClassifierModel, BoostedRegressionModel,
         ForestRegressionModel, LogisticRegressionModel, LinearRegressionModel,
     )
