@@ -30,7 +30,19 @@ time, inputs out of L2), the parts named by ``--parts``:
   serving path's (1, 256 and 8192 rows of the xgb and rf fixtures' 200 and
   50 trees), beside one ``torch.sum(dim=1)``;
 * ``sweep``: the GBT regressor's sweep (``chip_smoke.py``'s grid and table)
-  once untimed and N times on the host clock.
+  once untimed and N times on the host clock;
+* ``split``: its split search (``hist.split_search``, given the slots'
+  counts where it takes them) at ``chip_smoke.py``'s timed split shapes;
+* ``k4``: its fused split search (``hist.build_best_split``, its row
+  order and its kernel) at ``chip_smoke.py``'s K4 shapes;
+* ``route``: its tree sum's device-route mode at ``chip_smoke.py``'s timed
+  device-route shapes and at its serving phase's device-route calls;
+* ``k4ring``: K4 as it ships (``hist.build_best_split``) against its ring
+  design (``csrc/best_split_ring.cu``: the row order walked through
+  ``hist_ring.cuh``'s ring, the split stage run by the ring's consumers) at
+  ``chip_smoke.py``'s K4 shapes, both making their row order, each checked
+  bit for bit against ``best_split_plain``, timed in the order ring, K4,
+  K4, ring.
 
 Compare two checkouts in one call on one card, in the order A, B, B, A.
 Each run prints one JSON phase per line, like ``chip_smoke.py``.
@@ -241,11 +253,172 @@ def time_sweep(cs, torch, reps: int) -> None:
              untimed_first=True)
 
 
+def _takes(fn, name: str) -> bool:
+    import inspect
+
+    return name in inspect.signature(fn).parameters
+
+
+def time_split(cs, torch) -> None:
+    from transmogrifai_tpu_torch.models import hist as H
+
+    counted = _takes(H.split_search, "count")
+    for i, (label, (k, m, f, b, empty)) in enumerate(cs.SPLIT_SHAPES.items()):
+        if label >= "e":
+            continue
+        args = cs.split_inputs(torch, k, m, f, b, empty, seed=40 + i)
+        cold = cs.l2_cold_copies(args, args[0].numel() * 4)
+
+        def run(*a):
+            if counted:
+                return H.split_search(*a[:5], count=a[5])
+            return H.split_search(*a[:5])
+
+        cs.phase(f"split_search {label}", count_passed=counted,
+                 ms=cs.device_ms(torch, run, cold),
+                 wrapper_ms=cs.time_ms(torch, run, cold, reps=5, rounds=5))
+        del cold
+
+
+def time_k4(cs, torch) -> None:
+    from transmogrifai_tpu_torch.models import hist as H
+
+    for i, (label, (n, f, b, k, m)) in enumerate(cs.K4_SHAPES.items()):
+        cpu = cs.best_split_inputs(n, f, b, k, m,
+                                   seed=3 if label.startswith("c") else 20 + i)
+        args = [a.to(cs.DEV) for a in cpu]
+        cold = cs.l2_cold_copies(args, args[0].numel() * 4 + 12 * args[1].numel())
+
+        def fused(*a):
+            return H.build_best_split(*a, m, b)
+
+        cs.phase(f"best_split {label}", ms=cs.device_ms(torch, fused, cold))
+        del cold
+
+
+def _ring_k4(torch):
+    """K4's ring design as a function of ``build_best_split``'s
+    arguments: the row order, then one launch of ``best_split_ring.cu``."""
+    import ctypes
+
+    from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load_library("best_split_ring")
+    lib.tp_best_split_ring.argtypes = ([ctypes.c_void_p] * 16
+                                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.tp_best_split_ring.restype = ctypes.c_int
+    lib.tp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tp_cuda_error_string.restype = ctypes.c_char_p
+
+    def run(binned, node, g, h, fmask, lam, gam, mcw, m, b):
+        k, n = node.shape
+        f = binned.shape[1]
+        dev = binned.device
+        knobs = [H._per_fit(v, k, dev, name) for v, name in (
+            (lam, "reg_lambda"), (gam, "gamma"), (mcw, "min_child_weight"))]
+        rows, start, count = H.node_order(node, m, g, h)
+        gain = torch.empty((k, m), dtype=torch.float32, device=dev)
+        feat = torch.empty((k, m), dtype=torch.int32, device=dev)
+        bin_ = torch.empty_like(feat)
+        tile_gain = torch.empty((f, k, m), dtype=torch.float32, device=dev)
+        tile_idx = torch.empty((f, k, m), dtype=torch.int32, device=dev)
+        arrivals = torch.zeros((k, m), dtype=torch.int32, device=dev)
+        rc = lib.tp_best_split_ring(
+            binned.data_ptr(), rows.data_ptr(), start.data_ptr(),
+            count.data_ptr(), g.data_ptr(), h.data_ptr(), fmask.data_ptr(),
+            *(v.data_ptr() for v in knobs), gain.data_ptr(), feat.data_ptr(),
+            bin_.data_ptr(), tile_gain.data_ptr(), tile_idx.data_ptr(),
+            arrivals.data_ptr(), n, f, binned.stride(0), k, m, b,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError("best_split_ring launch failed: "
+                               + lib.tp_cuda_error_string(rc).decode())
+        return gain, feat, bin_
+
+    return run
+
+
+def time_k4ring(cs, torch) -> None:
+    from transmogrifai_tpu_torch.models import hist as H
+
+    ring = _ring_k4(torch)
+    for i, (label, (n, f, b, k, m)) in enumerate(cs.K4_SHAPES.items()):
+        cpu = cs.best_split_inputs(n, f, b, k, m,
+                                   seed=3 if label.startswith("c") else 20 + i)
+        args = [a.to(cs.DEV) for a in cpu]
+        want = H.best_split_plain(*cpu, m, b)
+        for name, fn in (("ring", ring), ("k4", H.build_best_split)):
+            got = fn(*args, m, b)
+            torch.cuda.synchronize()
+            if not all(cs.same_values(torch, x.cpu(), y)
+                       for x, y in zip(got, want)):
+                raise AssertionError(f"{name} {label}: differs from "
+                                     "best_split_plain")
+        cold = cs.l2_cold_copies(args, args[0].numel() * 4 + 12 * args[1].numel())
+
+        def run_ring(*a):
+            return ring(*a, m, b)
+
+        def run_k4(*a):
+            return H.build_best_split(*a, m, b)
+
+        readings = {"ring": [], "k4": []}
+        for name in ("ring", "k4", "k4", "ring"):
+            readings[name].append(cs.device_ms(
+                torch, run_ring if name == "ring" else run_k4, cold))
+        cs.phase(f"best_split ring against k4 {label}",
+                 shape={"N": n, "F": f, "B": b, "K": k, "M": m},
+                 bit_identical_to_cpu_plain=True, ring_ms=readings["ring"],
+                 k4_ms=readings["k4"])
+        del cold
+
+
+#: the device-route calls of ``chip_smoke.py``'s serving phase: the xgb
+#: fixture and its twin (200 boosted trees of depth 10: 32 leaf windows),
+#: the rf fixture (50 trees of depth 12: 128) and its depth-10 twin
+SERVING_ROUTES = {"serving T=200 H=32": (20000, 200, 32, True),
+                  "serving T=50 H=128": (20000, 50, 128, False),
+                  "serving T=50 H=32": (20000, 50, 32, False)}
+
+
+def time_route(cs, torch) -> None:
+    from transmogrifai_tpu_torch.models import tree_sum as TS
+
+    rng = np.random.default_rng(7)
+    shapes = {label: v for label, v in cs.ROUTE_SHAPES.items()
+              if label.startswith(("a", "b"))}
+    shapes.update(SERVING_ROUTES)
+    for label, (n, t, h, boosted) in shapes.items():
+        per_tree = torch.from_numpy(
+            (rng.normal(size=(n, t)) * 10.0 ** rng.integers(-3, 2, (n, t)))
+            .astype(np.float32)).to(cs.DEV)
+        win = torch.from_numpy(rng.integers(0, h, (n, t)).astype(np.float32)
+                               ).to(cs.DEV)
+        cold = cs.l2_cold_copies([per_tree, win], 8 * n * t)
+
+        def run(pt, w):
+            return TS.tree_sum_device_route(pt, w, h, boosted, 0.02, 0.37)
+
+        bound, _ = cs.route_bound_ms(n, t, h)
+        ms = cs.device_ms(torch, run, cold)
+        cs.phase(f"tree_sum_device_route {label}", device_ms=ms,
+                 time_ms=cs.time_ms(torch, run, cold), bound_ms=bound,
+                 device_ms_over_bound=ms / bound)
+        del cold
+
+
 def time_side(cs, path: str, reps: int, parts: list[str]) -> None:
     import torch
 
-    cs.start_on_card(torch, ["serve_trees", "tree_sum", "node_order",
-                             "hist_binloop", "hist_wide"])
+    from transmogrifai_tpu_torch.utils import cuda_build
+
+    names = ["serve_trees", "tree_sum", "node_order", "hist_binloop",
+             "hist_wide", "best_split", "split_search", "leaf_sum"]
+    if "k4ring" in parts:
+        names.append("best_split_ring")
+    cs.start_on_card(torch, [n for n in names if os.path.exists(
+        os.path.join(cuda_build.CSRC_DIR, f"{n}.cu"))])
     if "k1" in parts:
         time_k1(cs, torch, path)
     if "order" in parts:
@@ -254,6 +427,14 @@ def time_side(cs, path: str, reps: int, parts: list[str]) -> None:
         time_tree_sum(cs, torch)
     if "sweep" in parts:
         time_sweep(cs, torch, reps)
+    if "split" in parts:
+        time_split(cs, torch)
+    if "k4" in parts:
+        time_k4(cs, torch)
+    if "route" in parts:
+        time_route(cs, torch)
+    if "k4ring" in parts:
+        time_k4ring(cs, torch)
 
 
 def main(argv: list[str]) -> int:
@@ -265,7 +446,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--reps", type=int, default=3,
                     help="time: timed GBT sweeps after the untimed one")
     ap.add_argument("--parts", default="k1,order,tree_sum,sweep",
-                    help="time: what to time, of k1, order, tree_sum, sweep")
+                    help="time: what to time, of k1, order, tree_sum, sweep, "
+                         "split, k4, route, k4ring")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root if args.mode == "time" else HERE))
     import torch

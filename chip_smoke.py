@@ -88,9 +88,29 @@ paths:
   scored: trees and scores equal the CPU's, with K2, the row order, K1 and
   the tree sum counted in that run.
 
+* the split search: every histogram's best split per slot is one launch of
+  the split-search kernel (``csrc/split_search.cu``, K4's split stage over
+  the histogram K2 or K3 wrote), held bit for bit against its plain
+  version at synthetic shapes (2 to 4500 bins, half the slots empty) and
+  at the calls captured on both training paths' chosen trees
+  (``SplitCapture``), one launch a call, and timed against its bound; the
+  training windows report its device time as a group of its own;
+* the leaf sums: past the reference's one-hot budget (the depth-12 groups
+  at 16384 rows: 18 lanes x 4096 slots) a grown tree's leaf sums are the
+  leaf-sum kernel (``csrc/leaf_sum.cu``) over the row order, held bit for
+  bit against the CPU's plain version at the spread and crowded shapes and
+  at the first call of each training path (``LeafCapture``); the training
+  fixture's leaves and outputs are held to EQUALITY with the JAX
+  package's, and the GBT regressor's depth-12 group at 256 bins to the
+  same fit on the CPU.
+
 Kernel K4, the fused split search, is on no path of the reference (its
-policy never takes it); it is held against the two-phase split search it
-fuses at the reference's fused-route shapes.
+policy never takes it); it is held against its plain version at the
+reference's fused-route shapes, timed whole (its row order and its
+kernel), and beside the two-phase route on the same inputs (the row order,
+K2 or K3, then the split-search kernel). The device-route tree sum is timed beside one
+``torch.sum(dim=1)`` in 16 interleaved pairs at (a), (b) and serving's
+calls.
 
 Every phase that fails raises, and the script exits non-zero with no result
 line; it never falls back to the CPU.
@@ -213,9 +233,6 @@ SMALL_FITS = {
                                       "min_instances_per_node": 10,
                                       "max_bins": 32}),
 }
-#: leaf values and outputs against the JAX package's stored fit: f32 sums
-#: in the same order, held to a few ulps of values of order 1
-FIXTURE_TOL = 1e-5
 
 
 def phase(name: str, **fields) -> None:
@@ -911,11 +928,12 @@ def route_bound_ms(n: int, t: int, h: int) -> tuple[float, str]:
 
 
 def check_tree_sum_route(torch, TS, name, per_tree, win, h, boosted, eta,
-                         base, timed: bool) -> dict:
+                         base, timed: bool, pairs: int = 2) -> dict:
     """The device-route mode against its plain version on the same card
     tensors and on CPU copies, bit for bit; with ``timed``, its times as
     ``check_tree_sum`` takes them (the library call: one
-    ``torch.sum(dim=1)``, the same function in another order)."""
+    ``torch.sum(dim=1)``, the same function in another order, in ``pairs``
+    pairs of readings), and its time over its bound."""
     got = TS.tree_sum_device_route(per_tree, win, h, boosted, eta, base)
     want = TS.tree_sum_device_route_plain(per_tree, win, h, boosted, eta, base)
     cpu = TS.tree_sum_device_route_plain(
@@ -944,10 +962,11 @@ def check_tree_sum_route(torch, TS, name, per_tree, win, h, boosted, eta,
         def library(pt, w=None):
             return torch.sum(pt, dim=1)
 
-        out.update(compare_device_ms(torch, kernel, library, cold))
+        out.update(compare_device_ms(torch, kernel, library, cold, pairs))
         out.update({
             "plain_ms": time_ms(torch, plain, cold, reps=2, rounds=3),
             "bound_ms": bound, "bound_by": by, "arg_copies": len(cold),
+            "device_ms_over_bound": out["device_ms"] / bound,
         })
         del cold
     return out
@@ -1077,27 +1096,46 @@ def device_route_path(torch, G, ST, TS, TR, load_workflow_model) -> dict:
     return result
 
 
-def check_route_path(torch, TS, records: dict) -> dict:
+def check_route_path(torch, TS, records: dict, pairs: int = 2) -> dict:
     """Each device-route sum captured on the serving path relaunched
     against the plain version and timed; the means weighted by each
-    group's calls."""
+    group's calls, and with more than 2 ``pairs`` the weighted sums of each
+    pair's readings compared pair by pair (``pair_verdict``)."""
     rows = []
     for (n, t, h, boosted), rec in records.items():
         rows.append({"weight": rec["count"], **check_tree_sum_route(
             torch, TS, f"serving N={n} T={t} H={h}", rec["per_tree"],
-            rec["win"], h, boosted, rec["eta"], rec["base"], timed=True)})
+            rec["win"], h, boosted, rec["eta"], rec["base"], timed=True,
+            pairs=pairs)})
     if not rows:
         raise AssertionError("no device-route sum of the serving path was "
                              "captured")
     total = sum(r["weight"] for r in rows)
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
             "bound_ms")
+    extra = {}
+    if pairs > 2:
+        def weighted(key):
+            return [sum(r["weight"] * r[key][i] for r in rows) / total
+                    for i in range(pairs)]
+
+        def source(i):
+            both = all(r["run_sources"][i] == ("profiler", "profiler")
+                       for r in rows)
+            return ("profiler",) * 2 if both else ("cuda_events",) * 2
+
+        extra["paired"] = pair_verdict(
+            weighted("device_ms_runs"), weighted("library_device_ms_runs"),
+            [source(i) for i in range(pairs)])
+    means = {k: sum(r["weight"] * r[k] for r in rows) / total for k in keys}
     return {
+        **extra,
         "basis": "mean per launch, each captured call weighted by the calls "
                  "of its (N, T, H, boosted) group",
+        "device_ms_over_bound": means["device_ms"] / means["bound_ms"],
         "launches": total,
         "device_ms_sources": source_counts(rows),
-        **{k: sum(r["weight"] * r[k] for r in rows) / total for k in keys},
+        **means,
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
         else "operations",
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1862,8 +1900,9 @@ def check_lanes_score(x, models, boosted: bool, regression: bool = False) -> dic
 
 def check_train_fixture(torch) -> dict:
     """The JAX package's stored fits of the training fixture, reproduced on
-    the card: identical split arrays, leaves and outputs within
-    ``FIXTURE_TOL``."""
+    the card: identical split arrays, and leaves and outputs EQUAL the
+    stored ones (NaN where they hold NaN: a forest leaf no training row
+    reached)."""
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
 
@@ -1888,25 +1927,63 @@ def check_train_fixture(torch) -> dict:
         trees = stack["trees"]
         same = (np.array_equal(trees.split_feat, want["split_feat"])
                 and np.array_equal(trees.split_bin, want["split_bin"]))
-        leaf_err = float(np.nanmax(np.abs(trees.leaf_value - want["leaf_value"])))
-        out_err = float(np.abs(stack["outputs"] - want["outputs"]).max())
         if not same:
             bad = int(((trees.split_feat != want["split_feat"])
                        | (trees.split_bin != want["split_bin"])).sum())
             raise AssertionError(f"train_fixture {name}: {bad} split entries "
                                  "differ from the JAX package's")
-        nan_ok = np.array_equal(np.isnan(trees.leaf_value),
-                                np.isnan(want["leaf_value"]))
-        if not (nan_ok and leaf_err <= FIXTURE_TOL and out_err <= FIXTURE_TOL):
+        leaf_diff = int((~((trees.leaf_value == want["leaf_value"])
+                           | (np.isnan(trees.leaf_value)
+                              & np.isnan(want["leaf_value"])))).sum())
+        out_diff = int((stack["outputs"] != want["outputs"]).sum())
+        if leaf_diff or out_diff:
             raise AssertionError(
-                f"train_fixture {name}: leaf err {leaf_err}, output err "
-                f"{out_err} > {FIXTURE_TOL}"
-            )
-        out[name] = {"splits_identical": True, "leaf_max_abs_err": leaf_err,
-                     "output_max_abs_err": out_err,
+                f"train_fixture {name}: {leaf_diff} leaf values and "
+                f"{out_diff} outputs differ from the JAX package's")
+        out[name] = {"splits_identical": True, "leaves_equal": True,
+                     "outputs_equal": True,
                      "max_bins": points[name]["max_bins"],
                      "hist_wide_launches": k3}
     return out
+
+
+#: the GBT regressor's depth-12 group at 256 bins, one round, fitted on the
+#: card and on the CPU (the scatter-add leaf sums' shape: 18 lanes x 16384
+#: rows x 4096 slots)
+GBT_DEPTH12_ROUNDS = 1
+
+
+def check_gbt_depth12_cpu(torch, x, target, masks) -> dict:
+    """The GBT regressor's depth-12 grid group (6 points x 3 fold masks) at
+    256 bins for ``GBT_DEPTH12_ROUNDS`` round on the card and on the CPU:
+    every tree cell (splits and leaves) and every output equal."""
+    from transmogrifai_tpu_torch.models import gbdt as G
+    from transmogrifai_tpu_torch.models import leaf_sum as LS
+
+    grid = [dict(p, max_iter=GBT_DEPTH12_ROUNDS) for p in GBT_GRID
+            if p["max_depth"] == 12]
+    leaf_sums = LS.leaf_sum.launches
+    card, card_s, _ = fit_family(torch, G.GBTRegressor(device=DEV), x, target,
+                                 masks, grid)
+    leaf_sums = LS.leaf_sum.launches - leaf_sums
+    t0 = time.perf_counter()
+    cpu = G.GBTRegressor(device="cpu").fit_arrays_batched_masks(
+        x, target, masks, grid)
+    cpu_s = time.perf_counter() - t0
+    differing = 0
+    for a, b in zip(stacks_of(card), stacks_of(cpu)):
+        for p, q in zip(a["trees"], b["trees"]):
+            differing += int((~((np.asarray(p) == np.asarray(q))
+                                | (np.isnan(np.asarray(p, np.float64))
+                                   & np.isnan(np.asarray(q, np.float64))))).sum())
+        differing += int((a["outputs"] != b["outputs"]).sum())
+    if differing or not leaf_sums:
+        raise AssertionError(f"GBT depth-12 group: {differing} tree cells and "
+                             f"outputs differ from the CPU's ({leaf_sums} "
+                             "leaf_sum launches)")
+    return {"lanes": len(grid) * len(masks), "rounds": GBT_DEPTH12_ROUNDS,
+            "max_bins": REG_BINS, "differing_cells": 0,
+            "leaf_sum_launches": leaf_sums, "card_s": card_s, "cpu_s": cpu_s}
 
 
 def check_small_fits(torch) -> dict:
@@ -1975,7 +2052,8 @@ def check_small_fits(torch) -> dict:
 
 def where_time_goes_train(torch, title: str, fits) -> dict:
     """A window of a training path, ``fits`` a list of (estimator class, x,
-    label, masks, grid): run once unprofiled for its wall time and once
+    label, masks, grid): run once to warm, once unprofiled for its wall
+    time and once
     under ``torch.profiler`` for device time by kernel group (the
     profiler's own host tracing stretches that run's wall clock, so the
     busy share is taken against the unprofiled wall), with its host syncs,
@@ -1984,6 +2062,7 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import leaf_sum as LS
     from transmogrifai_tpu_torch.models import trees as TR
 
     bag_s = [0.0]
@@ -2003,8 +2082,11 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
 
     def counts():
         return {**{k: hist_kernel(H, k).launches for k in HIST_WRAPPERS},
-                "node_order": H.node_order.launches}
+                "node_order": H.node_order.launches,
+                "split_search": H.split_search.launches,
+                "leaf_sum": LS.leaf_sum.launches}
 
+    window()  # warm: the first run of a window pays one-time costs
     torch.cuda.synchronize()
     s = time.perf_counter()
     window()
@@ -2016,25 +2098,28 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
         torch.cuda.synchronize()
         s = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
-                OrderAudit(H) as audit:
+                OrderAudit(H, LS) as audit:
             window()
         wall = time.perf_counter() - s
         syncs = TR.host_syncs - syncs
         launches = {k: v - launches[k] for k, v in counts().items()}
     finally:
         TR._bag_masks = real_bag
-    groups = {"K2 hist_binloop": ("hist_binloop",),
+    groups = {"split search (split_search kernel)": ("split_search",),
+              "leaf sums (leaf_sum kernel)": ("leaf_sum",),
+              "K2 hist_binloop": ("hist_binloop",),
               "K3 hist_wide": ("hist_wide",),
               "row order for K2/K3 (node_order)": ("node_order",),
               "GEMM": ("gemm", "matmul", "cutlass"),
-              "leaf sums / compaction (index_put, gather)": ("index", "gather", "scatter")}
+              "compaction, routing lookups (index, gather, scatter)": (
+                  "index", "gather", "scatter")}
     # the kernels a row order made of torch calls (a sort, a scatter_add
     # of counts, a cumsum) would be found by, by name; the keys also catch
     # every other sort, scan or scatter_add of the window
     name_keys = ("node_order", "sort", "radix", "scan", "scatter_add")
     name_keys_ms = 0.0
     dev_ms = {g: 0.0 for g in groups}
-    dev_ms["elementwise and reductions (split search, routing)"] = 0.0
+    dev_ms["elementwise and reductions (group merge, routing)"] = 0.0
     total = 0.0
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", None)
@@ -2052,7 +2137,7 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
                 dev_ms[g] += t
                 break
         else:
-            dev_ms["elementwise and reductions (split search, routing)"] += t
+            dev_ms["elementwise and reductions (group merge, routing)"] += t
     out = {
         "window": title,
         "wall_s": plain_wall, "wall_s_profiled": wall,
@@ -2061,13 +2146,16 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
         "row_order_by_name_keys_ms": name_keys_ms if total else "not measured",
         "host_syncs": syncs, "bagging_draw_s": bag_s[0],
     }
-    if audit.faults or audit.orders != launches["node_order"]:
+    if audit.faults or audit.orders + audit.leaf_orders != launches["node_order"]:
         raise AssertionError(f"{title}: row order not shared per chunk: "
                              f"{sorted(set(audit.faults))}")
     out["node_order_launches"] = launches["node_order"]
+    out["node_order_launches_of_leaf_sums"] = audit.leaf_orders
     out["histograms_per_node_order"] = audit.hists / max(audit.orders, 1)
     for kernel, group in (("hist_binloop", "K2 hist_binloop"),
-                          ("hist_wide", "K3 hist_wide")):
+                          ("hist_wide", "K3 hist_wide"),
+                          ("split_search", "split search (split_search kernel)"),
+                          ("leaf_sum", "leaf sums (leaf_sum kernel)")):
         out[f"{kernel}_launches"] = launches[kernel]
         out[f"{kernel}_ms_per_launch"] = (
             dev_ms[group] / launches[kernel]
@@ -2076,26 +2164,42 @@ def where_time_goes_train(torch, title: str, fits) -> dict:
 
 
 def train_path(torch, x, y, masks) -> dict:
-    """The training main path, with K2's and K1's counts read around it and
-    K2's launches on some of its trees captured (``KernelCapture``)."""
+    """The training main path, with K2's, the split search's, the leaf
+    sum's and K1's counts read around it and K2's launches and the split
+    searches on some of its trees captured (``KernelCapture``,
+    ``SplitCapture``)."""
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import leaf_sum as LS
     from transmogrifai_tpu_torch.models import serve_trees as ST
     from transmogrifai_tpu_torch.models import trees as TR
 
     H.build_histogram_binloop.launches = 0
     H.node_order.launches = 0
+    H.split_search.launches = 0
+    LS.leaf_sum.launches = 0
     ST.serve_trees.launches = 0
-    with KernelCapture(H, TR, "hist_binloop",
-                       {"xgb": XGB_GRID[0]["num_round"] // 2, "rf": 0}) as cap:
+    trees = {"xgb": XGB_GRID[0]["num_round"] // 2, "rf": 0}
+    with KernelCapture(H, TR, "hist_binloop", trees) as cap, \
+            SplitCapture(H, TR, trees) as scap:
         cap.start("xgb")
+        scap.start("xgb")
         xgb, xgb_s, xgb_syncs = fit_family(
             torch, G.XGBoostClassifier(device=DEV), x, y, masks, XGB_GRID)
         k2_xgb = H.build_histogram_binloop.launches
+        split_xgb = H.split_search.launches
         cap.start("rf")
+        scap.start("rf")
         rf, rf_s, rf_syncs = fit_family(
             torch, G.RandomForestClassifier(device=DEV), x, y, masks, RF_GRID)
     orders = H.node_order.launches
+    splits = H.split_search.launches
+    leaf_sums = LS.leaf_sum.launches
+    H.split_search.launches = 0
+    LS.leaf_sum.launches = 0
+    if splits == 0 or split_xgb == 0 or splits == split_xgb or leaf_sums == 0:
+        raise AssertionError(f"training launched split_search {split_xgb} of "
+                             f"{splits} times and leaf_sum {leaf_sums} times")
     with K1Capture(ST) as k1cap:
         k1cap.family = "xgb"
         xgb_score = check_lanes_score(x, xgb, boosted=True)
@@ -2125,9 +2229,14 @@ def train_path(torch, x, y, masks) -> dict:
                "seconds": rf_s, "host_syncs": rf_syncs,
                "hist_binloop_launches": k2 - k2_xgb, "scoring": rf_score},
         "hist_binloop_launches": k2, "node_order_launches": orders,
+        "split_search_launches": splits,
+        "split_search_launches_by_family": {"xgb": split_xgb,
+                                            "rf": splits - split_xgb},
+        "leaf_sum_launches": leaf_sums,
         "serve_trees_launches_scoring": k1,
         "refit_bit_identical": True,
         "_records": cap.records, "_k1_records": k1cap.records,
+        "_split_records": scap.records,
     }
 
 
@@ -2135,25 +2244,40 @@ class OrderAudit:
     """Follows the grower's calls of ``node_order`` and of the histogram
     wrappers in order: every histogram must be given the row order of the
     last ``node_order`` call, made over the same slot tensor, and every
-    ``node_order`` call must serve at least one histogram. It adds no
+    ``node_order`` call must serve at least one histogram, except the one
+    each leaf sum makes inside its own call (``leaf_orders``). It adds no
     launch (each hook calls its wrapper once and keeps its count)."""
 
     NAMES = ("node_order", *HIST_WRAPPERS.values())
 
-    def __init__(self, H):
-        self.H = H
+    def __init__(self, H, LS):
+        self.H, self.LS = H, LS
         self.real = {name: getattr(H, name) for name in self.NAMES}
-        self.orders = self.hists = 0
+        self.real_leaf = LS.leaf_sum
+        self.orders = self.hists = self.leaf_orders = 0
         self.faults: list[str] = []
         self._last = None  # (slot tensor, histograms served)
+        self._in_leaf_sum = False
 
     def _order_hook(self):
         def hook(node, m, g, h):
+            if self._in_leaf_sum:
+                self.leaf_orders += 1
+                return self.real["node_order"](node, m, g, h)
             self._close()
             self.orders += 1
             out = self.real["node_order"](node, m, g, h)
             self._last = [node, out, 0]
             return out
+        return hook
+
+    def _leaf_hook(self):
+        def hook(g, h, idx, size):
+            self._in_leaf_sum = True
+            try:
+                return self.real_leaf(g, h, idx, size)
+            finally:
+                self._in_leaf_sum = False
         return hook
 
     def _hist_hook(self, name):
@@ -2177,6 +2301,9 @@ class OrderAudit:
         for name, hook in hooks.items():
             hook.launches = self.real[name].launches
             setattr(self.H, name, hook)
+        leaf = self._leaf_hook()
+        leaf.launches = self.real_leaf.launches
+        self.LS.leaf_sum = leaf
         return self
 
     def __exit__(self, *exc):
@@ -2184,6 +2311,8 @@ class OrderAudit:
         for name, real in self.real.items():
             real.launches = getattr(self.H, name).launches
             setattr(self.H, name, real)
+        self.real_leaf.launches = self.LS.leaf_sum.launches
+        self.LS.leaf_sum = self.real_leaf
         return False
 
 
@@ -2202,43 +2331,61 @@ def train_regression_path(torch, x, target, masks) -> dict:
     """The regression training path at a 256-bin sketch: GBT and the
     random forest at the regression selector's grids over the table's
     continuous target, with K3's, K2's and K1's counts read around it and
-    K3's and K2's launches on the middle GBT round and the first forest
-    tree of each depth group captured (``KernelCapture``)."""
+    K3's and K2's launches and the split searches on the middle GBT round
+    and the first forest tree of each depth group captured
+    (``KernelCapture``, ``SplitCapture``); the split search's and the leaf
+    sum's counts are read around the fits too."""
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import leaf_sum as LS
     from transmogrifai_tpu_torch.models import serve_trees as ST
     from transmogrifai_tpu_torch.models import trees as TR
 
     H.build_histogram_wide.launches = 0
     H.build_histogram_binloop.launches = 0
     H.node_order.launches = 0
+    H.split_search.launches = 0
+    LS.leaf_sum.launches = 0
     ST.serve_trees.launches = 0
     out, fitted = {}, {}
     trees = {"gbt": GBT_GRID[0]["max_iter"] // 2, "rfr": 0}
     with KernelCapture(H, TR, "hist_wide", trees) as cap, \
-            KernelCapture(H, TR, "hist_binloop", trees) as cap2:
+            KernelCapture(H, TR, "hist_binloop", trees) as cap2, \
+            SplitCapture(H, TR, trees) as scap:
         for family, cls, grid in (("gbt", G.GBTRegressor, GBT_GRID),
                                   ("rfr", G.RandomForestRegressor, RFR_GRID)):
             cap.start(family)
             cap2.start(family)
+            scap.start(family)
             k3 = H.build_histogram_wide.launches
             k2 = H.build_histogram_binloop.launches
+            ss = H.split_search.launches
+            ls = LS.leaf_sum.launches
             models, secs, syncs = fit_family(torch, cls(device=DEV), x, target,
                                              masks, grid)
             k3 = H.build_histogram_wide.launches - k3
             k2 = H.build_histogram_binloop.launches - k2
-            if k3 == 0 or k2 == 0:
+            ss = H.split_search.launches - ss
+            ls = LS.leaf_sum.launches - ls
+            if k3 == 0 or k2 == 0 or ss == 0 or ls == 0:
                 raise AssertionError(
                     f"{family}: the wide group took {k3} hist_wide launches, "
-                    f"the indicators {k2} hist_binloop launches; both must run")
+                    f"the indicators {k2} hist_binloop launches, the split "
+                    f"search {ss} and the leaf sums {ls}; all must run")
             fitted[family] = models
             out[family] = {"lanes": len(grid) * len(masks),
                            "groups": len(stacks_of(models)), "seconds": secs,
                            "host_syncs": syncs, "hist_wide_launches": k3,
-                           "hist_binloop_launches": k2}
+                           "hist_binloop_launches": k2,
+                           "split_search_launches": ss,
+                           "leaf_sum_launches": ls}
     k3 = H.build_histogram_wide.launches
     k2 = H.build_histogram_binloop.launches
     orders = H.node_order.launches
+    splits = H.split_search.launches
+    leaf_sums = LS.leaf_sum.launches
+    H.split_search.launches = 0
+    LS.leaf_sum.launches = 0
     with K1Capture(ST) as k1cap:
         for family, models in fitted.items():
             k1cap.family = family
@@ -2264,10 +2411,11 @@ def train_regression_path(torch, x, target, masks) -> dict:
         "rows": x.shape[0], "features": x.shape[1], "max_bins": REG_BINS,
         **out,
         "hist_wide_launches": k3, "hist_binloop_launches": k2,
-        "node_order_launches": orders,
+        "node_order_launches": orders, "split_search_launches": splits,
+        "leaf_sum_launches": leaf_sums,
         "serve_trees_launches_scoring": k1, "refit_bit_identical": True,
         "_records": cap.records, "_records_k2": cap2.records,
-        "_k1_records": k1cap.records,
+        "_k1_records": k1cap.records, "_split_records": scap.records,
     }
 
 
@@ -2321,12 +2469,15 @@ def best_split_bound(torch, binned, node, g, h, m, b) -> tuple[float, str]:
 
 def check_best_split(torch, H, name, n, f, b, k, m, seed: int) -> dict:
     """K4 on the card against its plain version on the CPU over copies of
-    the same inputs: the same (feature, bin) everywhere, the gains bit for
-    bit (or, where not, within 1e-6 relative and reported), and a relaunch
-    bit-identical; timed against the card's two-phase route (the histogram
-    the policy picks for N rows, then ``split_search``)."""
+    the same inputs, bit for bit, and a relaunch bit-identical; timed whole
+    (``ms``: its row order and its kernel), against its plain version on the
+    card (``plain_ms``: the scatter histogram and ``split_search_plain``)
+    and against the two-phase route on the same inputs (``two_phase_ms``:
+    the row order, the histogram kernel the policy picks, K2 or K3, then the
+    split-search kernel)."""
     cpu = best_split_inputs(n, f, b, k, m, seed)
     args = [a.to(DEV) for a in cpu]
+    binned, node, g, h, fmask, lam, gam, mcw = args
     got = H.build_best_split(*args, m, b)
     again = H.build_best_split(*args, m, b)
     want = H.best_split_plain(*cpu, m, b)
@@ -2334,40 +2485,400 @@ def check_best_split(torch, H, name, n, f, b, k, m, seed: int) -> dict:
     label = f"best_split {name}"
     if not all(torch.equal(p, q) for p, q in zip(got, again)):
         raise AssertionError(f"{label}: two launches differ")
-    gain, feat, bin_ = (a.cpu() for a in got)
-    if not (torch.equal(feat, want[1]) and torch.equal(bin_, want[2])):
-        bad = int(((feat != want[1]) | (bin_ != want[2])).sum())
-        raise AssertionError(f"{label}: {bad} (feature, bin) choices differ "
-                             "from the plain version's")
-    bits = torch.equal(gain, want[0])
-    fin = torch.isfinite(want[0])
-    err = (gain[fin].double() - want[0][fin].double()).abs()
-    max_err = err.max().item() if err.numel() else 0.0
-    if not bits and not (
-        torch.equal(torch.isfinite(gain), fin)
-        and bool((err <= 1e-6 * (want[0][fin].double().abs() + 1.0)).all())
-    ):
-        raise AssertionError(f"{label}: gains differ by {max_err}")
-    binned, node, g, h, fmask, lam, gam, mcw = args
+    if not all(same_values(torch, p.cpu(), q) for p, q in zip(got, want)):
+        bad = int(((got[1].cpu() != want[1]) | (got[2].cpu() != want[2])).sum())
+        raise AssertionError(f"{label}: {bad} slots differ from the plain "
+                             "version's")
     route = H.histogram_route(binned.device, b)
+    cold = l2_cold_copies(args, binned.numel() * 4 + 12 * node.numel())
 
     def fused(*a):
         return H.build_best_split(*a, m, b)
 
     def two_phase(binned, node, g, h, fmask, lam, gam, mcw):
-        hist = hist_kernel(H, f"hist_{route}")(binned, node, g, h, m, b)
-        return H.split_search(hist, fmask, lam, gam, mcw)
+        order = H.node_order(node, m, g, h)
+        hist = hist_kernel(H, f"hist_{route}")(binned, node, g, h, m, b,
+                                               order=order)
+        return H.split_search(hist, fmask, lam, gam, mcw, count=order[2])
+
+    def plain(*a):
+        return H.best_split_plain(*a, m, b)
 
     bound, by = best_split_bound(torch, binned, node, g, h, m, b)
-    return {
+    out = {
         "shape": {"N": n, "F": f, "B": b, "K": k, "M": m},
-        "gain_bit_identical_to_cpu_plain": bits, "max_abs_err": max_err,
-        "same_feat_bin_as_cpu_plain": True, "bit_identical_relaunch": True,
-        "no_valid_split_slots": int((feat == -1).sum()),
-        "kernel_ms": device_ms(torch, fused, [args]),
-        "plain_ms": device_ms(torch, two_phase, [args], calls=4),
-        "plain_route": f"{route} histogram + split_search",
+        "bit_identical_to_cpu_plain": True, "max_abs_err": 0.0,
+        "bit_identical_relaunch": True,
+        "no_valid_split_slots": int((got[1] == -1).sum()),
+        "launches_per_call": kernels_per_call(torch, fused, cold[0]),
+        "ms": device_ms(torch, fused, cold),
+        "two_phase_ms": device_ms(torch, two_phase, cold),
+        "two_phase_route": f"row order + {route} histogram + split_search "
+                           "kernel",
+        "plain_ms": device_ms(torch, plain, cold, calls=2),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "arg_copies": len(cold),
+    }
+    del cold
+    return out
+
+
+#: split-search shapes: (K, M, F, B, share of empty slots). (a) the
+#: classifiers' indicator group at a 64-slot chunk (6 lanes); (b) their
+#: continuous group at 32 bins; (c) the regression path's 256-bin group at
+#: its 256-slot chunk (18 lanes), a deep level with half the slots empty;
+#: (d) the regression indicators at that chunk; untimed (e) ragged, 300
+#: bins (the blocked prefix recurses) and (f) 4500 bins (three levels)
+SPLIT_SHAPES = {
+    "a_narrow": (6, 64, 918, 2, 0.0),
+    "b_cont32": (6, 64, 10, 32, 0.0),
+    "c_wide256": (18, 256, 10, 256, 0.5),
+    "d_reg_narrow": (18, 256, 918, 2, 0.5),
+    "e_ragged_300": (3, 5, 7, 300, 0.4),
+    "f_4500": (2, 3, 2, 4500, 0.3),
+}
+#: operations per (slot, feature, threshold) of the split stage's gain
+#: (GAIN_OPS, below) and per (slot, feature, bin) of its prefix and total
+SPLIT_SCAN_OPS = 4
+
+
+def split_inputs(torch, k, m, f, b, empty: float, seed: int):
+    """Card tensors of a split search: a histogram [K, M, F, B, 2] of sums
+    of a few rows (hess >= 0, some cells empty), a share ``empty`` of the
+    slots all zero with count 0, a feature mask with holes, per-fit knobs
+    (lambda 1 and 0, so that empty slots meet 0/0)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    shape = (k, m, f, b)
+    rows = torch.randint(1, 6, shape, generator=gen, device=DEV).float()
+    g = torch.randn(shape, generator=gen, device=DEV) * rows
+    h = torch.rand(shape, generator=gen, device=DEV) * rows
+    h = torch.where(torch.rand(shape, generator=gen, device=DEV) < 0.3, 0.0, h)
+    hist = torch.stack([g, h], dim=-1)
+    slot_empty = torch.rand((k, m), generator=gen, device=DEV) < empty
+    hist[slot_empty] = 0.0
+    count = torch.where(slot_empty, 0, torch.randint(
+        1, 100, (k, m), generator=gen, device=DEV)).to(torch.int32)
+    gmask = (torch.rand((k, f), generator=gen, device=DEV) < 0.8).float()
+    gmask[0, 0] = 1.0
+    lam = torch.tensor([1.0, 0.0] * k, device=DEV)[:k].contiguous()
+    gam = torch.tensor([0.0, 0.1, 0.0] * k, device=DEV)[:k].contiguous()
+    mcw = torch.tensor([1.0, 0.0, 10.0] * k, device=DEV)[:k].contiguous()
+    return [hist.contiguous(), gmask, lam, gam, mcw, count]
+
+
+def split_bound_ms(hist, count) -> tuple[float, str]:
+    """The split search reads the histogram of the slots that hold a row
+    (all of them without ``count``) and the count, and writes 12 bytes per
+    (fit, slot); its gains take ``GAIN_OPS`` operations per threshold and
+    the prefix and total ``SPLIT_SCAN_OPS`` per bin of those slots."""
+    k, m, f, b, _ = hist.shape
+    live = k * m if count is None else int((count != 0).sum())
+    nbytes = live * f * b * 8 + 12 * k * m + (0 if count is None else 4 * k * m)
+    ops = live * f * (GAIN_OPS * (b - 1) + SPLIT_SCAN_OPS * b)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def kernels_per_call(torch, fn, args, calls: int = 4) -> float:
+    """Device kernels (and copies) per call of ``fn(*args)``, counted by
+    ``torch.profiler`` over ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    seen = sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return seen / calls
+
+
+def check_split(torch, H, name, args, want=None, timed: bool = True,
+                cpu_check: bool = True) -> dict:
+    """The split-search kernel on ``args`` (hist, gmask, lam, gam, mcw,
+    count) against its plain version on the card and, with ``cpu_check``,
+    on the CPU, bit for bit (NaN where the other has NaN), and against the
+    main path's own result ``want`` where given; one launch per call; with
+    ``timed`` its device time, the plain version's and the bound."""
+    hist, gmask, lam, gam, mcw, count = args
+    before = H.split_search.launches
+    got = H.split_search(hist, gmask, lam, gam, mcw, count=count)
+    if H.split_search.launches != before + 1:
+        raise AssertionError(f"split_search {name}: not one launch")
+    plain = H.split_search_plain(hist, gmask, lam, gam, mcw, count)
+    torch.cuda.synchronize()
+    checks = [plain] + ([want] if want is not None else [])
+    if cpu_check:
+        checks.append(H.split_search_plain(*(a.cpu() for a in args[:5]),
+                                           None if count is None else count.cpu()))
+    for other in checks:
+        if not all(same_values(torch, x.cpu(), y.cpu())
+                   for x, y in zip(got, other)):
+            bad = int((got[1].cpu() != other[1].cpu()).sum())
+            raise AssertionError(f"split_search {name}: kernel != plain "
+                                 f"version ({bad} features)")
+    k, m, f, b, _ = hist.shape
+    out = {"shape": {"K": k, "M": m, "F": f, "B": b},
+           "empty_slots": None if count is None else int((count == 0).sum()),
+           "bit_identical": True, "cpu_checked": cpu_check,
+           "max_abs_err": 0.0}
+    if timed:
+        bound, by = split_bound_ms(hist, count)
+        cold = l2_cold_copies(list(args), hist.numel() * 4)
+
+        def kernel(*a):
+            return H.split_search(*a[:5], count=a[5])
+
+        def plain_fn(*a):
+            return H.split_search_plain(*a)
+
+        out.update({
+            "launches_per_call": kernels_per_call(torch, kernel, cold[0]),
+            "ms": device_ms(torch, kernel, cold),
+            "ms_source": device_ms.last_source,
+            "wrapper_ms": time_ms(torch, kernel, cold, reps=5, rounds=5),
+            "plain_ms": time_ms(torch, plain_fn, cold, reps=2, rounds=3),
+            "plain_launches_per_call": kernels_per_call(torch, plain_fn,
+                                                        cold[0], calls=1),
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "arg_copies": len(cold),
+        })
+        del cold
+    return out
+
+
+class SplitCapture(KernelCapture):
+    """Records the split search's calls on chosen trees of a training path
+    (``KernelCapture``'s trees): its inputs and the result the grower got.
+    It adds no launch."""
+
+    def __init__(self, H, TR, trees: dict[str, int]):
+        self.H, self.TR = H, TR
+        self.attr = "split_search"
+        self.kernel = H.split_search
+        self.grow = TR._grow_tree_impl
+        self.trees = trees
+        self.family = None
+        self.records: list[dict] = []
+        self._grown: dict[int, int] = {}
+        self._tree = None
+
+    def __enter__(self):
+        def split_hook(hist, gmask, lam, gam, mcw, count=None):
+            out = self.kernel(hist, gmask, lam, gam, mcw, count=count)
+            if self._tree is not None:
+                label, syncs = self._tree
+                self.records.append({
+                    "family": self.family, "tree": label,
+                    "level": self.TR.host_syncs - syncs - 1,
+                    "args": [hist, gmask, lam, gam, mcw, count], "out": out})
+            return out
+
+        split_hook.launches = self.kernel.launches
+        self.TR._grow_tree_impl = self._grow_hook
+        self.H.split_search = split_hook
+        return self
+
+
+def check_split_launches(torch, H, records, weights: dict) -> dict:
+    """Each captured split search of a training path relaunched against its
+    plain version and the path's own result (the first of each tree also
+    against the CPU's plain version) and timed; the means weighted by how
+    often each tree recurs on the path (``weights``), as K2's are."""
+    rows, seen = [], set()
+    for rec in records:
+        hist = rec["args"][0]
+        k, m, f, b, _ = hist.shape
+        first = rec["tree"] not in seen
+        seen.add(rec["tree"])
+        row = {"tree": rec["tree"], "level": rec["level"], "K": k, "M": m,
+               "F": f, "B": b, "weight": weights[rec["family"]],
+               **check_split(torch, H, f"{rec['tree']} level {rec['level']} "
+                             f"B={b}", rec["args"], want=rec["out"],
+                             cpu_check=first)}
+        rows.append(row)
+        rec["out"] = rec["args"] = None
+    if not rows:
+        raise AssertionError("no split_search call of the training path was "
+                             "captured")
+
+    def mean(key):
+        return sum(r["weight"] * r[key] for r in rows) / sum(r["weight"] for r in rows)
+
+    return {
+        "basis": "mean per call, each call weighted by how often its tree "
+                 "recurs on the path",
+        "weights": weights, "captured_calls": len(rows),
+        "estimated_path_calls": sum(r["weight"] for r in rows),
+        "launches_per_call": max(r["launches_per_call"] for r in rows),
+        **{key: mean(key) for key in ("ms", "wrapper_ms", "plain_ms",
+                                      "bound_ms")},
+        "ms_over_bound": mean("ms") / mean("bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "ms_sources": source_counts(rows, "ms_source"),
+        "max_abs_err": 0.0, "bit_identical": True,
+        "calls": rows,
+    }
+
+
+#: leaf-sum shapes: (K, N, slots, share of rows in one slot). The grower's
+#: depth-12 leaves at 16384 rows and 18 fits (the RF and GBT depth-12
+#: groups), (a) rows spread over the slots, (b) 90% of them in one (a late
+#: boosting round); untimed (c) ragged
+LEAF_SHAPES = {
+    "a_spread": (18, 16384, 4096, 0.0),
+    "b_crowded": (18, 16384, 4096, 0.9),
+    "c_ragged": (3, 30001, 600, 0.5),
+}
+
+
+def leaf_inputs(torch, k, n, size, crowded: float, seed: int):
+    """Card tensors of a leaf sum: grad-like g (a fifth exact zeros), h >=
+    0 and slots, a share ``crowded`` of the rows in slot 7."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    g = torch.randn((k, n), generator=gen, device=DEV)
+    g = torch.where(torch.rand((k, n), generator=gen, device=DEV) < 0.2, 0.0, g)
+    h = torch.rand((k, n), generator=gen, device=DEV)
+    idx = torch.randint(0, size, (k, n), generator=gen, device=DEV)
+    idx = torch.where(torch.rand((k, n), generator=gen, device=DEV) < crowded,
+                      7, idx).to(torch.int32)
+    return [g, h, idx]
+
+
+def leaf_bound_ms(k, n, size) -> tuple[float, str]:
+    """The leaf sum reads slots, g and h once (12 bytes per row and fit)
+    and writes 8 bytes per (fit, slot); it adds 2 values per row."""
+    by_bytes = (12 * k * n + 8 * k * size) / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * k * n / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_leaf_sum(torch, H, LS, name, args, size, timed: bool) -> dict:
+    """The leaf-sum kernel against its plain version on the CPU bit for bit
+    (the plain version on the card, an ``index_add_`` per fit, adds a
+    slot's rows with atomics in another order: its differing cells are
+    reported); with
+    ``timed`` its device time with the row order made inside the call
+    (``ms``) and given it (``kernel_only_ms``), the plain version's on the
+    card, one ``index_put_(accumulate=True)`` of both arrays (the library
+    call) and the bound."""
+    g, h, idx = args
+    k, n = idx.shape
+    got = LS.leaf_sum(g, h, idx, size)
+    cpu = LS.leaf_sum_plain(g.cpu(), h.cpu(), idx.cpu(), size)
+    card_plain = LS.leaf_sum_plain(g, h, idx, size)
+    torch.cuda.synchronize()
+    for x, y in zip(got, cpu):
+        if not torch.equal(x.cpu(), y):
+            raise AssertionError(f"leaf_sum {name}: kernel != plain version "
+                                 f"({int((x.cpu() != y).sum())} cells)")
+    largest = max(int(torch.bincount(r.long(), minlength=size).max())
+                  for r in idx)
+    out = {"shape": {"K": k, "N": n, "slots": size},
+           "largest_slot_rows": largest, "bit_identical_to_cpu": True,
+           "max_abs_err": 0.0,
+           "card_plain_differing_cells": sum(
+               int((x != y).sum()) for x, y in zip(got, card_plain))}
+    if timed:
+        bound, by = leaf_bound_ms(k, n, size)
+        cold = l2_cold_copies(list(args), 12 * k * n)
+        ordered = [a + [H.node_order(a[2], size, a[0], a[1])] for a in cold]
+        lib = LS._library()
+        lane = torch.arange(k, device=DEV)[:, None].expand(k, n)
+
+        def kernel(*a):
+            return LS.leaf_sum(*a, size)
+
+        def kernel_only(g_, h_, idx_, order):
+            rows, start, count = order
+            out_g = torch.empty((k, size), device=DEV)
+            out_h = torch.empty_like(out_g)
+            lib.tp_leaf_sum(rows.data_ptr(), start.data_ptr(), count.data_ptr(),
+                            g_.data_ptr(), h_.data_ptr(), out_g.data_ptr(),
+                            out_h.data_ptr(), n, k, size,
+                            torch.cuda.current_stream().cuda_stream)
+            return out_g, out_h
+
+        def plain(*a):
+            return LS.leaf_sum_plain(*a, size)
+
+        def library(g_, h_, idx_):
+            out2 = torch.zeros((k, size, 2), device=DEV)
+            return out2.index_put_((lane, idx_.long()),
+                                   torch.stack([g_, h_], dim=-1),
+                                   accumulate=True)
+
+        out.update({
+            "ms": device_ms(torch, kernel, cold),
+            "kernel_only_ms": device_ms(torch, kernel_only, ordered),
+            "order_ms": device_ms(torch, lambda g_, h_, i_: H.node_order(
+                i_, size, g_, h_), cold),
+            "plain_ms": device_ms(torch, plain, cold, calls=4),
+            "library_ms": device_ms(torch, library, cold, calls=4),
+            "bound_ms": bound, "bound_by": by, "arg_copies": len(cold),
+        })
+        del cold, ordered
+    return out
+
+
+class LeafCapture:
+    """Records the first leaf-sum call of each (path, K, N, slots) group,
+    with how many calls each group makes. It adds no launch."""
+
+    def __init__(self, LS):
+        self.LS = LS
+        self.real = LS.leaf_sum
+        self.path = None
+        self.records: dict[tuple, dict] = {}
+
+    def __enter__(self):
+        def hook(g, h, idx, size):
+            key = (self.path, *idx.shape, size)
+            rec = self.records.get(key)
+            if rec is None:
+                self.records[key] = {"args": [g.clone(), h.clone(), idx.clone()],
+                                     "size": size, "count": 1}
+            else:
+                rec["count"] += 1
+            return self.real(g, h, idx, size)
+
+        hook.launches = self.real.launches
+        self.LS.leaf_sum = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.real.launches = self.LS.leaf_sum.launches
+        self.LS.leaf_sum = self.real
+        return False
+
+
+def check_leaf_path(torch, H, LS, records: dict) -> dict:
+    """Each captured leaf-sum group relaunched against the CPU's plain
+    version and timed; the means weighted by each group's calls."""
+    rows = []
+    for (path, k, n, size), rec in records.items():
+        rows.append({"path": path, "weight": rec["count"], **check_leaf_sum(
+            torch, H, LS, f"{path} K={k} N={n} S={size}", rec["args"], size,
+            timed=True)})
+    records.clear()
+    if not rows:
+        raise AssertionError("no leaf_sum call of the training paths was "
+                             "captured")
+    total = sum(r["weight"] for r in rows)
+    return {
+        "basis": "mean per call, each captured call weighted by the calls of "
+                 "its (path, K, N, slots) group",
+        "launches": total,
+        **{key: sum(r["weight"] * r[key] for r in rows) / total
+           for key in ("ms", "kernel_only_ms", "order_ms", "plain_ms",
+                       "library_ms", "bound_ms")},
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "max_abs_err": 0.0, "captured": rows,
     }
 
 
@@ -2609,11 +3120,13 @@ def fit_side_wide(torch, smi: str) -> dict:
 def fit_side_to_train(torch, G, H, ST, TS, x, y, smi: str) -> dict:
     """The flagship twin's checked vector into ``XGBoostClassifier.fit_arrays``
     at the xgb fixture's point, then scored, on the card with the launch
-    counts of K2, the row order, K1 and the tree sum read around exactly
-    this run; trees and scores equal the same fit on the CPU."""
+    counts of K2, the row order, the split search, K1 and the tree sum read
+    around exactly this run; trees and scores equal the same fit on the
+    CPU."""
     mask = np.ones(len(y), dtype=np.float32)
     counted = {"hist_binloop": H.build_histogram_binloop, "node_order": H.node_order,
-               "serve_trees": ST.serve_trees, "tree_sum": TS.tree_sum}
+               "split_search": H.split_search, "serve_trees": ST.serve_trees,
+               "tree_sum": TS.tree_sum}
     for fn in counted.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -2685,8 +3198,11 @@ def main() -> int:
     from transmogrifai_tpu_torch.models import tree_sum as TS
     from transmogrifai_tpu_torch.models import trees as TR
 
+    from transmogrifai_tpu_torch.models import leaf_sum as LS
+
     smi = start_on_card(torch, ["serve_trees", "tree_sum", "node_order",
-                                "hist_binloop", "hist_wide", "best_split"])
+                                "hist_binloop", "hist_wide", "best_split",
+                                "split_search", "leaf_sum"])
 
     # the tree-sum kernel at its shapes (launches here are not counted)
     rng = np.random.default_rng(7)
@@ -2711,9 +3227,35 @@ def main() -> int:
                .to(DEV) if h > 1 else None)
         route_rows[label] = check_tree_sum_route(
             torch, TS, label, per_tree, win, h, boosted, 0.02, 0.37,
-            timed=label.startswith(("a", "b")))
+            timed=label.startswith(("a", "b")), pairs=MUST_PAIRS)
         phase(f"tree_sum_device_route {label}", **route_rows[label])
         del per_tree, win
+    # the split-search kernel at its shapes (launches here are not counted)
+    split_rows = {}
+    for i, (label, (k, m, f, b, empty)) in enumerate(SPLIT_SHAPES.items()):
+        split_rows[label] = check_split(
+            torch, H, label, split_inputs(torch, k, m, f, b, empty, seed=40 + i),
+            timed=label < "e")
+        phase(f"split_search {label}", **split_rows[label])
+    # the leaf-sum kernel at its shapes (launches here are not counted)
+    leaf_rows = {}
+    for i, (label, (k, n, size, crowded)) in enumerate(LEAF_SHAPES.items()):
+        leaf_rows[label] = check_leaf_sum(
+            torch, H, LS, label, leaf_inputs(torch, k, n, size, crowded,
+                                             seed=50 + i), size,
+            timed=label < "c")
+        phase(f"leaf_sum {label}", **leaf_rows[label])
+    # kernel K4 at the reference's fused-route shapes: on no path, so its
+    # launches are counted in these phases alone (early in the run, where
+    # the profiler still sees every activity)
+    H.build_best_split.launches = 0
+    k4 = {}
+    for i, (label, (n, f, b, k, m)) in enumerate(K4_SHAPES.items()):
+        k4[label] = check_best_split(torch, H, label, n, f, b, k, m,
+                                     seed=3 if label.startswith("c") else 20 + i)
+        phase(f"best_split {label}", **k4[label])
+    k4_launches = H.build_best_split.launches
+    H.build_best_split.launches = 0
 
     k1_shapes = k1_inputs()
     k1_timed = {}
@@ -2786,7 +3328,7 @@ def main() -> int:
     route = device_route_path(torch, G, ST, TS, TR, load_workflow_model)
     route_records = route.pop("_records")
     phase("serving_device_route", **route)
-    route_main = check_route_path(torch, TS, route_records)
+    route_main = check_route_path(torch, TS, route_records, pairs=MUST_PAIRS)
     del route_records
     TS.tree_sum_device_route.launches = 0
     ST.serve_trees.launches = 0
@@ -2835,13 +3377,23 @@ def main() -> int:
     # the training path, with the counts read around exactly this run
     x, y, target, masks = train_table(TRAIN_ROWS)
     TS.tree_sum.launches = 0
-    with ts_cap:
-        ts_cap.path = "training"
+    leaf_cap = LeafCapture(LS)
+    with ts_cap, leaf_cap:
+        ts_cap.path = leaf_cap.path = "training"
         train = train_path(torch, x, y, masks)
     ts_train = TS.tree_sum.launches
     records = train.pop("_records")
     k1_records = train.pop("_k1_records")
+    split_records = train.pop("_split_records")
     phase("train", **train)
+    # the split search at the training path's own calls (relaunches are not
+    # counted)
+    split_weights = {"xgb": XGB_GRID[0]["num_round"],
+                     "rf": RF_GRID[0]["num_trees"]}
+    split_train = check_split_launches(torch, H, split_records, split_weights)
+    del split_records
+    H.split_search.launches = 0
+    phase("split_search main_path", **split_train)
     ts_sums["training"] = check_tree_sum_path(torch, TS, ts_cap.records,
                                               "training")
     TS.tree_sum.launches = 0
@@ -2854,14 +3406,25 @@ def main() -> int:
 
     # the regression path at a 256-bin sketch, its counts read around it
     TS.tree_sum.launches = 0
-    with ts_cap:
-        ts_cap.path = "regression training"
+    with ts_cap, leaf_cap:
+        ts_cap.path = leaf_cap.path = "regression training"
         reg = train_regression_path(torch, x, target, masks)
     ts_reg = TS.tree_sum.launches
     TS.tree_sum.launches = 0
     if not (ts_train and ts_reg):
         raise AssertionError(f"scoring the fitted lanes launched tree_sum "
                              f"{ts_train} and {ts_reg} times")
+    split_records = reg.pop("_split_records")
+    reg_weights = {"gbt": GBT_GRID[0]["max_iter"],
+                   "rfr": RFR_GRID[0]["num_trees"]}
+    split_reg = check_split_launches(torch, H, split_records, reg_weights)
+    del split_records
+    H.split_search.launches = 0
+    phase("split_search main_path regression", **split_reg)
+    # the leaf sums at both training paths' own calls
+    leaf_main = check_leaf_path(torch, H, LS, leaf_cap.records)
+    LS.leaf_sum.launches = 0
+    phase("leaf_sum main_path", **leaf_main)
     records = reg.pop("_records")
     records_k2 = reg.pop("_records_k2")
     k1_records_reg = reg.pop("_k1_records")
@@ -2881,8 +3444,6 @@ def main() -> int:
     # K3 and K2 at the regression path's own launches (relaunches are not
     # counted); K2's 2-bin launches there are held against the CPU's plain
     # version at the classifiers' launches and through the fixtures
-    reg_weights = {"gbt": GBT_GRID[0]["max_iter"],
-                   "rfr": RFR_GRID[0]["num_trees"]}
     k3 = check_main_launches(torch, H, "hist_wide", records, reg_weights,
                              library_per_tree=True)
     del records
@@ -2898,6 +3459,9 @@ def main() -> int:
                              k2_weights)
     phase("hist_binloop main_path both", **k2_paths)
     phase("train_fixture", **check_train_fixture(torch))
+    phase("gbt_depth12 against the cpu",
+          **check_gbt_depth12_cpu(torch, x, target, masks))
+    LS.leaf_sum.launches = 0
     # the tree sum over the three paths, weighted by their launches
     ts_counts = {"serving": ts_launches, "training": ts_train,
                  "regression training": ts_reg}
@@ -2925,6 +3489,8 @@ def main() -> int:
         ]))
     H.build_histogram_binloop.launches = 0
     H.build_histogram_wide.launches = 0
+    H.split_search.launches = 0
+    LS.leaf_sum.launches = 0
     ST.serve_trees.launches = 0
 
     # the fit side of the flagship flow: the twins against the JAX
@@ -2937,16 +3503,6 @@ def main() -> int:
     phase("fit_side to_train", **to_train)
     fit_launches = to_train["launches"]
 
-    # kernel K4 at the reference's fused-route shapes: on no path, so its
-    # launches are counted in these phases alone
-    H.build_best_split.launches = 0
-    k4 = {}
-    for i, (label, (n, f, b, k, m)) in enumerate(K4_SHAPES.items()):
-        k4[label] = check_best_split(torch, H, label, n, f, b, k, m,
-                                     seed=3 if label.startswith("c") else 20 + i)
-        phase(f"best_split {label}", **k4[label])
-    k4_launches = H.build_best_split.launches
-    H.build_best_split.launches = 0
     phase("wall", seconds=time.perf_counter() - t_start,
           profiler_missed_activities=device_ms.missed_activities,
           profiler_sessions_retaken=device_ms.empty_sessions,
@@ -2962,6 +3518,11 @@ def main() -> int:
     orders = combine_paths(
         {"training": k2["node_order"], "regression training": k2r["node_order"]},
         k2_weights, keys=("ms", "plain_ms", "library_ms", "bound_ms"))
+    split_paths = combine_paths(
+        {"training": split_train, "regression training": split_reg},
+        {"training": train["split_search_launches"],
+         "regression training": reg["split_search_launches"]},
+        keys=("ms", "plain_ms", "bound_ms"))
     print(json.dumps({"kernels": [{
         "name": "tree_sum",
         "route": "cuda",
@@ -3014,9 +3575,70 @@ def main() -> int:
         "bound_ms": route_main["bound_ms"],
         "bound_by": route_main["bound_by"],
         "library_ms": route_main["library_ms"],
+        "library_device_ms": route_main["library_device_ms"],
+        "device_ms_over_bound": route_main["device_ms_over_bound"],
+        "against_library": {
+            "main": route_main["paired"]["verdict"],
+            **{label: r["paired"]["verdict"] for label, r in route_rows.items()
+               if "paired" in r}},
         "shapes": {label: {k: r[k] for k in ("ms", "device_ms", "plain_ms",
-                                             "library_ms", "bound_ms")}
+                                             "library_ms", "library_device_ms",
+                                             "bound_ms", "device_ms_over_bound")}
                    for label, r in route_rows.items() if "ms" in r},
+    }, {
+        "name": "split_search",
+        "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/split_search.cu",
+        "replaces": "transmogrifai_tpu/models/hist_pallas.py:711",
+        "path": "the split stage of K4 (hist_pallas.py _split_kernel, "
+                "pallas_call at :711) over the histogram K2 or K3 wrote, on "
+                "both training paths (the reference's two-phase split "
+                "arithmetic, transmogrifai_tpu/models/trees.py:469-490); "
+                "times over the calls captured on both paths' chosen trees, "
+                "weighted by how often each tree recurs, device time from "
+                "the profiler; library: none (no single PyTorch call)",
+        "launches": train["split_search_launches"] + reg["split_search_launches"],
+        "launches_by_path": {"training": train["split_search_launches"],
+                             "regression training": reg["split_search_launches"],
+                             "fit_side to_train": fit_launches["split_search"]},
+        "launches_per_call": max(split_train["launches_per_call"],
+                                 split_reg["launches_per_call"]),
+        "max_abs_err": 0.0,
+        "ms": split_paths["ms"],
+        "ms_by_path": split_paths["ms_by_path"],
+        "plain_ms": split_paths["plain_ms"],
+        "bound_ms": split_paths["bound_ms"],
+        "bound_by": split_paths["bound_by"],
+        "ms_over_bound": split_paths["ms"] / split_paths["bound_ms"],
+        "library_ms": None,
+        "shapes": {label: {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
+                   for label, r in split_rows.items() if "ms" in r},
+    }, {
+        "name": "leaf_sum",
+        "route": "cuda",
+        "source": "transmogrifai_tpu_torch/csrc/leaf_sum.cu",
+        "replaces": None,
+        "path": "the grower's leaf sums past the reference's one-hot budget "
+                "(transmogrifai_tpu/models/trees.py _segment_sum_small's "
+                "scatter-add form, which XLA applies in row order); it "
+                "replaces no TPU kernel; ms with the row order made in the "
+                "call, over the captured calls of both training paths, "
+                "weighted by calls; library = one index_put_(accumulate="
+                "True) of both arrays",
+        "launches": train["leaf_sum_launches"] + reg["leaf_sum_launches"],
+        "launches_by_path": {"training": train["leaf_sum_launches"],
+                             "regression training": reg["leaf_sum_launches"]},
+        "max_abs_err": 0.0,
+        "ms": leaf_main["ms"],
+        "kernel_only_ms": leaf_main["kernel_only_ms"],
+        "plain_ms": leaf_main["plain_ms"],
+        "bound_ms": leaf_main["bound_ms"],
+        "bound_by": leaf_main["bound_by"],
+        "library_ms": leaf_main["library_ms"],
+        "shapes": {label: {k: r[k] for k in ("ms", "kernel_only_ms",
+                                             "plain_ms", "library_ms",
+                                             "bound_ms")}
+                   for label, r in leaf_rows.items() if "ms" in r},
     }, {
         "name": "serve_trees",
         "route": "cuda",
@@ -3098,15 +3720,26 @@ def main() -> int:
         "route": "cuda",
         "source": "transmogrifai_tpu_torch/csrc/best_split.cu",
         "replaces": "transmogrifai_tpu/models/hist_pallas.py:711",
-        "path": "on no path of the reference (models/trees.py:333, :355-361); "
-                "launches and times are its own phases', times at (a)",
+        "path": "the fused form is on no path of the reference "
+                "(models/trees.py:333, :355-361): launches and times are its "
+                "own phases', times at (a) with its row order; its split "
+                "stage (split_stage.cuh) runs on both training paths as the "
+                "split_search kernel (split_stage_launches); two_phase_ms: "
+                "the row order, K2 or K3 and the split-search kernel on the "
+                "same inputs",
         "launches": k4_launches,
+        "split_stage_launches": train["split_search_launches"]
+        + reg["split_search_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
-        "ms": k4["a_narrow"]["kernel_ms"],
+        "ms": k4["a_narrow"]["ms"],
+        "two_phase_ms": k4["a_narrow"]["two_phase_ms"],
         "plain_ms": k4["a_narrow"]["plain_ms"],
         "bound_ms": k4["a_narrow"]["bound_ms"],
         "bound_by": k4["a_narrow"]["bound_by"],
         "library_ms": None,
+        "shapes": {label: {k: r[k] for k in ("ms", "two_phase_ms",
+                                             "plain_ms", "bound_ms")}
+                   for label, r in k4.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

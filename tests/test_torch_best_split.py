@@ -212,3 +212,23 @@ def test_kernel_matches_plain_version_on_the_card():
         for x, y, z in zip(got, again, want):
             assert torch.equal(x, y)
             assert torch.equal(x.cpu(), z)
+
+
+def test_kernel_over_padded_codes_on_the_card():
+    """Needs a CUDA card (skips here): K4 over codes padded to 16-byte rows
+    (``pad_codes``, as the grower holds them) equals its plain version, one
+    launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for n, f, b, m, k in [(2048, 918, 2, 128, 3), (2048, 10, 32, 128, 3),
+                          (777, 13, 100, 9, 2)]:
+        args = _torch(_data(n, f, b, m, k, seed=n + f))
+        binned, node, g, h, fmask, lam, gam, mcw = [a.cuda() for a in args]
+        k4 = H.build_best_split.launches
+        got = H.build_best_split(H.pad_codes(binned), node, g, h, fmask, lam,
+                                 gam, mcw, m, b)
+        assert H.build_best_split.launches == k4 + 1
+        want = H.best_split_plain(*args, m, b)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y)

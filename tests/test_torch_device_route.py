@@ -405,3 +405,47 @@ def test_device_route_kernel_matches_plain_version_on_the_card():
                 ETA, BASE)
             torch.cuda.synchronize()
             assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+
+
+def test_route_by_pairs_matches_plain_version_on_the_card():
+    """Needs a CUDA card (skips here): the device-route mode's (row, tree
+    window) decomposition equals its plain version bit for bit where the
+    tree count is odd, even or a multiple of four, the leaf windows are
+    kept in registers (up to 4) or in shared memory, the leaf windows are
+    windowed again (128 of them), a slab holds 512 or 513 trees, the
+    arrays start off a 16-byte boundary (plain loads), a slab of fewer rows
+    holds thousands of trees, and where even one row does not fit the
+    block's shared memory, so the tree windows come in chunks (30000 trees;
+    2000 trees of 1024 leaf windows, windowed again on both axes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = [(4099, 50, 128, False), (1000, 33, 3, False), (777, 66, 5, False),
+             (100, 512, 2, False), (3000, 513, 2, False), (2000, 200, 32, True),
+             (65, 7, 1, True), (301, 5001, 3, True), (70, 30000, 2, False),
+             (37, 2000, 1024, True)]
+    for seed, (n, t, h, offset) in enumerate(cases):
+        rng = np.random.default_rng(100 + seed)
+
+        def card(a):
+            if not offset:
+                return torch.from_numpy(a).cuda()
+            flat = torch.empty(a.size + 1, dtype=torch.float32, device="cuda")
+            view = flat[1:].view(a.shape)
+            view.copy_(torch.from_numpy(a))
+            return view
+
+        vals_np = (rng.normal(size=(n, t)) * 10.0 ** rng.integers(-3, 2, (n, t))
+                   ).astype(np.float32)
+        win_np = rng.integers(0, h, (n, t)).astype(np.float32)
+        vals = card(vals_np)
+        win = card(win_np) if h > 1 else None
+        for boosted in (True, False):
+            before = TS.tree_sum_device_route.launches
+            got = TS.tree_sum_device_route(vals, win, h, boosted, ETA, BASE)
+            assert TS.tree_sum_device_route.launches == before + 1
+            cpu = TS.tree_sum_device_route_plain(
+                torch.from_numpy(vals_np),
+                torch.from_numpy(win_np) if h > 1 else None, h, boosted, ETA,
+                BASE)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), cpu)

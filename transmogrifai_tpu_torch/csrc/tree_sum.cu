@@ -22,56 +22,67 @@
 //            both axes (padding centred), each summed in row-major order;
 //            at most 32 x 32 cells are then summed in row-major order
 //   boosted: out[r]  = fma(eta, total, base); forest: total * f32(1 / T)
-// The sums are streamed per row: a partial per leaf window h for the
-// current tree window (in registers for up to kRegWindows windows, else
-// acc2[h] in shared memory); at the window's last tree they are folded, in
-// h order, into the total (a grid of at most 32 x 32) or into acc3[h / 32],
-// the current level-2 window's (and those into the total at that window's
-// end). Adding an empty partial (+0.0) changes no sum that starts at +0.0,
-// so the padding and the zeros of the one-hot select need no adds.
+// Adding an empty partial (+0.0) changes no sum that starts at +0.0, so
+// the padding and the zeros of the one-hot select need no adds.
 // Every add is __fadd_rn and the epilogues are __fmaf_rn, __fmul_rn,
 // __fadd_rn, __fdiv_rn, which nvcc never contracts or splits.
 //
-// Design. A work item is 32 consecutive rows, one summing lane each (a
-// row's adds are one dependent chain); a block is one warp, so every warp
-// sums. An item's rows x T values are one contiguous slab: where it fits
-// (T <= kSlabTrees) and the arrays are 16-byte aligned, one thread copies
-// it into shared memory with one cp.async.bulk per array, completing on
-// its stage's mbarrier (the last words past the slab's 16-byte multiple by
-// plain loads), and each lane reads its row a float4 at a time where
-// T % 4 == 0, a float2 where T % 2 == 0, else by words, the loads of the
-// next 16 values issued before the adds of the current. Two stages: while
-// one slab is summed the next is in flight, and the blocks are persistent,
-// as many as fit on the card at once (the device's limits are read once),
-// taking items b, b + grid, ...; a launch of fewer items than that has
-// every item's slab in flight at once, so the card reads the whole input
-// at its full rate and each SM's blocks start summing as their slabs land.
-// The reads of the unpadded slab conflict in shared memory for some T (2-way
-// at T = 200 with float4s, measured to cost the add chain about 3% on the
-// H100 against a padded row). (Tried and measured slower on the
-// H100: column tiles by 2-D tensor copies, per-row bulk copies, and 4- or
-// 16-byte cp.async tiles at a padded stride, all of which issue more,
-// smaller copies.) A longer row, or an unaligned array, is copied in
-// column tiles of kTileTrees by the warp's 4-byte cp.async into an odd row
-// stride (every lane reads its row at the same column in another bank),
-// each lane arriving on the stage's mbarrier once its copies land, four
-// stages deep. No serving or training call takes this tiles path (their T
-// is 200, 50 or 20, and K1's output is 16-byte aligned): it exists only for
-// T > kSlabTrees, for unaligned views, and for device-route accumulators
-// too large to sit beside two slabs.
+// Design, tree order. A work item is 32 consecutive rows, one summing lane each
+// (a row's adds are one dependent chain); a block is one warp, so every warp
+// sums. An item's rows x T values are one contiguous slab: where it fits (T <=
+// kSlabTrees) and the arrays are 16-byte aligned, one thread copies it into
+// shared memory with one cp.async.bulk per array, completing on its stage's
+// mbarrier (the last words past the slab's 16-byte multiple by plain loads),
+// and each lane reads its row a float4 at a time where T % 4 == 0, a float2
+// where T % 2 == 0, else by words, the loads of the next 16 values issued
+// before the adds of the current. Two stages: while one slab is summed the next
+// is in flight, and the blocks are persistent, as many as fit on the card at
+// once (the device's limits are read once), taking items b, b + grid, ...; a
+// launch of fewer items than that has every item's slab in flight at once, so
+// the card reads the whole input at its full rate and each SM's blocks start
+// summing as their slabs land. The reads of the unpadded slab conflict in
+// shared memory for some T (2-way at T = 200 with float4s, measured to cost the
+// add chain about 3% on the H100 against a padded row). (Tried and measured
+// slower on the H100: column tiles by 2-D tensor copies, per-row bulk copies,
+// and 4- or 16-byte cp.async tiles at a padded stride, all of which issue more,
+// smaller copies.) A longer row, or an unaligned array, is copied in column
+// tiles of kTileTrees by the warp's 4-byte cp.async into an odd row stride
+// (every lane reads its row at the same column in another bank), each lane
+// arriving on the stage's mbarrier once its copies land, four stages deep. No
+// serving or training call takes this tiles path (their T is 200, 50 or 20, and
+// K1's output is 16-byte aligned): it exists only for T > kSlabTrees and for
+// unaligned views.
 //
-// The device route reads a tile in runs that end at tree-window ends: each
-// run is a loop of adds alone (no test per tree), then the window's fold.
-// With up to kRegWindows leaf windows every partial lives in a register and
-// takes each tree's value or +0.0; with more, each tree is one
-// read-modify-write of its window's partial in shared memory.
+// The device route (route_pairs_kernel) spreads (row, tree window) pairs
+// over lanes: the level-1 partials of different tree windows are
+// independent, so a pair's chain is its window's (at most 32) trees, not
+// T. A block takes a slab of R rows (8 where the leaf windows' partials
+// live in registers or T <= 64, else 16; fewer where that slab and its
+// partials would not fit the block's shared memory), each warp 32 / R
+// tree windows (more where there are more windows than warps' pairs), a
+// lane per (row, window); each pair keeps its leaf windows' partials in
+// registers (up to kRegWindows of them: each tree's value or +0.0 into
+// each) or in shared memory (one read-modify-write a tree, each lane its
+// own bank), and stores them to part[W][H][R]; then warp 0 folds each
+// row's partials in the fixed order (row major over [W, H], or windowed
+// again where an axis is over 32) and writes the epilogue. The slab is one
+// bulk copy per array where the arrays and the slab's start are 16-byte
+// aligned, else plain loads by the whole block. Where even a one-row slab
+// of all T trees does not fit (thousands of trees, or many leaf windows),
+// the block takes the tree windows in chunks that fit, staged by plain
+// loads, and warp 0 folds each chunk's partials into running sums (the
+// total, and the level-2 cells of the current window of 32 tree windows)
+// before the next chunk is staged: the same adds in the same order.
+// (Against the two kernels this one replaced, pairs over whole slabs and
+// a streamed kernel for the rest, it reads 1.5% slower at [20000, 200]
+// with 2 leaf windows and 8% at serving's 50-tree calls on an H100,
+// chip_ab.py --parts route; PERF.md.)
 //
 // What bounds it: reading per_tree once (4 N T bytes; the device route
 // also reads win where H > 1) and writing out (4 N). At the serving sizes
 // the tree order is latency-bound: the copy's first bytes, then a row's
-// chain of T dependent adds after its slab lands. The device route adds a
-// partial's update per tree and a fold per 32 trees to that chain; its
-// time is several times the tree order's at the same shape (PERF.md).
+// chain of T dependent adds after its slab lands. The device route's
+// chains are a window's trees and the row's W x H fold.
 //
 // Shapes: per_tree, win [N, T] f32, row-major and contiguous; out [N] f32.
 
@@ -93,6 +104,8 @@ constexpr int kMaxDevices = 64;
 // device route: leaf windows whose partials live in registers (more live
 // in shared memory: every register partial takes an add a tree)
 constexpr int kRegWindows = 4;
+// device route by pairs: warps per block
+constexpr int kRouteWarps = 8;
 
 // How an item reaches shared memory (see above).
 enum Copy { kTiles = 0, kSlab = 1 };
@@ -116,22 +129,21 @@ struct Params {
   int w;                  // tree windows
   int three;              // the [W, H] grid is windowed again
   int lo_w, lo_h, h2;     // its leading zeros and level-2 leaf windows
+  int rows, rshift;       // rows a block (a power of two <= 16), log2
+  int cw;                 // tree windows a chunk (W: one chunk)
+  int bulk;               // one chunk, staged by bulk copies
 };
 
-// Dynamic shared memory: kMaxStages mbarriers (a 32-byte header), the
-// stages of values (and, with leaf windows, as many of windows), then
-// acc2[h][32] and acc3[h2][32].
+// Dynamic shared memory: kMaxStages mbarriers (a 32-byte header), then the
+// stages of values (tree order), or the device route's slab and partials.
 constexpr size_t kHeader = kMaxStages * sizeof(uint64_t);
 
 __host__ __device__ inline size_t stage_words(const Params& p) {
   return static_cast<size_t>(kRows) * p.stride;
 }
 
-__host__ __device__ inline size_t smem_bytes(const Params& p, bool route) {
-  const int arrays = p.win != nullptr ? 2 : 1;
-  size_t words = static_cast<size_t>(p.stages) * arrays * stage_words(p);
-  if (route) words += static_cast<size_t>(p.h + p.h2) * kRows;
-  return kHeader + words * sizeof(float);
+__host__ __device__ inline size_t smem_bytes(const Params& p) {
+  return kHeader + static_cast<size_t>(p.stages) * stage_words(p) * sizeof(float);
 }
 
 __device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
@@ -201,12 +213,11 @@ __device__ __forceinline__ float sum_row(const float* row, int n, float acc) {
   return acc;
 }
 
-// Copies of tile `tile` of item `item` into `vals` (and `wins`), completing
-// on `bar`.
+// Copies of tile `tile` of item `item` into `vals`, completing on `bar`.
 // `reuse`: the stage was read before (by the generic proxy), so the bulk
 // copies' writes (the async proxy) are fenced behind those reads.
 template <int kCopy>
-__device__ __forceinline__ void issue(const Params& p, float* vals, float* wins,
+__device__ __forceinline__ void issue(const Params& p, float* vals,
                                       uint64_t* bar, int64_t item, int tile,
                                       bool reuse, int lane) {
   const int64_t row0 = item * kRows;
@@ -220,17 +231,11 @@ __device__ __forceinline__ void issue(const Params& p, float* vals, float* wins,
       const size_t words = static_cast<size_t>(rows) * p.t;
       const size_t bulk = words & ~static_cast<size_t>(3);
       const size_t at = static_cast<size_t>(row0) * p.t;
-      for (size_t i = bulk; i < words; ++i) {
-        vals[i] = __ldg(p.per_tree + at + i);
-        if (wins != nullptr) wins[i] = __ldg(p.win + at + i);
-      }
+      for (size_t i = bulk; i < words; ++i) vals[i] = __ldg(p.per_tree + at + i);
       if (reuse || bulk < words) fence_async();
       const uint32_t bytes = static_cast<uint32_t>(bulk * sizeof(float));
-      bar_expect(bar, wins != nullptr ? 2 * bytes : bytes);
-      if (bytes) {
-        bulk_copy(vals, p.per_tree + at, bytes, bar);
-        if (wins != nullptr) bulk_copy(wins, p.win + at, bytes, bar);
-      }
+      bar_expect(bar, bytes);
+      if (bytes) bulk_copy(vals, p.per_tree + at, bytes, bar);
     }
   } else {
     if (cols > 0) {
@@ -241,7 +246,6 @@ __device__ __forceinline__ void issue(const Params& p, float* vals, float* wins,
       for (int e = lane; e < total; e += 32) {
         const size_t at = static_cast<size_t>(row0 + r) * p.t + c0 + c;
         ring::copy4(vals + r * p.stride + c, p.per_tree + at);
-        if (wins != nullptr) ring::copy4(wins + r * p.stride + c, p.win + at);
         r += step_r;
         c += step_c;
         if (c >= cols) {
@@ -262,146 +266,13 @@ __device__ __forceinline__ float lane_of(float4 q, int i) {
   return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
 }
 
-// The device route's windows, from the launch.
-struct RouteShape {
-  int h, lo1, w, three, lo_w, lo_h, h2;
-};
-
-// A lane's device-route sums: the partials of the current tree window's
-// leaf windows, in registers where there are at most kR of them (kR 0:
-// in shared memory, acc2), and the total.
-template <int kR>
-struct RouteSums {
-  float part[kR > 0 ? kR : 1];
-  float total;
-};
-
-// At tree j's window end: the leaf windows' partials folded, in window
-// order, into the total (a grid of at most 32 x 32) or into the level-2
-// accumulators acc3, and those into the total at their window's end.
-template <int kR>
-__device__ __forceinline__ void route_fold(const RouteShape& g, float* acc2,
-                                           float* acc3, RouteSums<kR>& r,
-                                           int j, int lane) {
-  // window hh's partial into the total or its level-2 accumulator
-  auto fold = [&](int hh, float v) {
-    if (!g.three) {
-      r.total = __fadd_rn(r.total, v);
-    } else {
-      float* b = acc3 + (hh + g.lo_h) / kWindow * kRows + lane;
-      *b = __fadd_rn(*b, v);
-    }
-  };
-  if constexpr (kR > 0) {
-#pragma unroll
-    for (int k = 0; k < kR; ++k) {
-      if (k < g.h) fold(k, r.part[k]);
-      r.part[k] = 0.0f;
-    }
-  } else {
-    for (int hh = 0; hh < g.h; ++hh) {
-      float* a = acc2 + hh * kRows + lane;
-      fold(hh, *a);
-      *a = 0.0f;
-    }
-  }
-  if (!g.three) return;
-  const int w = (j + g.lo1) / kWindow;
-  if ((w + g.lo_w) % kWindow == kWindow - 1 || w == g.w - 1) {
-    for (int hh = 0; hh < g.h2; ++hh) {
-      float* b = acc3 + hh * kRows + lane;
-      r.total = __fadd_rn(r.total, *b);
-      *b = 0.0f;
-    }
-  }
-}
-
-// One tree's value x into its leaf window's partial (hw: the window as
-// read). In registers every partial takes x or +0.0, a no-op: a partial
-// starts at +0.0 and never becomes -0.0. In shared memory, one
-// read-modify-write.
-template <int kR>
-__device__ __forceinline__ void route_add(const RouteShape& g, float* acc2,
-                                          RouteSums<kR>& r, float x, float hw,
-                                          int lane) {
-  const int h = min(static_cast<unsigned>(__float2int_rz(hw)),
-                    static_cast<unsigned>(g.h - 1));
-  if constexpr (kR > 0) {
-    static_assert(kR == 4, "four register partials");
-    r.part[0] = __fadd_rn(r.part[0], h == 0 ? x : 0.0f);
-    r.part[1] = __fadd_rn(r.part[1], h == 1 ? x : 0.0f);
-    if (g.h > 2) {
-      r.part[2] = __fadd_rn(r.part[2], h == 2 ? x : 0.0f);
-      r.part[3] = __fadd_rn(r.part[3], h == 3 ? x : 0.0f);
-    }
-  } else {
-    float* a = acc2 + h * kRows + lane;
-    *a = __fadd_rn(*a, x);
-  }
-}
-
-// The device route's adds of one staged tile for this lane's row: runs of
-// trees up to the next tree window's end (`left` counts them, across
-// tiles), each run a loop of adds alone (read kVec values at a time, a
-// word at a time to the first and from the last kVec boundary), then the
-// window's fold. Without leaf windows (one window) the run adds into the
-// one partial.
-template <int kVec, int kR>
-__device__ __forceinline__ void route_tile(const RouteShape& g, int t,
-                                           const float* mv, const float* mw,
-                                           float* acc2, float* acc3,
-                                           RouteSums<kR>& r, int& left, int c0,
-                                           int cols, bool live, int lane) {
-  using T = typename Vec<kVec>::T;
-  const bool windows = mw != nullptr;
-  auto add = [&](float x, float hw) {
-    if (windows) {
-      route_add(g, acc2, r, x, hw, lane);
-    } else if constexpr (kR > 0) {
-      r.part[0] = __fadd_rn(r.part[0], x);
-    }
-  };
-  const T* rv = reinterpret_cast<const T*>(mv);
-  const T* rw = reinterpret_cast<const T*>(mw);
-  int c = 0;
-  while (c < cols) {
-    const int run = left < cols - c ? left : cols - c;
-    const int end = c + run;
-    if (live) {
-      int k = c;
-      const int head = min(end, (k + kVec - 1) / kVec * kVec);
-      for (; k < head; ++k) add(mv[k], windows ? mw[k] : 0.0f);
-#pragma unroll 2
-      for (; k + kVec <= end; k += kVec) {
-        const T v = rv[k / kVec];
-        const T w = windows ? rw[k / kVec] : T{};
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) add(lane_of(v, e), lane_of(w, e));
-      }
-      for (; k < end; ++k) add(mv[k], windows ? mw[k] : 0.0f);
-    }
-    c = end;
-    left -= run;
-    if (left == 0) {
-      const int j = c0 + c - 1;
-      route_fold(g, acc2, acc3, r, j, lane);
-      left = t - 1 - j < kWindow ? t - 1 - j : kWindow;
-    }
-  }
-}
-
-// kVec: the words a lane reads at a time; kR: the device route's leaf
-// windows kept in registers (0: in shared memory).
-template <bool kRoute, int kCopy, int kVec, int kR>
+// kVec: the words a lane reads at a time.
+template <int kCopy, int kVec>
 __global__ void __launch_bounds__(32) tree_sum_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   float* stage0 = reinterpret_cast<float*>(smem + kHeader);
-  const bool two = p.win != nullptr;
   const size_t sw = stage_words(p);
-  float* wins0 = two ? stage0 + p.stages * sw : nullptr;
-  float* acc2 = stage0 + (two ? 2 : 1) * p.stages * sw;
-  float* acc3 = acc2 + static_cast<size_t>(p.h) * kRows;
   const int lane = threadIdx.x;
   // the block's tiles, in order: tile `tile` of its k-th item, item
   // blockIdx.x + k * gridDim.x; positions advance by counters (no
@@ -411,9 +282,9 @@ __global__ void __launch_bounds__(32) tree_sum_kernel(const Params p) {
   const int total = mine * p.tiles;
   int put_i = 0, put_s = 0, put_k = 0, put_tile = 0;
   auto put = [&]() {
-    issue<kCopy>(p, stage0 + put_s * sw, two ? wins0 + put_s * sw : nullptr,
-                 bars + put_s, first + static_cast<int64_t>(put_k) * step,
-                 put_tile, put_i >= p.stages, lane);
+    issue<kCopy>(p, stage0 + put_s * sw, bars + put_s,
+                 first + static_cast<int64_t>(put_k) * step, put_tile,
+                 put_i >= p.stages, lane);
     ++put_i;
     if (++put_s == p.stages) put_s = 0;
     if (++put_tile == p.tiles) {
@@ -427,17 +298,9 @@ __global__ void __launch_bounds__(32) tree_sum_kernel(const Params p) {
     }
     fence_async();  // the initialized barriers, seen by the bulk copies
   }
-  if (kRoute) {
-    for (int i = lane; i < (p.h + p.h2) * kRows; i += 32) acc2[i] = 0.0f;
-  }
   __syncthreads();
   while (put_i < p.stages && put_i < total) put();
-  float acc = 0.0f;  // tree order: the row's sum
-  RouteSums<kR> rr = {};  // device route: the partials and the total
-  const RouteShape shape = {p.h, p.lo1, p.w, p.three, p.lo_w, p.lo_h, p.h2};
-  // trees to the first window's end: kWindow - lo1, or all of them
-  const int first_window = min(p.t, kWindow - p.lo1);
-  int left = first_window;
+  float acc = 0.0f;  // the row's sum
   int s = 0, k = 0, tile = 0;
   uint32_t phase = 0;
   for (int i = 0; i < total; ++i) {
@@ -445,31 +308,15 @@ __global__ void __launch_bounds__(32) tree_sum_kernel(const Params p) {
     ring::bar_wait(bars + s, phase);
     const int64_t row = item * kRows + lane;
     const bool live = row < p.n;
-    const int c0 = tile * p.cols;
-    const int cols = min(p.cols, p.t - c0);
+    const int cols = min(p.cols, p.t - tile * p.cols);
     const float* mv = stage0 + s * sw + lane * p.stride;
-    if constexpr (kRoute) {
-      if (tile == 0) left = first_window;
-      route_tile<kVec, kR>(shape, p.t, mv,
-                       two ? wins0 + s * sw + lane * p.stride : nullptr, acc2,
-                       acc3, rr, left, c0, cols, live, lane);
-    } else {
-      if (live) acc = sum_row<kVec>(mv, cols, acc);
-    }
+    if (live) acc = sum_row<kVec>(mv, cols, acc);
     if (tile == p.tiles - 1) {
       if (live) {
-        float o;
-        if (kRoute) {
-          o = p.boosted ? __fmaf_rn(p.eta, rr.total, p.base)
-                        : __fmul_rn(rr.total, p.inv_t);
-        } else {
-          o = p.boosted ? __fadd_rn(p.base, __fmul_rn(p.eta, acc))
-                        : __fdiv_rn(acc, static_cast<float>(p.t));
-        }
-        p.out[row] = o;
+        p.out[row] = p.boosted ? __fadd_rn(p.base, __fmul_rn(p.eta, acc))
+                               : __fdiv_rn(acc, static_cast<float>(p.t));
       }
       acc = 0.0f;
-      rr.total = 0.0f;
     }
     __syncwarp();  // every lane is done with stage s
     if (put_i < total) put();
@@ -484,6 +331,191 @@ __global__ void __launch_bounds__(32) tree_sum_kernel(const Params p) {
   }
 }
 
+// The device route by (row, tree window) pairs (see the top of the file):
+// one block per slab of p.rows rows. Lane l of warp w takes row
+// l % rows and the chunk's tree windows (32 / rows) w + l / rows, then
+// every (32 / rows) nw-th after it. A pair's partials per leaf window live
+// in registers (up to kR of them; kR 0: in shared memory) and land in
+// part [cw][H][rows]; after the block's barrier warp 0 folds each row's
+// partials in the device route's fixed order into its running total (and,
+// where the grid is windowed again, into the level-2 cells of the current
+// window of 32 tree windows, in registers, kept in acc3 [h2][rows] between
+// chunks and added to the total at that window's end). Blocks are not
+// persistent: small slabs let many blocks an SM hold their copies in
+// flight at once. Shared memory: the mbarrier header, the chunk's values
+// (and windows) at a row stride of its trees, then part and acc3.
+__host__ __device__ inline int route_stride(const Params& p) {
+  return p.cw >= p.w ? p.t : p.cw * kWindow;
+}
+
+__host__ __device__ inline size_t route_smem_bytes(const Params& p) {
+  const int arrays = p.win != nullptr ? 2 : 1;
+  const size_t words =
+      static_cast<size_t>(arrays) * route_stride(p) +
+      static_cast<size_t>(p.cw) * p.h + (p.three ? p.h2 : 0);
+  return kHeader + words * p.rows * sizeof(float);
+}
+
+template <int kVec, int kR>
+__global__ void __launch_bounds__(kRouteWarps * 32)
+route_pairs_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const bool two = p.win != nullptr;
+  const int R = p.rows, stride = route_stride(p);
+  float* vals = reinterpret_cast<float*>(smem + kHeader);
+  float* wins = vals + static_cast<size_t>(R) * stride;
+  float* part = vals + static_cast<size_t>(two ? 2 : 1) * R * stride;
+  float* acc3 = part + static_cast<size_t>(p.cw) * p.h * R;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nw = blockDim.x >> 5;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int rows = p.n - row0 < R ? static_cast<int>(p.n - row0) : R;
+  const size_t at = static_cast<size_t>(row0) * p.t;
+  if (p.bulk) {
+    if (t == 0) {
+      ring::bar_init(bar, 1);
+      fence_async();  // the initialized barrier, seen by the bulk copies
+      const size_t words = static_cast<size_t>(rows) * p.t;
+      const size_t bulk = words & ~static_cast<size_t>(3);
+      for (size_t i = bulk; i < words; ++i) {
+        vals[i] = __ldg(p.per_tree + at + i);
+        if (two) wins[i] = __ldg(p.win + at + i);
+      }
+      if (bulk < words) fence_async();
+      const uint32_t bytes = static_cast<uint32_t>(bulk * sizeof(float));
+      bar_expect(bar, two ? 2 * bytes : bytes);
+      if (bytes) {
+        bulk_copy(vals, p.per_tree + at, bytes, bar);
+        if (two) bulk_copy(wins, p.win + at, bytes, bar);
+      }
+    }
+  }
+  if (p.three && warp == 0 && lane < rows) {
+    for (int b = 0; b < p.h2; ++b) acc3[b * R + lane] = 0.0f;
+  }
+  __syncthreads();  // the barrier is initialized
+  if (p.bulk) ring::bar_wait(bar, 0);
+  const int row = lane & (R - 1);
+  const int per_warp = 32 >> p.rshift;  // tree windows a warp takes a pass
+  using T = typename Vec<kVec>::T;
+  float total = 0.0f;  // warp 0's lanes: their row's running total
+  // tree windows [wa, wb): staged (unless bulk), summed by pairs, folded
+  auto chunk = [&](const int wa, const int wb) {
+    const int j0 = max(0, wa * kWindow - p.lo1);
+    const int j1 = min(p.t, wb * kWindow - p.lo1);
+    if (!p.bulk) {
+      // the chunk's trees [j0, j1) of each row, a row at a time; the last
+      // chunk's pairs are done (the barrier after them)
+      const int cols = j1 - j0;
+      for (int r = 0; r < rows; ++r) {
+        const size_t src = at + static_cast<size_t>(r) * p.t + j0;
+        for (int c = t; c < cols; c += blockDim.x) {
+          vals[r * stride + c] = __ldg(p.per_tree + src + c);
+          if (two) wins[r * stride + c] = __ldg(p.win + src + c);
+        }
+      }
+      __syncthreads();  // the chunk is staged; warp 0's last fold is done
+    }
+    if (row < rows) {
+      const float* mv = vals + static_cast<size_t>(row) * stride;
+      const float* mw = wins + static_cast<size_t>(row) * stride;
+      for (int wl = per_warp * warp + (lane >> p.rshift); wl < wb - wa;
+           wl += per_warp * nw) {
+        float* pw = part + static_cast<size_t>(wl) * p.h * R + row;
+        // the window's trees, as columns of the staged chunk
+        const int k0 = max(j0, (wa + wl) * kWindow - p.lo1) - j0;
+        const int k1 = min(j1, (wa + wl + 1) * kWindow - p.lo1) - j0;
+        float acc[kR > 0 ? kR : 1] = {};
+        if constexpr (kR == 0) {
+          for (int hh = 0; hh < p.h; ++hh) pw[hh * R] = 0.0f;
+        }
+        auto add = [&](float x, float hw) {
+          if (!two) {
+            acc[0] = __fadd_rn(acc[0], x);
+            return;
+          }
+          const int h = min(static_cast<unsigned>(__float2int_rz(hw)),
+                            static_cast<unsigned>(p.h - 1));
+          if constexpr (kR > 0) {
+            static_assert(kR == 4, "four register partials");
+            acc[0] = __fadd_rn(acc[0], h == 0 ? x : 0.0f);
+            acc[1] = __fadd_rn(acc[1], h == 1 ? x : 0.0f);
+            if (p.h > 2) {
+              acc[2] = __fadd_rn(acc[2], h == 2 ? x : 0.0f);
+              acc[3] = __fadd_rn(acc[3], h == 3 ? x : 0.0f);
+            }
+          } else {
+            pw[h * R] = __fadd_rn(pw[h * R], x);
+          }
+        };
+        int k = k0;
+        const int head = min(k1, (k + kVec - 1) / kVec * kVec);
+        for (; k < head; ++k) add(mv[k], two ? mw[k] : 0.0f);
+        const T* rv = reinterpret_cast<const T*>(mv);
+        const T* rw = reinterpret_cast<const T*>(mw);
+#pragma unroll 2
+        for (; k + kVec <= k1; k += kVec) {
+          const T v = rv[k / kVec];
+          const T hv = two ? rw[k / kVec] : T{};
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) add(lane_of(v, e), lane_of(hv, e));
+        }
+        for (; k < k1; ++k) add(mv[k], two ? mw[k] : 0.0f);
+        if constexpr (kR > 0) {
+#pragma unroll
+          for (int hh = 0; hh < kR; ++hh) {
+            if (hh < p.h) pw[hh * R] = acc[hh];
+          }
+        }
+      }
+    }
+    __syncthreads();  // every partial of the chunk is in part
+    if (warp == 0 && lane < rows && !p.three) {
+      // the chunk's partials in [W, H] row-major order into the total
+      const int cells = (wb - wa) * p.h;
+      for (int c = 0; c < cells; ++c) {
+        total = __fadd_rn(total, part[c * R + lane]);
+      }
+    } else if (warp == 0 && lane < rows) {
+      // the grid windowed again: each window of 32 tree windows (ws..we
+      // of it in this chunk) and 32 leaf windows is one cell, summed in
+      // row-major order in a register (acc3 holds it between chunks), and
+      // the cells of a window of tree windows go into the total in order
+      // where it ends
+      for (int ws = wa; ws < wb;) {
+        const int a_end = (ws + p.lo_w) / kWindow * kWindow + kWindow - p.lo_w;
+        const int we = min(wb, a_end);
+        const bool closes = we == a_end || we == p.w;
+        for (int b = 0; b < p.h2; ++b) {
+          const int h0 = max(0, b * kWindow - p.lo_h);
+          const int h1 = min(p.h, (b + 1) * kWindow - p.lo_h);
+          float cell = acc3[b * R + lane];
+          for (int w = ws; w < we; ++w) {
+            const float* pl = part + static_cast<size_t>(w - wa) * p.h * R + lane;
+            for (int hh = h0; hh < h1; ++hh) cell = __fadd_rn(cell, pl[hh * R]);
+          }
+          if (closes) {
+            total = __fadd_rn(total, cell);
+            cell = 0.0f;
+          }
+          acc3[b * R + lane] = cell;
+        }
+        ws = we;
+      }
+    }
+  };
+  if (p.cw >= p.w) {
+    chunk(0, p.w);  // all T trees in one chunk: its own straight-line copy
+  } else {
+    for (int wa = 0; wa < p.w; wa += p.cw) chunk(wa, min(p.w, wa + p.cw));
+  }
+  if (warp == 0 && lane < rows) {
+    p.out[row0 + lane] = p.boosted ? __fmaf_rn(p.eta, total, p.base)
+                                   : __fmul_rn(total, p.inv_t);
+  }
+}
+
 // Per device, read once: SMs, shared memory per SM and per block, and the
 // kernels' shared-memory limits raised.
 struct DeviceInfo {
@@ -492,16 +524,10 @@ struct DeviceInfo {
 };
 DeviceInfo g_devices[kMaxDevices];
 
-template <bool kRoute, int kR>
-cudaError_t raise_smem(int bytes) {
-  const void* kernels[] = {
-      reinterpret_cast<const void*>(tree_sum_kernel<kRoute, kTiles, 1, kR>),
-      reinterpret_cast<const void*>(tree_sum_kernel<kRoute, kSlab, 1, kR>),
-      reinterpret_cast<const void*>(tree_sum_kernel<kRoute, kSlab, 2, kR>),
-      reinterpret_cast<const void*>(tree_sum_kernel<kRoute, kSlab, 4, kR>)};
-  for (const void* fn : kernels) {
+cudaError_t raise_smem(const void* const* kernels, int count, int bytes) {
+  for (int i = 0; i < count; ++i) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -524,9 +550,18 @@ cudaError_t device_info(const DeviceInfo** out) {
       err = cudaDeviceGetAttribute(values[a], attrs[a], dev);
       if (err != cudaSuccess) return err;
     }
-    err = raise_smem<false, 0>(d.smem_block);
-    if (err == cudaSuccess) err = raise_smem<true, kRegWindows>(d.smem_block);
-    if (err == cudaSuccess) err = raise_smem<true, 0>(d.smem_block);
+    const void* kernels[] = {
+        reinterpret_cast<const void*>(tree_sum_kernel<kTiles, 1>),
+        reinterpret_cast<const void*>(tree_sum_kernel<kSlab, 1>),
+        reinterpret_cast<const void*>(tree_sum_kernel<kSlab, 2>),
+        reinterpret_cast<const void*>(tree_sum_kernel<kSlab, 4>),
+        reinterpret_cast<const void*>(route_pairs_kernel<1, kRegWindows>),
+        reinterpret_cast<const void*>(route_pairs_kernel<2, kRegWindows>),
+        reinterpret_cast<const void*>(route_pairs_kernel<4, kRegWindows>),
+        reinterpret_cast<const void*>(route_pairs_kernel<1, 0>),
+        reinterpret_cast<const void*>(route_pairs_kernel<2, 0>),
+        reinterpret_cast<const void*>(route_pairs_kernel<4, 0>)};
+    err = raise_smem(kernels, 10, d.smem_block);
     if (err != cudaSuccess) return err;
     d.ready = true;
   }
@@ -547,47 +582,26 @@ void layout(Params& p, Copy copy) {
   p.tiles = std::max(1, (p.t + p.cols - 1) / p.cols);
 }
 
-template <bool kRoute, int kCopy, int kVec, int kR>
+template <int kCopy, int kVec>
 void launch_as(const Params& p, int64_t grid, size_t smem, cudaStream_t s) {
-  tree_sum_kernel<kRoute, kCopy, kVec, kR>
-      <<<static_cast<unsigned>(grid), 32, smem, s>>>(p);
+  tree_sum_kernel<kCopy, kVec><<<static_cast<unsigned>(grid), 32, smem, s>>>(p);
 }
 
-template <bool kRoute, int kR>
-void launch_copy(const Params& p, Copy copy, int64_t grid, size_t smem,
-                 cudaStream_t s) {
-  if (copy == kSlab && p.t % 4 == 0) {
-    launch_as<kRoute, kSlab, 4, kR>(p, grid, smem, s);
-  } else if (copy == kSlab && p.t % 2 == 0) {
-    launch_as<kRoute, kSlab, 2, kR>(p, grid, smem, s);
-  } else if (copy == kSlab) {
-    launch_as<kRoute, kSlab, 1, kR>(p, grid, smem, s);
-  } else {
-    launch_as<kRoute, kTiles, 1, kR>(p, grid, smem, s);
-  }
-}
-
-template <bool kRoute>
-int launch(Params& p, void* stream) {
+// The tree order.
+int launch_tree_order(Params& p, void* stream) {
   if (p.n < 0 || p.t < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (p.n == 0) return static_cast<int>(cudaGetLastError());
   const DeviceInfo* d = nullptr;
   cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool aligned = reinterpret_cast<uintptr_t>(p.per_tree) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(p.win) % 16 == 0;
-  Copy copy = !aligned || p.t < 1 || p.t > kSlabTrees ? kTiles : kSlab;
+  const bool aligned = reinterpret_cast<uintptr_t>(p.per_tree) % 16 == 0;
+  const Copy copy = !aligned || p.t < 1 || p.t > kSlabTrees ? kTiles : kSlab;
   if ((p.n + kRows - 1) / kRows > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.items = static_cast<int>((p.n + kRows - 1) / kRows);
   layout(p, copy);
-  size_t smem = smem_bytes(p, kRoute);
-  if (copy != kTiles && smem > static_cast<size_t>(d->smem_block)) {
-    copy = kTiles;  // the stages and the accumulators do not fit together
-    layout(p, copy);
-    smem = smem_bytes(p, kRoute);
-  }
+  const size_t smem = smem_bytes(p);
   if (smem > static_cast<size_t>(d->smem_block) ||
       static_cast<int64_t>(p.items) * p.tiles > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -597,12 +611,81 @@ int launch(Params& p, void* stream) {
   const int64_t grid =
       std::min<int64_t>(p.items, std::max<int64_t>(1, per_sm) * d->sms);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (!kRoute) {
-    launch_copy<kRoute, 0>(p, copy, grid, smem, s);
-  } else if (p.h <= kRegWindows) {
-    launch_copy<kRoute, kRegWindows>(p, copy, grid, smem, s);
+  if (copy == kSlab && p.t % 4 == 0) {
+    launch_as<kSlab, 4>(p, grid, smem, s);
+  } else if (copy == kSlab && p.t % 2 == 0) {
+    launch_as<kSlab, 2>(p, grid, smem, s);
+  } else if (copy == kSlab) {
+    launch_as<kSlab, 1>(p, grid, smem, s);
   } else {
-    launch_copy<kRoute, 0>(p, copy, grid, smem, s);
+    launch_as<kTiles, 1>(p, grid, smem, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kR>
+void route_as(const Params& p, int vec, dim3 grid, dim3 block, size_t smem,
+              cudaStream_t s) {
+  if (vec == 4) {
+    route_pairs_kernel<4, kR><<<grid, block, smem, s>>>(p);
+  } else if (vec == 2) {
+    route_pairs_kernel<2, kR><<<grid, block, smem, s>>>(p);
+  } else {
+    route_pairs_kernel<1, kR><<<grid, block, smem, s>>>(p);
+  }
+}
+
+// The device route: the slab's rows and chunk (see route_pairs_kernel).
+int launch_route(Params& p, void* stream) {
+  if (p.n < 0 || p.t < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.n == 0) return static_cast<int>(cudaGetLastError());
+  const DeviceInfo* d = nullptr;
+  cudaError_t err = device_info(&d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t limit = static_cast<size_t>(d->smem_block);
+  // all T trees in one chunk, in the most rows up to 8 (leaf windows in
+  // registers, or few trees: more blocks for as many bytes) or 16 that fit
+  const bool regs = p.h <= kRegWindows;
+  p.cw = p.w;
+  p.rows = regs || p.t <= 2 * kWindow ? 8 : 16;
+  while (p.rows > 1 && route_smem_bytes(p) > limit) p.rows >>= 1;
+  if (route_smem_bytes(p) > limit) {
+    // chunks of tree windows, one row a block
+    p.rows = 1;
+    p.cw = 1;
+    while (p.cw < p.w) {
+      ++p.cw;
+      if (route_smem_bytes(p) > limit) {
+        --p.cw;
+        break;
+      }
+    }
+    if (route_smem_bytes(p) > limit) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  p.rshift = 0;
+  while ((1 << p.rshift) < p.rows) ++p.rshift;
+  const bool aligned = reinterpret_cast<uintptr_t>(p.per_tree) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(p.win) % 16 == 0;
+  // a slab starts 16-byte aligned when rows * T is a multiple of 4 words
+  p.bulk = p.cw >= p.w && aligned && p.t >= 1 &&
+           static_cast<int64_t>(p.rows) * p.t % 4 == 0;
+  const int stride = route_stride(p);
+  const int vec = stride % 4 == 0 ? 4 : stride % 2 == 0 ? 2 : 1;
+  const int64_t blocks = (p.n + p.rows - 1) / p.rows;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_warp = 32 / p.rows;  // tree windows a warp takes a pass
+  const int warps =
+      std::max(1, std::min((std::min(p.cw, p.w) + per_warp - 1) / per_warp,
+                           kRouteWarps));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = route_smem_bytes(p);
+  const dim3 grid(static_cast<unsigned>(blocks)), block(32 * warps);
+  if (regs) {
+    route_as<kRegWindows>(p, vec, grid, block, smem, s);
+  } else {
+    route_as<0>(p, vec, grid, block, smem, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -636,7 +719,7 @@ int tp_tree_sum(const void* per_tree, void* out, int64_t n, int64_t t,
   p.boosted = boosted;
   p.base = base;
   p.eta = eta;
-  return launch<false>(p, stream);
+  return launch_tree_order(p, stream);
 }
 
 // The device route's order. win may be null only with windows == 1. inv_t:
@@ -667,7 +750,7 @@ int tp_tree_sum_device_route(const void* per_tree, const void* win, void* out,
     centred(p.w, &count_w, &p.lo_w);
     centred(p.h, &p.h2, &p.lo_h);
   }
-  return launch<true>(p, stream);
+  return launch_route(p, stream);
 }
 
 const char* tp_cuda_error_string(int code) {

@@ -34,10 +34,14 @@ shared by the K fits, node slots ``node`` [K, N] int32 (-1, and any slot
 
 ``split_search`` turns a histogram into each slot's best split, in the
 reference's arithmetic order; the grower calls it after every histogram.
-``build_best_split`` is K4, the reference's fused histogram and split
-search (``csrc/best_split.cu`` on the card; on the CPU the scatter
-histogram followed by ``split_search``). As in the reference, the grower
-never calls it.
+On the card it is one launch of the split-search kernel
+(``csrc/split_search.cu``: K4's split stage over the histogram K2 or K3
+wrote, skipping the slots that hold no row); on the CPU its plain version
+(``split_search_plain``). ``build_best_split`` is K4, the reference's
+fused histogram and split search (``csrc/best_split.cu`` on the card, the
+same split stage over cells it builds in shared memory; on the CPU the
+scatter histogram followed by ``split_search_plain``). As in the
+reference, the grower never calls it.
 
 ``histogram_route`` picks by tensor device: the plain version on the CPU;
 on the card K2 up to ``BINLOOP_MAX_BINS`` bins and K3 for more, at every
@@ -62,8 +66,6 @@ BINLOOP_MAX_BINS = 64
 HIST_WIDE_MAX_BINS = 16384
 #: K4's domain: the reference's 128-lane bin packing
 FUSED_SPLIT_MAX_BINS = 128
-#: features per K4 block (the reference's SPLIT_FEAT_TILE)
-SPLIT_FEAT_TILE = 32
 
 _HIST_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 #: each kernel library's C entry point and argument types
@@ -72,9 +74,12 @@ _ENTRY = {
                    + [ctypes.c_void_p]),
     "hist_binloop": ("tp_hist_binloop", _HIST_ARGS),
     "hist_wide": ("tp_hist_wide", _HIST_ARGS),
+    "split_search": ("tp_split_search", [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p]),
     "best_split": (
         "tp_best_split",
-        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     ),
 }
 
@@ -270,19 +275,34 @@ def _cumsum_bins(x: torch.Tensor) -> torch.Tensor:
     return w.reshape(*xp.shape)[:, :, :, :b]
 
 
-def split_search(hist: torch.Tensor, gmask: torch.Tensor, lam: torch.Tensor,
-                 gam: torch.Tensor, mcw: torch.Tensor):
-    """(best_gain [K, M] f32, best_feat, best_bin [K, M] int32) over a
-    histogram [K, M, F, B, 2] (B >= 2), the reference's two-phase split
-    search (``trees.py:469-493``): prefix sums over bins 0..B-2, the bin
-    total, the XGBoost gain ``0.5·(GL²/(HL+λ) + GR²/(HR+λ) − G²/(H+λ)) − γ``
-    with per-fit ``lam``, ``gam``, ``mcw`` ([K] or [1] f32), -inf where a
-    child weighs less than ``mcw`` or ``gmask`` [K, F] disables the
-    feature, and the first flat (feature, bin) index at the maximum (a NaN
-    counts as the maximum, as ``argmax`` takes it). Where every gain is
-    -inf the index is 0."""
+def _empty_slot_split(gmask, lam, gam, mcw, len_):
+    """(gain [K], flat index [K]) of a slot that holds no row: its
+    histogram is all zeros, so every prefix and total is +0 and every
+    threshold of an enabled feature has one gain, that of zeros; the first
+    enabled feature's threshold 0 wins where that gain beats -inf (or is
+    NaN), else index 0 at -inf."""
+    zero = torch.zeros_like(lam)
+    parent = zero * zero / (zero + lam)
+    g = 0.5 * (zero * zero / (zero + lam) + zero * zero / (zero + lam)
+               - parent) - gam
+    g = torch.where((zero >= mcw) & (zero >= mcw), g,
+                    torch.full_like(g, -torch.inf))
+    on = gmask > 0
+    first = torch.argmax(on.to(torch.int32), dim=1)
+    wins = on.any(dim=1) & ((g > -torch.inf) | torch.isnan(g))
+    return (torch.where(wins, g, torch.full_like(g, -torch.inf)),
+            torch.where(wins, first * len_, 0))
+
+
+def split_search_plain(hist: torch.Tensor, gmask: torch.Tensor,
+                       lam: torch.Tensor, gam: torch.Tensor, mcw: torch.Tensor,
+                       count: torch.Tensor | None = None):
+    """``split_search``'s plain version (the reference's arithmetic in
+    PyTorch ops, on the tensor's device); with ``count`` the slots whose
+    count is 0 take ``_empty_slot_split``'s result instead."""
     k_fits, m = hist.shape[:2]
     b = hist.shape[3]
+    lam, gam, mcw = (v.reshape(-1).expand(k_fits) for v in (lam, gam, mcw))
     lam4, gam4, mcw4 = (v[:, None, None, None] for v in (lam, gam, mcw))
     # the prefix sums split search reads, bins [0, B-1): the last bin's
     # prefix is the total, and no earlier prefix depends on it
@@ -299,8 +319,86 @@ def split_search(hist: torch.Tensor, gmask: torch.Tensor, lam: torch.Tensor,
     flat = gain.reshape(k_fits, m, -1)
     best = torch.argmax(flat, dim=2)
     best_gain = torch.gather(flat, 2, best[..., None])[..., 0]
+    if count is not None:
+        eg, ei = _empty_slot_split(gmask, lam, gam, mcw, b - 1)
+        empty = count == 0
+        best_gain = torch.where(empty, eg[:, None], best_gain)
+        best = torch.where(empty, ei[:, None], best)
     return (best_gain, (best // (b - 1)).to(torch.int32),
             (best % (b - 1)).to(torch.int32))
+
+
+def _knob(v: torch.Tensor, k_fits: int, device, name: str) -> torch.Tensor:
+    """A [1] or [K] float32 knob of the split search, as the kernel reads it
+    (one value for every fit, or one per fit)."""
+    if isinstance(v, torch.Tensor):
+        v = v.reshape(-1)
+    if (not isinstance(v, torch.Tensor) or v.dtype != torch.float32
+            or v.shape[0] not in (1, k_fits) or v.device != device):
+        raise ValueError(f"split_search: {name} must be a float32 [1] or "
+                         f"[{k_fits}] tensor on {device}")
+    return v.contiguous()
+
+
+def split_search(hist: torch.Tensor, gmask: torch.Tensor, lam: torch.Tensor,
+                 gam: torch.Tensor, mcw: torch.Tensor,
+                 count: torch.Tensor | None = None):
+    """(best_gain [K, M] f32, best_feat, best_bin [K, M] int32) over a
+    histogram [K, M, F, B, 2] (2 <= B <= ``HIST_WIDE_MAX_BINS``), the
+    reference's two-phase split search (``trees.py:469-493``): prefix sums
+    over bins 0..B-2, the bin total, the XGBoost gain
+    ``0.5·(GL²/(HL+λ) + GR²/(HR+λ) − G²/(H+λ)) − γ`` with per-fit ``lam``,
+    ``gam``, ``mcw`` ([K] or [1] f32), -inf where a child weighs less than
+    ``mcw`` or ``gmask`` [K, F] disables the feature, and the first flat
+    (feature, bin) index at the maximum (a NaN counts as the maximum, as
+    ``argmax`` takes it). Where every gain is -inf the index is 0.
+    ``count`` [K, M] (``node_order``'s) marks the slots that hold no row;
+    their histogram is all zeros and is not read.
+
+    On a CUDA tensor one launch of the split-search kernel
+    (``csrc/split_search.cu``), which computes what ``split_search_plain``
+    computes in the same order, bit for bit; on a CPU tensor the plain
+    version."""
+    if (not isinstance(hist, torch.Tensor) or hist.dtype != torch.float32
+            or hist.dim() != 5 or hist.shape[4] != 2
+            or not hist.is_contiguous()):
+        raise ValueError("split_search: hist must be a contiguous float32 "
+                         "[K, M, F, B, 2] tensor")
+    k_fits, m, f, b, _ = hist.shape
+    dev = hist.device
+    if b < 2 or b > HIST_WIDE_MAX_BINS:
+        raise ValueError(f"split_search: {b} bins; a split needs 2 to "
+                         f"{HIST_WIDE_MAX_BINS} (HIST_WIDE_MAX_BINS)")
+    if (not isinstance(gmask, torch.Tensor) or gmask.dtype != torch.float32
+            or tuple(gmask.shape) != (k_fits, f) or gmask.device != dev):
+        raise ValueError(f"split_search: gmask must be a float32 [{k_fits}, "
+                         f"{f}] tensor on {dev}")
+    lam, gam, mcw = (_knob(v, k_fits, dev, name) for v, name in
+                     ((lam, "lam"), (gam, "gam"), (mcw, "mcw")))
+    if count is not None and (
+            not isinstance(count, torch.Tensor) or count.dtype != torch.int32
+            or tuple(count.shape) != (k_fits, m) or count.device != dev
+            or not count.is_contiguous()):
+        raise ValueError(f"split_search: count must be a contiguous int32 "
+                         f"[{k_fits}, {m}] tensor on {dev}")
+    if _plain_on_cpu(hist):
+        return split_search_plain(hist, gmask, lam, gam, mcw, count)
+    gmask = gmask.contiguous()
+    _library("split_search")  # build or load before any work is queued
+    gain = torch.empty((k_fits, m), dtype=torch.float32, device=dev)
+    feat = torch.empty((k_fits, m), dtype=torch.int32, device=dev)
+    bin_ = torch.empty_like(feat)
+    # a knob's stride over the fits: 0 for one value shared by all
+    strides = sum(int(v.shape[0] > 1) << i for i, v in enumerate((lam, gam, mcw)))
+    _launch(
+        "split_search", hist.data_ptr(), gmask.data_ptr(), lam.data_ptr(),
+        gam.data_ptr(), mcw.data_ptr(), strides,
+        None if count is None else count.data_ptr(), gain.data_ptr(),
+        feat.data_ptr(), bin_.data_ptr(), k_fits, m, f, b,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    split_search.launches += 1
+    return gain, feat, bin_
 
 
 # --------------------------------------------------------------------------
@@ -537,7 +635,7 @@ def best_split_plain(binned, node, grad, hess, feat_mask, reg_lambda, gamma,
         (min_child_weight, "min_child_weight")))
     hist = build_histogram_scatter_batched(binned, node, grad, hess,
                                            num_nodes, num_bins)
-    gain, feat, bin_ = split_search(hist, feat_mask, *knobs)
+    gain, feat, bin_ = split_search_plain(hist, feat_mask, *knobs)
     none = gain == -torch.inf
     return gain, torch.where(none, -1, feat), torch.where(none, 0, bin_)
 
@@ -551,8 +649,9 @@ def build_best_split(binned, node, grad, hess, feat_mask, reg_lambda, gamma,
     [K]), the lowest (feature, bin) on equal gain, and ``best_feat = -1``
     where no threshold is valid. Any row count; 2 to
     ``FUSED_SPLIT_MAX_BINS`` bins. The kernel computes what
-    ``best_split_plain`` computes, in the same order, bit for bit."""
-    _check(binned, node, grad, hess, num_nodes, num_bins)
+    ``best_split_plain`` computes, in the same order, bit for bit, over
+    ``node_order``'s rows, which it makes first."""
+    _check(binned, node, grad, hess, num_nodes, num_bins, padded_rows=True)
     k_fits = node.shape[0]
     n, f = binned.shape
     if (not isinstance(feat_mask, torch.Tensor)
@@ -578,24 +677,18 @@ def build_best_split(binned, node, grad, hess, feat_mask, reg_lambda, gamma,
     lam, gam, mcw = (_per_fit(v, k_fits, dev, name) for v, name in (
         (reg_lambda, "reg_lambda"), (gamma, "gamma"),
         (min_child_weight, "min_child_weight")))
-    _library("best_split")
-    order, start, count = node_order(node, num_nodes, grad, hess)
-    tiles = -(-f // SPLIT_FEAT_TILE)
-    part_gain = torch.empty((k_fits, tiles, num_nodes), dtype=torch.float32,
-                            device=dev)
-    part_feat = torch.empty_like(part_gain, dtype=torch.int32)
-    part_bin = torch.empty_like(part_feat)
+    _library("best_split")  # build or load before any work is queued
+    rows, start, count = node_order(node, num_nodes, grad, hess)
     gain = torch.empty((k_fits, num_nodes), dtype=torch.float32, device=dev)
     feat = torch.empty_like(gain, dtype=torch.int32)
     bin_ = torch.empty_like(feat)
     _launch(
-        "best_split", binned.data_ptr(), order.data_ptr(), start.data_ptr(),
+        "best_split", binned.data_ptr(), rows.data_ptr(), start.data_ptr(),
         count.data_ptr(), grad.data_ptr(), hess.data_ptr(),
         feat_mask.data_ptr(), lam.data_ptr(), gam.data_ptr(), mcw.data_ptr(),
-        part_gain.data_ptr(), part_feat.data_ptr(), part_bin.data_ptr(),
-        gain.data_ptr(), feat.data_ptr(), bin_.data_ptr(),
-        n, f, k_fits, num_nodes, num_bins, SPLIT_FEAT_TILE,
-        torch.cuda.current_stream(dev).cuda_stream,
+        gain.data_ptr(), feat.data_ptr(), bin_.data_ptr(), n, f,
+        binned.stride(0), k_fits,
+        num_nodes, num_bins, torch.cuda.current_stream(dev).cuda_stream,
     )
     build_best_split.launches += 1
     return gain, feat, bin_
@@ -604,6 +697,7 @@ def build_best_split(binned, node, grad, hess, feat_mask, reg_lambda, gamma,
 #: kernel launches since the last reset (the plain CPU versions are not
 #: counted)
 node_order.launches = 0
+split_search.launches = 0
 build_histogram_binloop.launches = 0
 build_histogram_wide.launches = 0
 build_best_split.launches = 0

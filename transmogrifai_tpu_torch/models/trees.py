@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..utils import prng
 from . import hist as H
+from . import leaf_sum as LS
 from . import serve_trees as ST
 from .hist import _REDUCE_WINDOW, _xla_sum
 
@@ -127,25 +128,29 @@ def _occupancy(idx: torch.Tensor, size: int) -> torch.Tensor:
 #: (trees.py:79-91); the choice fixes the order of its leaf sums
 _ONEHOT_MAX_WIDTH = 512
 _ONEHOT_OPS_BUDGET = 1 << 28
+
+
+def _scatter_form(k_fits: int, n: int, size: int) -> bool:
+    """True where the reference sums leaves by its scatter-add form (past
+    its one-hot limits), False where by its windowed one-hot reduction."""
+    return size > _ONEHOT_MAX_WIDTH and k_fits * n * size > _ONEHOT_OPS_BUDGET
+
+
 def _segment_sum_small(values: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
     """out[k, m] = Σ_r values[k, r]·1[idx[k, r] == m], idx in [0, size),
     in the reference's order: its one-hot form is a reduction over rows
     (windows of 32 rows summed in order, then the window sums as in
-    ``_xla_sum``); past its ops budget it scatter-adds in row order.
+    ``_xla_sum``); past its ops budget it scatter-adds in row order
+    (``leaf_sum``: the leaf-sum kernel on the card).
 
     The windowed form adds one row of every window per step, 32 steps in
     row order: a step's keys (lane, window, slot) are distinct, so each
     slot's window sum is the in-order sum on any device. (An accumulating
     ``index_put_`` on the card sums a key's many duplicates in another
-    order.) The scatter-add form is an accumulating ``index_put_``: in row
-    order on the CPU; on the card a slot with many rows can differ in the
-    last ulp (``ROADMAP.md`` C2)."""
+    order.)"""
     k_fits, n = values.shape
-    lane = torch.arange(k_fits, device=values.device)[:, None]
-    if size > _ONEHOT_MAX_WIDTH and k_fits * n * size > _ONEHOT_OPS_BUDGET:
-        out = torch.zeros((k_fits, size), dtype=values.dtype, device=values.device)
-        return out.index_put_((lane.expand_as(idx), idx.long()), values,
-                              accumulate=True)
+    if _scatter_form(k_fits, n, size):
+        return LS.leaf_sum(values, None, idx, size)[0]
     if n <= _REDUCE_WINDOW:
         nb, lo = 1, 0
     else:
@@ -330,7 +335,8 @@ def _grow_tree_impl(
             hist = H.build_histogram_wide(gbin, loc, g, h, m, gb, order=rows)
         else:
             hist = H.build_histogram_scatter_batched(gbin, loc, g, h, m, gb)
-        best_gain, best_feat, best_bin = H.split_search(hist, gmask, lam, gam, mcw)
+        best_gain, best_feat, best_bin = H.split_search(
+            hist, gmask, lam, gam, mcw, count=None if rows is None else rows[2])
         if gidx is not None:
             best_feat = gidx[best_feat.long()].to(torch.int32)
         return best_gain, best_feat, best_bin
@@ -414,8 +420,11 @@ def _grow_tree_impl(
                                     device=dev)] * rest
     feats = torch.stack(feats_levels, dim=1).to(torch.int32)
     bins = torch.stack(bins_levels, dim=1).to(torch.int32)
-    leaf_g = _segment_sum_small(g, node, max_nodes)
-    leaf_h = _segment_sum_small(h, node, max_nodes)
+    if _scatter_form(k_fits, n, max_nodes):
+        leaf_g, leaf_h = LS.leaf_sum(g, h, node, max_nodes)
+    else:
+        leaf_g = _segment_sum_small(g, node, max_nodes)
+        leaf_h = _segment_sum_small(h, node, max_nodes)
     leaf_value = -leaf_g / (leaf_h + lam[:, None])
     return Tree(feats, bins, leaf_value), node
 
