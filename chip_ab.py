@@ -42,7 +42,14 @@ time, inputs out of L2), the parts named by ``--parts``:
   ``hist_ring.cuh``'s ring, the split stage run by the ring's consumers) at
   ``chip_smoke.py``'s K4 shapes, both making their row order, each checked
   bit for bit against ``best_split_plain``, timed in the order ring, K4,
-  K4, ring.
+  K4, ring;
+* ``families``: the default binary selector's candidate families
+  (``Validator.validate``) on the inputs its validator gets in ``train()``
+  of the flagship twin and of ``fit_side_tables.wide_table()``: all three
+  on the selector's thread pool, then each family alone, N times in turn
+  after one untimed ``train()``, each with its wall seconds, each family's
+  sweep seconds and the host process's CPU seconds over the same window
+  (more CPU than wall seconds means that threads ran on the host at once).
 
 Compare two checkouts in one call on one card, in the order A, B, B, A.
 Each run prints one JSON phase per line, like ``chip_smoke.py``.
@@ -253,6 +260,67 @@ def time_sweep(cs, torch, reps: int) -> None:
              untimed_first=True)
 
 
+def _family_inputs(cs, torch, table: str):
+    """(validator, candidates, x, y, evaluator, extra masks) as the default
+    binary selector's validator gets them in ``train()`` of ``table``
+    (``twin`` or ``wide``), taken from one untimed train."""
+    from transmogrifai_tpu_torch import types as PT
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.selector import validators as V
+    from transmogrifai_tpu_torch.types.columns import column_from_values
+
+    if table == "twin":
+        import json
+
+        with open(os.path.join(cs.FIT_SIDE, "flagship_table.json")) as fh:
+            t = json.load(fh)
+        schema, columns = t["schema"], t["columns"]
+    else:
+        sys.path.insert(0, os.path.join(HERE, "tests", "torch_fixtures"))
+        from fit_side_tables import wide_table
+
+        schema, columns = wide_table()
+    ds = Dataset.of({
+        k: column_from_values(PT.feature_type_by_name(schema[k]), v)
+        for k, v in columns.items()})
+    seen = []
+    real = V.Validator.validate
+
+    def record(self, candidates, x, y, evaluator, extra_masks=()):
+        seen.append((self, list(candidates), x, y, evaluator, list(extra_masks)))
+        return real(self, candidates, x, y, evaluator, extra_masks=extra_masks)
+
+    V.Validator.validate = record
+    try:
+        cs.train_flow(torch, ds, "label", False)
+    finally:
+        V.Validator.validate = real
+    return seen[0]
+
+
+def time_families(cs, torch, reps: int) -> None:
+    for table in ("twin", "wide"):
+        validator, cands, x, y, ev, masks = _family_inputs(cs, torch, table)
+        names = [type(est).__name__ for est, _ in cands]
+        runs = {"pool": []} | {n: [] for n in names}
+        for _ in range(reps):
+            for label, subset in [("pool", cands)] + [
+                    (n, [c]) for n, c in zip(names, cands)]:
+                torch.cuda.synchronize()
+                with cs.TrainTimer() as timer:
+                    t0, c0 = time.perf_counter(), time.process_time()
+                    validator.validate(subset, x, y, ev, extra_masks=masks)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    cpu = time.process_time() - c0
+                runs[label].append({
+                    "wall_s": wall, "process_cpu_s": cpu,
+                    "family_sweep_s": timer.split(wall)["family_sweep_s"]})
+        cs.phase(f"families {table}", rows=int(x.shape[0]),
+                 vector_columns=int(x.shape[1]), reps=reps,
+                 untimed_first_train=True, runs=runs)
+
+
 def _takes(fn, name: str) -> bool:
     import inspect
 
@@ -435,6 +503,8 @@ def time_side(cs, path: str, reps: int, parts: list[str]) -> None:
         time_route(cs, torch)
     if "k4ring" in parts:
         time_k4ring(cs, torch)
+    if "families" in parts:
+        time_families(cs, torch, reps)
 
 
 def main(argv: list[str]) -> int:
@@ -444,10 +514,11 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--root", default=HERE,
                     help="time: the checkout whose package is timed")
     ap.add_argument("--reps", type=int, default=3,
-                    help="time: timed GBT sweeps after the untimed one")
+                    help="time: timed GBT sweeps after the untimed one, "
+                         "or turns of the families' sweeps")
     ap.add_argument("--parts", default="k1,order,tree_sum,sweep",
                     help="time: what to time, of k1, order, tree_sum, sweep, "
-                         "split, k4, route, k4ring")
+                         "split, k4, route, k4ring, families")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root if args.mode == "time" else HERE))
     import torch

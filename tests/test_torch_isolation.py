@@ -65,6 +65,12 @@ REQUIRED = (
     "ops/defaults.py", "ops/text.py", "ops/transmogrify.py",
     "utils/text.py", "utils/stats.py", "prep/sanity_checker.py",
     "workflow/fit.py",
+    "evaluators/base.py", "evaluators/binary.py", "evaluators/regression.py",
+    "evaluators/multiclass.py", "evaluators/binscore.py",
+    "evaluators/forecast.py", "prep/splitters.py", "utils/table.py",
+    "selector/validators.py", "selector/model_selector.py",
+    "workflow/workflow.py", "workflow/cv.py", "workflow/persistence.py",
+    "workflow/dag.py",
 )
 
 
@@ -116,6 +122,19 @@ resp, preds = from_dataset(ds, response="survived")
 checked = resp.sanity_check(transmogrify(preds), remove_bad_features=True,
                             device="cpu")
 fit_and_transform_dag(ds, [checked])
+import tempfile
+from transmogrifai_tpu_torch.selector import BinaryClassificationModelSelector
+from transmogrifai_tpu_torch.workflow.workflow import Workflow
+selector = BinaryClassificationModelSelector(models=[
+    (LogisticRegression(device="cpu"), {{"reg_param": [0.1], "max_iter": [5]}}),
+    (XGBoostClassifier(device="cpu"), {{"num_round": [2], "max_depth": [2]}}),
+])
+pred = selector.set_input(resp, checked).get_output()
+model = Workflow().set_result_features(pred).set_input_dataset(ds).train()
+with tempfile.TemporaryDirectory() as tmp:
+    model.save(tmp + "/m")
+    load_workflow_model(tmp + "/m", device="cpu").score(ds)
+model.summary_pretty()
 loaded = sorted(
     m for m in sys.modules
     if any(m == b or m.startswith(b + ".") for b in {FORBIDDEN!r})

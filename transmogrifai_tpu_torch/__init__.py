@@ -14,13 +14,20 @@ runs too: ``readers.infer_csv_dataset``, ``features.from_dataset``,
 ``label.sanity_check(vec)`` (``prep.SanityChecker``, its statistics on the
 card) and ``workflow.fit.fit_and_transform_dag``. Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs the plain
-PyTorch versions. The model selector, ``Workflow.train()`` and the fused
-scoring graph are not ported yet (``ROADMAP.md`` A).
+PyTorch versions. The whole five-line flow runs:
+``selector.BinaryClassificationModelSelector`` (and the regression and
+multiclass factories) over ``selector.validators`` and ``evaluators``,
+``workflow.workflow.Workflow().train()`` (with ``with_workflow_cv()``,
+``workflow/cv.py``), ``model.score``, ``model.evaluate``,
+``model.summary_pretty()`` and ``model.save``, in the JAX package's saved
+format. The fused scoring graph and the other planes are not ported yet
+(``ROADMAP.md`` A).
 """
 from . import dsl  # noqa: F401  (installs Feature.sanity_check)
 from . import types  # noqa: F401
 from .dataset import Dataset  # noqa: F401
 from .local.scoring import score_function  # noqa: F401
 from .workflow.persistence import load_workflow_model  # noqa: F401
+from .workflow.workflow import Workflow  # noqa: F401
 
 __version__ = "0.1.0"

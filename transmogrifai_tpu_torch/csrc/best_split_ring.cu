@@ -347,9 +347,12 @@ int tp_best_split_ring(const void* binned, const void* order, const void* start,
                       split::tile_words(q.plan, p.fpb) * sizeof(float);
   const int threads = p.consumers + p.producers;
   auto kernel = best_split_ring_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  int max_smem = 0;
+  cudaError_t err = ring::max_dynamic_smem(kernel, &max_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(max_smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long items = static_cast<long long>(p.feat_tiles) * m_slots * k_fits;
   if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   int grid = 0;

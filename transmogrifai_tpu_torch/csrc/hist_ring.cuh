@@ -41,6 +41,9 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace ring {
 
@@ -293,6 +296,45 @@ __device__ __forceinline__ void walk(const Params& p, unsigned char* smem,
     }
     __syncthreads();  // runs[] is refilled
   }
+}
+
+// The dynamic shared memory a block of `kernel` may use on the current
+// device: the device's opt-in limit less the kernel's static shared memory.
+// The first call per (kernel, device) raises the kernel's limit to it. The
+// limit belongs to the function and every host thread sees it, so it is
+// raised once to the most and never set per call: a call that set its own
+// size could lower it between another thread's raise and that thread's
+// launch, which the card then refuses (the model selector launches from
+// several threads).
+template <class Kernel>
+inline cudaError_t max_dynamic_smem(Kernel kernel, int* bytes) {
+  static std::mutex mu;
+  static std::vector<std::pair<std::pair<const void*, int>, int>> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), dev);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& k : known) {
+    if (k.first == key) {
+      *bytes = k.second;
+      return cudaSuccess;
+    }
+  }
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  const int limit = optin - static_cast<int>(fa.sharedSizeBytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             limit);
+  if (err != cudaSuccess) return err;
+  known.emplace_back(key, limit);
+  *bytes = limit;
+  return cudaSuccess;
 }
 
 // Blocks for a persistent launch: as many as are resident at once.

@@ -136,11 +136,8 @@ int tp_hist_wide(const void* binned, const void* order, const void* start,
   if (f <= 0 || m_slots <= 0 || k_fits <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int max_smem = 0;
+  cudaError_t err = ring::max_dynamic_smem(hist_wide_kernel, &max_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ring::Params p{};
   p.binned = static_cast<const int32_t*>(binned);
@@ -183,10 +180,6 @@ int tp_hist_wide(const void* binned, const void* order, const void* start,
   // no more producer warps than stages: each stage has one filler at a time
   p.producers = std::min(p.producers, 32 * p.stages);
   const int threads = p.consumers + p.producers;
-  err = cudaFuncSetAttribute(hist_wide_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long items =
       static_cast<long long>(p.feat_tiles) * m_slots * k_fits;
   if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);

@@ -57,6 +57,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -282,6 +283,9 @@ cudaError_t device_info(const DeviceInfo** out) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  // host threads may launch at once: one of them reads the device
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
   DeviceInfo& d = g_devices[dev];
   if (!d.ready) {
     err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);

@@ -331,24 +331,26 @@ serve_trees_kernel(const Params p) {
 template <typename NodeT, int kCodeBytes, int kWalks>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   auto kernel = serve_trees_kernel<NodeT, kCodeBytes, kWalks>;
+  int max_smem = 0;
+  cudaError_t err = ring::max_dynamic_smem(kernel, &max_smem);
+  if (err != cudaSuccess) return err;
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
   // the resident blocks at the last shared-memory size asked: a serving
-  // loop launches the same shape again and again
+  // loop launches the same shape again and again (host threads share it)
+  static std::mutex mu;
   static int last_grid = 0;
-  static size_t last_smem = 0, max_smem = 0;
-  cudaError_t err = cudaSuccess;
-  if (smem > max_smem) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    max_smem = smem;
+  static size_t last_smem = 0;
+  int grid = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (last_grid == 0 || smem != last_smem) {
+      err = ring::persistent_grid(kernel, kThreads, smem, 1 << 30, &last_grid);
+      if (err != cudaSuccess) return err;
+      last_smem = smem;
+    }
+    grid = last_grid;
   }
-  if (last_grid == 0 || smem != last_smem) {
-    err = ring::persistent_grid(kernel, kThreads, smem, 1 << 30, &last_grid);
-    if (err != cudaSuccess) return err;
-    last_smem = smem;
-  }
-  kernel<<<std::min(p.items, last_grid), kThreads, smem, stream>>>(p);
+  kernel<<<std::min(p.items, grid), kThreads, smem, stream>>>(p);
   return cudaSuccess;
 }
 

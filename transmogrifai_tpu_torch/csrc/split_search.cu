@@ -43,6 +43,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
 
 #include "split_stage.cuh"
 
@@ -208,6 +209,8 @@ int tp_split_search(const void* hist, const void* mask, const void* lam,
   if (dev < 0 || dev >= kMaxDevices) {
     return static_cast<int>(cudaErrorInvalidDevice);
   }
+  static std::mutex mu;  // host threads may launch at once
+  std::unique_lock<std::mutex> lock(mu);
   if (!g_ready[dev]) {
     err = cudaDeviceGetAttribute(&g_smem_block[dev],
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -219,6 +222,7 @@ int tp_split_search(const void* hist, const void* mask, const void* lam,
     if (err != cudaSuccess) return static_cast<int>(err);
     g_ready[dev] = true;
   }
+  lock.unlock();
   Params p{};
   p.hist = static_cast<const float*>(hist);
   p.mask = static_cast<const float*>(mask);

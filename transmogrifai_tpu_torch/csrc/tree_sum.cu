@@ -538,6 +538,8 @@ cudaError_t device_info(const DeviceInfo** out) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  static std::mutex mu;  // host threads may launch at once
+  std::lock_guard<std::mutex> lock(mu);
   DeviceInfo& d = g_devices[dev];
   if (!d.ready) {
     const cudaDeviceAttr attrs[] = {

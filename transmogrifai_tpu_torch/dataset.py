@@ -46,6 +46,9 @@ class Dataset:
         cols[name] = col
         return Dataset(cols, self.num_rows if self.num_rows else len(col))
 
+    def select(self, names: list[str]) -> "Dataset":
+        return Dataset({n: self.columns[n] for n in names}, self.num_rows)
+
     def take(self, indices: np.ndarray) -> "Dataset":
         indices = np.asarray(indices)
         return Dataset(

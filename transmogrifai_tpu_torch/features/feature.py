@@ -78,6 +78,15 @@ class Feature:
         visit(self)
         return list(seen.values())
 
+    def history(self) -> dict[str, Any]:
+        """Originating raw features and the stages' operation names
+        (FeatureLike.history)."""
+        stages = sorted(self.parent_stages(), key=lambda s: s.uid)
+        return {
+            "originFeatures": sorted(f.name for f in self.raw_features()),
+            "stages": [s.operation_name for s in stages],
+        }
+
     def __repr__(self) -> str:
         kind = "response" if self.is_response else "predictor"
         return f"Feature[{self.ftype.__name__}]({self.name!r}, {kind})"

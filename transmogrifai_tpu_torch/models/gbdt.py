@@ -26,6 +26,7 @@ import threading
 import numpy as np
 import torch
 
+from ..utils.cuda_build import is_kernel_fault
 from ..utils.device import resolve_device
 from . import serve_trees as ST
 from . import trees as TR
@@ -166,6 +167,14 @@ class _BinnedModel(PredictorModel):
     def predict_arrays(self, x):
         return self.predictions_from_core(self.predict_core(x))
 
+    def detach_from_sweep(self) -> None:
+        """Drop this model's references to its sweep's stack (every lane's
+        trees and [K, N] training outputs), so the selected model does not
+        keep the whole folds x grid sweep alive; its trees are its own
+        copy."""
+        for attr in ("_sweep_stack", "_sweep_lane"):
+            self.__dict__.pop(attr, None)
+
 
 class BoostedBinaryModel(_BinnedModel):
     def __init__(self, thresholds, trees: TR.Tree, eta: float, base_score: float, uid=None):
@@ -181,12 +190,26 @@ class BoostedBinaryModel(_BinnedModel):
             params["eta"], params["base_score"],
         )
 
+    def get_arrays(self):
+        return _stack_arrays(self.thresholds, self.trees)
+
+    def get_params(self):
+        return {"eta": self.eta, "base_score": self.base_score}
+
     def _tree_stacks(self):
         return [self.trees], True
 
     def predictions_from_core(self, core):
-        margin = np.asarray(core, dtype=np.float64)[:, 0]
-        p1 = _sigmoid(margin)
+        return self.predictions_from_sweep(
+            np.asarray(core, dtype=np.float64)[:, 0]
+        )
+
+    # ---- the validators' batched sweep evaluation ------------------------
+    def predictions_from_sweep(self, margin):
+        """(pred, prob, raw) from a lane's margins, in the reference's
+        arithmetic: the sigmoid in float64, ``raw`` in the margins' own
+        dtype (float32 from a sweep's outputs)."""
+        p1 = _sigmoid(np.asarray(margin, dtype=np.float64))
         prob = np.stack([1 - p1, p1], axis=1)
         raw = np.stack([-margin, margin], axis=1)
         return (p1 > 0.5).astype(np.float64), prob, raw
@@ -203,16 +226,36 @@ class ForestClassifierModel(_BinnedModel):
     def from_params(cls, params, arrays):
         return cls(arrays["thresholds"], _class_trees_from_arrays(arrays))
 
+    def get_arrays(self):
+        out = {"thresholds": self.thresholds}
+        for c, t in enumerate(self.forests_per_class):
+            for name, a in t._asdict().items():
+                out[f"c{c}__{name}"] = np.asarray(a)
+        return out
+
     def _tree_stacks(self):
         return self.forests_per_class, False
 
     def predictions_from_core(self, core):
-        probs = np.clip(np.asarray(core, dtype=np.float64), 0.0, 1.0)
+        return self._probs_to_predictions(np.asarray(core, dtype=np.float64))
+
+    @staticmethod
+    def _probs_to_predictions(probs):
+        probs = np.clip(probs, 0.0, 1.0)
         if probs.shape[1] == 1:  # binary trained on the positive indicator
             probs = np.concatenate([1 - probs, probs], axis=1)
         raw = probs.copy()
         prob = probs / np.maximum(probs.sum(axis=1, keepdims=True), 1e-12)
         return prob.argmax(axis=1).astype(np.float64), prob, raw
+
+    # the sweep evaluation batches single-forest (binary) stacks only; the
+    # multiclass hooks come with multiclass fits (ROADMAP.md, A4)
+    def predictions_from_sweep(self, preds):
+        if len(self.forests_per_class) != 1:
+            raise ValueError("sweep path is single-forest only")
+        return self._probs_to_predictions(
+            np.asarray(preds, dtype=np.float64)[:, None]
+        )
 
 
 def _stack_arrays(thresholds, trees: TR.Tree) -> dict:
@@ -250,6 +293,10 @@ class BoostedRegressionModel(_BinnedModel):
     def predictions_from_core(self, core):
         return np.asarray(core, dtype=np.float64)[:, 0], None, None
 
+    @staticmethod
+    def predictions_from_sweep(margin):
+        return np.asarray(margin, dtype=np.float64), None, None
+
 
 class ForestRegressionModel(_BinnedModel):
     """Random-forest regression: prediction = mean leaf over the trees."""
@@ -270,6 +317,10 @@ class ForestRegressionModel(_BinnedModel):
 
     def predictions_from_core(self, core):
         return np.asarray(core, dtype=np.float64)[:, 0], None, None
+
+    @staticmethod
+    def predictions_from_sweep(preds):
+        return np.asarray(preds, dtype=np.float64), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +411,38 @@ class _TreeEstimator(PredictorEstimator):
                 for j, i in enumerate(idxs):
                     models[mi][i] = fitted[mi][j]
         return models
+
+    def sweep_eval_batched(self, models_by_fold, x, y, folds, evaluator):
+        """Validator hook: the metric of every (fold, grid point) from the
+        [K, N] training outputs each fitted stack keeps, with the per-lane
+        probability and metric arithmetic of ``predict_arrays`` on the host.
+        Returns [n_points][n_folds] values, or None where a model lacks the
+        sweep protocol or its stack keeps no outputs (the validator then
+        predicts model by model)."""
+        flat = [m for fold_models in models_by_fold for m in fold_models]
+        if not flat or any(
+            getattr(m, "_sweep_stack", None) is None
+            or m._sweep_stack.get("outputs") is None
+            or not hasattr(m, "predictions_from_sweep")
+            or len(getattr(m, "forests_per_class", [None])) != 1
+            for m in flat
+        ):
+            return None
+        try:
+            values: list[list[float]] = [[] for _ in models_by_fold[0]]
+            for fi, (_train_mask, val_mask) in enumerate(folds):
+                val_idx = np.nonzero(val_mask)[0]
+                for gi, m in enumerate(models_by_fold[fi]):
+                    pred, prob, _ = m.predictions_from_sweep(
+                        m._sweep_stack["outputs"][m._sweep_lane][val_idx]
+                    )
+                    metrics = evaluator.evaluate_arrays(y[val_idx], pred, prob)
+                    values[gi].append(evaluator.metric_of(metrics))
+            return values
+        except Exception as e:
+            if is_kernel_fault(e):
+                raise
+            return None
 
     def _batched_group_fit(self, x, masks, group_points, run_batched,
                            make_model, normalize=None):

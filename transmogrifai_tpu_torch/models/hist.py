@@ -397,7 +397,7 @@ def split_search(hist: torch.Tensor, gmask: torch.Tensor, lam: torch.Tensor,
         feat.data_ptr(), bin_.data_ptr(), k_fits, m, f, b,
         torch._C._cuda_getCurrentRawStream(dev.index),
     )
-    split_search.launches += 1
+    cuda_build.count_launch(split_search)
     return gain, feat, bin_
 
 
@@ -427,7 +427,7 @@ def _launch(name: str, *args) -> None:
     rc = getattr(lib, _ENTRY[name][0])(*args)
     if rc != 0:
         msg = lib.tp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+        raise cuda_build.KernelLaunchError(f"{name} kernel launch failed: {msg} ({rc})")
 
 
 def node_order_plain(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
@@ -507,7 +507,7 @@ def node_order(node: torch.Tensor, num_nodes: int, grad: torch.Tensor,
         order.data_ptr(), start.data_ptr(), count.data_ptr(), n, k_fits,
         num_nodes, torch._C._cuda_getCurrentRawStream(dev.index),
     )
-    node_order.launches += 1
+    cuda_build.count_launch(node_order)
     return order, start, count
 
 
@@ -584,7 +584,7 @@ def build_histogram_binloop(
         )
     out = _sorted_rows_histogram("hist_binloop", binned, node, grad, hess,
                                  num_nodes, num_bins, order)
-    build_histogram_binloop.launches += 1
+    cuda_build.count_launch(build_histogram_binloop)
     return out
 
 
@@ -610,7 +610,7 @@ def build_histogram_wide(
         )
     out = _sorted_rows_histogram("hist_wide", binned, node, grad, hess,
                                  num_nodes, num_bins, order)
-    build_histogram_wide.launches += 1
+    cuda_build.count_launch(build_histogram_wide)
     return out
 
 
@@ -690,7 +690,7 @@ def build_best_split(binned, node, grad, hess, feat_mask, reg_lambda, gamma,
         binned.stride(0), k_fits,
         num_nodes, num_bins, torch.cuda.current_stream(dev).cuda_stream,
     )
-    build_best_split.launches += 1
+    cuda_build.count_launch(build_best_split)
     return gain, feat, bin_
 
 

@@ -103,9 +103,9 @@ def leaf_sum(g: torch.Tensor, h: torch.Tensor | None, idx: torch.Tensor,
         torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         msg = lib.tp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"leaf_sum kernel launch failed: {msg} ({rc})")
+        raise cuda_build.KernelLaunchError(f"leaf_sum kernel launch failed: {msg} ({rc})")
     if k_fits:
-        leaf_sum.launches += 1
+        cuda_build.count_launch(leaf_sum)
     return out_g, out_h
 
 

@@ -403,7 +403,7 @@ def _library() -> ctypes.CDLL:
 def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.tp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+        raise cuda_build.KernelLaunchError(f"{what} kernel launch failed: {msg} ({rc})")
 
 
 @functools.cache
@@ -502,7 +502,7 @@ def _walk(binned: torch.Tensor, packed: PackedTrees) -> torch.Tensor:
     )
     _raise_on(lib, rc, "serve_trees")
     if n and packed.num_trees:
-        serve_trees.launches += 1
+        cuda_build.count_launch(serve_trees)
     return out
 
 

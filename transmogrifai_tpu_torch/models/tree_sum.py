@@ -211,7 +211,7 @@ def _on_cuda(x: torch.Tensor) -> bool:
 def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.tp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+        raise cuda_build.KernelLaunchError(f"{what} kernel launch failed: {msg} ({rc})")
 
 
 def tree_sum(per_tree: torch.Tensor, boosted: bool, eta: float = 0.0,
@@ -232,7 +232,7 @@ def tree_sum(per_tree: torch.Tensor, boosted: bool, eta: float = 0.0,
     )
     _raise_on(lib, rc, "tree_sum")
     if n:
-        tree_sum.launches += 1
+        cuda_build.count_launch(tree_sum)
     return out
 
 
@@ -288,7 +288,7 @@ def tree_sum_device_route(per_tree: torch.Tensor,
     )
     _raise_on(lib, rc, "tree_sum_device_route")
     if n:
-        tree_sum_device_route.launches += 1
+        cuda_build.count_launch(tree_sum_device_route)
     return out
 
 

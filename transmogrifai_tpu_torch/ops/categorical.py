@@ -95,6 +95,13 @@ class OneHotModel(VectorizerModel):
         self.track_nulls = track_nulls
         self.clean_text = clean_text
 
+    def get_params(self):
+        return {
+            "vocabs": self.vocabs,
+            "track_nulls": self.track_nulls,
+            "clean_text": self.clean_text,
+        }
+
     def blocks_for(self, cols: Sequence[Column], num_rows: int):
         blocks, metas = [], []
         for col, vocab, feat in zip(cols, self.vocabs, self.input_features):

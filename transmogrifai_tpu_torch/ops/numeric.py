@@ -76,6 +76,16 @@ class NumericVectorizerModel(VectorizerModel):
         #: fit-time per-column [lo, hi]; carried for the saved format only
         self.value_ranges = value_ranges
 
+    def get_arrays(self):
+        return {"fills": np.asarray(self.fills, dtype=np.float64)}
+
+    def get_params(self):
+        return {
+            "fills": list(map(float, self.fills)),
+            "track_nulls": self.track_nulls,
+            "value_ranges": self.value_ranges,
+        }
+
     def blocks_for(self, cols: Sequence[Column], num_rows: int):
         blocks, metas = [], []
         for col, fill, feat in zip(cols, self.fills, self.input_features):
@@ -159,6 +169,9 @@ class BinaryVectorizer(VectorizerTransformer):
         super().__init__("vecBinary", uid=uid)
         self.fill_value = fill_value
         self.track_nulls = track_nulls
+
+    def get_params(self):
+        return {"fill_value": self.fill_value, "track_nulls": self.track_nulls}
 
     def blocks_for(self, cols: Sequence[Column], num_rows: int):
         blocks, metas = [], []

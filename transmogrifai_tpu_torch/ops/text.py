@@ -260,6 +260,19 @@ class SmartTextModel(VectorizerModel):
         self.binary_freq = binary_freq
         self.seed = seed
 
+    def get_params(self):
+        return {
+            "methods": self.methods,
+            "vocabs": self.vocabs,
+            "num_hashes": self.num_hashes,
+            "clean_text": self.clean_text,
+            "track_nulls": self.track_nulls,
+            "to_lowercase": self.to_lowercase,
+            "min_token_length": self.min_token_length,
+            "binary_freq": self.binary_freq,
+            "seed": self.seed,
+        }
+
     def blocks_for(self, cols: Sequence[Column], num_rows: int):
         """One float32 buffer for the whole stage: pivot blocks are copied
         in, hash blocks scatter straight into it."""

@@ -28,6 +28,18 @@ class FeatureRemovalModel(Model):
         self.remove_bad_features = remove_bad_features
         self.new_metadata = new_metadata
 
+    def get_params(self):
+        return {
+            "indices_to_keep": [int(i) for i in self.indices_to_keep],
+            "remove_bad_features": self.remove_bad_features,
+            "new_metadata": (
+                self.new_metadata.to_json() if self.new_metadata else None
+            ),
+        }
+
+    def get_arrays(self):
+        return {"indices_to_keep": np.asarray(self.indices_to_keep, dtype=np.int64)}
+
     @classmethod
     def from_params(cls, params, arrays):
         meta_json = params.get("new_metadata")

@@ -1,7 +1,8 @@
 """DataReader core: records -> raw-feature columns (DataReader.scala:57-203).
 A reader reads its source records and applies each raw feature's
 extraction, giving one Column per raw feature. The aggregate, streaming
-and joined readers are not ported yet (``ROADMAP.md`` A12)."""
+and joined readers are not ported yet (``ROADMAP.md`` A12);
+``DatasetReader`` passes an already columnar dataset through."""
 from __future__ import annotations
 
 from typing import Any, Callable, Iterable, Sequence
@@ -42,4 +43,34 @@ class DataReader:
                 ),
                 **cols,
             }
+        return Dataset.of(cols)
+
+
+class DatasetReader(DataReader):
+    """Pass-through reader over an already columnar Dataset (the
+    ``set_input_dataset`` path, core/.../OpWorkflowCore.scala)."""
+
+    def __init__(self, dataset: Dataset):
+        super().__init__(None)
+        self.dataset = dataset
+
+    def generate_dataset(self, raw_features: Sequence[Feature]) -> Dataset:
+        cols = {}
+        rows = None  # the row-wise view, made at most once
+        for f in raw_features:
+            stage = f.origin_stage
+            if (
+                isinstance(stage, FeatureGeneratorStage)
+                and stage.extract_fn is not None
+            ):
+                # the user's extraction always wins over a column by name
+                if rows is None:
+                    rows = self.dataset.rows()
+                cols[f.name] = stage.extract_column(rows)
+            elif f.name in self.dataset:
+                cols[f.name] = self.dataset[f.name]
+            else:
+                raise KeyError(
+                    f"Raw feature '{f.name}' missing from input dataset"
+                )
         return Dataset.of(cols)

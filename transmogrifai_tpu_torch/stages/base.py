@@ -80,6 +80,20 @@ class PipelineStage:
             is_response=any(f.is_response for f in self.input_features),
         )
 
+    def get_params(self) -> dict[str, Any]:
+        """JSON-able constructor params for saving: the inverse of the
+        class's ``from_params`` or constructor. A stage without params
+        returns ``{}``."""
+        return {}
+
+    def set_params(self, **params: Any) -> "PipelineStage":
+        """Apply overrides by attribute name (OpWorkflow.setStageParameters)."""
+        for k, v in params.items():
+            if not hasattr(self, k):
+                raise AttributeError(f"{self} has no param '{k}'")
+            setattr(self, k, v)
+        return self
+
     def to(self, device) -> "PipelineStage":
         """Place the stage's fitted arrays on ``device`` for the predict
         path; host-only stages keep this no-op."""
@@ -104,6 +118,11 @@ class Transformer(PipelineStage):
 
 class Model(Transformer):
     """A fitted transformer."""
+
+    def get_arrays(self) -> dict[str, Any]:
+        """The fitted arrays a save writes (keyed by name); ``{}`` where the
+        params hold everything."""
+        return {}
 
 
 class Estimator(PipelineStage):

@@ -90,6 +90,9 @@ class VectorMetadata:
             groups.setdefault(c.grouped_key(), []).append(i)
         return groups
 
+    def to_json(self) -> dict[str, Any]:
+        return {"name": self.name, "columns": [c.to_json() for c in self.columns]}
+
     @staticmethod
     def from_json(d: dict[str, Any]) -> "VectorMetadata":
         return VectorMetadata(

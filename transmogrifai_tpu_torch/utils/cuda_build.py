@@ -32,8 +32,46 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
 
 
-class KernelBuildError(RuntimeError):
+class KernelError(RuntimeError):
+    """A fault of the program's kernels, never of a model candidate: the
+    model selector lets it propagate instead of excluding a family."""
+
+
+class KernelBuildError(KernelError):
     """A kernel library could not be built or loaded."""
+
+
+class KernelLaunchError(KernelError):
+    """A kernel's launch was refused (its wrapper's return-code check)."""
+
+
+def _device_errors() -> tuple[type, ...]:
+    import torch
+
+    found = [torch.OutOfMemoryError]
+    if hasattr(torch, "AcceleratorError"):
+        found.append(torch.AcceleratorError)
+    return tuple(found)
+
+
+def is_kernel_fault(e: BaseException) -> bool:
+    """Whether ``e`` is a fault of the kernels or the card: a kernel that
+    did not build, load or launch, the card's memory running out, or an
+    error the device runtime reported (an asynchronous kernel fault
+    surfaces at the next sync as one)."""
+    return isinstance(e, (KernelError, *_device_errors())) or (
+        isinstance(e, RuntimeError) and "CUDA error" in str(e)
+    )
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; exact when several threads launch
+    at once (the model selector sweeps its families on a thread pool)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def find_nvcc() -> str:

@@ -21,6 +21,13 @@ def make_uid(cls_or_name: type | str) -> str:
     return f"{name}_{n:012x}"
 
 
+def reset(start: int = 1) -> None:
+    """Restart the counter (UID.scala reset), for deterministic tests."""
+    global _counter
+    with _lock:
+        _counter = itertools.count(start)
+
+
 def from_string(uid: str) -> tuple[str, str]:
     """Parse a UID into (stage class name, hex suffix) (UID.scala fromString)."""
     m = _UID_RE.match(uid)

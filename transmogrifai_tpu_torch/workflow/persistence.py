@@ -1,15 +1,24 @@
-"""Load a workflow model saved by ``transmogrifai_tpu``.
+"""Save and load workflow models in the format of ``transmogrifai_tpu``.
 
-The saved format is one directory holding ``manifest.json`` (features,
-stages in DAG order with their class, uid, params and wiring) and
-``arrays.npz`` (every fitted array, keyed ``<stage_uid>__<name>``). Each
-saved stage class maps to the port's class of the same name; the loader
-rebuilds the feature DAG and puts the predictors' arrays on the device.
+The saved format is one directory holding ``manifest.json`` (version 1:
+features, stages in DAG order with their class, uid, params and wiring,
+the selector's info and the training summary's fields) and ``arrays.npz``
+(every fitted array, keyed ``<stage_uid>__<name>``). A stage saves through
+``get_params()`` / ``get_arrays()`` and loads through ``from_params(params,
+arrays)`` (default: the constructor on the params), so a model either
+package saved loads in the other. Each saved stage class maps to the
+port's class of the same name; the loader rebuilds the feature DAG and
+puts the predictors' arrays on the device. The manifest fields of planes
+the port does not have yet (serving and attribution profiles, the
+distributed-resilience ledger, the analysis and run reports, the raw
+feature filter's results, sensitive features) are written as ``null``,
+which the reference's loader accepts.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Any
 
 import numpy as np
@@ -63,6 +72,97 @@ def construct_stage(
     if from_params is not None:
         return from_params(params, arrays)
     return cls(**params)
+
+
+def stage_to_entry(
+    est_uid: str, stage: PipelineStage, arrays_out: dict[str, np.ndarray]
+) -> dict[str, Any]:
+    """One manifest entry for a fitted stage; its fitted arrays go into
+    ``arrays_out`` keyed ``<stage_uid>__<name>``."""
+    get_arrays = getattr(stage, "get_arrays", None)
+    if get_arrays is not None:
+        for k, v in get_arrays().items():
+            arrays_out[f"{stage.uid}__{k}"] = np.asarray(v)
+    return {
+        "estimatorUid": est_uid,
+        "class": type(stage).__name__,
+        "uid": stage.uid,
+        "operationName": stage.operation_name,
+        "params": stage.get_params(),
+        "inputFeatures": [f.name for f in stage.input_features],
+        "outputName": stage.output_name,
+        "metadata": stage.metadata,
+    }
+
+
+def _json_default(o: Any):
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(f"not JSON serializable: {type(o)}")
+
+
+def atomic_write_model_dir(
+    path: str, manifest: dict[str, Any], arrays: dict[str, np.ndarray]
+) -> None:
+    """Write ``manifest.json`` and ``arrays.npz`` into a temporary sibling,
+    then swap it in. An existing directory is renamed aside for the swap
+    (never removed first), so a kill at any instant leaves the old complete
+    directory, the new one, or the old one parked at ``<path>.old-<pid>``;
+    other files kept beside the model are carried over."""
+    base = path.rstrip(os.sep)
+    tmp = f"{base}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    with open(os.path.join(tmp, "manifest.json"), "w") as fh:
+        json.dump(manifest, fh, indent=2, default=_json_default)
+    np.savez_compressed(os.path.join(tmp, "arrays.npz"), **arrays)
+    if os.path.exists(path):
+        old = f"{base}.old-{os.getpid()}"
+        shutil.rmtree(old, ignore_errors=True)
+        os.rename(path, old)
+        os.rename(tmp, path)
+        for entry in os.listdir(old):
+            if entry not in ("manifest.json", "arrays.npz"):
+                os.rename(os.path.join(old, entry), os.path.join(path, entry))
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.rename(tmp, path)
+
+
+def save_workflow_model(model: "WorkflowModel", path: str) -> None:  # noqa: F821
+    arrays: dict[str, np.ndarray] = {}
+    # application order is DAG order, which the fitted dict's insertion
+    # order keeps (fit_and_transform_dag walks the layers)
+    stages = [
+        stage_to_entry(est_uid, stage, arrays)
+        for est_uid, stage in model.fitted.items()
+    ]
+    manifest = {
+        "version": 1,
+        "rawFeatures": [
+            {"name": f.name, "type": f.ftype.__name__,
+             "isResponse": f.is_response, "uid": f.uid}
+            for f in model.raw_features
+        ],
+        "resultFeatures": [f.name for f in model.result_features],
+        "stages": stages,
+        "selectorInfo": model.selector_info,
+        "trainRows": model.train_rows,
+        "holdoutRows": model.holdout_rows,
+        "rffResults": None,
+        "blocklisted": model.blocklisted,
+        "sensitiveFeatures": None,
+        "servingProfiles": None,
+        "attributionProfiles": None,
+        "distResilience": None,
+        "analysis": None,
+        "runReport": None,
+    }
+    atomic_write_model_dir(path, manifest, arrays)
 
 
 def _stage_arrays(npz: Any, uid: str, source: str) -> dict[str, np.ndarray]:
@@ -144,5 +244,9 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
         ),
         raw_features=tuple(raw_features),
         fitted=fitted,
+        selector_info=manifest.get("selectorInfo"),
+        train_rows=manifest.get("trainRows", 0),
+        holdout_rows=manifest.get("holdoutRows", 0),
+        blocklisted=manifest.get("blocklisted", []),
         device=dev,
     )

@@ -1,27 +1,302 @@
-"""WorkflowModel — a fitted workflow as loading and scoring need it: the
-result and raw features, the fitted stages, and the device the predictors
-run on."""
+"""Workflow + WorkflowModel: result-feature-driven training and scoring.
+
+Reference: core/.../OpWorkflow.scala (train :347, DAG assembly :90-110,
+validation :280-338) and core/.../OpWorkflowModel.scala (score :259,
+summary :187-223).
+
+The user declares result features; the workflow rebuilds the stage DAG
+from their lineage, reads the raw data, reserves a holdout through the
+model selector's splitter (OpWorkflow.scala:380-384), fits the DAG layer by
+layer, evaluates the selected model on the holdout, and returns a fitted
+``WorkflowModel`` that scores, evaluates, summarizes and saves.
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+``ROADMAP.md`` item: checkpoints and resume, streaming ingest, the progress
+callback and run reports (A12), the raw feature filter (A2's remainder),
+an execution mesh (A13). ``train()`` validates the stages with
+``validate_stages`` in place of the reference's preflight analysis (A14);
+the serving and attribution profiles are ``None`` until A8 and A10, and
+``summary_pretty`` leaves out the insights lines until A10.
+"""
 from __future__ import annotations
 
+import logging
+from typing import Any, Sequence
+
+import numpy as np
 import torch
 
+from ..dataset import Dataset
 from ..features.feature import Feature
+from ..readers.core import DataReader, DatasetReader
+from ..selector.model_selector import ModelSelector, SelectedModel
 from ..stages.base import PipelineStage
+from ..types.columns import NumericColumn, VectorColumn
 from ..utils.device import resolve_device
-from .dag import compute_dag
+from .dag import compute_dag, raw_features_of, validate_stages
+from .fit import apply_transformations_dag, fit_and_transform_dag
+
+log = logging.getLogger(__name__)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
+
+
+class Workflow:
+    def __init__(self):
+        self.result_features: tuple[Feature, ...] = ()
+        self.reader: DataReader | None = None
+        self._stage_overrides: dict[str, dict[str, Any]] = {}
+        self._prefitted: dict[str, PipelineStage] = {}
+        self._workflow_cv = False
+
+    # ----------------------------------------------------------- configure
+    def set_result_features(self, *features: Feature) -> "Workflow":
+        self.result_features = tuple(features)
+        return self
+
+    def set_input_dataset(self, dataset: Dataset) -> "Workflow":
+        self.reader = DatasetReader(dataset)
+        return self
+
+    def set_reader(self, reader: DataReader) -> "Workflow":
+        self.reader = reader
+        return self
+
+    def set_stage_parameters(self, overrides: dict[str, dict[str, Any]]) -> "Workflow":
+        """Per-stage param overrides keyed by stage uid or class name,
+        applied before fit (OpWorkflow.setStageParameters,
+        OpWorkflow.scala:179-201)."""
+        self._stage_overrides.update(overrides)
+        return self
+
+    def with_model_stages(self, model: "WorkflowModel") -> "Workflow":
+        """Warm start (OpWorkflow.withModelStages, OpWorkflow.scala:468-472):
+        a previous model's fitted stages stand in for their estimators (by
+        estimator uid), so only new estimators train."""
+        self._prefitted.update(model.fitted)
+        return self
+
+    def with_workflow_cv(self) -> "Workflow":
+        """Workflow-level cross-validation (OpWorkflow.withWorkflowCV,
+        OpWorkflow.scala:403-453): the label-dependent estimators upstream
+        of the model selector are fitted again inside every CV fold, so
+        their statistics cannot leak validation rows into the selection."""
+        self._workflow_cv = True
+        return self
+
+    def with_raw_feature_filter(self, *args: Any, **kwargs: Any) -> "Workflow":
+        raise _not_ported("the raw feature filter", "A2's remainder")
+
+    def set_parallelism(self, mesh: Any) -> "Workflow":
+        raise _not_ported("an execution mesh", "A13")
+
+    # --------------------------------------------------------------- train
+    def _stages(self) -> list[PipelineStage]:
+        layers = compute_dag(self.result_features)
+        validate_stages(layers)
+        return [s for layer in layers for s in layer]
+
+    def _apply_overrides(self, stages: Sequence[PipelineStage]) -> None:
+        for stage in stages:
+            for key in (stage.uid, type(stage).__name__):
+                if key in self._stage_overrides:
+                    stage.set_params(**self._stage_overrides[key])
+
+    def compute_data_up_to(self, *features: Feature) -> Dataset:
+        """The DAG's data up to the given features, without a full train
+        (OpWorkflowCore.computeDataUpTo)."""
+        targets = list(features) or list(self.result_features)
+        if not targets:
+            raise ValueError("computeDataUpTo needs target features")
+        if self.reader is None:
+            raise ValueError("No input data: call set_input_dataset or set_reader")
+        stages = list({s.uid: s for f in targets for s in f.parent_stages()}.values())
+        self._apply_overrides(stages)
+        raw = self.reader.generate_dataset(raw_features_of(targets))
+        data, _ = fit_and_transform_dag(raw, targets, prefitted=self._prefitted)
+        return data
+
+    def train(
+        self,
+        checkpoint_dir: str | None = None,
+        resume: bool = False,
+        progress: Any = None,
+        run_dir: str | None = None,
+        stream: bool | None = None,
+    ) -> "WorkflowModel":
+        """Fit the DAG: read, reserve the holdout, fit (with workflow-level
+        CV when asked), evaluate the selected model on the holdout."""
+        if checkpoint_dir is not None or resume:
+            raise _not_ported("checkpoint_dir / resume", "A12")
+        if stream:
+            raise _not_ported("streaming ingest (stream=True)", "A12")
+        if progress is not None or run_dir is not None:
+            raise _not_ported("progress / run_dir (the run ledger)", "A12")
+        if not self.result_features:
+            raise ValueError("setResultFeatures must be called before train")
+        if self.reader is None:
+            raise ValueError("No input data: call set_input_dataset or set_reader")
+        stages = self._stages()
+        self._apply_overrides(stages)
+        selectors = [s for s in stages if isinstance(s, ModelSelector)]
+        if len(selectors) > 1:
+            raise ValueError(
+                "Only one ModelSelector is allowed per workflow "
+                f"(found {len(selectors)})"  # FitStagesUtil.cutDAG:310 parity
+            )
+        selector = selectors[0] if selectors else None
+
+        raw_features = raw_features_of(self.result_features)
+        raw = self.reader.generate_dataset(raw_features)
+        if raw.num_rows == 0:
+            raise ValueError("Input dataset cannot be empty")
+
+        train_data, holdout_data = raw, None
+        if selector is not None and selector.splitter is not None:
+            train_idx, holdout_idx = selector.splitter.split(raw.num_rows)
+            if len(holdout_idx):
+                train_data = raw.take(train_idx)
+                holdout_data = raw.take(holdout_idx)
+
+        if self._workflow_cv and selector is not None:
+            from .cv import workflow_cv_results
+
+            selector.precomputed_results = workflow_cv_results(
+                selector, train_data, prefitted=self._prefitted,
+            )
+        fitted_data, fitted = fit_and_transform_dag(
+            train_data, self.result_features, prefitted=self._prefitted,
+        )
+
+        selector_info = None
+        if selector is not None:
+            selector_info = {
+                "estimatorUid": selector.uid,
+                "labelName": selector.input_names[0],
+                "vectorName": selector.input_names[1],
+                "predName": selector.output_name,
+                "evaluator": selector.evaluator.name,
+                "problemKind": selector.problem_kind,
+            }
+            sel_stage = fitted.get(selector.uid)
+            if isinstance(sel_stage, SelectedModel):
+                sel_stage.summary["distributedResilience"] = None
+
+        if selector is not None and holdout_data is not None:
+            sel_model = fitted[selector.uid]
+            transformed = apply_transformations_dag(
+                holdout_data, self.result_features, fitted
+            )
+            label_name, vec_name = selector.input_names
+            label, vec = transformed[label_name], transformed[vec_name]
+            if not (isinstance(label, NumericColumn) and isinstance(vec, VectorColumn)):
+                raise TypeError("holdout: expected (numeric label, vector) columns")
+            metrics = sel_model.evaluate_holdout(
+                np.asarray(vec.values, dtype=np.float32),
+                label.values.astype(np.float64),
+                selector.evaluator,
+            )
+            log.info("Holdout metrics: %s", metrics)
+
+        label_summary = None
+        if selector_info is not None:
+            label_summary = _label_summary(
+                fitted_data, selector_info, self.result_features
+            )
+
+        model = WorkflowModel(
+            result_features=self.result_features,
+            raw_features=tuple(raw_features),
+            fitted=fitted,
+            selector_info=selector_info,
+            train_rows=train_data.num_rows,
+            holdout_rows=0 if holdout_data is None else holdout_data.num_rows,
+            label_summary=label_summary,
+            training_params=dict(self._stage_overrides),
+        )
+        if selector is not None:
+            # the live evaluator keeps a custom one working in memory (the
+            # name in selector_info covers a loaded model)
+            model._live_evaluator = selector.evaluator
+        return model
+
+
+def _label_summary(
+    fitted_data: Dataset,
+    selector_info: dict[str, Any],
+    result_features: Sequence[Feature],
+) -> dict[str, Any] | None:
+    """LabelSummary (ModelInsights.scala:293-325): raw lineage, sample size
+    and distribution: Discrete {domain, prob} for classification,
+    Continuous {min, max, mean, variance} for regression."""
+    name = selector_info["labelName"]
+    if name not in fitted_data:
+        return None
+    col = fitted_data[name]
+    vals = np.asarray(col.values, dtype=np.float64)
+    mask = np.asarray(col.mask, dtype=bool) if hasattr(col, "mask") else np.ones(len(vals), bool)
+    present = vals[mask]
+    label_feat = next((f for f in result_features if f.name == name), None)
+    raw = label_feat.raw_features() if label_feat is not None else []
+    summary: dict[str, Any] = {
+        "labelName": name,
+        "rawFeatureName": [f.name for f in raw],
+        "rawFeatureType": [f.ftype.__name__ for f in raw],
+        "stagesApplied": (
+            label_feat.history()["stages"] if label_feat is not None else []
+        ),
+        "sampleSize": float(len(present)),
+    }
+    if len(present) == 0:
+        summary["distribution"] = None
+    elif selector_info["problemKind"] == "Regression":
+        summary["distribution"] = {
+            "type": "Continuous",
+            "min": float(present.min()),
+            "max": float(present.max()),
+            "mean": float(present.mean()),
+            "variance": float(present.var()),
+        }
+    else:
+        uniq, counts = np.unique(present, return_counts=True)
+        summary["distribution"] = {
+            "type": "Discrete",
+            "domain": [str(int(u)) if u == int(u) else str(u) for u in uniq],
+            "prob": (counts / counts.sum()).tolist(),
+        }
+    return summary
 
 
 class WorkflowModel:
+    """A fitted workflow: the result and raw features, the fitted stages by
+    estimator uid, the selector's info and the training summary's fields.
+    ``device`` is where the predictors were placed (``None``: each fitted
+    predictor places itself on its fit's device at its first predict)."""
+
     def __init__(
         self,
         result_features: tuple[Feature, ...],
         raw_features: tuple[Feature, ...],
         fitted: dict[str, PipelineStage],
-        device: torch.device,
+        selector_info: dict[str, Any] | None = None,
+        train_rows: int = 0,
+        holdout_rows: int = 0,
+        blocklisted: list[str] | None = None,
+        label_summary: dict[str, Any] | None = None,
+        training_params: dict[str, Any] | None = None,
+        device: torch.device | None = None,
     ):
         self.result_features = result_features
         self.raw_features = raw_features
         self.fitted = fitted
+        self.selector_info = selector_info
+        self.train_rows = train_rows
+        self.holdout_rows = holdout_rows
+        self.blocklisted = blocklisted or []
+        self.label_summary = label_summary
+        self.training_params = training_params or {}
         self.device = device
 
     def to(self, device=None) -> "WorkflowModel":
@@ -36,6 +311,228 @@ class WorkflowModel:
     def stage_plan(self) -> list[PipelineStage]:
         """The fitted DAG flattened into application order."""
         return [
-            stage for layer in compute_dag(self.result_features)
+            self.fitted.get(stage.uid, stage)
+            for layer in compute_dag(self.result_features)
             for stage in layer
         ]
+
+    # --------------------------------------------------------- persistence
+    def save(self, path: str) -> None:
+        """OpWorkflowModelWriter: ``manifest.json`` + ``arrays.npz``."""
+        from .persistence import save_workflow_model
+
+        save_workflow_model(self, path)
+
+    @staticmethod
+    def load(path: str, device=None) -> "WorkflowModel":
+        """OpWorkflowModel.load (OpWorkflowModel.scala:456); the predictors
+        go to ``device`` (``None`` means ``cuda``)."""
+        from .persistence import load_workflow_model
+
+        return load_workflow_model(path, device=device)
+
+    # --------------------------------------------------------------- score
+    def _prepare_raw(self, dataset: Dataset | None, reader: DataReader | None) -> Dataset:
+        if dataset is not None:
+            reader = DatasetReader(self._with_missing_response(dataset))
+        if reader is None:
+            raise ValueError("score requires a dataset or reader")
+        try:
+            raw = reader.generate_dataset(list(self.raw_features))
+        except KeyError:
+            # scoring data often lacks the response: read the predictors
+            raw = reader.generate_dataset(
+                [f for f in self.raw_features if not f.is_response]
+            )
+        return self._with_missing_response(raw)
+
+    def _with_missing_response(self, dataset: Dataset) -> Dataset:
+        """Null labels of the response's type where the data lacks it;
+        evaluation refuses all-null labels."""
+        from ..types.columns import empty_like
+
+        for f in self.raw_features:
+            if f.is_response and f.name not in dataset:
+                dataset = dataset.with_column(
+                    f.name, empty_like(f.ftype, dataset.num_rows)
+                )
+        return dataset
+
+    def score(
+        self,
+        dataset: Dataset | None = None,
+        reader: DataReader | None = None,
+        keep_raw_features: bool = False,
+        keep_intermediate_features: bool = False,
+    ) -> Dataset:
+        """Apply the fitted DAG (OpWorkflowModel.score, OpWorkflowModel.scala:259)."""
+        raw = self._prepare_raw(dataset, reader)
+        transformed = apply_transformations_dag(raw, self.result_features, self.fitted)
+        if keep_intermediate_features:
+            return transformed
+        keep = [f.name for f in self.result_features if f.name in transformed]
+        if keep_raw_features:
+            keep = [f.name for f in self.raw_features] + keep
+        return transformed.select(keep)
+
+    def score_and_evaluate(
+        self,
+        dataset: Dataset | None = None,
+        evaluator=None,
+        reader: DataReader | None = None,
+    ) -> tuple[Dataset, dict[str, Any]]:
+        scores = self.score(dataset, reader=reader, keep_intermediate_features=True)
+        metrics = self._evaluate_transformed(scores, evaluator)
+        keep = [f.name for f in self.result_features if f.name in scores]
+        return scores.select(keep), metrics
+
+    def evaluate(
+        self,
+        dataset: Dataset | None = None,
+        evaluator=None,
+        reader: DataReader | None = None,
+    ) -> dict[str, Any]:
+        """Score and evaluate against the true labels in the data."""
+        transformed = self.score(
+            dataset, reader=reader, keep_intermediate_features=True
+        )
+        return self._evaluate_transformed(transformed, evaluator)
+
+    def _evaluate_transformed(self, transformed: Dataset, evaluator=None) -> dict[str, Any]:
+        if self.selector_info is None:
+            raise ValueError("evaluate requires a ModelSelector in the workflow")
+        if evaluator is None:
+            evaluator = getattr(self, "_live_evaluator", None)
+        if evaluator is None:
+            from ..evaluators import (
+                BinaryClassificationEvaluator,
+                ForecastEvaluator,
+                MultiClassificationEvaluator,
+                RegressionEvaluator,
+            )
+
+            by_name = {
+                e.name: e
+                for e in (
+                    BinaryClassificationEvaluator(),
+                    MultiClassificationEvaluator(),
+                    RegressionEvaluator(),
+                    ForecastEvaluator(),
+                )
+            }
+            name = self.selector_info["evaluator"]
+            if name not in by_name:
+                raise ValueError(
+                    f"Evaluator '{name}' is not a builtin; pass the evaluator "
+                    "object explicitly to evaluate()/score_and_evaluate()"
+                )
+            evaluator = by_name[name]
+        label = transformed[self.selector_info["labelName"]]
+        if isinstance(label, NumericColumn) and not label.mask.any():
+            raise ValueError(
+                "evaluate requires true labels, but the response column "
+                f"'{self.selector_info['labelName']}' is absent/all-null in "
+                "the provided data"
+            )
+        pred = transformed[self.selector_info["predName"]]
+        return evaluator.evaluate(label, pred)
+
+    # ------------------------------------------------------------- summary
+    def summary_json(self) -> dict[str, Any]:
+        """The reference's summary keys; those of planes not ported yet
+        (the raw feature filter, sensitive features, the resilience and
+        retrain ledgers, the analysis and run reports) are ``None``."""
+        sel_summary = None
+        if self.selector_info is not None:
+            model = self.fitted.get(self.selector_info["estimatorUid"])
+            if isinstance(model, SelectedModel):
+                sel_summary = model.summary
+        return {
+            "trainRows": self.train_rows,
+            "holdoutRows": self.holdout_rows,
+            "rawFeatures": [f.name for f in self.raw_features],
+            "resultFeatures": [f.name for f in self.result_features],
+            "blocklistedFeatures": self.blocklisted,
+            "rawFeatureFilterResults": None,
+            "sensitiveFeatures": None,
+            "modelSelectorSummary": sel_summary,
+            "stageMetadata": {
+                uid: s.metadata for uid, s in self.fitted.items() if s.metadata
+            },
+            "distributedResilience": None,
+            "retrainLedger": None,
+            "analysis": None,
+            "run": None,
+        }
+
+    def summary_pretty(self) -> str:
+        """Human-readable training summary (the reference README's
+        summaryPretty): the evaluated families, the selected model's
+        parameter table and one combined holdout / training metric table.
+        The insights tables wait for A10."""
+        from ..utils.table import render_table
+
+        s = self.summary_json()
+        lines: list[str] = []
+        sel = s.get("modelSelectorSummary")
+        if sel:
+            results = sel["validationResults"]
+            by_family: dict[str, list[float]] = {}
+            for r in results:
+                by_family.setdefault(r["modelName"], []).append(r["metricMean"])
+            metric = sel["evaluationMetric"]
+            n_folds = len(results[0].get("metricValues", [])) if results else 0
+            lines.append(
+                f"Evaluated {', '.join(sorted(by_family))} models with "
+                f"{n_folds} folds and {metric} metric."
+            )
+            for name, vals in sorted(by_family.items()):
+                lines.append(
+                    f"Evaluated {len(vals)} {name} models with {metric} "
+                    f"between [{min(vals)}, {max(vals)}]"
+                )
+            for a in sel.get("candidateAttempts") or []:
+                if a.get("excluded"):
+                    lines.append(
+                        f"Excluded {a['modelName']} after "
+                        f"{a.get('attempts', 1)} attempt(s): {a.get('error')}"
+                    )
+            lines.append("")
+            lines.append(f"Selected model {sel['bestModelType']} with parameters:")
+            params: dict[str, Any] = {"modelType": sel["bestModelType"]}
+            stage = self.fitted.get(self.selector_info["estimatorUid"])
+            best_model = getattr(stage, "best_model", None)
+            if best_model is not None:
+                params.update(best_model.get_params())
+            params.update(sel.get("bestGrid", {}))
+            lines.append(
+                render_table(
+                    ["Model Param", "Value"],
+                    [[k, str(v)] for k, v in sorted(params.items())],
+                )
+            )
+            lines.append("")
+            train_m = sel.get("trainEvaluation") or {}
+            hold_m = sel.get("holdoutEvaluation") or {}
+            keys = [
+                k for k in {**hold_m, **train_m}
+                if isinstance((hold_m.get(k, train_m.get(k))), (int, float))
+            ]
+            if keys:
+                lines.append("Model evaluation metrics:")
+                lines.append(
+                    render_table(
+                        ["Metric Name", "Hold Out Set Value",
+                         "Training Set Value"],
+                        [
+                            [k, str(hold_m.get(k, "")), str(train_m.get(k, ""))]
+                            for k in keys
+                        ],
+                    )
+                )
+                lines.append("")
+        lines.append(
+            f"Trained on {s['trainRows']} rows (holdout {s['holdoutRows']}); "
+            f"{len(s['rawFeatures'])} raw features"
+        )
+        return "\n".join(lines)
