@@ -129,6 +129,24 @@ paths:
   exceed). A tree winner's holdout must run through K1 and the tree sum.
   Any excluded family or NaN lane fails the phase.
 
+* the fused scoring graph (``fused_serving``, ``compiler/fused.py``): the
+  xgb, rf and lr fixtures' rows tiled to 20000 rows (bucket 24576, padded)
+  and 65536 rows, above the default ``TPTPU_HOST_PREDICT_MAX``, through
+  ``.batch`` and ``.columns``: the fused scores EQUAL the staged loop's on
+  the card (the logistic model's within 1e-6) and the port's fused path on
+  the CPU; every batch a dispatch, no fallback. The default selector's tree
+  candidates trained on ``fit_side_tables.wide_hash_table()`` (16384 rows,
+  1419 vector columns, a hash-only SmartText member) score 65536 fresh rows
+  through ``.columns``: fused EQUAL staged, ``quantized=True`` EQUAL the
+  float32 plane. A fused batch after the first makes exactly one upload and
+  one download (``torch.profiler``'s memcpy activities) and one host sync
+  (``count_syncs``), and launches K1 twice and the device-route sum once a
+  stack (``FusedLaunches`` counts them apart from the staged batches);
+  its device span is broken down by group (members, gathers, ``bin_data``,
+  K1, the sum). ``train_wide``'s model and the CSV twin's (SmartText
+  members of Pivot and Hash slots) build no program, with the JAX
+  package's reason, and score staged. Rows/s of both paths at both sizes.
+
 Kernel K4, the fused split search, is on no path of the reference (its
 policy never takes it); it is held against its plain version at the
 reference's fused-route shapes, timed whole (its row order and its
@@ -1421,7 +1439,10 @@ def predictor_breakdown(torch, stage, args, num_rows: int,
     total = 0.0
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", 0.0)
-        if not t or evt.device_type != torch.autograd.DeviceType.CUDA:
+        # the range's card-side annotation spans its kernels and the gaps
+        # between them: not device work of its own
+        if not t or evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key == "predictor.bin_data":
             continue
         total += t / 1e3
         name = evt.key.lower()
@@ -1431,7 +1452,8 @@ def predictor_breakdown(torch, stage, args, num_rows: int,
         if key:
             ms[key] += t / 1e3
     ms["bin_data"] = sum(e.device_time_total for e in prof.events()
-                         if e.name == "predictor.bin_data") / 1e3
+                         if e.name == "predictor.bin_data" and e.device_type
+                         == torch.autograd.DeviceType.CPU) / 1e3
     if not total:
         return {"device_ms": "not measured"}
     ms["reduction and epilogue"] = total - sum(ms.values())
@@ -3646,7 +3668,462 @@ def train_wide(torch, smi: str, counters, trees_only: bool = False) -> dict:
             "refit_against_direct": "equal" if refit_diff == 0.0
             else f"within {LR_LANE_TOL}",
             "refit_max_diff": refit_diff, "refit_controls_max_diff": controls,
-            "direct_refit_s": direct_s, **rt}
+            "direct_refit_s": direct_s, **rt, "_model": model}
+
+
+#: the fused scoring graph's phase: batches of the twin fixtures' rows
+#: tiled to these counts (20000 buckets to 24576, padded; 65536 is a bucket)
+FUSED_TILES = (20000, 65536)
+#: fresh full-width rows scored by the model trained on wide_hash_table
+FUSED_WIDE_ROWS = 65536
+FUSED_WIDE_SEED = 2025
+#: the training rows of the full-width hash-text model (train_wide's)
+WIDE_HASH_TRAIN_ROWS = 16384
+FUSED_GLM_ATOL = 1e-6
+#: the JAX package's reason for a SmartText member of Pivot and Hash slots
+#: (transmogrifai_tpu/compiler/fused.py:891-893)
+MIXED_TEXT_REASON = "smart-text member mixes Pivot and Hash slots — not fuseable"
+
+
+def score_matrix(out) -> np.ndarray:
+    """[N, 5] prediction, probabilities, raw margins of ``.batch``'s result
+    dicts or of a prediction column (``.columns``)."""
+    if isinstance(out, list):
+        preds = [next(iter(r.values())) for r in out]
+        return np.array([[p["prediction"], p["probability_0"],
+                          p["probability_1"], p["rawPrediction_0"],
+                          p["rawPrediction_1"]] for p in preds])
+    return np.column_stack([np.asarray(out.prediction),
+                            np.asarray(out.probability), np.asarray(out.raw)])
+
+
+def same_scores(what: str, got: np.ndarray, want: np.ndarray,
+                glm: bool) -> float:
+    """Trees EQUAL; a GLM's predictions equal, its probabilities within
+    ``FUSED_GLM_ATOL`` and its raw margins within that plus 1e-6 of their
+    size (float32 core against float64). Returns the largest difference."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: bad scores {got.shape}")
+    err = float(np.abs(got - want).max())
+    if not glm:
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: tree scores differ ({err})")
+        return err
+    prob_err = float(np.abs(got[:, 1:3] - want[:, 1:3]).max())
+    raw_ok = np.all(np.abs(got[:, 3:] - want[:, 3:])
+                    <= FUSED_GLM_ATOL + 1e-6 * np.abs(want[:, 3:]))
+    if not (np.array_equal(got[:, 0], want[:, 0])
+            and prob_err <= FUSED_GLM_ATOL and raw_ok):
+        raise AssertionError(f"{what}: GLM scores differ (max {err})")
+    return err
+
+
+def dataset_of(rows: list[dict], features):
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.types.columns import column_from_values
+
+    return Dataset.of({f.name: column_from_values(
+        f.ftype, [r.get(f.name) for r in rows]) for f in features
+        if not f.is_response})
+
+
+def staged(fn, call):
+    """``call`` on the staged loop (``TPTPU_FUSED=0`` is read per batch)."""
+    os.environ["TPTPU_FUSED"] = "0"
+    try:
+        return call()
+    finally:
+        del os.environ["TPTPU_FUSED"]
+
+
+def fused_md(fn) -> dict:
+    return fn.metadata()["fused"]
+
+
+def host_seconds(call, reps: int = 3) -> float:
+    """The least host-clock seconds of ``reps`` calls of ``call``, each
+    after a full garbage collection (a collection that falls inside a call
+    costs it tens of milliseconds on the large heaps of this script)."""
+    import gc
+
+    best = math.inf
+    for _ in range(reps):
+        gc.collect()
+        t0 = time.perf_counter()
+        call()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def expected_launches(TS, prog, b: int) -> tuple[int, int]:
+    """(K1, device-route sums) one fused batch of ``b`` rows makes: per
+    stack one walk, a second over the leaf windows where they are more than
+    one, and one sum; (0, 0) for a GLM."""
+    best = prog.predictor.best_model if hasattr(prog.predictor, "best_model") \
+        else prog.predictor
+    stacks = getattr(best, "device_stacks", [])
+    k1 = sum(2 if TS.leaf_windows(b, p.depth) > 1 else 1 for p in stacks)
+    return k1, len(stacks)
+
+
+class FusedLaunches:
+    """K1's and the device-route sum's launches made inside fused batches
+    (``counted(call)``), apart from the staged batches the phase compares
+    them with."""
+
+    def __init__(self, ST, TS):
+        self.ST, self.TS = ST, TS
+        self.total = {"serve_trees": 0, "tree_sum_device_route": 0}
+
+    def read(self) -> tuple[int, int]:
+        return (self.ST.serve_trees.launches,
+                self.TS.tree_sum_device_route.launches)
+
+    def counted(self, call):
+        before = self.read()
+        out = call()
+        after = self.read()
+        for k, b, a in zip(self.total, before, after):
+            self.total[k] += a - b
+        return out
+
+
+def fused_transfers(torch, TS, counter, fn, call, b: int) -> dict:
+    """One fused batch after the first: its copies between host and card,
+    its host synchronizations (``count_syncs``), and the kernels it
+    launched against the expected counts. Fails unless it made exactly one
+    upload, one download and one sync.
+
+    The copies are read from ``torch.profiler``: the runtime's memcpy
+    calls (``cudaMemcpyAsync``, both directions) and the card's memcpy
+    activities by direction. On the card a session sometimes records the
+    call of the pinned upload but drops its device activity (three
+    sessions in a row at full width in one call), so the uploads are the
+    memcpy calls less the downloads the card recorded; the sessions' raw
+    counts are returned beside them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counter.counted(call)  # the program's first batch uploads its params
+    prog = fn.fused_state["program"]
+    before = counter.read()
+    _, syncs, msgs = count_syncs(torch, lambda: counter.counted(call))
+    launches = tuple(a - b for a, b in zip(counter.read(), before))
+    want = expected_launches(TS, prog, b)
+    # a session that misses an activity is taken again (the profiler
+    # sometimes drops a few on the card, ``device_ms``)
+    sessions = []
+    for attempt in range(PROFILE_TRIES):
+        time.sleep(0.25 * attempt)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            counter.counted(call)
+            torch.cuda.synchronize()
+        counts = {"memcpy_calls": 0, "h2d": 0, "d2h": 0, "kernels": 0}
+        for evt in prof.key_averages():
+            key = evt.key.lower()
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                if key.startswith("cudamemcpy"):
+                    counts["memcpy_calls"] += evt.count
+                continue
+            kind = ("h2d" if "memcpy htod" in key else "d2h"
+                    if "memcpy dtoh" in key else "kernels")
+            counts[kind] += evt.count
+        sessions.append(counts)
+        if counts["kernels"] and counts["memcpy_calls"] and counts["d2h"]:
+            break
+    copies = dict(sessions[-1])
+    copies["uploads"] = copies["memcpy_calls"] - copies["d2h"]
+    if (copies["uploads"], copies["d2h"], copies["h2d"] <= 1, syncs) != (
+            1, 1, True, 1):
+        raise AssertionError(
+            f"fused_serving: {copies} copies and {syncs} host syncs in one "
+            f"batch ({msgs}; sessions {sessions})")
+    if launches != want:
+        raise AssertionError(f"fused_serving: launched K1 and the route sum "
+                             f"{launches} times, expected {want}")
+    return {"uploads": copies["uploads"], "downloads": copies["d2h"],
+            "host_syncs": syncs, "kernels_profiled": copies["kernels"],
+            "profiler_sessions": sessions,
+            "serve_trees_launches": launches[0],
+            "tree_sum_device_route_launches": launches[1]}
+
+
+def fused_span(torch, TR, counter, fn, call) -> dict:
+    """One fused batch under ``torch.profiler``: device ms by group
+    (members, gathers, ``bin_data``, K1, the tree sum, the copies, the
+    rest), the host ingest seconds of its members, the bytes up and down,
+    and its host-clock seconds unprofiled."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    prog = fn.fused_state["program"]
+    seen = {}
+    real = {"assemble": prog.assemble, "gather": prog.gather,
+            "run": prog.run, "bin_data": TR.bin_data}
+
+    def ranged(name, f):
+        def inner(*a, **kw):
+            with record_function(f"fused.{name}"):
+                return f(*a, **kw)
+        return inner
+
+    def run(cols, b, n):
+        t0 = time.perf_counter()
+        for m in prog.members:
+            m.ingest([cols[nm] for nm in m.stage.input_names])
+        seen["ingest_s"] = time.perf_counter() - t0
+        core, info = real["run"](cols, b, n)
+        seen.update(info)
+        return core, info
+
+    counter.counted(call)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counter.counted(call)
+    host_s = time.perf_counter() - t0
+    prog.assemble = ranged("members", real["assemble"])
+    prog.gather = ranged("gather", real["gather"])
+    prog.run = run
+    TR.bin_data = ranged("bin_data", real["bin_data"])
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            counter.counted(call)
+            torch.cuda.synchronize()
+    finally:
+        for k in ("assemble", "gather", "run"):
+            setattr(prog, k, real[k])
+        TR.bin_data = real["bin_data"]
+    ms = {"upload": 0.0, "download": 0.0, "K1 serve_trees": 0.0,
+          "tree_sum": 0.0}
+    total = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", 0.0)
+        # the ranges' card-side annotations span their kernels and the
+        # gaps between them: not device work of their own
+        if not t or evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key.startswith("fused."):
+            continue
+        total += t / 1e3
+        name = evt.key.lower()
+        key = ("upload" if "htod" in name else "download" if "dtoh" in name
+               else "K1 serve_trees" if "serve_trees" in name
+               else "tree_sum" if "tree_sum" in name or "route_pairs" in name
+               else None)
+        if key:
+            ms[key] += t / 1e3
+    for group in ("members", "gather", "bin_data"):
+        # the kernels under the host-side range (its card-side annotation
+        # spans the launch gaps as well)
+        ms[group] = sum(e.device_time_total for e in prof.events()
+                        if e.name == f"fused.{group}" and e.device_type
+                        == torch.autograd.DeviceType.CPU) / 1e3
+    if not total:
+        return {"device_ms": "not measured", "host_s": host_s}
+    ms["rest"] = total - sum(ms.values())
+    return {"device_ms": ms, "device_total_ms": total,
+            "bin_data_share": ms["bin_data"] / total, "host_s": host_s,
+            "ingest_s": seen.get("ingest_s"), "up_bytes": seen.get("upBytes"),
+            "down_bytes": seen.get("downBytes")}
+
+
+def fused_twins(torch, TS, TR, counter, load_workflow_model,
+                score_function):
+    """The twin fixtures' rows tiled to ``FUSED_TILES`` through ``.batch``
+    and ``.columns`` at the default cutoff: fused against staged on the
+    card and against the port's fused path on the CPU, rows/s of both
+    paths, transfers and the device span of a 65536-row batch."""
+    out, rates, transfers, spans = {}, {}, {}, {}
+    for name in ("xgb", "rf", "lr"):
+        path, rows, _ = load_fixture(name)
+        glm = name == "lr"
+        model = load_workflow_model(path)
+        fn = score_function(model)
+        cpu = score_function(load_workflow_model(path, device="cpu"),
+                             device="cpu")
+        if not fn.prime_fused():
+            raise AssertionError(f"{name}: no fused program "
+                                 f"({fused_md(fn)['reason']})")
+        errs, rates[name] = {}, {}
+        for n in FUSED_TILES:
+            big = (rows * -(-n // len(rows)))[:n]
+            ds = dataset_of(big, model.raw_features)
+            before = fused_md(fn)["dispatches"]
+            fused = score_matrix(counter.counted(lambda: fn.batch(big)))
+            cols = score_matrix(next(iter(
+                counter.counted(lambda: fn.columns(ds)).values())))
+            if fused_md(fn)["dispatches"] != before + 2:
+                raise AssertionError(f"{name} {n}: not every batch fused")
+            stg = score_matrix(staged(fn, lambda: fn.batch(big)))
+            errs[n] = {
+                "fused_vs_staged": same_scores(f"{name} {n}", fused, stg, glm),
+                "columns_vs_batch": same_scores(f"{name} {n} columns", cols,
+                                                fused, False),
+            }
+            if not glm:
+                errs[n]["card_vs_cpu_fused"] = same_scores(
+                    f"{name} {n} cpu", fused, score_matrix(cpu.batch(big)),
+                    False)
+            rates[name][n] = {
+                "fused_rows_per_s": n / host_seconds(
+                    lambda: counter.counted(lambda: fn.batch(big)), reps=2),
+                "staged_rows_per_s": n / host_seconds(
+                    lambda: staged(fn, lambda: fn.batch(big)), reps=2)}
+        n = FUSED_TILES[-1]
+        big = (rows * -(-n // len(rows)))[:n]
+        transfers[name] = fused_transfers(torch, TS, counter, fn,
+                                          lambda: fn.batch(big), n)
+        spans[name] = fused_span(torch, TR, counter, fn,
+                                 lambda: fn.batch(big))
+        md = fused_md(fn)
+        if md["fallbacks"] or not md["active"]:
+            raise AssertionError(f"{name}: fused fallbacks {md}")
+        out[name] = {"max_abs_err": errs, "dispatches": md["dispatches"],
+                     "fallbacks": md["fallbacks"],
+                     "fingerprint": md["fingerprint"]}
+    return out, rates, transfers, spans
+
+
+def wide_hash_dataset(n: int, seed: int):
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    from fit_side_tables import wide_hash_table
+
+    from transmogrifai_tpu_torch import types as PT
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.types.columns import column_from_values
+
+    schema, columns = wide_hash_table(n, seed)
+    return Dataset.of({k: column_from_values(
+        PT.feature_type_by_name(schema[k]), v) for k, v in columns.items()})
+
+
+def train_wide_hash(torch) -> tuple:
+    """The default selector's tree candidates trained on
+    ``wide_hash_table(16384)``, as ``train_wide trees`` trains
+    ``wide_table``: (model, prediction feature, seconds, selector summary)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    from fit_side_tables import WIDE_SEED
+
+    t0 = time.perf_counter()
+    model, pred, _, seconds = train_flow(
+        torch, wide_hash_dataset(WIDE_HASH_TRAIN_ROWS, WIDE_SEED), "label",
+        False, trees_only=True)
+    seconds["wall_s"] = time.perf_counter() - t0
+    return model, pred, seconds, model.summary_json()["modelSelectorSummary"]
+
+
+def fused_full_width(torch, TS, TR, counter, trained, score_function) -> dict:
+    """65536 fresh rows of ``wide_hash_table`` through ``.columns`` of the
+    model ``train_wide_hash`` trained: fused EQUAL staged,
+    ``quantized=True`` EQUAL the float32 plane, with the program's
+    ``describe()``, transfers and device span."""
+    model, pred, seconds, summary = trained
+    t0 = time.perf_counter()
+    fresh = wide_hash_dataset(FUSED_WIDE_ROWS, FUSED_WIDE_SEED)
+    table_s = time.perf_counter() - t0
+    fn = score_function(model)
+    quant = score_function(model, quantized=True)
+    if not (fn.prime_fused() and quant.prime_fused()):
+        raise AssertionError(f"wide_hash: no fused program "
+                             f"({fused_md(fn)['reason']})")
+    prog = fn.fused_state["program"]
+    fused = score_matrix(counter.counted(lambda: fn.columns(fresh))[pred.name])
+    stg = score_matrix(staged(fn, lambda: fn.columns(fresh))[pred.name])
+    fused_s = host_seconds(lambda: counter.counted(
+        lambda: fn.columns(fresh)), reps=2)
+    staged_s = host_seconds(lambda: staged(fn, lambda: fn.columns(fresh)),
+                            reps=2)
+    err = same_scores("wide_hash fused", fused, stg, False)
+    qerr = same_scores("wide_hash quantized", score_matrix(counter.counted(
+        lambda: quant.columns(fresh))[pred.name]), fused, False)
+    transfers = fused_transfers(torch, TS, counter, fn,
+                                lambda: fn.columns(fresh), FUSED_WIDE_ROWS)
+    span = fused_span(torch, TR, counter, fn, lambda: fn.columns(fresh))
+    md = fused_md(fn)
+    if md["fallbacks"] or fused_md(quant)["fallbacks"]:
+        raise AssertionError(f"wide_hash: fused fallbacks {md}")
+    return {
+        "train_rows": WIDE_HASH_TRAIN_ROWS, "train_split": seconds,
+        "winner": summary["bestModelType"], "grid": summary["bestGrid"],
+        "rows": FUSED_WIDE_ROWS, "table_s": table_s,
+        "vector_columns": prog.plane_width, "predictor_width": prog.width,
+        "fused_vs_staged_max_abs_err": err, "quantized_vs_float32": qerr,
+        "fused_rows_per_s": FUSED_WIDE_ROWS / fused_s,
+        "staged_rows_per_s": FUSED_WIDE_ROWS / staged_s,
+        "transfers": transfers, "span": span,
+        "quantized_up_bytes_per_row":
+            quant.fused_state["program"].up_bytes_per_row,
+        "dispatches": md["dispatches"], "fallbacks": md["fallbacks"],
+        "describe": {k: v for k, v in prog.describe().items()
+                     if k not in ("coveredStages", "quantPlans")},
+    }
+
+
+def fused_refusals(torch, wide_model, load_workflow_model,
+                   score_function) -> dict:
+    """The full-width model of ``train_wide`` and the CSV twin's model
+    (SmartText members of Pivot and Hash slots) build no program, with the
+    JAX package's reason, and their batches above the cutoff score staged,
+    counted as unfuseable."""
+    out = {}
+    csv_path = os.path.join(FIT_SIDE, "csv_model")
+    with open(os.path.join(csv_path, "rows.json")) as fh:
+        csv_rows = json.load(fh)
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    from fit_side_tables import wide_table
+
+    schema, columns = wide_table(FUSED_TILES[0], FUSED_WIDE_SEED)
+    wide_rows = [{k: columns[k][i] for k in schema if k != "label"}
+                 for i in range(FUSED_TILES[0])]
+    for name, model, rows in (
+            ("train_wide", wide_model, wide_rows),
+            ("csv_twin", load_workflow_model(csv_path), csv_rows)):
+        fn = score_function(model)
+        if fn.prime_fused():
+            raise AssertionError(f"{name}: a fused program was built")
+        reason = fused_md(fn)["reason"]
+        if reason != MIXED_TEXT_REASON:
+            raise AssertionError(f"{name}: reason {reason!r}")
+        big = (rows * -(-FUSED_TILES[0] // len(rows)))[:FUSED_TILES[0]]
+        got = fn.batch(big)
+        md = fused_md(fn)
+        if (md["dispatches"], md["fallbacks"], md["fallbackReasons"]) != (
+                0, 0, {"unfuseable": 1}) or len(got) != len(big):
+            raise AssertionError(f"{name}: {md}")
+        out[name] = {"reason": reason, "rows": len(big),
+                     "fallbackReasons": md["fallbackReasons"]}
+    return out
+
+
+def fused_serving(torch, smi: str, ST, TS, TR, wide_model,
+                  load_workflow_model, score_function) -> dict:
+    """The fused scoring graph on the card (``compiler/fused.py``): the
+    twin fixtures and a full-width hash-text model fused, the refused
+    models staged; K1's and the device-route sum's launches counted from 0
+    over the fused batches (``FusedLaunches``; the staged batches they are
+    compared with are not counted)."""
+    t0 = time.perf_counter()
+    trained = train_wide_hash(torch)
+    ST.serve_trees.launches = TS.tree_sum_device_route.launches = 0
+    counter = FusedLaunches(ST, TS)
+    twins, rates, transfers, spans = fused_twins(
+        torch, TS, TR, counter, load_workflow_model, score_function)
+    phase("fused_serving twins", card=smi, twins=twins, rows_per_s=rates,
+          transfers_per_batch=transfers, span=spans,
+          seconds=time.perf_counter() - t0)
+    wide = fused_full_width(torch, TS, TR, counter, trained, score_function)
+    phase("fused_serving wide_hash", card=smi, **wide,
+          seconds=time.perf_counter() - t0)
+    launches = dict(counter.total)
+    ST.serve_trees.launches = TS.tree_sum_device_route.launches = 0
+    if not all(launches.values()):
+        raise AssertionError(f"fused_serving: launches {launches}")
+    refusals = fused_refusals(torch, wide_model, load_workflow_model,
+                              score_function)
+    return {"card": smi, "twins": twins, "rows_per_s": rates,
+            "transfers_per_batch": transfers,
+            f"span_{FUSED_TILES[-1]}": spans,
+            "wide_hash": wide, "refused": refusals,
+            "launches": launches, "seconds": time.perf_counter() - t0}
 
 
 def start_on_card(torch, sources: list[str]) -> str:
@@ -4003,11 +4480,20 @@ def main() -> int:
                         ("selector_trees", "train_flagship trees")):
         train_runs[label] = train_flagship(torch, smi, name, counters)
         phase(label, **train_runs[label])
+    wide_models = {}
     for trees_only, label in ((False, "train_wide"), (True, "train_wide trees")):
         train_runs[label] = train_wide(torch, smi, counters, trees_only)
+        wide_models[label] = train_runs[label].pop("_model")
         phase(label, **train_runs[label])
     train_launches = {k: {path: run["launches"][k] for path, run in train_runs.items()}
                       for k in counters}
+
+    # the fused scoring graph: one upload and one download a batch above the
+    # host-predict cutoff, K1 and the device-route sum inside
+    fused = fused_serving(torch, smi, ST, TS, TR, wide_models["train_wide"],
+                          load_workflow_model, score_function)
+    del wide_models
+    phase("fused_serving", **fused)
 
     phase("wall", seconds=time.perf_counter() - t_start,
           profiler_missed_activities=device_ms.missed_activities,
@@ -4073,6 +4559,9 @@ def main() -> int:
                 "the profiler's; library = one torch.sum(dim=1), the same "
                 "function in another order",
         "launches": route["route_launches"],
+        "launches_by_path": {
+            "serving_device_route": route["route_launches"],
+            "fused_serving": fused["launches"]["tree_sum_device_route"]},
         "max_abs_err": max(route_main["max_abs_err"],
                            max(r["max_abs_err"] for r in route_rows.values())),
         "ms": route_main["ms"],
@@ -4160,7 +4649,8 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {**k1_weights,
                              "fit_side to_train": fit_launches["serve_trees"],
-                             **train_launches["serve_trees"]},
+                             **train_launches["serve_trees"],
+                             "fused_serving": fused["launches"]["serve_trees"]},
         "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
                            k1_reg["max_abs_err"]),
         "ms": k1_paths["packed_ms"],

@@ -70,7 +70,8 @@ REQUIRED = (
     "evaluators/forecast.py", "prep/splitters.py", "utils/table.py",
     "selector/validators.py", "selector/model_selector.py",
     "workflow/workflow.py", "workflow/cv.py", "workflow/persistence.py",
-    "workflow/dag.py",
+    "workflow/dag.py", "compiler/fused.py", "compiler/dispatch.py",
+    "featurize/quantize.py", "local/scoring.py",
 )
 
 
@@ -99,6 +100,13 @@ with open({os.path.join(FIXTURE, "rows.json")!r}) as fh:
     rows = json.load(fh)
 fn = score_function(load_workflow_model({FIXTURE!r}, device="cpu"), device="cpu")
 out = fn.batch(rows[:8])
+import os
+os.environ["TPTPU_HOST_PREDICT_MAX"] = "0"
+quantized = score_function(load_workflow_model({FIXTURE!r}, device="cpu"),
+                           device="cpu", quantized=True)
+assert len(quantized.batch(rows[:8])) == 8
+assert quantized.metadata()["fused"]["dispatches"] == 1
+del os.environ["TPTPU_HOST_PREDICT_MAX"]
 import numpy as np
 from transmogrifai_tpu_torch.models.gbdt import (
     RandomForestClassifier, XGBoostClassifier,

@@ -20,6 +20,14 @@ training table's count, by default):
 hashed into 512 buckets), so the correlation input holds 16384 x 1424
 elements, above the reference's 2^22-element float32 threshold.
 
+``wide_hash_table(n, seed)`` makes ``wide_table``'s draws unchanged, the
+label included, and leaves the ``t_sex`` column out of the schema and the
+columns. Its SmartText member is then hash-only, the fused scoring graph
+can serve it (a member that mixes Pivot and Hash slots cannot be fused), and
+``transmogrify`` makes 1419 vector columns of it: 2 Binary, 4 Integral,
+20 Real, 40 x 22 PickList and 513 hashed text (512 buckets and a null
+indicator).
+
 Each builder returns ``(schema, columns)``: feature type name and list of
 row values (``None`` for missing) per column name, in column order.
 """
@@ -105,4 +113,10 @@ def wide_table(n: int = WIDE_ROWS, seed: int = WIDE_SEED):
              + 0.1 * (i0 - 4.5) + 0.5 * (p00 < 3) + 1.0 * female - 0.6
              + rng.normal(0.0, 1.0, n))
     schema["label"], columns["label"] = "RealNN", (score > 0).astype(float).tolist()
+    return schema, columns
+
+
+def wide_hash_table(n: int = WIDE_ROWS, seed: int = WIDE_SEED):
+    schema, columns = wide_table(n, seed)
+    del schema["t_sex"], columns["t_sex"]
     return schema, columns

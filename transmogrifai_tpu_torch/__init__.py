@@ -20,7 +20,9 @@ multiclass factories) over ``selector.validators`` and ``evaluators``,
 ``workflow.workflow.Workflow().train()`` (with ``with_workflow_cv()``,
 ``workflow/cv.py``), ``model.score``, ``model.evaluate``,
 ``model.summary_pretty()`` and ``model.save``, in the JAX package's saved
-format. The fused scoring graph and the other planes are not ported yet
+format. ``score_function`` serves batches above the host-predict cutoff
+through the fused scoring graph (``compiler/fused.py``: one upload, the
+plan on the card, one download). The other planes are not ported yet
 (``ROADMAP.md`` A).
 """
 from . import dsl  # noqa: F401  (installs Feature.sanity_check)

@@ -4,6 +4,7 @@ rawPrediction_*), and the estimator that fits one from dense arrays."""
 from __future__ import annotations
 
 import copy
+import threading
 from typing import Any
 
 import numpy as np
@@ -171,3 +172,59 @@ class LinearCoreModel(PredictorModel):
 
     def predict_arrays(self, x):
         return self.predictions_from_core(self.predict_core(x))
+
+    def fused_predict_spec(self):
+        """The fused graph's device core: the reference's fused arithmetic,
+        a float32 ``plane @ w + b`` with float32 copies of the coefficients
+        (scores within 1e-6 of the staged float64 core), not the staged
+        float64. TF32 is off inside the call, so the product is full
+        float32."""
+        from ..compiler.fused import PredictorPlan
+
+        w, b = self._coefficients()
+        params = {"w": np.asarray(w, dtype=np.float32),
+                  "b": np.asarray(b, dtype=np.float32)}
+
+        def core(plane, p):
+            with FULL_FLOAT32:
+                return plane @ p["w"] + p["b"]
+
+        return PredictorPlan(
+            stage=self, in_dim=int(params["w"].shape[0]), params=params,
+            core=core, epilogue=self.predictions_from_core,
+            outputs_per_row=int(np.prod(params["w"].shape[1:], dtype=int)),
+            descriptor=self.fused_descriptor(),
+        )
+
+    def fused_descriptor(self) -> str:
+        """The predictor's part of the fused program's fingerprint."""
+        raise NotImplementedError
+
+
+class _FullFloat32:
+    """Float32 matrix products with TF32 off on the card inside a block.
+    The flag is process-wide, so overlapping blocks (threads scoring
+    through one closure) share one count: the first to enter turns TF32
+    off, the last to leave restores the caller's setting."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = False
+
+    def __enter__(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = False
+            self._depth += 1
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self._depth -= 1
+            if self._depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = self._saved
+        return False
+
+
+FULL_FLOAT32 = _FullFloat32()

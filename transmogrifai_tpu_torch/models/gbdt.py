@@ -143,22 +143,61 @@ class _BinnedModel(PredictorModel):
                 f"{self}: expected [N, {self.thresholds.shape[0]}] features, "
                 f"got {x.shape}"
             )
-        _, boosted = self._tree_stacks()
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        core = self.device_core(xt, device_route=not self._use_host(x))
+        return core.cpu().numpy().astype(np.float64)
+
+    def _window_stacks(self) -> list[ST.PackedTrees]:
+        """Each stack's leaf-window stack, made once (the device route's)."""
+        if not self.window_stacks:
+            self.window_stacks = [ST.window_stack(p) for p in self.device_stacks]
+        return self.window_stacks
+
+    def device_core(self, xt: torch.Tensor, device_route: bool) -> torch.Tensor:
+        """float32 [N, k] core of a float32 [N, F] tensor on the model's
+        device: ``bin_data``, then per stack the walk (K1) and its sum, in
+        the reference's device-route order or its tree order. The staged
+        predict and the fused graph's core both run this."""
+        _, boosted = self._tree_stacks()
         binned = TR.bin_data(xt, self._dev_thr)
         eta, base = ((self.eta, self.base_score) if boosted else (0.0, 0.0))
-        if not self._use_host(x):
-            if not self.window_stacks:
-                self.window_stacks = [ST.window_stack(p)
-                                      for p in self.device_stacks]
+        if device_route:
             outs = [ST.predict_device_route(binned, t, w, boosted, eta, base)
-                    for t, w in zip(self.device_stacks, self.window_stacks)]
+                    for t, w in zip(self.device_stacks, self._window_stacks())]
         elif boosted:
             outs = [ST.predict_boosted(binned, t, eta, base)
                     for t in self.device_stacks]
         else:
             outs = [ST.predict_forest(binned, t) for t in self.device_stacks]
-        return torch.stack(outs, dim=1).cpu().numpy().astype(np.float64)
+        # one stack (every ported family's) is a view: no device copy
+        return outs[0][:, None] if len(outs) == 1 else torch.stack(outs, dim=1)
+
+    def fused_predict_spec(self):
+        """The fused graph's device core: ``device_core`` over the plane on
+        its device route (the fused graph runs only above the host-predict
+        cutoff, as the reference's does), the window stacks made here, once
+        before the first batch; the epilogue is the staged one, so scores
+        are equal."""
+        from ..compiler.fused import PredictorPlan, Unfuseable
+
+        if self.device is None and self.default_device is not None:
+            self.to(self.default_device)
+        if self.device is None:
+            raise Unfuseable(f"{self} is not placed on a device")
+        stacks, boosted = self._tree_stacks()
+        self._window_stacks()
+        return PredictorPlan(
+            stage=self, in_dim=int(self.thresholds.shape[0]), params={},
+            core=lambda plane, p: self.device_core(plane, device_route=True),
+            epilogue=self.predictions_from_core, outputs_per_row=len(stacks),
+            descriptor=f"{'boost' if boosted else 'forest'}:{len(stacks)}",
+        )
+
+    def fused_bin_thresholds(self) -> np.ndarray:
+        """Per-input bin edges for the quantized plane: bin-aligned codes
+        that re-bin to themselves on the device, so quantized tree scores
+        equal the float32 plane's (``featurize/quantize.py``)."""
+        return np.asarray(self.thresholds, dtype=np.float32)
 
     def predictions_from_core(self, core: np.ndarray):
         """(pred, prob, raw) from the [N, k] core: the float64 host tail."""

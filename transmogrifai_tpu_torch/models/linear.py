@@ -37,6 +37,9 @@ class LinearRegressionModel(LinearCoreModel):
     def _coefficients(self):
         return self.weights, np.float64(self.intercept)
 
+    def fused_descriptor(self) -> str:
+        return "linreg"
+
     def predictions_from_core(self, core: np.ndarray):
         return np.asarray(core, dtype=np.float64), None, None
 

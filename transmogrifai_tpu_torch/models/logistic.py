@@ -53,6 +53,9 @@ class LogisticRegressionModel(LinearCoreModel):
     def _coefficients(self):
         return self.weights, self.intercept
 
+    def fused_descriptor(self) -> str:
+        return f"logreg:{self.num_classes}"
+
     def predictions_from_core(self, core: np.ndarray):
         """(pred, prob, raw) from the linear core (binary margin [N] or
         multinomial logits [N, C]): the float64 host epilogue."""

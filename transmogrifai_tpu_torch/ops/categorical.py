@@ -117,6 +117,23 @@ class OneHotModel(VectorizerModel):
             )
         return blocks, metas
 
+    def fused_member_spec(self):
+        """The fused graph's member: codes resolved on the host, the
+        one-hot scatter on the device. A set-valued pivot (member counts,
+        not indicators) is refused."""
+        from ..compiler.fused import Unfuseable, onehot_member
+        from ..types import OPSet
+
+        for feat in self.input_features:
+            if issubclass(feat.ftype, OPSet):
+                raise Unfuseable(
+                    f"set-valued pivot '{feat.name}' emits member counts — "
+                    "not expressible as a code scatter"
+                )
+        return onehot_member(
+            self, self.vocabs, self.track_nulls, self.clean_text
+        )
+
 
 class OneHotVectorizer(VectorizerEstimator):
     """Sequence estimator pivoting categorical text features (defaults

@@ -73,7 +73,9 @@ class NumericVectorizerModel(VectorizerModel):
         super().__init__("vecNumeric", **kw)
         self.fills = fills
         self.track_nulls = track_nulls
-        #: fit-time per-column [lo, hi]; carried for the saved format only
+        #: fit-time per-column [lo, hi]: the quantized plane's scales (None
+        #: on models saved without them: a quantized build keeps their
+        #: float32 member)
         self.value_ranges = value_ranges
 
     def get_arrays(self):
@@ -94,6 +96,17 @@ class NumericVectorizerModel(VectorizerModel):
                 _value_and_null_meta(feat.name, feat.ftype, self.track_nulls)
             )
         return blocks, metas
+
+    def fused_member_spec(self):
+        """The fused graph's member: values and masks up, impute and
+        null-track on the device; the fit ranges ride along for the
+        quantized plane."""
+        from ..compiler.fused import numeric_member
+
+        return numeric_member(
+            self, np.asarray(self.fills, dtype=np.float32),
+            self.track_nulls, ranges=self.value_ranges,
+        )
 
 
 class RealVectorizer(VectorizerEstimator):
@@ -186,6 +199,16 @@ class BinaryVectorizer(VectorizerTransformer):
             )
         return blocks, metas
 
+    def fused_member_spec(self):
+        from ..compiler.fused import numeric_member
+
+        n = len(self.input_features)
+        fills = np.full(n, float(self.fill_value), dtype=np.float32)
+        # Binary values are {0, 1}: the quantized plane needs no fit pass
+        return numeric_member(
+            self, fills, self.track_nulls, ranges=[[0.0, 1.0]] * n
+        )
+
 
 class RealNNVectorizer(VectorizerTransformer):
     """RealNN passthrough (no nulls possible)."""
@@ -199,3 +222,8 @@ class RealNNVectorizer(VectorizerTransformer):
             blocks.append(_numeric(col).values.astype(np.float64)[:, None])
             metas.append([ColumnMeta((feat.name,), feat.ftype.__name__)])
         return blocks, metas
+
+    def fused_member_spec(self):
+        from ..compiler.fused import passthrough_member
+
+        return passthrough_member(self, len(self.input_features))

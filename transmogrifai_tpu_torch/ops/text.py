@@ -139,6 +139,37 @@ def decide_method(
     return HASH
 
 
+def token_buckets(tokens: list[str], num_buckets: int, seed: int) -> np.ndarray:
+    """int64 ``murmur3(token) % num_buckets`` per token, each distinct
+    token hashed once."""
+    bucket_of: dict[str, int] = {}
+    cols = np.empty(len(tokens), dtype=np.int64)
+    for i, t in enumerate(tokens):
+        j = bucket_of.get(t)
+        if j is None:
+            j = bucket_of[t] = murmur3_32(t, seed) % num_buckets
+        cols[i] = j
+    return cols
+
+
+def row_tokens(
+    values: Sequence, prefix: str, to_lowercase: bool, min_token_length: int,
+) -> tuple[list[str], np.ndarray]:
+    """(tokens, their int64 rows) of a text column in row and token order,
+    each token with ``prefix`` in front: the staged hash block's and the
+    fused graph's text ingest's one tokenization."""
+    texts, rows_idx = _partition_nulls(values)
+    tokens: list[str] = []
+    rows: list[int] = []
+    for r, raw in zip(rows_idx.tolist(), texts):
+        for t in tokenize(
+            raw, to_lowercase=to_lowercase, min_token_length=min_token_length,
+        ):
+            tokens.append(prefix + t)
+            rows.append(r)
+    return tokens, np.asarray(rows, dtype=np.int64)
+
+
 def murmur3_scatter(
     tokens: list[str],
     rows: np.ndarray,
@@ -149,15 +180,8 @@ def murmur3_scatter(
     col_offset: int = 0,
 ) -> np.ndarray:
     """out[rows[i], col_offset + h(tokens[i]) % num_buckets] += 1 (set to 1
-    when ``binary``); each distinct token is hashed once."""
-    bucket_of: dict[str, int] = {}
-    cols = np.empty(len(tokens), dtype=np.int64)
-    for i, t in enumerate(tokens):
-        j = bucket_of.get(t)
-        if j is None:
-            j = bucket_of[t] = murmur3_32(t, seed) % num_buckets
-        cols[i] = j
-    cols += col_offset
+    when ``binary``)."""
+    cols = token_buckets(tokens, num_buckets, seed) + col_offset
     if binary:
         out[rows, cols] = 1.0
     else:
@@ -186,24 +210,15 @@ def hash_block(
     if out is None:
         out = np.zeros((n, num_features + int(track_nulls)), dtype=np.float32)
         col_offset = 0
-    prefix = f"{feature_slot}_" if shared else ""
-    texts, rows_idx = _partition_nulls(values)
-    if track_nulls and len(rows_idx) < n:
-        null_rows = np.ones(n, dtype=bool)
-        null_rows[rows_idx] = False
-        out[null_rows, col_offset + num_features] = 1.0
-    tokens: list[str] = []
-    rows: list[int] = []
-    for r, raw in zip(rows_idx.tolist(), texts):
-        for t in tokenize(
-            raw, to_lowercase=to_lowercase, min_token_length=min_token_length,
-        ):
-            tokens.append(prefix + t)
-            rows.append(r)
+    if track_nulls:
+        out[[v is None for v in values], col_offset + num_features] = 1.0
+    tokens, rows = row_tokens(
+        values, f"{feature_slot}_" if shared else "", to_lowercase,
+        min_token_length,
+    )
     if tokens:
         murmur3_scatter(
-            tokens, np.asarray(rows, dtype=np.int64), num_features, seed,
-            binary_freq, out, col_offset,
+            tokens, rows, num_features, seed, binary_freq, out, col_offset,
         )
     return out
 
@@ -272,6 +287,22 @@ class SmartTextModel(VectorizerModel):
             "binary_freq": self.binary_freq,
             "seed": self.seed,
         }
+
+    def fused_member_spec(self):
+        """The fused graph's member: an all-Pivot model rides the one-hot
+        scatter; one with Hash slots the hashed-text scatter (which refuses
+        a model that mixes Pivot and Hash slots)."""
+        from ..compiler.fused import hashed_text_member, onehot_member
+
+        if self.methods and all(m == PIVOT for m in self.methods):
+            return onehot_member(
+                self, self.vocabs, self.track_nulls, self.clean_text
+            )
+        return hashed_text_member(
+            self, self.methods, self.num_hashes, self.track_nulls,
+            self.binary_freq, self.to_lowercase, self.min_token_length,
+            self.seed,
+        )
 
     def blocks_for(self, cols: Sequence[Column], num_rows: int):
         """One float32 buffer for the whole stage: pivot blocks are copied

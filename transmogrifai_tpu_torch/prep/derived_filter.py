@@ -51,6 +51,13 @@ class FeatureRemovalModel(Model):
             ),
         )
 
+    def fused_gather_indices(self) -> np.ndarray | None:
+        """The keep-index gather of the fused graph, or None where this
+        model passes the vector through."""
+        if not self.remove_bad_features:
+            return None
+        return np.asarray(self.indices_to_keep, dtype=np.int32)
+
     def transform_columns(self, *cols: Column, num_rows: int) -> VectorColumn:
         # inputs are (label, vector); the vector is always the last input
         vec = cols[-1]

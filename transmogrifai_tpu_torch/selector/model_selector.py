@@ -195,6 +195,25 @@ class SelectedModel(PredictorModel):
     def predict_arrays(self, x: np.ndarray):
         return self.best_model.predict_arrays(x)
 
+    def fused_predict_spec(self):
+        """The winner's device core for the fused graph (its epilogue too,
+        so the staged path's arithmetic carries over)."""
+        spec_fn = getattr(self.best_model, "fused_predict_spec", None)
+        if spec_fn is None:
+            from ..compiler.fused import Unfuseable
+
+            raise Unfuseable(
+                f"selected model family {type(self.best_model).__name__} "
+                "has no fused device predict"
+            )
+        return spec_fn()
+
+    def fused_bin_thresholds(self):
+        """The winner's bin edges for the quantized plane (None where the
+        winning family does not bin: the quantizer takes affine codes)."""
+        thr_fn = getattr(self.best_model, "fused_bin_thresholds", None)
+        return thr_fn() if thr_fn is not None else None
+
     def get_arrays(self):
         return {f"best__{k}": v for k, v in self.best_model.get_arrays().items()}
 
