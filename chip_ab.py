@@ -445,9 +445,9 @@ def time_k4ring(cs, torch) -> None:
 #: the device-route calls of ``chip_smoke.py``'s serving phase: the xgb
 #: fixture and its twin (200 boosted trees of depth 10: 32 leaf windows),
 #: the rf fixture (50 trees of depth 12: 128) and its depth-10 twin
-SERVING_ROUTES = {"serving T=200 H=32": (20000, 200, 32, True),
-                  "serving T=50 H=128": (20000, 50, 128, False),
-                  "serving T=50 H=32": (20000, 50, 32, False)}
+SERVING_ROUTES = {"serving T=200 H=32": (20000, 200, 32, 10, True),
+                  "serving T=50 H=128": (20000, 50, 128, 12, False),
+                  "serving T=50 H=32": (20000, 50, 32, 10, False)}
 
 
 def time_route(cs, torch) -> None:
@@ -457,7 +457,7 @@ def time_route(cs, torch) -> None:
     shapes = {label: v for label, v in cs.ROUTE_SHAPES.items()
               if label.startswith(("a", "b"))}
     shapes.update(SERVING_ROUTES)
-    for label, (n, t, h, boosted) in shapes.items():
+    for label, (n, t, h, depth, boosted) in shapes.items():
         per_tree = torch.from_numpy(
             (rng.normal(size=(n, t)) * 10.0 ** rng.integers(-3, 2, (n, t)))
             .astype(np.float32)).to(cs.DEV)
@@ -466,7 +466,8 @@ def time_route(cs, torch) -> None:
         cold = cs.l2_cold_copies([per_tree, win], 8 * n * t)
 
         def run(pt, w):
-            return TS.tree_sum_device_route(pt, w, h, boosted, 0.02, 0.37)
+            return TS.tree_sum_device_route(pt, w, h, depth, boosted, 0.02,
+                                            0.37)
 
         bound, _ = cs.route_bound_ms(n, t, h)
         ms = cs.device_ms(torch, run, cold)

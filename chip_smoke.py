@@ -146,6 +146,16 @@ paths:
   K1, the sum). ``train_wide``'s model and the CSV twin's (SmartText
   members of Pivot and Hash slots) build no program, with the JAX
   package's reason, and score staged. Rows/s of both paths at both sizes.
+  The twins' tree models and ``text_xgb`` above the cutoff EQUAL the JAX
+  package's scores (``tests/fixtures/torch_fused/jax_scores.npz``);
+* every feature type (``train_all_types``): the 22 type groups of
+  ``transmogrify``'s default dispatch (``tests/torch_fixtures/
+  all_types.py``, 16384 rows) through ``sanity_check`` on the card, the
+  default tree candidates and ``train()``, then 20000 fresh rows scored
+  above the cutoff (staged: the fused planner refuses the plan); the
+  vector, keep-set, selector summary (at the CPU tests' small grids) and
+  scores EQUAL the port's CPU runs; ``train()``'s seconds, the card's
+  busy share and every kernel's launches.
 
 Kernel K4, the fused split search, is on no path of the reference (its
 policy never takes it); it is held against its plain version at the
@@ -153,7 +163,8 @@ reference's fused-route shapes, timed whole (its row order and its
 kernel), and beside the two-phase route on the same inputs (the row order,
 K2 or K3, then the split-search kernel). The device-route tree sum is timed beside one
 ``torch.sum(dim=1)`` in 16 interleaved pairs at (a), (b) and serving's
-calls.
+calls, and in 2 at (g)-(j), the reduced orders of ``ROADMAP.md`` C4 (lanes
+of 8 and 4, ``fold_w``), which (g)-(l) hold to the plain version.
 
 Every phase that fails raises, and the script exits non-zero with no result
 line; it never falls back to the CPU.
@@ -959,14 +970,25 @@ def check_tree_sum_path(torch, TS, records: dict, path: str,
 #: depth-10 rounds (32 windows) at 65536 rows; untimed (c) ragged, depth <= 5
 #: (one window, no window array) and (d) ragged, 2 windows; (e) three levels
 #: of windows (T > 1024); (f) depth 12 (128 windows, three levels)
+#: (N, T, H, depth, boosted); (g)-(l) are the shapes whose order the
+#: reference vectorizes (ROADMAP.md C4; tree_sum.route_order): lanes of 8
+#: and 4 (R1), fold_w over 2 and 4 tree windows (R2)
 ROUTE_SHAPES = {
-    "a_depth6": (20000, 200, 2, True),
-    "b_depth10": (65536, 200, 32, True),
-    "c_ragged_one_window": (16385, 7, 1, False),
-    "d_ragged": (16385, 7, 2, True),
-    "e_many_trees": (1001, 1100, 4, False),
-    "f_depth12": (4099, 50, 128, True),
+    "a_depth6": (20000, 200, 2, 6, True),
+    "b_depth10": (65536, 200, 32, 10, True),
+    "c_ragged_one_window": (16385, 7, 1, 5, False),
+    "d_ragged": (16385, 7, 2, 6, True),
+    "e_many_trees": (1001, 1100, 4, 7, False),
+    "f_depth12": (4099, 50, 128, 12, True),
+    "g_r1_lanes8": (20000, 20, 1, 4, True),
+    "h_r1_lanes4": (20000, 20, 1, 3, False),
+    "i_r2_fold_w": (32768, 50, 2, 6, False),
+    "j_r2_fold_w4": (65536, 100, 2, 6, True),
+    "k_r1_lanes8_ragged": (16385, 27, 1, 5, False),
+    "l_r2_fold_w_33": (32768, 33, 2, 6, True),
 }
+#: the shapes timed against their bound and one torch.sum(dim=1)
+ROUTE_TIMED = ("a", "b", "g", "h", "i", "j")
 #: rows of the device-route serving batch (above the reference's 16384)
 ROUTE_ROWS = 20000
 
@@ -982,25 +1004,28 @@ def route_bound_ms(n: int, t: int, h: int) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_tree_sum_route(torch, TS, name, per_tree, win, h, boosted, eta,
-                         base, timed: bool, pairs: int = 2) -> dict:
+def check_tree_sum_route(torch, TS, name, per_tree, win, h, depth, boosted,
+                         eta, base, timed: bool, pairs: int = 2) -> dict:
     """The device-route mode against its plain version on the same card
     tensors and on CPU copies, bit for bit; with ``timed``, its times as
     ``check_tree_sum`` takes them (the library call: one
     ``torch.sum(dim=1)``, the same function in another order, in ``pairs``
     pairs of readings), and its time over its bound."""
-    got = TS.tree_sum_device_route(per_tree, win, h, boosted, eta, base)
-    want = TS.tree_sum_device_route_plain(per_tree, win, h, boosted, eta, base)
+    got = TS.tree_sum_device_route(per_tree, win, h, depth, boosted, eta,
+                                   base)
+    want = TS.tree_sum_device_route_plain(per_tree, win, h, depth, boosted,
+                                          eta, base)
     cpu = TS.tree_sum_device_route_plain(
-        per_tree.cpu(), None if win is None else win.cpu(), h, boosted, eta,
-        base)
+        per_tree.cpu(), None if win is None else win.cpu(), h, depth, boosted,
+        eta, base)
     torch.cuda.synchronize()
     if not (same_values(torch, got, want) and same_values(torch, got.cpu(), cpu)):
         bad = int((got != want).sum().item())
         raise AssertionError(f"tree_sum_device_route {name}: kernel != plain "
                              f"version ({bad} rows)")
     n, t = per_tree.shape
-    out = {"shape": {"N": n, "T": t, "H": h}, "boosted": bool(boosted),
+    out = {"shape": {"N": n, "T": t, "H": h, "depth": depth},
+           "order": TS.route_order(t, depth, h, n), "boosted": bool(boosted),
            "max_abs_err": float((got - want).nan_to_num().abs().max().item())
            if n else 0.0, "bit_identical": True}
     if timed:
@@ -1009,10 +1034,12 @@ def check_tree_sum_route(torch, TS, name, per_tree, win, h, boosted, eta,
         cold = l2_cold_copies(args, sum(a.numel() for a in args) * 4)
 
         def kernel(pt, w=None):
-            return TS.tree_sum_device_route(pt, w, h, boosted, eta, base)
+            return TS.tree_sum_device_route(pt, w, h, depth, boosted, eta,
+                                            base)
 
         def plain(pt, w=None):
-            return TS.tree_sum_device_route_plain(pt, w, h, boosted, eta, base)
+            return TS.tree_sum_device_route_plain(pt, w, h, depth, boosted,
+                                                  eta, base)
 
         def library(pt, w=None):
             return torch.sum(pt, dim=1)
@@ -1028,8 +1055,8 @@ def check_tree_sum_route(torch, TS, name, per_tree, win, h, boosted, eta,
 
 
 class RouteCapture:
-    """Records the first device-route tree sum of every (N, T, H, boosted)
-    group that the predictors make (through ``serve_trees``'s name for
+    """Records the first device-route tree sum of every (N, T, H, depth,
+    boosted) group that the predictors make (through ``serve_trees``'s name for
     it), with how many calls each group makes. It adds no launch."""
 
     def __init__(self, ST):
@@ -1038,9 +1065,9 @@ class RouteCapture:
         self.records: dict[tuple, dict] = {}
 
     def __enter__(self):
-        def hook(per_tree, leaf_window, num_windows, boosted, eta=0.0,
+        def hook(per_tree, leaf_window, num_windows, depth, boosted, eta=0.0,
                  base_score=0.0):
-            key = (per_tree.shape[0], per_tree.shape[1], num_windows,
+            key = (per_tree.shape[0], per_tree.shape[1], num_windows, depth,
                    bool(boosted))
             rec = self.records.get(key)
             if rec is None:
@@ -1050,8 +1077,8 @@ class RouteCapture:
                     "eta": eta, "base": base_score, "count": 1}
             else:
                 rec["count"] += 1
-            return self.real(per_tree, leaf_window, num_windows, boosted, eta,
-                             base_score)
+            return self.real(per_tree, leaf_window, num_windows, depth,
+                             boosted, eta, base_score)
 
         self.ST.tree_sum_device_route = hook
         return self
@@ -1157,11 +1184,11 @@ def check_route_path(torch, TS, records: dict, pairs: int = 2) -> dict:
     group's calls, and with more than 2 ``pairs`` the weighted sums of each
     pair's readings compared pair by pair (``pair_verdict``)."""
     rows = []
-    for (n, t, h, boosted), rec in records.items():
+    for (n, t, h, depth, boosted), rec in records.items():
         rows.append({"weight": rec["count"], **check_tree_sum_route(
-            torch, TS, f"serving N={n} T={t} H={h}", rec["per_tree"],
-            rec["win"], h, boosted, rec["eta"], rec["base"], timed=True,
-            pairs=pairs)})
+            torch, TS, f"serving N={n} T={t} H={h} depth={depth}",
+            rec["per_tree"], rec["win"], h, depth, boosted, rec["eta"],
+            rec["base"], timed=True, pairs=pairs)})
     if not rows:
         raise AssertionError("no device-route sum of the serving path was "
                              "captured")
@@ -2007,20 +2034,23 @@ def check_train_fixture(torch) -> dict:
 
 
 #: the GBT regressor's depth-12 group at 256 bins, one round, fitted on the
-#: card and on the CPU (the scatter-add leaf sums' shape: 18 lanes x 16384
-#: rows x 4096 slots)
+#: card and on the CPU: its first ``GBT_DEPTH12_POINTS`` grid points (the
+#: scatter-add leaf sums' shape: 3 fold lanes a point x 16384 rows x 4096
+#: slots; the group's 6 points took 32-40 s on the CPU)
 GBT_DEPTH12_ROUNDS = 1
+GBT_DEPTH12_POINTS = 2
 
 
 def check_gbt_depth12_cpu(torch, x, target, masks) -> dict:
-    """The GBT regressor's depth-12 grid group (6 points x 3 fold masks) at
-    256 bins for ``GBT_DEPTH12_ROUNDS`` round on the card and on the CPU:
-    every tree cell (splits and leaves) and every output equal."""
+    """The GBT regressor's depth-12 grid group (its first
+    ``GBT_DEPTH12_POINTS`` points x 3 fold masks) at 256 bins for
+    ``GBT_DEPTH12_ROUNDS`` round on the card and on the CPU: every tree cell
+    (splits and leaves) and every output equal."""
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import leaf_sum as LS
 
     grid = [dict(p, max_iter=GBT_DEPTH12_ROUNDS) for p in GBT_GRID
-            if p["max_depth"] == 12]
+            if p["max_depth"] == 12][:GBT_DEPTH12_POINTS]
     leaf_sums = LS.leaf_sum.launches
     card, card_s, _ = fit_family(torch, G.GBTRegressor(device=DEV), x, target,
                                  masks, grid)
@@ -3671,6 +3701,160 @@ def train_wide(torch, smi: str, counters, trees_only: bool = False) -> dict:
             "direct_refit_s": direct_s, **rt, "_model": model}
 
 
+#: the all-types phase (``tests/torch_fixtures/all_types.py``): its training
+#: rows, the fresh rows it scores (above the host-predict cutoff), and the
+#: rows of the small-grid flow trained on the card and on the CPU
+ALL_TYPES_ROWS = 16384
+ALL_TYPES_FRESH_ROWS = 20000
+ALL_TYPES_SMALL_ROWS = 4096
+
+
+def all_types_module():
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import all_types
+
+    return all_types
+
+
+def same_vectors(what: str, got, want) -> None:
+    import dataclasses
+
+    def metas(col):
+        return [dataclasses.asdict(c) for c in col.metadata.columns]
+
+    if not (np.array_equal(np.asarray(got.values), np.asarray(want.values))
+            and metas(got) == metas(want)):
+        raise AssertionError(f"{what}: the vectors or their metadata differ")
+
+
+def train_all_types(torch, smi: str, counters, score_function,
+                    load_workflow_model) -> dict:
+    """Every type of transmogrify's default dispatch on the card:
+    ``all_types_table(16384)`` (22 predictors, one per type group, about
+    20% of each empty) through ``from_dataset`` -> ``transmogrify`` ->
+    ``sanity_check`` (statistics on the card) ->
+    ``BinaryClassificationModelSelector`` over the default tree candidates
+    -> ``Workflow.train()``, then ``score_function`` on 20000 fresh rows
+    (the fused planner refuses the plan: the batch scores staged, through
+    K1 and the device-route sum). Held EQUAL to the port's CPU runs: the
+    vector and keep-set to the feature side fitted on the CPU on the same
+    training rows; the scores to the card's model saved, loaded on the CPU
+    and scoring the same rows; and, since the default grids' CPU run would
+    take about an hour, the flow at the CPU tests' small grids on the
+    table's first 4096 rows, trained on the card and on the CPU: selector
+    summary and fresh scores."""
+    import tempfile
+
+    AT = all_types_module()
+    t0 = time.perf_counter()
+    ds = AT.all_types_table(ALL_TYPES_ROWS, AT.SEED)
+    fresh = AT.all_types_table(ALL_TYPES_FRESH_ROWS, AT.SEED + 1)
+    rows = fresh.rows([n for n in fresh.columns if n != "label"])
+    table_s = time.perf_counter() - t0
+
+    wf, pred, checked, selector = AT.build_flow("port", ds, grids=False,
+                                                device=DEV)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with UtilizationSampler(period_ms=100) as util, TrainTimer() as timer:
+        t1 = time.time()
+        p0 = time.perf_counter()
+        model = wf.train()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - p0
+        t2 = time.time()
+    seconds = timer.split(total)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    busy = util.between(t1, t2)
+    summary = model.summary_json()["modelSelectorSummary"]
+    check_lanes("train_all_types", summary)
+    for k in ("hist_binloop", "node_order", "split_search"):
+        if not launches[k]:
+            raise AssertionError(f"train_all_types: {k} never ran in train()")
+
+    # the vector and keep-set: the feature side fitted on the CPU on the
+    # same training rows
+    train_idx, _ = selector.splitter.split(ds.num_rows)
+    train = ds.take(train_idx)
+    data = model.score(train, keep_intermediate_features=True)
+    p0 = time.perf_counter()
+    cdata, cvec, cchecked, _ = AT.feature_side("port", train, device="cpu")
+    cpu_feature_s = time.perf_counter() - p0
+    vec_name = checked.origin_stage.input_features[-1].name
+    if (cvec.name, cchecked.name) != (vec_name, checked.name):
+        raise AssertionError("train_all_types: the CPU feature side's names")
+    for name, what in ((vec_name, "vector"), (checked.name, "keep-set")):
+        same_vectors(f"train_all_types {what} card vs cpu", data[name],
+                     cdata[name])
+
+    # the fresh rows above the cutoff on the card, then on the CPU
+    fn = score_function(model, device=DEV)
+    for c in counters.values():
+        c.launches = 0
+    p0 = time.perf_counter()
+    card = score_matrix(fn.batch(rows))
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - p0
+    score_launches = {k: c.launches for k, c in counters.items()}
+    for c in counters.values():
+        c.launches = 0
+    md = fused_md(fn)
+    if md["active"] or md["fallbackReasons"] != {"unfuseable": 1} \
+            or "has no fused kernel" not in (md["reason"] or ""):
+        raise AssertionError(f"train_all_types: the fused planner {md}")
+    for k in ("serve_trees", "tree_sum_device_route"):
+        if not score_launches[k]:
+            raise AssertionError(f"train_all_types: scoring launched no {k}")
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        cpu_model = load_workflow_model(tmp, device="cpu")
+    p0 = time.perf_counter()
+    cpu = score_matrix(score_function(cpu_model, device="cpu").batch(rows))
+    cpu_score_s = time.perf_counter() - p0
+    same_scores("train_all_types card vs cpu", card, cpu, False)
+
+    # the small-grid flow on the card and on the CPU
+    small = ds.take(np.arange(ALL_TYPES_SMALL_ROWS))
+    runs = {}
+    for dev in dict.fromkeys((DEV, "cpu")):
+        p0 = time.perf_counter()
+        m, _, _, _ = AT.train_flow("port", small, device=dev)
+        runs[dev] = {"train_s": time.perf_counter() - p0,
+                     "summary": m.summary_json()["modelSelectorSummary"],
+                     "scores": score_matrix(score_function(
+                         m, device=dev).batch(rows))}
+    card_run = runs[DEV]
+    if not same_json(card_run["summary"], runs["cpu"]["summary"]):
+        raise AssertionError("train_all_types: the small grids' selector "
+                             "summary differs from the CPU's")
+    small_err = same_scores("train_all_types small grids card vs cpu",
+                            card_run["scores"], runs["cpu"]["scores"], False)
+    return {
+        "card": smi, "rows": ALL_TYPES_ROWS, "table_s": table_s,
+        "vector_columns": int(np.asarray(data[vec_name].values).shape[1]),
+        "keep_set_size": int(np.asarray(data[checked.name].values).shape[1]),
+        "vector_and_keep_set_equal_cpu": True,
+        "cpu_feature_side_s": cpu_feature_s,
+        **seconds, "launches": launches,
+        "device_busy_share": sum(busy) / len(busy) / 100.0 if busy
+        else "not measured", "busy_samples": len(busy),
+        "winner": summary["bestModelType"], "grid": summary["bestGrid"],
+        "candidates": len(summary["validationResults"]),
+        "fresh_rows": ALL_TYPES_FRESH_ROWS, "score_s": score_s,
+        "score_launches": score_launches, "fused_refusal": md["reason"],
+        "cpu_score_s": cpu_score_s,
+        "card_vs_cpu_scores_max_abs_err": 0.0,
+        "small_grids": {
+            "rows": ALL_TYPES_SMALL_ROWS,
+            "winner": runs["cpu"]["summary"]["bestModelType"],
+            "grid": runs["cpu"]["summary"]["bestGrid"],
+            "card_train_s": card_run["train_s"],
+            "cpu_train_s": runs["cpu"]["train_s"],
+            "summary_equal": True, "scores_max_abs_err": small_err},
+    }
+
+
 #: the fused scoring graph's phase: batches of the twin fixtures' rows
 #: tiled to these counts (20000 buckets to 24576, padded; 65536 is a bucket)
 FUSED_TILES = (20000, 65536)
@@ -3926,6 +4110,39 @@ def fused_span(torch, TR, counter, fn, call) -> dict:
             "down_bytes": seen.get("downBytes")}
 
 
+def jax_fused_scores() -> dict:
+    """The JAX package's scores above the cutoff, recorded by
+    ``tests/torch_fixtures/make_fused_fixtures.py`` (``score_matrix``
+    columns; the twins' 256 rows, which their tiles repeat)."""
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_fused",
+                              "jax_scores.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def fused_text_xgb(counter, load_workflow_model, score_function) -> dict:
+    """The hash-text fixture ``text_xgb`` (20 boosted trees of depth 4,
+    whose device-route sum runs in 8 lanes, ROADMAP.md C4) with
+    ``TPTPU_HOST_PREDICT_MAX=0``: fused and staged on the card EQUAL the
+    JAX package's fused path."""
+    path = os.path.join(ROOT, "tests", "fixtures", "torch_fused", "text_xgb")
+    with open(os.path.join(path, "rows.json")) as fh:
+        rows = json.load(fh)
+    want = jax_fused_scores()["text_xgb"]
+    os.environ["TPTPU_HOST_PREDICT_MAX"] = "0"
+    try:
+        fn = score_function(load_workflow_model(path))
+        fused = score_matrix(counter.counted(lambda: fn.batch(rows)))
+        stg = score_matrix(staged(fn, lambda: fn.batch(rows)))
+    finally:
+        del os.environ["TPTPU_HOST_PREDICT_MAX"]
+    md = fused_md(fn)
+    if md["dispatches"] != 1 or md["fallbacks"]:
+        raise AssertionError(f"text_xgb: not fused {md}")
+    return {"rows": len(rows),
+            "fused_vs_jax": same_scores("text_xgb fused", fused, want, False),
+            "staged_vs_jax": same_scores("text_xgb staged", stg, want, False)}
+
+
 def fused_twins(torch, TS, TR, counter, load_workflow_model,
                 score_function):
     """The twin fixtures' rows tiled to ``FUSED_TILES`` through ``.batch``
@@ -3933,6 +4150,7 @@ def fused_twins(torch, TS, TR, counter, load_workflow_model,
     card and against the port's fused path on the CPU, rows/s of both
     paths, transfers and the device span of a 65536-row batch."""
     out, rates, transfers, spans = {}, {}, {}, {}
+    jax = jax_fused_scores()
     for name in ("xgb", "rf", "lr"):
         path, rows, _ = load_fixture(name)
         glm = name == "lr"
@@ -3963,6 +4181,9 @@ def fused_twins(torch, TS, TR, counter, load_workflow_model,
                 errs[n]["card_vs_cpu_fused"] = same_scores(
                     f"{name} {n} cpu", fused, score_matrix(cpu.batch(big)),
                     False)
+                errs[n]["card_vs_jax_fused"] = same_scores(
+                    f"{name} {n} jax", fused,
+                    np.resize(jax[name], fused.shape), False)
             rates[name][n] = {
                 "fused_rows_per_s": n / host_seconds(
                     lambda: counter.counted(lambda: fn.batch(big)), reps=2),
@@ -4110,6 +4331,8 @@ def fused_serving(torch, smi: str, ST, TS, TR, wide_model,
     phase("fused_serving twins", card=smi, twins=twins, rows_per_s=rates,
           transfers_per_batch=transfers, span=spans,
           seconds=time.perf_counter() - t0)
+    text_xgb = fused_text_xgb(counter, load_workflow_model, score_function)
+    phase("fused_serving text_xgb", card=smi, **text_xgb)
     wide = fused_full_width(torch, TS, TR, counter, trained, score_function)
     phase("fused_serving wide_hash", card=smi, **wide,
           seconds=time.perf_counter() - t0)
@@ -4119,7 +4342,8 @@ def fused_serving(torch, smi: str, ST, TS, TR, wide_model,
         raise AssertionError(f"fused_serving: launches {launches}")
     refusals = fused_refusals(torch, wide_model, load_workflow_model,
                               score_function)
-    return {"card": smi, "twins": twins, "rows_per_s": rates,
+    return {"card": smi, "twins": twins, "text_xgb": text_xgb,
+            "rows_per_s": rates,
             "transfers_per_batch": transfers,
             f"span_{FUSED_TILES[-1]}": spans,
             "wide_hash": wide, "refused": refusals,
@@ -4186,15 +4410,16 @@ def main() -> int:
             ts_paired[label] = row["paired"]
     # its device-route mode at its shapes (launches here are not counted)
     route_rows = {}
-    for label, (n, t, h, boosted) in ROUTE_SHAPES.items():
+    for label, (n, t, h, depth, boosted) in ROUTE_SHAPES.items():
         per_tree = torch.from_numpy(
             (rng.normal(size=(n, t)) * 10.0 ** rng.integers(-3, 2, (n, t)))
             .astype(np.float32)).to(DEV)
         win = (torch.from_numpy(rng.integers(0, h, (n, t)).astype(np.float32))
                .to(DEV) if h > 1 else None)
         route_rows[label] = check_tree_sum_route(
-            torch, TS, label, per_tree, win, h, boosted, 0.02, 0.37,
-            timed=label.startswith(("a", "b")), pairs=MUST_PAIRS)
+            torch, TS, label, per_tree, win, h, depth, boosted, 0.02, 0.37,
+            timed=label.startswith(ROUTE_TIMED),
+            pairs=MUST_PAIRS if label.startswith(("a", "b")) else 2)
         phase(f"tree_sum_device_route {label}", **route_rows[label])
         del per_tree, win
     # the split-search kernel at its shapes (launches here are not counted)
@@ -4485,8 +4710,6 @@ def main() -> int:
         train_runs[label] = train_wide(torch, smi, counters, trees_only)
         wide_models[label] = train_runs[label].pop("_model")
         phase(label, **train_runs[label])
-    train_launches = {k: {path: run["launches"][k] for path, run in train_runs.items()}
-                      for k in counters}
 
     # the fused scoring graph: one upload and one download a batch above the
     # host-predict cutoff, K1 and the device-route sum inside
@@ -4494,6 +4717,15 @@ def main() -> int:
                           load_workflow_model, score_function)
     del wide_models
     phase("fused_serving", **fused)
+
+    # every type of transmogrify's default dispatch through train() and
+    # scoring above the cutoff, with the kernels' counts read around them
+    train_runs["train_all_types"] = train_all_types(
+        torch, smi, counters, score_function, load_workflow_model)
+    phase("train_all_types", **train_runs["train_all_types"])
+    all_types_scoring = train_runs["train_all_types"]["score_launches"]
+    train_launches = {k: {path: run["launches"][k] for path, run in train_runs.items()}
+                      for k in counters}
 
     phase("wall", seconds=time.perf_counter() - t_start,
           profiler_missed_activities=device_ms.missed_activities,
@@ -4561,7 +4793,9 @@ def main() -> int:
         "launches": route["route_launches"],
         "launches_by_path": {
             "serving_device_route": route["route_launches"],
-            "fused_serving": fused["launches"]["tree_sum_device_route"]},
+            "fused_serving": fused["launches"]["tree_sum_device_route"],
+            "train_all_types scoring": all_types_scoring[
+                "tree_sum_device_route"]},
         "max_abs_err": max(route_main["max_abs_err"],
                            max(r["max_abs_err"] for r in route_rows.values())),
         "ms": route_main["ms"],
@@ -4577,9 +4811,10 @@ def main() -> int:
             "main": route_main["paired"]["verdict"],
             **{label: r["paired"]["verdict"] for label, r in route_rows.items()
                if "paired" in r}},
-        "shapes": {label: {k: r[k] for k in ("ms", "device_ms", "plain_ms",
-                                             "library_ms", "library_device_ms",
-                                             "bound_ms", "device_ms_over_bound")}
+        "shapes": {label: {k: r[k] for k in ("order", "ms", "device_ms",
+                                             "plain_ms", "library_ms",
+                                             "library_device_ms", "bound_ms",
+                                             "device_ms_over_bound")}
                    for label, r in route_rows.items() if "ms" in r},
     }, {
         "name": "split_search",
@@ -4650,7 +4885,9 @@ def main() -> int:
         "launches_by_path": {**k1_weights,
                              "fit_side to_train": fit_launches["serve_trees"],
                              **train_launches["serve_trees"],
-                             "fused_serving": fused["launches"]["serve_trees"]},
+                             "fused_serving": fused["launches"]["serve_trees"],
+                             "train_all_types scoring":
+                                 all_types_scoring["serve_trees"]},
         "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
                            k1_reg["max_abs_err"]),
         "ms": k1_paths["packed_ms"],

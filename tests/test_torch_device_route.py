@@ -20,6 +20,15 @@ minutes a case on the CPU at 16385 rows, so the cases run at a few hundred
 rows with the threshold lowered below them; one case (200 depth-6 trees),
 the routing test and the multiclass forest run above the default 16384
 rows at the default threshold, and the gather case above 65536.
+
+The shapes whose reduction the reference vectorizes (``ROADMAP.md`` C4:
+lanes of 4 or 8 for at most 32 trees of depth 5 or less, ``fold_w`` at
+depth 6 with 2 or 4 tree windows at powers of two) are held to the JAX
+package's outputs recorded by
+``tests/torch_fixtures/make_device_route_fixtures.py`` (90 cases of depth
+1-6 and 15 tree counts, each at 64, 256, 300 and 2048 rows; three of them
+checked against the live reference), so that every regime runs in a few
+seconds.
 """
 import functools
 import os
@@ -291,8 +300,8 @@ def test_plain_device_route_equals_the_oracle(n, t, h, boosted):
     leaves = rng.integers(0, max(h, 1) * W, size=(n, t))
     depth = max(5, int(np.log2(h * W)))
     win = torch.from_numpy((leaves >> 5).astype(np.float32)) if h > 1 else None
-    got = TS.tree_sum_device_route(torch.from_numpy(vals), win, h, boosted,
-                                   ETA, BASE).numpy()
+    got = TS.tree_sum_device_route(torch.from_numpy(vals), win, h, depth,
+                                   boosted, ETA, BASE).numpy()
     with np.errstate(divide="ignore", invalid="ignore"):
         want = oracle(vals, leaves, depth, boosted)
     assert got.dtype == np.float32 and got.shape == (n,)
@@ -316,16 +325,18 @@ def test_fused_epilogue_rounds_once():
 def test_device_route_input_checks():
     pt = torch.ones((4, 3))
     with pytest.raises(ValueError, match="no leaf_window"):
-        TS.tree_sum_device_route(pt, torch.zeros((4, 3)), 1, True)
+        TS.tree_sum_device_route(pt, torch.zeros((4, 3)), 1, 5, True)
     with pytest.raises(ValueError, match="leaf_window"):
-        TS.tree_sum_device_route(pt, torch.zeros((4, 2)), 2, True)
+        TS.tree_sum_device_route(pt, torch.zeros((4, 2)), 2, 6, True)
     with pytest.raises(ValueError, match="leaf windows"):
-        TS.tree_sum_device_route(pt, None, 0, True)
+        TS.tree_sum_device_route(pt, None, 0, 5, True)
+    with pytest.raises(ValueError, match="leaf windows"):
+        TS.tree_sum_device_route(pt, torch.zeros((4, 3)), 4, 6, True)
     with pytest.raises(ValueError, match="trees"):
         TS.tree_sum_device_route(torch.ones((1, TS.MAX_ROUTE_TREES + 1)),
-                                 None, 1, True)
+                                 None, 1, 5, True)
     before = TS.tree_sum_device_route.launches
-    TS.tree_sum_device_route(pt, torch.zeros((4, 3)), 2, False)
+    TS.tree_sum_device_route(pt, torch.zeros((4, 3)), 2, 6, False)
     assert TS.tree_sum_device_route.launches == before
 
 
@@ -379,6 +390,13 @@ def test_routing_at_the_threshold(n, route, monkeypatch):
         assert np.array_equal(core, want)  # its native library
 
 
+def _grid_depth(h):
+    """A depth of 7 or more with room for ``h`` leaf windows: the shapes of
+    the two card tests below keep the windowed grid's order (C4's orders
+    have their own card test)."""
+    return max(7, int(np.ceil(np.log2(h * W))))
+
+
 def test_device_route_kernel_matches_plain_version_on_the_card():
     """Needs a CUDA card (skips here): the device-route mode equals its
     plain version bit for bit, boosted and forest, at two and three levels
@@ -396,13 +414,14 @@ def test_device_route_kernel_matches_plain_version_on_the_card():
                .cuda() if h > 1 else None)
         for boosted in (True, False):
             before = TS.tree_sum_device_route.launches
-            got = TS.tree_sum_device_route(vals, win, h, boosted, ETA, BASE)
+            got = TS.tree_sum_device_route(vals, win, h, _grid_depth(h),
+                                           boosted, ETA, BASE)
             assert TS.tree_sum_device_route.launches == before + 1
-            want = TS.tree_sum_device_route_plain(vals, win, h, boosted, ETA,
-                                                  BASE)
+            want = TS.tree_sum_device_route_plain(vals, win, h, _grid_depth(h),
+                                                  boosted, ETA, BASE)
             cpu = TS.tree_sum_device_route_plain(
-                vals.cpu(), None if win is None else win.cpu(), h, boosted,
-                ETA, BASE)
+                vals.cpu(), None if win is None else win.cpu(), h,
+                _grid_depth(h), boosted, ETA, BASE)
             torch.cuda.synchronize()
             assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
 
@@ -441,11 +460,124 @@ def test_route_by_pairs_matches_plain_version_on_the_card():
         win = card(win_np) if h > 1 else None
         for boosted in (True, False):
             before = TS.tree_sum_device_route.launches
-            got = TS.tree_sum_device_route(vals, win, h, boosted, ETA, BASE)
+            got = TS.tree_sum_device_route(vals, win, h, _grid_depth(h),
+                                           boosted, ETA, BASE)
             assert TS.tree_sum_device_route.launches == before + 1
             cpu = TS.tree_sum_device_route_plain(
                 torch.from_numpy(vals_np),
-                torch.from_numpy(win_np) if h > 1 else None, h, boosted, ETA,
-                BASE)
+                torch.from_numpy(win_np) if h > 1 else None, h,
+                _grid_depth(h), boosted, ETA, BASE)
             torch.cuda.synchronize()
             assert torch.equal(got.cpu(), cpu)
+
+
+# --------------------------------------------------------------------------
+# the orders of ROADMAP.md C4: every regime of tree_sum's order table
+# --------------------------------------------------------------------------
+def _load_fixture_module(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(__file__), "torch_fixtures",
+                           f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+MR = _load_fixture_module("make_device_route_fixtures")
+ORDERS = os.path.join(MR.OUT_DIR, "orders.npz")
+
+
+@functools.lru_cache(maxsize=1)
+def _orders():
+    return dict(np.load(ORDERS))
+
+
+@pytest.mark.parametrize("trees", MR.TREES)
+@pytest.mark.parametrize("depth", MR.DEPTHS)
+def test_device_route_orders_equal_the_reference(depth, trees):
+    """At 64, 256, 300 and 2048 rows: the plain version of the route sum
+    over K1's plain walk, and ``predict_device_route`` whole, EQUAL the
+    JAX package's ``predict_boosted_raw`` / ``predict_forest_raw``
+    (recorded by ``make_device_route_fixtures.py``), boosted and forest."""
+    orders = _orders()
+    for rows in MR.ROWS:
+        x, thr, sf, sb, lv = MR.route_stack(depth, trees, rows)
+        binned = PTR.bin_data(torch.from_numpy(x), torch.from_numpy(thr))
+        packed = ST.pack_trees(*(torch.from_numpy(a) for a in (sf, sb, lv)),
+                               num_features=x.shape[1])
+        windows = ST.window_stack(packed)
+        h = TS.leaf_windows(rows, depth)
+        per_tree = ST.serve_trees_packed(binned, packed)
+        win = ST.serve_trees_packed(binned, windows) if h > 1 else None
+        for boosted in (True, False):
+            want = orders[MR.key(depth, trees, rows, boosted)]
+            plain = TS.tree_sum_device_route_plain(
+                per_tree, win, h, depth, boosted, MR.ETA, MR.BASE).numpy()
+            whole = ST.predict_device_route(binned, packed, windows, boosted,
+                                            MR.ETA, MR.BASE).numpy()
+            order = TS.route_order(trees, depth, h, rows)
+            assert np.array_equal(plain, want), (rows, boosted, order)
+            assert np.array_equal(whole, want), (rows, boosted, order)
+
+
+@pytest.mark.parametrize("depth,trees,rows", [(3, 20, 300), (6, 50, 256),
+                                              (1, 8, 64)])
+def test_orders_fixture_is_the_live_reference(depth, trees, rows):
+    """The recorded outputs are what the JAX package computes today."""
+    orders = _orders()
+    for k, v in MR.reference(depth, trees, rows).items():
+        assert np.array_equal(orders[k], v), k
+
+
+def test_route_order_table():
+    """The order table of ``models/tree_sum.py``'s docstring, regime by
+    regime (R1: lanes; R2: fold_w at the measured powers of two)."""
+    R = TS.route_order
+    assert [R(t, 3, 1, 300) for t in (1, 3, 4, 5, 7, 8, 9, 15, 16, 19, 20,
+                                      23, 24, 27, 28, 31, 32, 33)] == [
+        "grid", "grid", "lanes4", "grid", "grid", "lanes8", "grid", "grid",
+        "lanes8", "lanes8", "lanes4", "lanes4", "lanes8", "lanes8", "lanes4",
+        "lanes4", "lanes8", "grid"]
+    assert [R(t, d, 1, 64) for d in (1, 4, 5) for t in (20, 28)] == \
+        ["lanes8"] * 6
+    assert R(50, 6, 2, 32768) == R(100, 6, 2, 65536) == R(33, 6, 2, 64) \
+        == R(128, 6, 2, 4096) == R(64, 6, 2, 131072) == "fold_w"
+    assert R(50, 6, 2, 40960) == R(50, 6, 2, 32) == R(50, 6, 2, 262144) \
+        == "grid"
+    assert R(50, 6, 2, 24576) == R(80, 6, 2, 32768) == R(20, 6, 2, 32768) \
+        == R(50, 7, 4, 32768) == R(50, 6, 2, 300) == "grid"
+    assert R(20, 7, 4, 300) == R(8, 10, 1, 10**6) == "grid"
+
+
+def test_device_route_orders_on_the_card():
+    """Needs a CUDA card (skips here): the kernel's lanes and fold_w orders
+    equal the plain version bit for bit at R1 and R2 shapes, [32768, 50] at
+    depth 6 and [20000, 20] at depth 4 among them, boosted and forest, with
+    one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = [(20000, 20, 4), (20000, 20, 3), (32768, 50, 6), (65536, 100, 6),
+             (32768, 33, 6), (2048, 4, 2), (300, 8, 1), (16385, 32, 5),
+             (1000, 28, 2), (5, 16, 5), (129, 23, 3)]
+    for seed, (n, t, depth) in enumerate(cases):
+        rng = np.random.default_rng(200 + seed)
+        h = TS.leaf_windows(n, depth)
+        vals_np = (rng.normal(size=(n, t)) * 10.0 ** rng.integers(-3, 2, (n, t))
+                   ).astype(np.float32)
+        win_np = rng.integers(0, h, (n, t)).astype(np.float32)
+        vals = torch.from_numpy(vals_np).cuda()
+        win = torch.from_numpy(win_np).cuda() if h > 1 else None
+        assert TS.route_order(t, depth, h, n) != "grid"
+        for boosted in (True, False):
+            before = TS.tree_sum_device_route.launches
+            got = TS.tree_sum_device_route(vals, win, h, depth, boosted, ETA,
+                                           BASE)
+            assert TS.tree_sum_device_route.launches == before + 1
+            cpu = TS.tree_sum_device_route_plain(
+                torch.from_numpy(vals_np),
+                torch.from_numpy(win_np) if h > 1 else None, h, depth,
+                boosted, ETA, BASE)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), cpu), (n, t, depth, boosted)

@@ -139,12 +139,10 @@ def test_fused_scores_equal_staged_and_the_reference(name, rows, monkeypatch):
 @pytest.mark.parametrize("name", ["text_lr", "text_xgb"])
 def test_hash_text_flow_fuses_and_matches(name, monkeypatch):
     """A hash-only SmartText member: host tokenize and hash, the scatter
-    on the device; a null text and unseen words among the rows. The
-    logistic flow is held to the JAX package's fused path too; the
-    20-tree depth-4 flow to the port's staged path alone: at 8 to 32 trees
-    of depth 5 or less the reference's device-route sum takes an order of
-    its own that the port does not reproduce yet (ROADMAP.md C4), on its
-    staged route as on its fused one."""
+    on the device; a null text and unseen words among the rows. Both
+    flows' fused paths are held to the JAX package's fused path, and the
+    tree flow's staged path too (its 20 trees of depth 4 sum in 8 lanes
+    above the cutoff, ROADMAP.md C4)."""
     monkeypatch.setenv("TPTPU_HOST_PREDICT_MAX", "0")
     batch = _rows(name, 160)
     fn = _port(name)
@@ -154,10 +152,11 @@ def test_hash_text_flow_fuses_and_matches(name, monkeypatch):
         == (1, 0, {})
     staged = _scores(_staged(fn, lambda: fn.batch(batch), monkeypatch))
     _assert_close(name, fused, staged)
-    if name == "text_lr":
-        reference = _scores(jax_score_function(
-            jax_load_workflow_model(_path(name))).batch(batch))
-        _assert_close(name, fused, reference)
+    reference = _scores(jax_score_function(
+        jax_load_workflow_model(_path(name))).batch(batch))
+    _assert_close(name, fused, reference)
+    if name in TREES:
+        assert np.array_equal(staged, reference)
 
 
 def test_token_cap_sends_the_batch_staged_and_counts_it(monkeypatch):

@@ -72,6 +72,8 @@ REQUIRED = (
     "workflow/workflow.py", "workflow/cv.py", "workflow/persistence.py",
     "workflow/dag.py", "compiler/fused.py", "compiler/dispatch.py",
     "featurize/quantize.py", "local/scoring.py",
+    "testkit.py", "ops/categorical.py", "ops/dates.py", "ops/time_period.py",
+    "ops/phone.py", "ops/lists.py", "ops/domains.py", "ops/maps.py",
 )
 
 

@@ -358,6 +358,45 @@ def _stage_instances():
         LinearRegressionModel(rng.normal(size=3), -1.25),
         PMS.SelectedModel(PG.BoostedBinaryModel(thr, tree, 0.3, 0.0),
                           {"bestModelType": "XGBoostClassifier"}),
+        *_feature_stage_instances(),
+    ]
+
+
+def _feature_stage_instances():
+    """One instance of each stage class of transmogrify's date, phone,
+    list, domain and map vectorizers, with params off their defaults."""
+    from transmogrifai_tpu_torch.ops import (
+        dates, domains, lists, maps, phone, time_period,
+    )
+
+    return [
+        dates.DateVectorizer(123, ("HourOfDay", "DayOfWeek"), False),
+        dates.DateToUnitCircleTransformer("DayOfYear"),
+        time_period.TimePeriodTransformer("WeekOfYear"),
+        time_period.TimePeriodListTransformer("MonthOfYear"),
+        time_period.TimePeriodMapTransformer("DayOfMonth"),
+        phone.PhoneVectorizer("GB", False),
+        phone.ParsePhoneDefaultCountry("DE", True),
+        phone.ParsePhoneNumber("FR", region_codes=["FR"],
+                               country_names=["FRANCE"]),
+        phone.IsValidPhoneDefaultCountry("ZW"),
+        phone.IsValidPhoneNumber(),
+        phone.IsValidPhoneMapDefaultCountry("CA", True),
+        lists.TextListModel([[0.5, 0.0, 1.25, 2.0]], 4, True, 7, False),
+        lists.DateListVectorizer("ModeDay", 5, False),
+        lists.GeolocationModel([[1.0, 2.0, 0.0]], True),
+        lists.TextListNullTransformer(),
+        domains.EmailToPickListTransformer(),
+        domains.UrlMapToPickListMapTransformer(),
+        maps.RealMapModel([["a", "b"]], [[1.5, 2.0]], False, True),
+        maps.DateMapModel([["k"]], 99, ["HourOfDay"], True, True),
+        maps.TextMapPivotModel([["k"]], [[["x", "y"]]], False, True, True),
+        maps.SmartTextMapModel([["j", "k"]], [["Pivot", "Hash"]],
+                               [[["x"], []]], 16, False, True, True),
+        maps.GeolocationMapModel([["h"]], False, True),
+        maps.PhoneMapModel([["c"]], "US", False, False),
+        maps.TextMapNullModel([["a"]], False),
+        maps.TextMapLenModel([["a", "b"]], True),
     ]
 
 
@@ -365,7 +404,7 @@ def test_every_loadable_class_saves():
     assert {type(s).__name__ for s in _stage_instances()} == set(PP.STAGE_CLASSES)
 
 
-@pytest.mark.parametrize("index", range(14))
+@pytest.mark.parametrize("index", range(39))
 def test_params_and_arrays_are_the_inverse_of_loading(index):
     stage = _stage_instances()[index]
     params = json.loads(json.dumps(stage.get_params(), default=PP._json_default))

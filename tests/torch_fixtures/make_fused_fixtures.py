@@ -32,6 +32,23 @@ candidate -> ``Workflow.train()``:
 
 The scoring rows are the table's rows, with row 3's text null and row 5's
 made of unseen words.
+
+It also writes ``tests/fixtures/torch_fused/jax_scores.npz``, the JAX
+package's scores above the host-predict cutoff (``TPTPU_HOST_PREDICT_MAX=0``:
+its fused path), which ``chip_smoke.py`` holds the card's to (it imports no
+JAX), as ``score_matrix`` columns (prediction, probability_0,
+probability_1, rawPrediction_0, rawPrediction_1; float64):
+
+* ``text_xgb``: the flow's 160 rows (the bucket of 256 rows);
+* ``xgb`` / ``rf``: the serving fixtures' (``tests/fixtures/torch_serving``)
+  256 rows, which ``chip_smoke.py`` tiles to 20000 and 65536 rows. Their
+  trees (200 of depth 10, 50 of depth 12) take the windowed grid's order
+  at every row count, and the one-hot select at 256 rows as at 24576 and
+  65536 (``models/tree_sum.py``), so a row's score is the same in those
+  buckets; the JAX package's fused program at 24576 rows and more needs
+  more memory than a 62 GB host has.
+
+Name ``scores`` on the command line to write only this file.
 """
 from __future__ import annotations
 
@@ -117,6 +134,38 @@ def train(schema: dict, columns: dict, candidate):
     return Workflow().set_result_features(pred).set_input_dataset(ds).train()
 
 
+SERVING_DIR = os.path.join(os.path.dirname(OUT_DIR), "torch_serving")
+
+
+def score_matrix(out: list[dict]) -> np.ndarray:
+    preds = [next(iter(r.values())) for r in out]
+    return np.array([[p["prediction"], p["probability_0"], p["probability_1"],
+                      p["rawPrediction_0"], p["rawPrediction_1"]]
+                     for p in preds], dtype=np.float64)
+
+
+def jax_scores() -> dict:
+    """The JAX package's scores above the cutoff (module docstring)."""
+    from transmogrifai_tpu.local.scoring import score_function
+    from transmogrifai_tpu.workflow.persistence import load_workflow_model
+
+    out = {}
+    os.environ["TPTPU_HOST_PREDICT_MAX"] = "0"
+    try:
+        for name, path in (("text_xgb", os.path.join(OUT_DIR, "text_xgb")),
+                           ("xgb", os.path.join(SERVING_DIR, "xgb")),
+                           ("rf", os.path.join(SERVING_DIR, "rf"))):
+            with open(os.path.join(path, "rows.json")) as fh:
+                rows = json.load(fh)
+            fn = score_function(load_workflow_model(path))
+            out[name] = score_matrix(fn.batch(rows))
+            if fn.metadata()["fused"]["dispatches"] != 1:
+                raise SystemExit(f"{name}: the batch did not fuse")
+    finally:
+        del os.environ["TPTPU_HOST_PREDICT_MAX"]
+    return out
+
+
 def main(names: list[str]) -> None:
     schema, columns = table()
     rows = scoring_rows(columns)
@@ -130,6 +179,9 @@ def main(names: list[str]) -> None:
         with open(os.path.join(path, "rows.json"), "w") as fh:
             json.dump(rows, fh)
         print("wrote", path)
+    if not names or "scores" in names:  # after the models it scores
+        np.savez(os.path.join(OUT_DIR, "jax_scores.npz"), **jax_scores())
+        print("wrote", os.path.join(OUT_DIR, "jax_scores.npz"))
 
 
 if __name__ == "__main__":

@@ -1,29 +1,41 @@
-"""Probe where the port's device-route tree sum departs from the JAX
-package's (``ROADMAP.md`` C4).
+"""Measure which order the JAX package's device-route tree sum takes, for
+every ensemble shape (``ROADMAP.md`` C4), and check the port against it.
 
-Run from the repository root, on the CPU:
+Run from the repository root, on the CPU, with one JAX device:
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures/probe_device_route_order.py \
-        [--depths 1,3,5,6] [--trees 4,8,20,33,50] [--rows 256,300,32768]
+        [--depths 1-6] [--trees 1-128] [--rows 64,160,...] [--jobs 6]
     JAX_PLATFORMS=cpu python tests/torch_fixtures/probe_device_route_order.py \
         --fixture tests/fixtures/torch_fused/text_xgb
 
-The first form draws a seeded random stack per (depth, trees, rows) and
-prints, for the boosted and the forest sum, how many rows of the port's
-``tree_sum_device_route_plain`` differ from the reference's
-``predict_boosted_raw`` / ``predict_forest_raw`` on the same leaves, and
-which of two candidate orders the reference followed where they differ:
-``lanes8`` (tree t in lane t % 8 over the first multiple of 8, the lanes
-folded by halves, the rest added in order; one window of trees and
-leaves) or ``fold_w`` (the [W, 2] grid of partials summed per tree window,
-those folded by halves; two leaf windows). The second form scores a saved
+The first form draws a seeded random stack per (depth, trees, rows), scores
+it with the reference's ``predict_boosted_raw`` and ``predict_forest_raw``,
+and sums the same leaf values in each candidate order:
+
+* ``inorder``: trees 0..T-1 into one float32 accumulator;
+* ``lanes4`` / ``lanes8``: tree t in lane t % L over the first multiple of
+  L, the lanes folded by halves, the rest added in order;
+* ``fold_w``: two leaf windows; per window of 32 trees (padding centred)
+  the partials of each leaf window in tree order, their [W, 2] grid summed
+  as p[w, 0] + p[w, 1] per tree window, those folded by halves;
+* ``grid``: the row-major windowed grid (``tree_sum._grid_sum`` over the
+  [W, H] partials, the order the port took before C4's repair);
+* ``port``: the port's ``tree_sum_device_route_plain`` as it stands.
+
+Each JSON line names every candidate that equals the reference on all
+rows, boosted and forest apart (``"none"`` where none does: such a case is
+printed, never guessed). The last line summarises, per (depth, trees),
+the orders matched at each row count; ``port_differs`` counts the cases
+where the port is not the reference's. The second form scores a saved
 model's rows with both packages above the host-predict cutoff and prints
 the rows whose scores differ.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import json
+import multiprocessing as mp
 import os
 import sys
 
@@ -31,6 +43,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 F, ETA, BASE = 8, 0.02, 0.37
+ROWS = "64,160,256,300,1000,2048,16385,20000,24576,32768"
 
 
 def _stack(t: int, depth: int, n: int, seed: int = 0):
@@ -44,10 +57,24 @@ def _stack(t: int, depth: int, n: int, seed: int = 0):
     return sf, sb, lv, x, thr
 
 
+def _leaves(binned: np.ndarray, sf: np.ndarray, sb: np.ndarray) -> np.ndarray:
+    """[N, T] leaf index of every (row, tree): the reference's traversal
+    (``trees.predict_tree``) in numpy."""
+    t, depth, _ = sf.shape
+    n = binned.shape[0]
+    node = np.zeros((t, n), np.int64)
+    rows = np.arange(n)
+    for d in range(depth):
+        feat = np.take_along_axis(sf[:, d], node, 1)
+        thr = np.take_along_axis(sb[:, d], node, 1)
+        code = binned[rows[None, :], np.maximum(feat, 0)]
+        node = node * 2 + ((feat >= 0) & (code > thr))
+    return node.T
+
+
 def _reference(sf, sb, lv, x, thr):
-    """(boosted, forest) outputs and each (row, tree)'s leaf, from the JAX
-    package's device route."""
-    import jax
+    """(boosted, forest) outputs of the JAX package's device route, and
+    each (row, tree)'s leaf."""
     import jax.numpy as jnp
 
     from transmogrifai_tpu.models import trees as JTR
@@ -57,11 +84,8 @@ def _reference(sf, sb, lv, x, thr):
     boosted = np.asarray(JTR.predict_boosted_raw(xj, tj, tree, jnp.float32(ETA),
                                                  jnp.float32(BASE)))
     forest = np.asarray(JTR.predict_forest_raw(xj, tj, tree))
-    ids = np.tile(np.arange(lv.shape[1], dtype=np.float32), (lv.shape[0], 1))
-    binned = JTR.bin_data(xj, tj)
-    leaf = np.asarray(jax.vmap(lambda t: JTR.predict_tree(binned, t))(
-        JTR.Tree(jnp.asarray(sf), jnp.asarray(sb), jnp.asarray(ids)))).T
-    return boosted, forest, leaf.astype(np.int64)
+    binned = np.asarray(JTR.bin_data(xj, tj))
+    return boosted, forest, _leaves(binned, sf, sb)
 
 
 def _epilogue(total, boosted: bool, t: int) -> np.ndarray:
@@ -75,36 +99,64 @@ def _epilogue(total, boosted: bool, t: int) -> np.ndarray:
     return (total * torch.tensor(TS._reciprocal(t), dtype=torch.float32)).numpy()
 
 
-def _halve(v: np.ndarray) -> np.ndarray:
+def _halve(v: np.ndarray) -> np.ndarray | None:
+    if v.shape[1] & (v.shape[1] - 1):
+        return None
     while v.shape[1] > 1:
         h = v.shape[1] // 2
         v = v[:, :h] + v[:, h:]
     return v[:, 0]
 
 
-def _lanes8(vals: np.ndarray) -> np.ndarray:
+def _inorder(vals: np.ndarray) -> np.ndarray:
+    s = np.zeros(vals.shape[0], np.float32)
+    for j in range(vals.shape[1]):
+        s = s + vals[:, j]
+    return s
+
+
+def _lanes(vals: np.ndarray, lanes: int) -> np.ndarray:
     n, t = vals.shape
-    main = t // 8 * 8
-    acc = np.zeros((n, 8), np.float32)
-    for j in range(0, main, 8):
-        acc = acc + vals[:, j:j + 8]
+    main = t // lanes * lanes
+    acc = np.zeros((n, lanes), np.float32)
+    for j in range(0, main, lanes):
+        acc = acc + vals[:, j:j + lanes]
     s = _halve(acc) if main else np.zeros(n, np.float32)
     for j in range(main, t):
         s = s + vals[:, j]
     return s
 
 
-def _fold_w(vals: np.ndarray, leaf: np.ndarray) -> np.ndarray:
+def _partials(vals: np.ndarray, leaf: np.ndarray, h: int) -> np.ndarray:
+    """[N, W, H] level-1 partials: per tree window (padding centred) and
+    leaf window, the tree-order sum."""
     n, t = vals.shape
-    w = -(-t // 32)
-    lo = (w * 32 - t) // 2
-    grid = np.zeros((n, w, 2), np.float32)
+    w = -(-t // 32) if t > 32 else 1
+    lo = (w * 32 - t) // 2 if t > 32 else 0
+    grid = np.zeros((n, w, h), np.float32)
     for j in range(t):
         cell = (j + lo) // 32
-        h = leaf[:, j] // 32
-        for k in (0, 1):
-            grid[:, cell, k] += np.where(h == k, vals[:, j], np.float32(0))
+        hw = leaf[:, j] // 32 if h > 1 else np.zeros(n, np.int64)
+        for k in range(h):
+            grid[:, cell, k] += np.where(hw == k, vals[:, j], np.float32(0))
+    return grid
+
+
+def _fold_w(vals: np.ndarray, leaf: np.ndarray, h: int) -> np.ndarray | None:
+    if h != 2:
+        return None
+    grid = _partials(vals, leaf, 2)
     return _halve(grid[:, :, 0] + grid[:, :, 1])
+
+
+def _grid(vals: np.ndarray, leaf: np.ndarray, h: int) -> np.ndarray:
+    import torch
+
+    from transmogrifai_tpu_torch.models import tree_sum as TS
+
+    grid = torch.from_numpy(np.ascontiguousarray(
+        _partials(vals, leaf, h).transpose(1, 2, 0)))
+    return TS._grid_sum(grid).numpy()
 
 
 def probe_shape(depth: int, t: int, n: int) -> dict:
@@ -116,19 +168,32 @@ def probe_shape(depth: int, t: int, n: int) -> dict:
     want_b, want_f, leaf = _reference(sf, sb, lv, x, thr)
     vals = np.take_along_axis(lv, leaf.T, 1).T.astype(np.float32)
     h = TS.leaf_windows(n, depth)
+    totals = {"inorder": _inorder(vals), "lanes4": _lanes(vals, 4),
+              "lanes8": _lanes(vals, 8), "fold_w": _fold_w(vals, leaf, h),
+              "grid": _grid(vals, leaf, h)}
     win = torch.from_numpy((leaf // 32).astype(np.float32)) if h > 1 else None
     out = {}
     for boosted, want in ((True, want_b), (False, want_f)):
-        got = TS.tree_sum_device_route_plain(
-            torch.from_numpy(vals), win, h, boosted, ETA, BASE).numpy()
-        row = {"differ": int(np.count_nonzero(got != want))}
-        if row["differ"]:
-            for name, total in (("lanes8", _lanes8(vals)),
-                                ("fold_w", _fold_w(vals, leaf) if h == 2 else None)):
-                if total is not None and np.array_equal(
-                        _epilogue(total, boosted, t), want):
-                    row["reference_order"] = name
-        out["boosted" if boosted else "forest"] = row
+        match = [name for name, total in totals.items() if total is not None
+                 and np.array_equal(_epilogue(total, boosted, t), want)]
+        port = TS.tree_sum_device_route_plain(
+            torch.from_numpy(vals), win, h, depth, boosted, ETA, BASE).numpy()
+        if np.array_equal(port, want):
+            match.append("port")
+        out["boosted" if boosted else "forest"] = match or ["none"]
+    return out
+
+
+def _run(job: tuple[int, int, list[int]]) -> list[dict]:
+    n, depth, trees = job
+    sys.path.insert(0, ROOT)
+    import jax
+    import torch
+
+    torch.set_num_threads(1)
+    out = [{"rows": n, "depth": depth, "trees": t, **probe_shape(depth, t, n)}
+           for t in trees]
+    jax.clear_caches()  # one program per shape: keep a worker's memory flat
     return out
 
 
@@ -152,22 +217,59 @@ def probe_fixture(path: str) -> dict:
             "max_abs": float(np.abs(port - ref).max())}
 
 
+def _ints(spec: str) -> list[int]:
+    out = []
+    for part in spec.split(","):
+        lo, _, hi = part.partition("-")
+        out.extend(range(int(lo), int(hi or lo) + 1))
+    return out
+
+
+def _summary(lines: list[dict]) -> dict:
+    """Per depth and tree count: each order's set of row counts where it
+    matched (boosted and forest both), and the cases the port missed."""
+    table: dict = {}
+    port_differs = []
+    for r in lines:
+        both = set(r["boosted"]) & set(r["forest"])
+        key = f"d{r['depth']}t{r['trees']}"
+        cell = table.setdefault(key, {})
+        for name in both or {"none"}:
+            cell.setdefault(name, []).append(r["rows"])
+        if "port" not in both:
+            port_differs.append([r["depth"], r["trees"], r["rows"]])
+    return {"summary": table, "port_differs": port_differs}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--depths", default="1,3,5,6,7")
-    ap.add_argument("--trees", default="4,7,8,15,20,32,33,50,65,100,200")
-    ap.add_argument("--rows", default="256,300")
+    ap.add_argument("--depths", default="1-6")
+    ap.add_argument("--trees", default="1-128")
+    ap.add_argument("--rows", default=ROWS)
+    ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--fixture")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     if args.fixture:
         print(json.dumps(probe_fixture(args.fixture)))
         return
-    for n in map(int, args.rows.split(",")):
-        for depth in map(int, args.depths.split(",")):
-            for t in map(int, args.trees.split(",")):
-                print(json.dumps({"rows": n, "depth": depth, "trees": t,
-                                  **probe_shape(depth, t, n)}), flush=True)
+    trees = _ints(args.trees)
+    jobs = [(n, d, trees[i:i + 16]) for n in _ints(args.rows)
+            for d in _ints(args.depths) for i in range(0, len(trees), 16)]
+    lines = []
+    if args.jobs > 1:
+        with cf.ProcessPoolExecutor(args.jobs, mp_context=mp.get_context("spawn")) as ex:
+            results = ex.map(_run, jobs)
+            for part in results:
+                for line in part:
+                    print(json.dumps(line), flush=True)
+                lines.extend(part)
+    else:
+        for job in jobs:
+            for line in _run(job):
+                print(json.dumps(line), flush=True)
+                lines.append(line)
+    print(json.dumps(_summary(lines)))
 
 
 if __name__ == "__main__":

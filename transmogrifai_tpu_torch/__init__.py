@@ -10,7 +10,9 @@ random-forest classifiers, the GBT, XGBoost and random-forest regressors
 kernels run as hand-written CUDA for Hopper (``csrc/*.cu``); the GLM
 solvers are PyTorch tensor code. The feature side of the flagship flow
 runs too: ``readers.infer_csv_dataset``, ``features.from_dataset``,
-``ops.transmogrify`` (numeric, categorical and smart-text vectorizers),
+``ops.transmogrify`` (the reference's vectorizer for every type of its
+default dispatch: numeric, categorical, smart text, dates, sets, phones,
+lists, geolocations and maps; ``testkit`` draws typed tables of them),
 ``label.sanity_check(vec)`` (``prep.SanityChecker``, its statistics on the
 card) and ``workflow.fit.fit_and_transform_dag``. Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs the plain

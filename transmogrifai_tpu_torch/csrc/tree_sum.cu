@@ -22,6 +22,15 @@
 //            both axes (padding centred), each summed in row-major order;
 //            at most 32 x 32 cells are then summed in row-major order
 //   boosted: out[r]  = fma(eta, total, base); forest: total * f32(1 / T)
+// except for the ensemble shapes where the reference reduces in another
+// order (models/tree_sum.py's table, chosen on the host and passed as
+// `order`):
+//   lanes L (L = 4 or 8; one window of at most 32 trees): tree t adds into
+//            lane t % L over the first multiple of L trees, the lanes
+//            are folded by halves (lane l += lane l + L/2, ...), and the
+//            remaining trees add to lane 0 in order
+//   fold_w  (two leaf windows, W a power of two): s[w] = acc2[w, 0] +
+//            acc2[w, 1], then s folded by halves over w
 // Adding an empty partial (+0.0) changes no sum that starts at +0.0, so
 // the padding and the zeros of the one-hot select need no adds.
 // Every add is __fadd_rn and the epilogues are __fmaf_rn, __fmul_rn,
@@ -78,6 +87,12 @@
 // with 2 leaf windows and 8% at serving's 50-tree calls on an H100,
 // chip_ab.py --parts route; PERF.md.)
 //
+// The lanes order (route_lanes_kernel) takes a thread per row: a block of
+// kLaneRows rows copies its [rows, T] slab (T <= 32) into shared memory by
+// coalesced loads at an odd row stride, and each thread then sums its row
+// in kLanes register lanes. fold_w is route_pairs_kernel's fold by warp 0
+// in that order instead of row-major.
+//
 // What bounds it: reading per_tree once (4 N T bytes; the device route
 // also reads win where H > 1) and writing out (4 N). At the serving sizes
 // the tree order is latency-bound: the copy's first bytes, then a row's
@@ -106,6 +121,11 @@ constexpr int kMaxDevices = 64;
 constexpr int kRegWindows = 4;
 // device route by pairs: warps per block
 constexpr int kRouteWarps = 8;
+// device route in lanes: rows (threads) per block
+constexpr int kLaneRows = 128;
+
+// The device route's reduction orders (tp_tree_sum_device_route's `order`).
+enum Order { kGrid = 0, kFoldW = 1, kLanes4 = 4, kLanes8 = 8 };
 
 // How an item reaches shared memory (see above).
 enum Copy { kTiles = 0, kSlab = 1 };
@@ -132,6 +152,7 @@ struct Params {
   int rows, rshift;       // rows a block (a power of two <= 16), log2
   int cw;                 // tree windows a chunk (W: one chunk)
   int bulk;               // one chunk, staged by bulk copies
+  int order;              // Order
 };
 
 // Dynamic shared memory: kMaxStages mbarriers (a 32-byte header), then the
@@ -471,7 +492,23 @@ route_pairs_kernel(const Params p) {
       }
     }
     __syncthreads();  // every partial of the chunk is in part
-    if (warp == 0 && lane < rows && !p.three) {
+    if (warp == 0 && lane < rows && p.order == kFoldW) {
+      // one chunk, two leaf windows, W a power of two: each tree window's
+      // two partials added, then those folded by halves (s[w] += s[w +
+      // half], in place in part's leaf-window-0 cells)
+      for (int w = 0; w < p.w; ++w) {
+        float* c = part + static_cast<size_t>(w) * 2 * R + lane;
+        c[0] = __fadd_rn(c[0], c[R]);
+      }
+      for (int half = p.w / 2; half >= 1; half /= 2) {
+        for (int w = 0; w < half; ++w) {
+          part[static_cast<size_t>(w) * 2 * R + lane] = __fadd_rn(
+              part[static_cast<size_t>(w) * 2 * R + lane],
+              part[static_cast<size_t>(w + half) * 2 * R + lane]);
+        }
+      }
+      total = part[lane];
+    } else if (warp == 0 && lane < rows && !p.three) {
       // the chunk's partials in [W, H] row-major order into the total
       const int cells = (wb - wa) * p.h;
       for (int c = 0; c < cells; ++c) {
@@ -514,6 +551,43 @@ route_pairs_kernel(const Params p) {
     p.out[row0 + lane] = p.boosted ? __fmaf_rn(p.eta, total, p.base)
                                    : __fmul_rn(total, p.inv_t);
   }
+}
+
+// The device route in kLanes lanes (one window of p.t <= 32 trees): a
+// thread per row (see the top of the file).
+template <int kLanes>
+__global__ void __launch_bounds__(kLaneRows) route_lanes_kernel(const Params p) {
+  __shared__ float slab[kLaneRows * (kWindow + 1)];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kLaneRows;
+  const int rows =
+      p.n - row0 < kLaneRows ? static_cast<int>(p.n - row0) : kLaneRows;
+  const int stride = p.t | 1;  // odd: each thread's row in other banks
+  const float* src = p.per_tree + static_cast<size_t>(row0) * p.t;
+  for (int i = threadIdx.x; i < rows * p.t; i += kLaneRows) {
+    const int r = i / p.t;
+    slab[r * stride + (i - r * p.t)] = __ldg(src + i);
+  }
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= rows) return;
+  const float* v = slab + r * stride;
+  float acc[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) acc[l] = 0.0f;
+  const int main = p.t / kLanes * kLanes;
+  for (int j = 0; j < main; j += kLanes) {
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) acc[l] = __fadd_rn(acc[l], v[j + l]);
+  }
+#pragma unroll
+  for (int half = kLanes / 2; half >= 1; half /= 2) {
+#pragma unroll
+    for (int l = 0; l < half; ++l) acc[l] = __fadd_rn(acc[l], acc[l + half]);
+  }
+  float total = acc[0];
+  for (int j = main; j < p.t; ++j) total = __fadd_rn(total, v[j]);
+  p.out[row0 + r] = p.boosted ? __fmaf_rn(p.eta, total, p.base)
+                              : __fmul_rn(total, p.inv_t);
 }
 
 // Per device, read once: SMs, shared memory per SM and per block, and the
@@ -637,10 +711,30 @@ void route_as(const Params& p, int vec, dim3 grid, dim3 block, size_t smem,
   }
 }
 
+// The device route in lanes (see route_lanes_kernel).
+int launch_lanes(const Params& p, void* stream) {
+  if (p.h != 1 || p.t > kWindow) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (p.n + kLaneRows - 1) / kLaneRows;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (p.order == kLanes4) {
+    route_lanes_kernel<4><<<static_cast<unsigned>(blocks), kLaneRows, 0, s>>>(p);
+  } else {
+    route_lanes_kernel<8><<<static_cast<unsigned>(blocks), kLaneRows, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The device route: the slab's rows and chunk (see route_pairs_kernel).
 int launch_route(Params& p, void* stream) {
   if (p.n < 0 || p.t < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (p.n == 0) return static_cast<int>(cudaGetLastError());
+  if (p.order == kLanes4 || p.order == kLanes8) return launch_lanes(p, stream);
+  const bool fold = p.order == kFoldW;
+  if (p.order != kGrid &&
+      !(fold && p.h == 2 && !p.three && (p.w & (p.w - 1)) == 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const DeviceInfo* d = nullptr;
   cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -662,8 +756,8 @@ int launch_route(Params& p, void* stream) {
         break;
       }
     }
-    if (route_smem_bytes(p) > limit) {
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (route_smem_bytes(p) > limit || fold) {
+      return static_cast<int>(cudaErrorInvalidValue);  // fold_w: one chunk
     }
   }
   p.rshift = 0;
@@ -725,10 +819,12 @@ int tp_tree_sum(const void* per_tree, void* out, int64_t n, int64_t t,
 }
 
 // The device route's order. win may be null only with windows == 1. inv_t:
-// f32(1 / T), the forest's factor.
+// f32(1 / T), the forest's factor. order: 0 the windowed grid, 1 fold_w, 4
+// or 8 that many lanes (see the top of the file).
 int tp_tree_sum_device_route(const void* per_tree, const void* win, void* out,
                              int64_t n, int64_t t, int windows, int boosted,
-                             float base, float eta, float inv_t, void* stream) {
+                             float base, float eta, float inv_t, int order,
+                             void* stream) {
   if (t > kWindow * kWindow * kWindow || windows < 1 ||
       windows > kWindow * kWindow || (windows > 1 && win == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -743,6 +839,7 @@ int tp_tree_sum_device_route(const void* per_tree, const void* win, void* out,
   p.base = base;
   p.eta = eta;
   p.inv_t = inv_t;
+  p.order = order;
   p.h = windows;
   centred(p.t, &p.w, &p.lo1);
   p.three = p.w > kWindow || p.h > kWindow;

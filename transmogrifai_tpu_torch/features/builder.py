@@ -11,7 +11,15 @@ from typing import Any, Callable
 
 from .. import types as T
 from ..dataset import Dataset
-from ..types.columns import Column, NumericColumn, TextColumn, VectorColumn
+from ..types.columns import (
+    Column,
+    ListColumn,
+    MapColumn,
+    NumericColumn,
+    SetColumn,
+    TextColumn,
+    VectorColumn,
+)
 from .feature import Feature, FeatureGeneratorStage
 
 
@@ -55,11 +63,13 @@ class FeatureBuilder(metaclass=_FeatureBuilderMeta):
 
 
 def infer_feature_type(col: Column) -> type:
-    """Physical column -> feature type: numeric and text columns keep their
-    own type, vectors are OPVector (set, list and map columns are not
-    ported yet: ``ROADMAP.md`` A2)."""
-    if isinstance(col, (NumericColumn, TextColumn)):
+    """Physical column -> feature type: numeric, text, list and map columns
+    keep their own type, a set column is MultiPickList, a vector
+    OPVector."""
+    if isinstance(col, (NumericColumn, TextColumn, ListColumn, MapColumn)):
         return col.feature_type
+    if isinstance(col, SetColumn):
+        return T.MultiPickList
     if isinstance(col, VectorColumn):
         return T.OPVector
     raise TypeError(f"Cannot infer feature type for {type(col).__name__}")

@@ -569,9 +569,11 @@ def predict_device_route(binned: torch.Tensor, packed: PackedTrees,
     (``tree_sum.tree_sum_device_route``): the stack walked for its leaf
     values and, where the leaves form more than one window
     (``tree_sum.leaf_windows``), walked again over ``windows``
-    (``window_stack(packed)``) for each leaf's window."""
+    (``window_stack(packed)``) for each leaf's window. The sum's order
+    follows the stack's shape and the batch's rows, which in the fused
+    graph are its padded bucket, as in the reference."""
     h = leaf_windows(binned.shape[0], packed.depth)
     per_tree = serve_trees_packed(binned, packed)
     win = serve_trees_packed(binned, windows) if h > 1 else None
-    return tree_sum_device_route(per_tree, win, h, boosted, eta=float(eta),
-                                 base_score=float(base_score))
+    return tree_sum_device_route(per_tree, win, h, packed.depth, boosted,
+                                 eta=float(eta), base_score=float(base_score))

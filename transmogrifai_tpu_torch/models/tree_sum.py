@@ -13,8 +13,8 @@ That is the JAX package's serving arithmetic for batches of up to 16384
 rows (its native loop ``tp_tree_predict_sum`` and the epilogues of
 ``predict_boosted_host`` / ``predict_forest_host``).
 
-``tree_sum_device_route(per_tree, leaf_window, num_windows, ...)`` is the
-order of its device route, which serves larger batches (XLA's CPU
+``tree_sum_device_route(per_tree, leaf_window, num_windows, depth, ...)``
+is the order of its device route, which serves larger batches (XLA's CPU
 reduction of ``predict_boosted_raw`` / ``predict_forest_raw``). There each
 tree's leaf is picked by a one-hot select over the 2^depth leaves, and the
 select is reduced over trees and leaves together, in windows of 32 x 32:
@@ -32,6 +32,32 @@ select is reduced over trees and leaves together, in windows of 32 x 32:
 
 Where the reference reads the leaf table by a gather instead of the select
 (``leaf_windows`` says where), the leaves form one window.
+
+For some ensemble shapes XLA's CPU backend vectorizes that reduction and
+adds in another order (``ROADMAP.md`` C4). ``route_order(trees, depth,
+num_windows, rows)`` says which, by this table, measured with jax 0.9.0 on
+the CPU by ``tests/torch_fixtures/probe_device_route_order.py`` over every
+depth 1-6 and tree count 1-128, boosted and forest, at 64, 160, 256, 300,
+1000, 2048, 16385, 20000, 24576, 32768 and 65536 rows (and at depth 6 with
+20-128 trees at every power of two from 64 to 131072 and at 40960, 49152,
+57344 and 98304 rows). Every case measured matched one
+order of the table; every other shape keeps the order above.
+
+* ``lanes4`` / ``lanes8`` (R1; depth <= 5, so one leaf window, and at
+  most 32 trees, one tree window): tree t adds into lane t % L over the
+  first multiple of L trees, the L lanes are folded by halves (lane l +=
+  lane l + L/2, ...), and the remaining trees add to lane 0 in order.
+  4 trees: 4 lanes; 8 trees: 8 lanes (the same sum as 4); 16-32 trees: 8
+  lanes, but 4 lanes for 20-23 and 28-31 trees at depths 2 and 3; every
+  other count of at most 32 trees in tree order (the grid's one window).
+  The same at every row count measured.
+* ``fold_w`` (R2; depth 6, two leaf windows, 2 or 4 tree windows: 33-64
+  or 97-128 trees): the [W, 2] grid of partials is summed as p[w, 0] +
+  p[w, 1] per tree window, and those W sums are folded by halves. At the
+  row counts that are powers of two from 64 to 131072 (``FOLD_W_ROWS``,
+  each measured); at every other row count measured (160, 300, 1000,
+  16385, 20000, 24576, 40960, 49152, 57344, 98304) the grid's order. Row
+  counts outside that range were not measured and keep the grid's order.
 
 On a CUDA tensor each wrapper launches the hand-written kernel
 (``csrc/tree_sum.cu``) or raises; on a CPU tensor it runs the plain
@@ -63,6 +89,14 @@ ONEHOT_OPS_BUDGET = 1 << 28
 #: up to 32 * 32 * 32 trees and 2^15 leaves
 MAX_ROUTE_TREES = WINDOW ** 3
 MAX_ROUTE_WINDOWS = WINDOW ** 2
+
+#: the device route's reduction orders (module docstring), and the code the
+#: kernel takes for each
+GRID, FOLD_W, LANES4, LANES8 = "grid", "fold_w", "lanes4", "lanes8"
+ORDER_CODES = {GRID: 0, FOLD_W: 1, LANES4: 4, LANES8: 8}
+#: R2: the row counts at which the reference folds (fold_w): the powers of
+#: two from 64 to 131072, each measured
+FOLD_W_ROWS = frozenset(1 << k for k in range(6, 18))
 
 
 def _check(per_tree: torch.Tensor) -> None:
@@ -107,6 +141,22 @@ def leaf_windows(n: int, depth: int) -> int:
     if width > ONEHOT_MAX_WIDTH and n * width > ONEHOT_OPS_BUDGET:
         return 1
     return max(1, width // WINDOW)
+
+
+def route_order(trees: int, depth: int, num_windows: int, rows: int) -> str:
+    """The reference's device-route order for ``trees`` trees of ``depth``
+    over ``num_windows`` leaf windows at ``rows`` rows (the module
+    docstring's table; the fused graph's rows are its padded bucket)."""
+    if num_windows == 1 and depth <= 5 and trees <= WINDOW:
+        if trees == 4:
+            return LANES4
+        if trees == 8 or 16 <= trees <= WINDOW:
+            return LANES4 if depth in (2, 3) and trees % 8 >= 4 else LANES8
+        return GRID
+    if depth == 6 and num_windows == 2 and _centred(trees)[1] in (2, 4) \
+            and rows in FOLD_W_ROWS:
+        return FOLD_W
+    return GRID
 
 
 def _centred(n: int) -> tuple[int, int, int]:
@@ -162,15 +212,52 @@ def _reciprocal(t: int) -> float:
         return float(np.float32(1.0) / np.float32(t))
 
 
+def _lanes_sum(per_tree: torch.Tensor, lanes: int) -> torch.Tensor:
+    """[N, T] -> [N]: the ``lanes4`` / ``lanes8`` order."""
+    n, t = per_tree.shape
+    main = t // lanes * lanes
+    acc = torch.zeros((n, lanes), dtype=torch.float32, device=per_tree.device)
+    for j in range(0, main, lanes):
+        acc = acc + per_tree[:, j:j + lanes]
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = acc[:, :half] + acc[:, half:]
+    total = acc[:, 0]
+    for j in range(main, t):
+        total = total + per_tree[:, j]
+    return total
+
+
+def _fold_w(grid: torch.Tensor) -> torch.Tensor:
+    """[W, 2, N] partials -> [N]: the ``fold_w`` order."""
+    s = grid[:, 0] + grid[:, 1]
+    while s.shape[0] > 1:
+        half = s.shape[0] // 2
+        s = s[:half] + s[half:]
+    return s[0]
+
+
+def _epilogue(total: torch.Tensor, t: int, boosted: bool, eta: float,
+              base_score: float) -> torch.Tensor:
+    if boosted:
+        return _fma32(eta, total, base_score)
+    return total * _scalar(_reciprocal(t), total)
+
+
 def tree_sum_device_route_plain(per_tree: torch.Tensor,
                                 leaf_window: torch.Tensor | None,
-                                num_windows: int, boosted: bool,
+                                num_windows: int, depth: int, boosted: bool,
                                 eta: float = 0.0,
                                 base_score: float = 0.0) -> torch.Tensor:
     """``tree_sum_device_route``'s contract in plain PyTorch, on the
-    tensor's device: the level-1 partials by one scatter-add a tree (each
-    row's cell takes one float32 add), then ``_grid_sum``."""
+    tensor's device: in the ``lanes`` orders the trees' values directly;
+    else the level-1 partials by one scatter-add a tree (each row's cell
+    takes one float32 add), then ``fold_w`` or ``_grid_sum``."""
     n, t = per_tree.shape
+    order = route_order(t, depth, num_windows, n)
+    if order in (LANES4, LANES8):
+        return _epilogue(_lanes_sum(per_tree, ORDER_CODES[order]), t,
+                         boosted, eta, base_score)
     _, tcount, lo = _centred(t)
     grid = torch.zeros((tcount * num_windows, n), dtype=torch.float32,
                        device=per_tree.device)
@@ -181,10 +268,9 @@ def tree_sum_device_route_plain(per_tree: torch.Tensor,
         else:
             cell = w * num_windows + leaf_window[:, j].long()
             grid.scatter_add_(0, cell[None], per_tree[None, :, j])
-    total = _grid_sum(grid.reshape(tcount, num_windows, n))
-    if boosted:
-        return _fma32(eta, total, base_score)
-    return total * _scalar(_reciprocal(t), total)
+    grid = grid.reshape(tcount, num_windows, n)
+    total = _fold_w(grid) if order == FOLD_W else _grid_sum(grid)
+    return _epilogue(total, t, boosted, eta, base_score)
 
 
 @functools.cache
@@ -196,7 +282,7 @@ def _library() -> ctypes.CDLL:
     lib.tp_tree_sum_device_route.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     for fn in (lib.tp_tree_sum, lib.tp_tree_sum_device_route):
         fn.restype = ctypes.c_int
     lib.tp_cuda_error_string.argtypes = [ctypes.c_int]
@@ -240,9 +326,12 @@ def tree_sum(per_tree: torch.Tensor, boosted: bool, eta: float = 0.0,
 tree_sum.launches = 0
 
 
-def _check_route(per_tree, leaf_window, num_windows: int) -> None:
+def _check_route(per_tree, leaf_window, num_windows: int, depth: int) -> None:
     _check(per_tree)
     n, t = per_tree.shape
+    if depth < 0 or num_windows > max(1, (1 << depth) // WINDOW):
+        raise ValueError(f"tree_sum_device_route: {num_windows} leaf windows "
+                         f"for trees of depth {depth}")
     if num_windows < 1 or num_windows > MAX_ROUTE_WINDOWS:
         raise ValueError(f"tree_sum_device_route: {num_windows} leaf windows "
                          f"(1..{MAX_ROUTE_WINDOWS})")
@@ -265,25 +354,27 @@ def _check_route(per_tree, leaf_window, num_windows: int) -> None:
 
 def tree_sum_device_route(per_tree: torch.Tensor,
                           leaf_window: torch.Tensor | None, num_windows: int,
-                          boosted: bool, eta: float = 0.0,
+                          depth: int, boosted: bool, eta: float = 0.0,
                           base_score: float = 0.0) -> torch.Tensor:
-    """[N, T] float32 leaf values -> [N] float32 in the reference's
-    device-route order (module docstring): ``fma(eta, total, base_score)``
-    or ``total * f32(1 / T)``. ``leaf_window`` [N, T] float32 holds each
-    (row, tree)'s leaf // 32, integers in [0, num_windows); with one window
-    (``leaf_windows``) it is None and not read."""
-    _check_route(per_tree, leaf_window, num_windows)
+    """[N, T] float32 leaf values of trees of ``depth`` -> [N] float32 in
+    the reference's device-route order for the shape (module docstring):
+    ``fma(eta, total, base_score)`` or ``total * f32(1 / T)``.
+    ``leaf_window`` [N, T] float32 holds each (row, tree)'s leaf // 32,
+    integers in [0, num_windows); with one window (``leaf_windows``) it is
+    None and not read."""
+    _check_route(per_tree, leaf_window, num_windows, depth)
     if not _on_cuda(per_tree):
         return tree_sum_device_route_plain(per_tree, leaf_window, num_windows,
-                                           boosted, eta, base_score)
+                                           depth, boosted, eta, base_score)
     lib = _library()
     n, t = per_tree.shape
+    order = route_order(t, depth, num_windows, n)
     out = torch.empty(n, dtype=torch.float32, device=per_tree.device)
     rc = lib.tp_tree_sum_device_route(
         per_tree.data_ptr(),
         None if leaf_window is None else leaf_window.data_ptr(),
         out.data_ptr(), n, t, num_windows, int(bool(boosted)),
-        float(base_score), float(eta), _reciprocal(t),
+        float(base_score), float(eta), _reciprocal(t), ORDER_CODES[order],
         torch._C._cuda_getCurrentRawStream(per_tree.device.index),
     )
     _raise_on(lib, rc, "tree_sum_device_route")

@@ -1,10 +1,12 @@
-"""One-hot pivot for categorical text (OpOneHotVectorizer): values are
-cleaned (TextUtils.cleanString) when ``clean_text`` is set; the vocabulary
-is the values counted at least ``min_support`` times, sorted by
-(-count, value), first ``top_k`` kept; the block holds one 0/1 column per
-vocabulary value, an OTHER column for any present value outside the
-vocabulary, and a null-indicator column when ``track_nulls``. Set-valued
-pivots (MultiPickList) are not ported yet (``ROADMAP.md`` A2)."""
+"""One-hot pivot for categorical text and sets (OpOneHotVectorizer,
+OpSetVectorizer): values are cleaned (TextUtils.cleanString) when
+``clean_text`` is set; the vocabulary is the values counted at least
+``min_support`` times, sorted by (-count, value), first ``top_k`` kept; the
+block holds one column per vocabulary value, an OTHER column for any
+present value outside the vocabulary, and a null-indicator column when
+``track_nulls``. A text value sets its column to 1; a set (MultiPickList)
+adds 1 per member, so its columns count members, and an empty set is
+null."""
 from __future__ import annotations
 
 from collections import Counter
@@ -14,7 +16,7 @@ from typing import Sequence
 import numpy as np
 
 from ..stages.metadata import NULL_STRING, OTHER_STRING, ColumnMeta
-from ..types.columns import Column, TextColumn
+from ..types.columns import Column, SetColumn, TextColumn
 from ..utils.text import clean_string
 from .base import VectorizerEstimator, VectorizerModel
 
@@ -43,12 +45,17 @@ def pivot_codes(values: Sequence, index: dict, clean_text: bool) -> np.ndarray:
 
 def pivot_block(
     values: Sequence, vocab: list[str], track_nulls: bool, clean_text: bool,
+    is_set: bool = False,
 ) -> np.ndarray:
-    """[N, len(vocab) + 1 (+1 if track_nulls)] pivot block."""
+    """[N, len(vocab) + 1 (+1 if track_nulls)] pivot block; ``values`` are
+    str | None per row, or iterables of str (sets) when ``is_set``."""
     n = len(values)
     other_col = len(vocab)
     out = np.zeros((n, other_col + 1 + int(track_nulls)), dtype=np.float32)
-    codes = pivot_codes(values, {v: i for i, v in enumerate(vocab)}, clean_text)
+    index = {v: i for i, v in enumerate(vocab)}
+    if is_set:
+        return _set_block(values, index, track_nulls, clean_text, out)
+    codes = pivot_codes(values, index, clean_text)
     hit = codes >= 0
     out[np.nonzero(hit)[0], codes[hit]] = 1.0
     out[codes == -2, other_col] = 1.0
@@ -57,28 +64,50 @@ def pivot_block(
     return out
 
 
+def _set_block(values: Sequence, index: dict, track_nulls: bool,
+               clean_text: bool, out: np.ndarray) -> np.ndarray:
+    """A set pivot's counts: each member adds 1 to its vocabulary column or
+    to OTHER; an empty or missing set sets the null column."""
+    other_col = len(index)
+    for r, raw in enumerate(values):
+        members = [
+            None if m is None else clean_string(m) if clean_text else m
+            for m in raw
+        ] if raw else []
+        if not members:
+            if track_nulls:
+                out[r, other_col + 1] = 1.0
+            continue
+        for m in members:
+            out[r, index.get(m, other_col)] += 1.0
+    return out
+
+
 def pivot_metas(
     name: str, parent_type: type, vocab: list[str], track_nulls: bool,
+    grouping: str | None = None,
 ) -> list[ColumnMeta]:
     """Metas for one pivot group: vocab columns + OTHER (+ null
-    indicator)."""
-    return list(
-        _pivot_metas(name, parent_type.__name__, tuple(vocab), track_nulls)
-    )
+    indicator). ``grouping`` defaults to the feature name; the map
+    vectorizers pass the map key."""
+    return list(_pivot_metas(name, parent_type.__name__, tuple(vocab),
+                             track_nulls, grouping))
 
 
-@lru_cache(maxsize=1024)
+@lru_cache(maxsize=8192)
 def _pivot_metas(
     name: str, parent_type_name: str, vocab: tuple[str, ...], track_nulls: bool,
+    grouping: str | None,
 ) -> tuple[ColumnMeta, ...]:
+    group = name if grouping is None else grouping
     metas = [
-        ColumnMeta((name,), parent_type_name, grouping=name, indicator_value=v)
+        ColumnMeta((name,), parent_type_name, grouping=group, indicator_value=v)
         for v in vocab + (OTHER_STRING,)
     ]
     if track_nulls:
         metas.append(
             ColumnMeta(
-                (name,), parent_type_name, grouping=name,
+                (name,), parent_type_name, grouping=group,
                 indicator_value=NULL_STRING,
             )
         )
@@ -105,13 +134,15 @@ class OneHotModel(VectorizerModel):
     def blocks_for(self, cols: Sequence[Column], num_rows: int):
         blocks, metas = [], []
         for col, vocab, feat in zip(cols, self.vocabs, self.input_features):
-            if not isinstance(col, TextColumn):
+            if not isinstance(col, (TextColumn, SetColumn)):
                 raise TypeError(
-                    f"OneHotModel pivots text columns, got {type(col).__name__}"
+                    f"OneHotModel pivots text and set columns, got "
+                    f"{type(col).__name__}"
                 )
-            blocks.append(
-                pivot_block(col.values, vocab, self.track_nulls, self.clean_text)
-            )
+            blocks.append(pivot_block(
+                col.values, vocab, self.track_nulls, self.clean_text,
+                isinstance(col, SetColumn),
+            ))
             metas.append(
                 pivot_metas(feat.name, feat.ftype, vocab, self.track_nulls)
             )
@@ -136,8 +167,8 @@ class OneHotModel(VectorizerModel):
 
 
 class OneHotVectorizer(VectorizerEstimator):
-    """Sequence estimator pivoting categorical text features (defaults
-    TopK=20, MinSupport=10)."""
+    """Sequence estimator pivoting categorical text and set features
+    (defaults TopK=20, MinSupport=10)."""
 
     def __init__(
         self,
@@ -153,18 +184,28 @@ class OneHotVectorizer(VectorizerEstimator):
         self.clean_text = clean_text
         self.track_nulls = track_nulls
 
+    def get_params(self):
+        return {
+            "top_k": self.top_k,
+            "min_support": self.min_support,
+            "clean_text": self.clean_text,
+            "track_nulls": self.track_nulls,
+        }
+
     def fit_model(self, dataset) -> OneHotModel:
         vocabs = []
         for name in self.input_names:
             col = dataset[name]
-            if not isinstance(col, TextColumn):
+            if isinstance(col, SetColumn):
+                raw_values = (m for s in col.values for m in s if m is not None)
+            elif isinstance(col, TextColumn):
+                raw_values = (v for v in col.values if v is not None)
+            else:
                 raise TypeError(
-                    f"OneHotVectorizer pivots text columns, got "
-                    f"{type(col).__name__} (set columns: ROADMAP.md A2)"
-                )
+                    f"OneHotVectorizer cannot pivot {type(col).__name__}")
             # clean once per distinct raw value, then merge the counts
             counts: Counter = Counter()
-            for raw, c in Counter(v for v in col.values if v is not None).items():
+            for raw, c in Counter(raw_values).items():
                 counts[clean_string(raw) if self.clean_text else raw] += c
             vocabs.append(top_values(counts, self.top_k, self.min_support))
         self.metadata["vocabs"] = vocabs

@@ -125,6 +125,10 @@ class RealVectorizer(VectorizerEstimator):
         self.fill_value = fill_value
         self.track_nulls = track_nulls
 
+    def get_params(self):
+        return {"fill_with_mean": self.fill_with_mean,
+                "fill_value": self.fill_value, "track_nulls": self.track_nulls}
+
     def fit_model(self, dataset) -> NumericVectorizerModel:
         cols = [_numeric(dataset[name]) for name in self.input_names]
         fills = []
@@ -157,6 +161,10 @@ class IntegralVectorizer(VectorizerEstimator):
         self.fill_with_mode = fill_with_mode
         self.fill_value = fill_value
         self.track_nulls = track_nulls
+
+    def get_params(self):
+        return {"fill_with_mode": self.fill_with_mode,
+                "fill_value": self.fill_value, "track_nulls": self.track_nulls}
 
     def fit_model(self, dataset) -> NumericVectorizerModel:
         cols = [_numeric(dataset[name]) for name in self.input_names]

@@ -385,6 +385,18 @@ class SmartTextVectorizer(VectorizerEstimator):
         self.clean_text = clean_text
         self.track_nulls = track_nulls
 
+    def get_params(self):
+        return {
+            "max_cardinality": self.max_cardinality,
+            "top_k": self.top_k,
+            "min_support": self.min_support,
+            "coverage_pct": self.coverage_pct,
+            "min_length_std_dev": self.min_length_std_dev,
+            "num_hashes": self.num_hashes,
+            "clean_text": self.clean_text,
+            "track_nulls": self.track_nulls,
+        }
+
     def fit_model(self, dataset) -> SmartTextModel:
         methods, vocabs, summaries = [], [], []
         for name in self.input_names:

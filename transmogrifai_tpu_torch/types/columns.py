@@ -4,9 +4,12 @@ Each feature is a column. Numeric-family columns are (values, validity-mask)
 ndarray pairs, text columns are object arrays of ``str | None``, the vector
 plane is a dense float32 [N, D] matrix carrying provenance metadata, and a
 model's output is a PredictionColumn of dense (prediction, probability,
-raw) arrays. Semantics match ``transmogrifai_tpu.types.columns`` for the
-numeric, text, vector and prediction storages; set, list and map columns
-are not ported yet (``ROADMAP.md`` A2).
+raw) arrays. MultiPickList columns hold one frozenset per row, the list
+types (TextList, DateList, DateTimeList, Geolocation) one Python list per
+row and the map types one dict per row, an empty one meaning missing.
+Semantics match ``transmogrifai_tpu.types.columns``; its ``SparseMatrix``
+(the featurize plane's sparse hash blocks) is not ported yet
+(``ROADMAP.md`` A2): every vector plane here is dense.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Any, Iterable, Sequence
 
 import numpy as np
 
-from . import Prediction, Storage
+from . import OPMap, Prediction, Storage
 
 
 class Column:
@@ -79,6 +82,69 @@ class TextColumn(Column):
 
     def take(self, indices: np.ndarray) -> "TextColumn":
         return TextColumn(self.feature_type, self.values[indices])
+
+
+def _take_rows(values: list, indices) -> list:
+    """Rows of a per-row Python list by a slice (a view's rows, as
+    ``ops.base`` chunks a batch), an index array or a boolean mask."""
+    if isinstance(indices, slice):
+        return values[indices]
+    indices = np.asarray(indices)
+    if indices.dtype == bool:
+        indices = np.nonzero(indices)[0]
+    return [values[i] for i in indices.tolist()]
+
+
+@dataclasses.dataclass
+class SetColumn(Column):
+    """MultiPickList column: per-row frozenset[str] (empty set = missing)."""
+
+    feature_type: type
+    values: list  # list[frozenset[str]]
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def to_list(self) -> list:
+        return list(self.values)
+
+    def take(self, indices) -> "SetColumn":
+        return SetColumn(self.feature_type, _take_rows(self.values, indices))
+
+
+@dataclasses.dataclass
+class ListColumn(Column):
+    """TextList/DateList/DateTimeList/Geolocation: per-row Python list
+    (empty list = missing)."""
+
+    feature_type: type
+    values: list  # list[list]
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def to_list(self) -> list:
+        return list(self.values)
+
+    def take(self, indices) -> "ListColumn":
+        return ListColumn(self.feature_type, _take_rows(self.values, indices))
+
+
+@dataclasses.dataclass
+class MapColumn(Column):
+    """Map-family column: per-row dict (empty dict = missing)."""
+
+    feature_type: type
+    values: list  # list[dict[str, Any]]
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def to_list(self) -> list:
+        return list(self.values)
+
+    def take(self, indices) -> "MapColumn":
+        return MapColumn(self.feature_type, _take_rows(self.values, indices))
 
 
 @dataclasses.dataclass
@@ -207,9 +273,8 @@ def _numeric_column(feature_type: type, raw: Sequence[Any]) -> NumericColumn:
 
 
 def column_from_values(feature_type: type, raw: Iterable[Any]) -> Column:
-    """The physical column for ``feature_type`` from row values (numeric,
-    text and vector storages; other storages have no serving stage in the
-    port yet and raise)."""
+    """The physical column for ``feature_type`` from row values: the one
+    place that knows how each feature family is stored."""
     storage = feature_type.storage
     if storage in _STORAGE_DTYPE:
         return _numeric_column(feature_type, list(raw))
@@ -218,6 +283,22 @@ def column_from_values(feature_type: type, raw: Iterable[Any]) -> Column:
         out = np.empty(len(lst), dtype=object)
         out[:] = lst
         return TextColumn(feature_type, out)
+    if storage is Storage.TEXT_SET:
+        # a bare string is one member, not a character collection
+        return SetColumn(feature_type, [
+            frozenset((v,)) if isinstance(v, str)
+            else frozenset(v) if v else frozenset()
+            for v in raw
+        ])
+    if storage in (Storage.TEXT_LIST, Storage.DATE_LIST, Storage.GEO):
+        return ListColumn(feature_type, [list(v) if v else [] for v in raw])
+    if storage is Storage.MAP:
+        if feature_type is Prediction:
+            raise TypeError(
+                "Prediction columns are built by models, not from raw values")
+        if not issubclass(feature_type, OPMap):
+            raise TypeError(f"{feature_type.__name__} is not a map type")
+        return MapColumn(feature_type, [dict(v) if v else {} for v in raw])
     if storage is Storage.VECTOR:
         arr = np.asarray(list(raw), dtype=np.float32)
         if arr.ndim != 2:
@@ -225,10 +306,7 @@ def column_from_values(feature_type: type, raw: Iterable[Any]) -> Column:
                 f"OPVector values must be [N, D], got shape {arr.shape}"
             )
         return VectorColumn(feature_type, arr)
-    raise NotImplementedError(
-        f"{feature_type.__name__} ({storage.value} storage) has no column "
-        "in the serving port"
-    )
+    raise ValueError(f"No physical column for storage {storage}")
 
 
 def concat_columns(cols: Sequence[Column]) -> Column:
@@ -247,6 +325,8 @@ def concat_columns(cols: Sequence[Column]) -> Column:
         return TextColumn(
             c0.feature_type, np.concatenate([c.values for c in cols])
         )
+    if isinstance(c0, (SetColumn, ListColumn, MapColumn)):
+        return type(c0)(c0.feature_type, [v for c in cols for v in c.values])
     if isinstance(c0, VectorColumn):
         return VectorColumn(
             c0.feature_type,

@@ -31,6 +31,7 @@ from ..models.gbdt import (
 )
 from ..models.linear import LinearRegressionModel
 from ..models.logistic import LogisticRegressionModel
+from ..ops import dates, domains, lists, maps, phone, time_period
 from ..ops.categorical import OneHotModel
 from ..ops.combiner import VectorsCombiner
 from ..ops.numeric import BinaryVectorizer, NumericVectorizerModel, RealNNVectorizer
@@ -55,6 +56,20 @@ STAGE_CLASSES: dict[str, type] = {
         SelectedModel,
         BoostedBinaryModel, ForestClassifierModel, BoostedRegressionModel,
         ForestRegressionModel, LogisticRegressionModel, LinearRegressionModel,
+        dates.DateVectorizer, dates.DateToUnitCircleTransformer,
+        time_period.TimePeriodTransformer,
+        time_period.TimePeriodListTransformer,
+        time_period.TimePeriodMapTransformer,
+        phone.PhoneVectorizer, phone.ParsePhoneDefaultCountry,
+        phone.ParsePhoneNumber, phone.IsValidPhoneDefaultCountry,
+        phone.IsValidPhoneNumber, phone.IsValidPhoneMapDefaultCountry,
+        lists.TextListModel, lists.DateListVectorizer, lists.GeolocationModel,
+        lists.TextListNullTransformer,
+        domains.EmailToPickListTransformer,
+        domains.UrlMapToPickListMapTransformer,
+        maps.RealMapModel, maps.DateMapModel, maps.TextMapPivotModel,
+        maps.SmartTextMapModel, maps.GeolocationMapModel, maps.PhoneMapModel,
+        maps.TextMapNullModel, maps.TextMapLenModel,
     )
 }
 
