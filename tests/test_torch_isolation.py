@@ -74,6 +74,8 @@ REQUIRED = (
     "featurize/quantize.py", "local/scoring.py",
     "testkit.py", "ops/categorical.py", "ops/dates.py", "ops/time_period.py",
     "ops/phone.py", "ops/lists.py", "ops/domains.py", "ops/maps.py",
+    "utils/serial.py", "ops/math.py", "ops/scalers.py", "ops/bucketizers.py",
+    "ops/simple.py", "ops/prediction.py", "prep/raw_feature_filter.py",
 )
 
 

@@ -4,8 +4,8 @@ set pivot of ``ops/categorical.py`` and its copies of ``ops/lists.py`` and
 
 The JAX package's ``tests/test_map_list_vectorizers.py`` cases for these
 modules run here against the port (its phone cases run in
-``test_torch_dates_phone.py``; ``DecisionTreeNumericMapBucketizer`` waits
-for ``ops/bucketizers.py``). Every block is host numpy in both packages,
+``test_torch_dates_phone.py``; ``DecisionTreeNumericMapBucketizer``'s in
+``test_torch_bucketizers.py``). Every block is host numpy in both packages,
 so the tolerance is EQUALITY: the same seeded testkit columns through both
 packages' vectorizers give the same vectors, ``ColumnMeta`` lists and
 fitted summaries (keys, fills, vocabularies, methods).

@@ -359,6 +359,7 @@ def _stage_instances():
         PMS.SelectedModel(PG.BoostedBinaryModel(thr, tree, 0.3, 0.0),
                           {"bestModelType": "XGBoostClassifier"}),
         *_feature_stage_instances(),
+        *_dsl_stage_instances(),
     ]
 
 
@@ -400,11 +401,57 @@ def _feature_stage_instances():
     ]
 
 
+def _dsl_stage_instances():
+    """One instance of each stage class of the math, scaler, bucketizer,
+    simple and prediction stages and the per-key map bucketizer, with
+    params off their defaults (callables module-level, from
+    ``tests/torch_fixtures/dsl_flow.py``)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "torch_fixtures"))
+    import dsl_flow as D
+
+    from transmogrifai_tpu_torch.ops import (
+        bucketizers, maps, prediction, scalers, simple,
+    )
+    from transmogrifai_tpu_torch.ops import math as M
+
+    return [
+        M.AddTransformer(), M.SubtractTransformer(), M.MultiplyTransformer(),
+        M.DivideTransformer(), M.ScalarAddTransformer(1.5),
+        M.ScalarSubtractTransformer(-2.0), M.ScalarMultiplyTransformer(3.0),
+        M.ScalarDivideTransformer(4.0), M.AbsoluteValueTransformer(),
+        M.CeilTransformer(), M.FloorTransformer(), M.RoundTransformer(),
+        M.RoundDigitsTransformer(3), M.ExpTransformer(), M.SqrtTransformer(),
+        M.LogTransformer(10.0), M.PowerTransformer(2.5),
+        scalers.OpScalarStandardScalerModel(1.25, 0.5),
+        scalers.FillMissingWithMeanModel(-3.0),
+        scalers.ScalerTransformer("Linear", {"slope": 2.0, "intercept": 1.0}),
+        scalers.DescalerTransformer(),
+        scalers.PercentileCalibratorModel([0.0, 0.5, 2.0, 9.0], 10),
+        bucketizers.NumericBucketizer([-1.0, 0.0, 2.0], False, True,
+                                      ["lo", "hi"]),
+        bucketizers.DecisionTreeNumericBucketizerModel(
+            [-np.inf, 0.25, np.inf], True, False, True),
+        bucketizers.DropIndicesByTransformer(D.is_null_indicator),
+        simple.AliasTransformer("renamed"),
+        simple.FilterTransformer(D.is_positive, 0.0),
+        simple.ReplaceTransformer("a", "b"), simple.SubstringTransformer(),
+        simple.ToOccurTransformer(D.is_positive),
+        simple.ExistsTransformer(D.is_long_text), simple.TextLenTransformer(),
+        simple.FilterMap(["a"], ["b"], D.above_half),
+        simple.MultiLabelJoiner(["x", "y"]), simple.TopNLabelProbMap(3),
+        prediction.PredictionFieldExtractor("probability"),
+        maps.DecisionTreeNumericMapBucketizerModel(
+            [["k"]], [[[-np.inf, 0.5, np.inf]]], [[True]], False, True, False),
+    ]
+
+
 def test_every_loadable_class_saves():
     assert {type(s).__name__ for s in _stage_instances()} == set(PP.STAGE_CLASSES)
 
 
-@pytest.mark.parametrize("index", range(39))
+@pytest.mark.parametrize("index", range(76))
 def test_params_and_arrays_are_the_inverse_of_loading(index):
     stage = _stage_instances()[index]
     params = json.loads(json.dumps(stage.get_params(), default=PP._json_default))

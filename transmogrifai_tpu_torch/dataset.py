@@ -49,6 +49,13 @@ class Dataset:
     def select(self, names: list[str]) -> "Dataset":
         return Dataset({n: self.columns[n] for n in names}, self.num_rows)
 
+    def drop(self, names: list[str]) -> "Dataset":
+        gone = set(names)
+        return Dataset(
+            {n: c for n, c in self.columns.items() if n not in gone},
+            self.num_rows,
+        )
+
     def take(self, indices: np.ndarray) -> "Dataset":
         indices = np.asarray(indices)
         return Dataset(

@@ -229,7 +229,9 @@ def score_function(
 
     def metadata() -> dict[str, Any]:
         """The fused graph's state and counters, under the reference's
-        ``metadata()["fused"]`` keys."""
+        ``metadata()["fused"]`` keys, and the program's host prefix stages
+        (``hostPrefixStages``, the reference's ``describe()`` key; ``None``
+        without a program)."""
         with fused_lock:
             prog = fused_holder["program"]
             snap = dict(fused_counters)
@@ -239,6 +241,8 @@ def score_function(
             "reason": fused_reason(),
             "fingerprint": None if prog is None else prog.fingerprint,
             "quantized": prog is not None and prog.quantized,
+            "hostPrefixStages": None if prog is None
+            else [t.output_name for t in prog.prefix],
             **snap,
         }}
 

@@ -19,8 +19,9 @@ every row count (the reference switches to a sparse COO plane at
 ``SPARSE_MIN_ROWS`` rows), and ``SmartTextMapVectorizer`` summarizes its
 keys one after another (the reference fans them out on its featurize pool).
 ``SmartTextMapModel`` hashes through ``ops.text.hash_block``, so map values
-and text columns hash alike. ``DecisionTreeNumericMapBucketizer`` waits for
-``ops/bucketizers.py`` (``ROADMAP.md`` A2).
+and text columns hash alike. ``DecisionTreeNumericMapBucketizer`` (the
+per-key supervised binning) fits and encodes each key through
+``ops/bucketizers.py``'s scalar helpers, as the reference does.
 """
 from __future__ import annotations
 
@@ -862,3 +863,159 @@ class TextMapLenEstimator(VectorizerEstimator):
         ]
         self.metadata["mapKeys"] = keys
         return TextMapLenModel(keys, self.clean_keys)
+
+
+class DecisionTreeNumericMapBucketizerModel(VectorizerModel):
+    """Fitted per-key supervised binning of numeric maps: input 0 is the
+    label (supervision only), the rest are the maps."""
+
+    def __init__(self, keys: list[list[str]], splits: list[list[list[float]]],
+                 should_split: list[list[bool]], clean_keys: bool,
+                 track_nulls: bool, track_invalid: bool, **kw):
+        super().__init__("dtNumericMapBucketized", **kw)
+        self.keys = keys
+        self.splits = splits
+        self.should_split = should_split
+        self.clean_keys = clean_keys
+        self.track_nulls = track_nulls
+        self.track_invalid = track_invalid
+
+    def get_params(self):
+        return {
+            "keys": self.keys,
+            "splits": self.splits,
+            "should_split": self.should_split,
+            "clean_keys": self.clean_keys,
+            "track_nulls": self.track_nulls,
+            "track_invalid": self.track_invalid,
+        }
+
+    def blocks_for(self, cols: Sequence[Column], num_rows: int):
+        # the per-key encoding, labels and invalid routing are the scalar
+        # bucketizer's, so both variants agree
+        import dataclasses
+
+        from .bucketizers import _bucket_metas, _encode
+
+        blocks, metas = [], []
+        for fi, (col, feat) in enumerate(
+            zip(cols[1:], self.input_features[1:])
+        ):
+            keys = self.keys[fi]
+            rows = map_rows(col, self.clean_keys)
+            parts, metas_f = [], []
+            for ki, k in enumerate(keys):
+                should = self.should_split[fi][ki]
+                vals = np.full(num_rows, np.nan, dtype=np.float64)
+                mask = np.zeros(num_rows, dtype=bool)
+                for r, m in enumerate(rows):
+                    v = m.get(k)
+                    if v is not None:
+                        vals[r] = float(v)
+                        mask[r] = True
+                if not should:
+                    # no useful split: null indicator only (scalar parity)
+                    if self.track_nulls:
+                        parts.append((~mask).astype(np.float32)[:, None])
+                        metas_f.append(
+                            ColumnMeta((feat.name,), feat.ftype.__name__,
+                                       grouping=k,
+                                       indicator_value=NULL_STRING)
+                        )
+                    continue
+                splits = np.asarray(self.splits[fi][ki], dtype=np.float64)
+                parts.append(
+                    _encode(vals, mask, splits, self.track_nulls,
+                            self.track_invalid)
+                )
+                metas_f.extend(
+                    dataclasses.replace(m_, grouping=k)
+                    for m_ in _bucket_metas(
+                        feat.name, feat.ftype.__name__, splits,
+                        self.track_nulls, self.track_invalid,
+                    )
+                )
+            blocks.append(
+                np.concatenate(parts, axis=1)
+                if parts else np.zeros((num_rows, 0), dtype=np.float32)
+            )
+            metas.append(metas_f)
+        return blocks, metas
+
+
+class DecisionTreeNumericMapBucketizer(VectorizerEstimator):
+    """Supervised per-key binning of numeric maps
+    (DecisionTreeNumericMapBucketizer.scala): each learned key's values fit
+    a single-feature decision tree against the label — keys whose tree
+    finds no informative split emit only their null indicator, exactly
+    like the scalar DecisionTreeNumericBucketizer."""
+
+    def __init__(
+        self,
+        max_depth: int = 5,
+        min_info_gain: float = 1e-7,
+        clean_keys: bool = DEFAULTS.CleanKeys,
+        track_nulls: bool = DEFAULTS.TrackNulls,
+        track_invalid: bool = True,
+        uid: str | None = None,
+    ):
+        super().__init__("dtNumericMapBucketized", uid=uid)
+        self.max_depth = max_depth
+        self.min_info_gain = min_info_gain
+        self.clean_keys = clean_keys
+        self.track_nulls = track_nulls
+        self.track_invalid = track_invalid
+
+    def get_params(self):
+        return {
+            "max_depth": self.max_depth,
+            "min_info_gain": self.min_info_gain,
+            "clean_keys": self.clean_keys,
+            "track_nulls": self.track_nulls,
+            "track_invalid": self.track_invalid,
+        }
+
+    def fit_model(self, dataset: Dataset) -> DecisionTreeNumericMapBucketizerModel:
+        from ..types.columns import NumericColumn
+        from .bucketizers import _tree_splits
+
+        label_name = self.input_names[0]
+        label = dataset[label_name]
+        assert isinstance(label, NumericColumn)
+        all_keys, all_splits, all_should = [], [], []
+        for name in self.input_names[1:]:
+            col = dataset[name]
+            keys = learn_keys(col, self.clean_keys)
+            rows = map_rows(col, self.clean_keys)
+            splits_f, should_f = [], []
+            for k in keys:
+                xs, ys = [], []
+                for m, lv, lm in zip(rows, label.values, label.mask):
+                    v = m.get(k)
+                    if v is not None and lm and np.isfinite(float(v)):
+                        xs.append(float(v))
+                        ys.append(float(lv))
+                inner = (
+                    _tree_splits(
+                        np.asarray(xs), np.asarray(ys),
+                        max_depth=self.max_depth,
+                        min_info_gain=self.min_info_gain,
+                    )
+                    if xs else np.zeros(0)
+                )
+                should = inner.size > 0
+                splits = (
+                    np.concatenate(([-np.inf], inner, [np.inf]))
+                    if should else np.array([-np.inf, np.inf])
+                )
+                splits_f.append([float(s) for s in splits])
+                should_f.append(bool(should))
+            all_keys.append(keys)
+            all_splits.append(splits_f)
+            all_should.append(should_f)
+        self.metadata["mapKeys"] = all_keys
+        self.metadata["shouldSplit"] = all_should
+        return DecisionTreeNumericMapBucketizerModel(
+            all_keys, all_splits, all_should, self.clean_keys,
+            self.track_nulls, self.track_invalid,
+        )

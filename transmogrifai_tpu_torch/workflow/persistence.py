@@ -8,11 +8,12 @@ the selector's info and the training summary's fields) and ``arrays.npz``
 arrays)`` (default: the constructor on the params), so a model either
 package saved loads in the other. Each saved stage class maps to the
 port's class of the same name; the loader rebuilds the feature DAG and
-puts the predictors' arrays on the device. The manifest fields of planes
-the port does not have yet (serving and attribution profiles, the
-distributed-resilience ledger, the analysis and run reports, the raw
-feature filter's results, sensitive features) are written as ``null``,
-which the reference's loader accepts.
+puts the predictors' arrays on the device. The raw feature filter's
+results (``rffResults``) and the blocklist travel as the reference writes
+them. The manifest fields of planes the port does not have yet (serving
+and attribution profiles, the distributed-resilience ledger, the analysis
+and run reports, sensitive features) are written as ``null``, which the
+reference's loader accepts.
 """
 from __future__ import annotations
 
@@ -31,7 +32,11 @@ from ..models.gbdt import (
 )
 from ..models.linear import LinearRegressionModel
 from ..models.logistic import LogisticRegressionModel
-from ..ops import dates, domains, lists, maps, phone, time_period
+from ..ops import (
+    bucketizers, dates, domains, lists, maps, phone, prediction, scalers,
+    simple, time_period,
+)
+from ..ops import math as opmath
 from ..ops.categorical import OneHotModel
 from ..ops.combiner import VectorsCombiner
 from ..ops.numeric import BinaryVectorizer, NumericVectorizerModel, RealNNVectorizer
@@ -70,6 +75,28 @@ STAGE_CLASSES: dict[str, type] = {
         maps.RealMapModel, maps.DateMapModel, maps.TextMapPivotModel,
         maps.SmartTextMapModel, maps.GeolocationMapModel, maps.PhoneMapModel,
         maps.TextMapNullModel, maps.TextMapLenModel,
+        maps.DecisionTreeNumericMapBucketizerModel,
+        opmath.AddTransformer, opmath.SubtractTransformer,
+        opmath.MultiplyTransformer, opmath.DivideTransformer,
+        opmath.ScalarAddTransformer, opmath.ScalarSubtractTransformer,
+        opmath.ScalarMultiplyTransformer, opmath.ScalarDivideTransformer,
+        opmath.AbsoluteValueTransformer, opmath.CeilTransformer,
+        opmath.FloorTransformer, opmath.RoundTransformer,
+        opmath.RoundDigitsTransformer, opmath.ExpTransformer,
+        opmath.SqrtTransformer, opmath.LogTransformer,
+        opmath.PowerTransformer,
+        scalers.OpScalarStandardScalerModel, scalers.FillMissingWithMeanModel,
+        scalers.ScalerTransformer, scalers.DescalerTransformer,
+        scalers.PercentileCalibratorModel,
+        bucketizers.NumericBucketizer,
+        bucketizers.DecisionTreeNumericBucketizerModel,
+        bucketizers.DropIndicesByTransformer,
+        simple.AliasTransformer, simple.FilterTransformer,
+        simple.ReplaceTransformer, simple.SubstringTransformer,
+        simple.ToOccurTransformer, simple.ExistsTransformer,
+        simple.TextLenTransformer, simple.FilterMap, simple.MultiLabelJoiner,
+        simple.TopNLabelProbMap,
+        prediction.PredictionFieldExtractor,
     )
 }
 
@@ -168,7 +195,7 @@ def save_workflow_model(model: "WorkflowModel", path: str) -> None:  # noqa: F82
         "selectorInfo": model.selector_info,
         "trainRows": model.train_rows,
         "holdoutRows": model.holdout_rows,
-        "rffResults": None,
+        "rffResults": model.rff_results,
         "blocklisted": model.blocklisted,
         "sensitiveFeatures": None,
         "servingProfiles": None,
@@ -262,6 +289,7 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
         selector_info=manifest.get("selectorInfo"),
         train_rows=manifest.get("trainRows", 0),
         holdout_rows=manifest.get("holdoutRows", 0),
+        rff_results=manifest.get("rffResults"),
         blocklisted=manifest.get("blocklisted", []),
         device=dev,
     )

@@ -12,8 +12,10 @@ layer, evaluates the selected model on the holdout, and returns a fitted
 
 Not ported yet, each raising ``NotImplementedError`` that names its
 ``ROADMAP.md`` item: checkpoints and resume, streaming ingest, the progress
-callback and run reports (A12), the raw feature filter (A2's remainder),
-an execution mesh (A13). ``train()`` validates the stages with
+callback and run reports (A12), an execution mesh (A13), sensitive
+feature detection (A11). ``with_raw_feature_filter`` runs the
+RawFeatureFilter before the holdout split (and before workflow CV's
+folds) and rewrites the DAG without the blocklisted features. ``train()`` validates the stages with
 ``validate_stages`` in place of the reference's preflight analysis (A14);
 the serving and attribution profiles are ``None`` until A8 and A10, and
 ``summary_pretty`` leaves out the insights lines until A10.
@@ -50,6 +52,9 @@ class Workflow:
         self._stage_overrides: dict[str, dict[str, Any]] = {}
         self._prefitted: dict[str, PipelineStage] = {}
         self._workflow_cv = False
+        self._raw_feature_filter = None
+        self._rff_score_reader: DataReader | None = None
+        self.blocklisted_features: list[str] = []
 
     # ----------------------------------------------------------- configure
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -86,11 +91,58 @@ class Workflow:
         self._workflow_cv = True
         return self
 
-    def with_raw_feature_filter(self, *args: Any, **kwargs: Any) -> "Workflow":
-        raise _not_ported("the raw feature filter", "A2's remainder")
+    def with_raw_feature_filter(
+        self,
+        score_dataset: Dataset | None = None,
+        score_reader: DataReader | None = None,
+        **params: Any,
+    ) -> "Workflow":
+        """Attach a RawFeatureFilter of ``params``
+        (OpWorkflow.withRawFeatureFilter): before the fit, the raw features
+        that fail its fill, drift or leakage rules (against the scoring
+        data, where given) are blocklisted and the DAG is rewritten without
+        them."""
+        from ..prep.raw_feature_filter import RawFeatureFilter
+
+        self._raw_feature_filter = RawFeatureFilter(**params)
+        if score_dataset is not None:
+            score_reader = DatasetReader(score_dataset)
+        self._rff_score_reader = score_reader
+        return self
+
+    def _apply_blocklist(self, blocklist: list[str]) -> None:
+        """The DAG without the blocklisted raw features
+        (OpWorkflow.setBlocklist, OpWorkflow.scala:118-167): a
+        variable-arity stage loses the blocklisted inputs; a fixed-arity
+        stage, or one left with no input, dies, and its output is
+        blocklisted in turn."""
+        if not blocklist:
+            return
+        dead = set(blocklist)
+        for layer in compute_dag(self.result_features):
+            for stage in layer:
+                kept = tuple(
+                    f for f in stage.input_features if f.name not in dead
+                )
+                if len(kept) == len(stage.input_features):
+                    continue
+                if not kept or getattr(stage, "input_types", None) is not None:
+                    dead.add(stage.output_name)
+                else:
+                    stage.input_features = kept
+        for rf in self.result_features:
+            if rf.name in dead:
+                raise ValueError(
+                    f"RawFeatureFilter removed everything feeding result "
+                    f"feature '{rf.name}'"
+                )
+        self.blocklisted_features = sorted(dead)
 
     def set_parallelism(self, mesh: Any) -> "Workflow":
         raise _not_ported("an execution mesh", "A13")
+
+    def with_sensitive_feature_detection(self) -> "Workflow":
+        raise _not_ported("sensitive feature detection", "A11")
 
     # --------------------------------------------------------------- train
     def _stages(self) -> list[PipelineStage]:
@@ -153,6 +205,30 @@ class Workflow:
         if raw.num_rows == 0:
             raise ValueError("Input dataset cannot be empty")
 
+        rff_results = None
+        if self._raw_feature_filter is not None:
+            label_names = [f.name for f in raw_features if f.is_response]
+            score_data = (
+                self._rff_score_reader.generate_dataset(
+                    [f for f in raw_features if not f.is_response]
+                )
+                if self._rff_score_reader is not None
+                else None
+            )
+            blocklist = self._raw_feature_filter.compute_exclusions(
+                raw,
+                raw_features,
+                score=score_data,
+                label_name=label_names[0] if label_names else None,
+            )
+            rff_results = self._raw_feature_filter.results
+            if blocklist:
+                log.info("RawFeatureFilter blocklisted: %s", blocklist)
+                self._apply_blocklist(blocklist)
+                raw_features = raw_features_of(self.result_features)
+                raw = raw.drop(blocklist)
+                validate_stages(compute_dag(self.result_features))
+
         train_data, holdout_data = raw, None
         if selector is not None and selector.splitter is not None:
             train_idx, holdout_idx = selector.splitter.split(raw.num_rows)
@@ -213,6 +289,8 @@ class Workflow:
             selector_info=selector_info,
             train_rows=train_data.num_rows,
             holdout_rows=0 if holdout_data is None else holdout_data.num_rows,
+            rff_results=None if rff_results is None else rff_results.to_json(),
+            blocklisted=list(self.blocklisted_features),
             label_summary=label_summary,
             training_params=dict(self._stage_overrides),
         )
@@ -283,6 +361,7 @@ class WorkflowModel:
         selector_info: dict[str, Any] | None = None,
         train_rows: int = 0,
         holdout_rows: int = 0,
+        rff_results: dict[str, Any] | None = None,
         blocklisted: list[str] | None = None,
         label_summary: dict[str, Any] | None = None,
         training_params: dict[str, Any] | None = None,
@@ -294,6 +373,7 @@ class WorkflowModel:
         self.selector_info = selector_info
         self.train_rows = train_rows
         self.holdout_rows = holdout_rows
+        self.rff_results = rff_results
         self.blocklisted = blocklisted or []
         self.label_summary = label_summary
         self.training_params = training_params or {}
@@ -440,8 +520,8 @@ class WorkflowModel:
     # ------------------------------------------------------------- summary
     def summary_json(self) -> dict[str, Any]:
         """The reference's summary keys; those of planes not ported yet
-        (the raw feature filter, sensitive features, the resilience and
-        retrain ledgers, the analysis and run reports) are ``None``."""
+        (sensitive features, the resilience and retrain ledgers, the
+        analysis and run reports) are ``None``."""
         sel_summary = None
         if self.selector_info is not None:
             model = self.fitted.get(self.selector_info["estimatorUid"])
@@ -453,7 +533,7 @@ class WorkflowModel:
             "rawFeatures": [f.name for f in self.raw_features],
             "resultFeatures": [f.name for f in self.result_features],
             "blocklistedFeatures": self.blocklisted,
-            "rawFeatureFilterResults": None,
+            "rawFeatureFilterResults": self.rff_results,
             "sensitiveFeatures": None,
             "modelSelectorSummary": sel_summary,
             "stageMetadata": {
