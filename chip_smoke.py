@@ -171,6 +171,23 @@ paths:
   ``DSL_CPU_ROWS``. F2 (the arithmetic, scaler and log stages over
   ``wide_hash_table``) fuses with those stages as its host prefix: 65536
   fresh rows fused EQUAL staged, one upload, one download, one sync.
+* the featurize plane (``featurize_plane``, last): every phase above runs
+  on it, as it is the default route (native host kernels from
+  ``native/tptpu_native.cpp``, built by ``transmogrifai_tpu_torch/
+  native.py`` into ``_build/`` with ``g++`` beside the CUDA builds; the
+  chunked pool; COO hash planes from 4096 rows; fused block assembly in
+  the scoring closure). The phase prints the library's build and ABI, the
+  sha256 of ``native/libtptpu.so`` (the JAX package's build, never touched)
+  at the start and the end of the run, and ``nproc``; then ``transmogrify``
+  fit and transform over ``wide_hash_table(65536)`` on the plane and on
+  the plain routes (``TPTPU_DISABLE_NATIVE``, one thread): EQUAL vectors
+  (the sparse plane densified), metadata and keep-sets (the SanityChecker
+  on the card), with the host seconds and ``featurizeStats`` of each; the
+  model ``fused_serving`` trained on that table scoring 8192-row batches
+  staged (after the first, each batch assembles into one buffer: EQUAL
+  the plane-off closure's scores) and 65536 rows fused, the fusion
+  planner's widths cross-checked, EQUAL staged, one upload, one download,
+  one sync.
 
 Kernel K4, the fused split search, is on no path of the reference (its
 policy never takes it); it is held against its plain version at the
@@ -3265,7 +3282,8 @@ def fit_side_to_train(torch, G, H, ST, TS, x, y, smi: str) -> dict:
 
 # ----------------------------------------------------------- train() (A6)
 SELECTOR_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_selector")
-#: summary keys of planes the port does not have yet (None in its summary)
+#: summary keys left out of the comparison: the planes the port does not
+#: have yet (None in its summary) and featurizeStats, this process's ledger
 UNPORTED_SUMMARY_KEYS = ("compileStats", "featurizeStats",
                          "distributedResilience")
 #: families whose lanes are not bit-identical to the JAX package's (their
@@ -3426,6 +3444,16 @@ def check_lanes(name: str, summary: dict) -> None:
 def same_json(a, b) -> bool:
     return (json.dumps(a, sort_keys=True, default=float)
             == json.dumps(b, sort_keys=True, default=float))
+
+
+def same_summary(a: dict, b: dict) -> bool:
+    """Two selector summaries EQUAL but for their ``featurizeStats``, each
+    run's own ledger (seconds, pool use), of which only the keys must
+    match."""
+    ledger = "featurizeStats"
+    return (set(a[ledger]) == set(b[ledger])
+            and same_json({k: v for k, v in a.items() if k != ledger},
+                          {k: v for k, v in b.items() if k != ledger}))
 
 
 def check_against_selector_fixture(name: str, summary: dict, scores) -> dict:
@@ -3846,7 +3874,7 @@ def train_all_types(torch, smi: str, counters, score_function,
                      "scores": score_matrix(score_function(
                          m, device=dev).batch(rows))}
     card_run = runs[DEV]
-    if not same_json(card_run["summary"], runs["cpu"]["summary"]):
+    if not same_summary(card_run["summary"], runs["cpu"]["summary"]):
         raise AssertionError("train_all_types: the small grids' selector "
                              "summary differs from the CPU's")
     small_err = same_scores("train_all_types small grids card vs cpu",
@@ -3962,7 +3990,7 @@ def dsl_small_grids(D, score_function) -> dict:
                      "scores": score_matrix(score_function(
                          m, device=dev).batch(fresh))}
     card, cpu = runs[DEV], runs["cpu"]
-    if not (same_json(card["summary"], cpu["summary"])
+    if not (same_summary(card["summary"], cpu["summary"])
             and same_json(card["rff"], cpu["rff"])
             and card["blocklisted"] == cpu["blocklisted"]):
         raise AssertionError("train_dsl: the card's small-grid flow differs "
@@ -4683,7 +4711,185 @@ def fused_serving(torch, smi: str, ST, TS, TR, wide_model,
             "transfers_per_batch": transfers,
             f"span_{FUSED_TILES[-1]}": spans,
             "wide_hash": wide, "refused": refusals,
-            "launches": launches, "seconds": time.perf_counter() - t0}
+            "launches": launches, "seconds": time.perf_counter() - t0,
+            "_trained": trained}
+
+
+# ---------------------------------------------------- the featurize plane
+#: the JAX package's native build (``native/Makefile``), which the port
+#: never loads or rewrites; absent from a checkout that holds only the
+#: files git tracks
+NATIVE_SO = os.path.join(ROOT, "native", "libtptpu.so")
+FEATURIZE_ROWS = 65536
+FEATURIZE_BATCH = 8192
+
+
+def file_sha256(path: str) -> str | None:
+    import hashlib
+
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """The featurize plane's plain routes: every native kernel's Python
+    route (``TPTPU_DISABLE_NATIVE``, read per call) and one thread."""
+    saved = {k: os.environ.get(k)
+             for k in ("TPTPU_DISABLE_NATIVE", "TPTPU_FEATURIZE_THREADS")}
+    os.environ.update(TPTPU_DISABLE_NATIVE="1", TPTPU_FEATURIZE_THREADS="1")
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def plane_transmogrify(torch, ds) -> dict:
+    """``transmogrify`` fit and transform over ``ds`` (host seconds of
+    each, the featurizeStats delta), then the SanityChecker's fit of the
+    vector on the card: the vector column and the keep-set."""
+    from transmogrifai_tpu_torch.features import from_dataset
+    from transmogrifai_tpu_torch.featurize import stats as fstats
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.stages.base import Estimator
+    from transmogrifai_tpu_torch.utils import uid
+    from transmogrifai_tpu_torch.workflow.dag import compute_dag
+
+    uid.reset()  # the same stage names on both routes
+    resp, preds = from_dataset(ds, response="label")
+    vec = transmogrify(preds)
+    checked = resp.sanity_check(vec, remove_bad_features=True)
+    before = fstats.snapshot()
+    fit_s = transform_s = 0.0
+    data = ds
+    for layer in compute_dag([vec]):
+        t0 = time.perf_counter()
+        models = [s.fit(data) if isinstance(s, Estimator) else s for s in layer]
+        fit_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for m in models:
+            data = m.transform(data)
+        transform_s += time.perf_counter() - t0
+    stats = fstats.delta(before)
+    checker = checked.origin_stage.fit(data)
+    torch.cuda.synchronize()
+    summary = checker.metadata["sanityCheckerSummary"]
+    return {"vector": data[vec.name], "keep": keep_and_reasons(summary),
+            "fit_s": fit_s, "transform_s": transform_s, "featurize": stats}
+
+
+def plane_staged_scoring(fn, ds, pred_name: str) -> tuple:
+    """``ds`` scored in 8192-row batches through ``fn.columns`` (below the
+    host-predict cutoff: staged): (score matrix, seconds, fusedAssemblies
+    of each batch)."""
+    from transmogrifai_tpu_torch.featurize import stats as fstats
+
+    parts, fused, seconds = [], [], 0.0
+    for a in range(0, len(ds), FEATURIZE_BATCH):
+        batch = ds.take(np.arange(a, min(a + FEATURIZE_BATCH, len(ds))))
+        before = fstats.snapshot()
+        t0 = time.perf_counter()
+        out = fn.columns(batch)[pred_name]
+        seconds += time.perf_counter() - t0
+        fused.append(fstats.delta(before)["fusedAssemblies"])
+        parts.append(score_matrix(out))
+    return np.concatenate(parts), seconds, fused
+
+
+def featurize_plane(torch, smi: str, ST, TS, trained, score_function,
+                    native_so_before) -> dict:
+    """The featurize plane (``featurize/``, ``native.py``) on the card's
+    machine against its plain routes on ``wide_hash_table(65536)``, then
+    the model ``fused_serving`` trained on ``wide_hash_table(16384)``
+    scoring those 65536 rows staged in 8192-row batches (fused block
+    assembly from the second batch on; EQUAL a closure on the plain
+    routes) and all at once fused (the fusion planner's widths
+    cross-checked, one upload, one download, one sync)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    from fit_side_tables import WIDE_SEED
+
+    from transmogrifai_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ds = wide_hash_dataset(FEATURIZE_ROWS, WIDE_SEED)
+    table_s = time.perf_counter() - t0
+    plane = plane_transmogrify(torch, ds)
+    with plain_routes():
+        plain = plane_transmogrify(torch, ds)
+    pv, qv = plane["vector"], plain["vector"]
+    if not (pv.is_sparse and not qv.is_sparse):
+        raise AssertionError("featurize_plane: the plane's vector is not "
+                             "sparse, or the plain routes' is")
+    if not np.array_equal(np.asarray(pv.values), qv.values):
+        raise AssertionError("featurize_plane: the plane's vector differs "
+                             "from the plain routes'")
+    if pv.metadata != qv.metadata:
+        raise AssertionError("featurize_plane: metadata differ")
+    if plane["keep"] != plain["keep"]:
+        raise AssertionError("featurize_plane: keep-sets differ")
+    routes = {name: {k: run[k] for k in ("fit_s", "transform_s", "featurize")}
+              for name, run in (("plane", plane), ("plain", plain))}
+    shape = list(pv.values.shape)
+    nnz = pv.values.nnz
+    del plane, plain, pv, qv
+
+    model, pred, _, _ = trained
+    on = score_function(model)
+    got, on_s, fused_per_batch = plane_staged_scoring(on, ds, pred.name)
+    with plain_routes():
+        off = score_function(model)
+        want, off_s, off_fused = plane_staged_scoring(off, ds, pred.name)
+    if fused_per_batch != [0] + [1] * (len(fused_per_batch) - 1):
+        raise AssertionError(f"featurize_plane: fusedAssemblies per batch "
+                             f"{fused_per_batch}")
+    same_scores("featurize_plane staged", got, want, False)
+
+    counter = FusedLaunches(ST, TS)
+    fn = score_function(model)
+    if not fn.prime_fused() or not fn.fusion.ready():
+        raise AssertionError(f"featurize_plane: no fused program or no "
+                             f"learned widths ({fused_md(fn)['reason']})")
+    fused = score_matrix(counter.counted(lambda: fn.columns(ds))[pred.name])
+    # the same batch staged: above the cutoff both sum the trees in the
+    # device route's order (the 8192-row batches took the host order)
+    same_scores("featurize_plane fused", fused,
+                score_matrix(staged(fn, lambda: fn.columns(ds))[pred.name]),
+                False)
+    transfers = fused_transfers(torch, TS, counter, fn,
+                                lambda: fn.columns(ds), FEATURIZE_ROWS)
+    native_so_after = file_sha256(NATIVE_SO)
+    if native_so_after != native_so_before:
+        raise AssertionError("featurize_plane: native/libtptpu.so changed")
+    return {
+        "card": smi,
+        "native": {**native.build_info, "compiler": native.COMPILER,
+                   "flags": list(native.CXX_FLAGS)},
+        "native_libtptpu_so_sha256": {"before": native_so_before,
+                                      "after": native_so_after},
+        "nproc": len(os.sched_getaffinity(0)), "cpu_count": os.cpu_count(),
+        "rows": FEATURIZE_ROWS, "table_s": table_s,
+        "vector_shape": shape, "vector_nnz": nnz,
+        "vectors_metadata_keep_equal": True, "routes": routes,
+        "staged": {"batch_rows": FEATURIZE_BATCH,
+                   "fused_assemblies_per_batch": fused_per_batch,
+                   "fused_assemblies_per_batch_plain": off_fused,
+                   "rows_per_s_plane": FEATURIZE_ROWS / on_s,
+                   "rows_per_s_plain": FEATURIZE_ROWS / off_s,
+                   "scores_equal_plain": True},
+        "fused": {"rows": FEATURIZE_ROWS, "planner_widths": len(fn.fusion.widths),
+                  "plane_width": fn.fusion.plane_width(),
+                  "scores_equal_staged": True, "transfers": transfers,
+                  "launches": dict(counter.total),
+                  "featurizeStats": fn.metadata()["featurizeStats"]},
+        "seconds": time.perf_counter() - t_phase,
+    }
 
 
 def start_on_card(torch, sources: list[str]) -> str:
@@ -4703,9 +4909,13 @@ def start_on_card(torch, sources: list[str]) -> str:
         package=os.path.dirname(os.path.dirname(cuda_build.__file__)),
     )
     print(smi, flush=True)
+    from transmogrifai_tpu_torch import native
+
     t0 = time.perf_counter()
     built = cuda_build.build(sources)
-    phase("build", seconds=time.perf_counter() - t0, per_source=built)
+    native.library()  # the host kernels, with g++, before any phase times
+    phase("build", seconds=time.perf_counter() - t0, per_source=built,
+          native=native.build_info)
     for name, log in cuda_build.build_logs.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
     return smi
@@ -4718,6 +4928,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    native_so_before = file_sha256(NATIVE_SO)
     from transmogrifai_tpu_torch import load_workflow_model, score_function
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
@@ -5052,6 +5263,7 @@ def main() -> int:
     fused = fused_serving(torch, smi, ST, TS, TR, wide_models["train_wide"],
                           load_workflow_model, score_function)
     del wide_models
+    wide_hash_trained = fused.pop("_trained")
     phase("fused_serving", **fused)
 
     # every type of transmogrify's default dispatch through train() and
@@ -5072,6 +5284,13 @@ def main() -> int:
     dsl_fused_launches = train_runs["train_dsl"]["fused"]["launches"]
     train_launches = {k: {path: run["launches"][k] for path, run in train_runs.items()}
                       for k in counters}
+
+    # the featurize plane against the plain routes, its scoring staged and
+    # fused; K1's and the route sum's launches of its fused batches counted
+    plane = featurize_plane(torch, smi, ST, TS, wide_hash_trained,
+                            score_function, native_so_before)
+    del wide_hash_trained
+    phase("featurize_plane", **plane)
 
     phase("wall", seconds=time.perf_counter() - t_start,
           profiler_missed_activities=device_ms.missed_activities,
@@ -5144,7 +5363,9 @@ def main() -> int:
             "train_all_types scoring": all_types_scoring[
                 "tree_sum_device_route"],
             "train_dsl scoring": dsl_scoring["tree_sum_device_route"],
-            "train_dsl fused": dsl_fused_launches["tree_sum_device_route"]},
+            "train_dsl fused": dsl_fused_launches["tree_sum_device_route"],
+            "featurize_plane fused": plane["fused"]["launches"][
+                "tree_sum_device_route"]},
         "max_abs_err": max(route_main["max_abs_err"],
                            max(r["max_abs_err"] for r in route_rows.values())),
         "ms": route_main["ms"],
@@ -5239,7 +5460,9 @@ def main() -> int:
                                  all_types_scoring["serve_trees"],
                              "train_dsl scoring": dsl_scoring["serve_trees"],
                              "train_dsl fused":
-                                 dsl_fused_launches["serve_trees"]},
+                                 dsl_fused_launches["serve_trees"],
+                             "featurize_plane fused":
+                                 plane["fused"]["launches"]["serve_trees"]},
         "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
                            k1_reg["max_abs_err"]),
         "ms": k1_paths["packed_ms"],

@@ -46,7 +46,7 @@ from transmogrifai_tpu_torch import types as PT
 from transmogrifai_tpu_torch.dataset import Dataset as PDataset
 from transmogrifai_tpu_torch.features import FeatureBuilder, from_dataset
 from transmogrifai_tpu_torch.local.scoring import score_function
-from transmogrifai_tpu_torch.ops import base as PB
+from transmogrifai_tpu_torch.featurize import stats as FSTATS
 from transmogrifai_tpu_torch.ops import categorical as PC
 from transmogrifai_tpu_torch.ops import text as PX
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
@@ -268,8 +268,9 @@ def test_integral_mode_ties_go_to_the_smallest_value():
 
 
 def test_chunked_transform_equals_one_pass(monkeypatch):
-    """Batches above CHUNK_ROWS run blocks_for over row chunks written into
-    one output: the same values and metadata as a single pass."""
+    """Batches of at least two pool chunks run blocks_for over row chunks
+    on the featurize pool, stacked into one output: the same values and
+    metadata as a single pass."""
     ds = port_dataset(TK.random_dataset({
         "r": TK.RandomReal.normal().with_probability_of_empty(0.3),
         "t": TK.RandomText.strings(1, 9).with_probability_of_empty(0.2),
@@ -279,10 +280,13 @@ def test_chunked_transform_equals_one_pass(monkeypatch):
     resp, preds = from_dataset(ds, response="label")
     vec = transmogrify(preds)
     data, fitted = fit_and_transform_dag(ds, [vec])
-    monkeypatch.setattr(PB, "CHUNK_ROWS", 96)
+    monkeypatch.setenv("TPTPU_FEATURIZE_THREADS", "4")
+    monkeypatch.setenv("TPTPU_FEATURIZE_CHUNK", "96")
     for m in fitted.values():
         m._meta_cache = None
+    before = FSTATS.snapshot()
     chunked = apply_transformations_dag(ds, [vec], fitted)
+    assert FSTATS.delta(before)["chunkedStages"] > 0
     np.testing.assert_array_equal(chunked[vec.name].values, data[vec.name].values)
     assert chunked[vec.name].metadata == data[vec.name].metadata
 

@@ -76,6 +76,8 @@ REQUIRED = (
     "ops/phone.py", "ops/lists.py", "ops/domains.py", "ops/maps.py",
     "utils/serial.py", "ops/math.py", "ops/scalers.py", "ops/bucketizers.py",
     "ops/simple.py", "ops/prediction.py", "prep/raw_feature_filter.py",
+    "native.py", "featurize/stats.py", "featurize/interning.py",
+    "featurize/kernels.py", "featurize/parallel.py", "featurize/engine.py",
 )
 
 
@@ -191,3 +193,39 @@ def test_sanity_checker_needs_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SanityChecker().set_input(label, vec).fit(
             fit_and_transform_dag(ds, [vec])[0])
+
+
+def _code_strings(path: str) -> list[str]:
+    """The string constants of a module, its docstrings left out."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    getattr(body[0], "value", None), ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_native_loader_never_runs_make_or_writes_under_native():
+    """The port's loader for ``native/tptpu_native.cpp`` compiles into the
+    package's ``_build/`` with the compiler itself: no ``make``, no
+    ``Makefile``, and nothing under ``native/`` but the source it reads
+    (the JAX package's ``native/libtptpu.so`` is never loaded or
+    rebuilt)."""
+    from transmogrifai_tpu_torch import native
+
+    strings = _code_strings(os.path.join(PORT, "native.py"))
+    assert strings, "the loader's source has no string constants"
+    for s in strings:
+        assert s != "make" and "Makefile" not in s and "libtptpu.so" not in s, s
+    native_dir = os.path.join(ROOT, "native")
+    assert os.path.dirname(native.SOURCE) == native_dir
+    assert native.BUILD_DIR == os.path.join(PORT, "_build")
+    assert os.path.dirname(native.library_path()) == native.BUILD_DIR
+    assert native.COMPILER == "g++"
+    assert native.CXX_FLAGS == ("-O3", "-fPIC", "-shared", "-std=c++17")

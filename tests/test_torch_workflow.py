@@ -96,6 +96,8 @@ def test_selector_summary_matches_the_reference(case):
     F.assert_same_summary(got, want, glm_winner(case))
     for key in F.UNPORTED_KEYS:
         assert got[key] is None
+    for key in F.LEDGER_KEYS:
+        assert set(got[key]) == set(want[key])
 
 
 def test_the_cases_cover_both_kinds_of_winner():
@@ -211,9 +213,10 @@ def test_port_saved_model_loads_in_both_packages(tmp_path):
     loaded = PW.WorkflowModel.load(path, device="cpu")
     for g, w in zip(_scores("raising", "port", loaded), want, strict=True):
         np.testing.assert_array_equal(g, w)
+    summary = model.summary_json()["modelSelectorSummary"]
     assert loaded.summary_json()["modelSelectorSummary"] == F.without_unported(
-        model.summary_json()["modelSelectorSummary"]) | {
-            k: None for k in F.UNPORTED_KEYS}
+        summary) | {k: None for k in F.UNPORTED_KEYS} | {
+            k: summary[k] for k in F.LEDGER_KEYS}
     jloaded = j_load(path)
     jds = flows("raising")["jax"][0]
     col = jloaded.score(jds)[pred.name]

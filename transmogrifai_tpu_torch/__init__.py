@@ -14,7 +14,10 @@ runs too: ``readers.infer_csv_dataset``, ``features.from_dataset``,
 default dispatch: numeric, categorical, smart text, dates, sets, phones,
 lists, geolocations and maps; ``testkit`` draws typed tables of them),
 ``label.sanity_check(vec)`` (``prep.SanityChecker``, its statistics on the
-card) and ``workflow.fit.fit_and_transform_dag``. Entry points run on the
+card) and ``workflow.fit.fit_and_transform_dag``, on the featurize plane
+(``featurize/``: interning, fused block assembly, the chunked pool,
+``featurizeStats``; the host kernels of ``native/tptpu_native.cpp``, built
+with ``g++`` by ``native.py``). Entry points run on the
 card unless the caller passes ``device="cpu"``, which runs the plain
 PyTorch versions. The whole five-line flow runs:
 ``selector.BinaryClassificationModelSelector`` (and the regression and

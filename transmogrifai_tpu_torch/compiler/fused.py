@@ -35,9 +35,11 @@ fault, a CUDA error) propagates: where the reference degrades to the staged
 loop on any exception, the port does not, so a fault on the card is never
 hidden behind a slower path.
 
-Left for later: the explain lanes (``_fused_eval_explain``, ROADMAP A10),
-the executable bank and warmup (A14), breaker and fault-plan gating (A8),
-and the fusion planner's width cross-check (A2's featurize plane).
+The members' widths are cross-checked against the scoring closure's
+``featurize.engine.FusionPlanner`` (the widths its batches learned) when
+it has any. Left for later: the explain lanes (``_fused_eval_explain``,
+ROADMAP A10), the executable bank and warmup (A14), breaker and fault-plan
+gating (A8).
 """
 from __future__ import annotations
 
@@ -114,6 +116,7 @@ def build_fused_plan(
     result_names: Sequence[str],
     quantize: bool = False,
     device: torch.device | str = "cpu",
+    fusion=None,
 ) -> "FusedServingProgram":
     """Compile the fitted serving ``plan`` into a :class:`FusedServingProgram`
     on ``device``, or raise :class:`Unfuseable` naming the obstruction.
@@ -121,9 +124,8 @@ def build_fused_plan(
     Fuseable shape: host prefix stages feeding one ``VectorsCombiner``
     plane (every member exposing ``fused_member_spec``), a chain of
     ``FeatureRemovalModel`` gathers, and ONE terminal predictor exposing
-    ``fused_predict_spec``. (The reference also cross-checks the members'
-    widths against its featurize plane's learned ones; that plane is not
-    ported.)
+    ``fused_predict_spec``. ``fusion`` (the closure's FusionPlanner)
+    cross-checks the members' widths against the ones it learned.
 
     ``quantize=True`` rewrites eligible members onto the quantized plane
     (``featurize/quantize.py``): numeric value columns go up as uint8
@@ -192,6 +194,16 @@ def build_fused_plan(
                 "prediction leaves the device"
             )
 
+    # widths: provable from the member specs alone; the FusionPlanner's
+    # learned / primed widths cross-check them when present
+    if fusion is not None:
+        for m in members:
+            learned = fusion.widths.get(m.stage.uid)
+            if learned is not None and int(learned) != int(m.width):
+                raise Unfuseable(
+                    f"member '{m.output_name}' width {m.width} disagrees "
+                    f"with the fusion planner's learned width {learned}"
+                )
     plane_width = int(sum(m.width for m in members))
     gathers: list[np.ndarray] = []
     width = plane_width
@@ -605,6 +617,41 @@ def onehot_member(stage, vocabs, track_nulls, clean_text) -> MemberPlan:
     )
 
 
+def _text_pairs(values, num_hashes: int, binary: bool, to_lowercase: bool,
+                min_token_length: int, seed: int):
+    """int64 (rows, buckets) of a text column's tokens: the native COO
+    pass, or the Python tokenizer and the batch hash (deduplicated per row
+    under ``binary``, as the native pass does)."""
+    from .. import native
+    from ..ops import text as text_ops
+    from ..utils import text as text_util
+
+    texts, rows_idx = text_ops._partition_nulls(values)
+    if not texts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    coo = native.tokenize_hash_coo(
+        texts, rows_idx, num_hashes, seed=seed, binary=binary,
+        to_lowercase=to_lowercase, min_token_length=min_token_length,
+    )
+    if coo is not None:
+        return coo[0].astype(np.int64), coo[1].astype(np.int64)
+    r_parts, c_parts = [], []
+    for raw, row in zip(texts, rows_idx.tolist()):
+        toks = text_util.tokenize(raw, to_lowercase=to_lowercase,
+                                  min_token_length=min_token_length)
+        if not toks:
+            continue
+        j = (native.murmur3_batch(toks, seed=seed)
+             % np.uint32(num_hashes)).astype(np.int64)
+        if binary:
+            j = np.unique(j)
+        r_parts.append(np.full(j.shape[0], row, dtype=np.int64))
+        c_parts.append(j)
+    if not r_parts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(r_parts), np.concatenate(c_parts)
+
+
 def hashed_text_member(
     stage, methods, num_hashes: int, track_nulls: bool, binary_freq: bool,
     to_lowercase: bool, min_token_length: int, seed: int,
@@ -614,7 +661,10 @@ def hashed_text_member(
     (``ops.text.row_tokens``, ``token_buckets``) and collapsed to at most
     ``TPTPU_TEXT_FUSED_TOKENS`` (default 16) distinct buckets per row and
     slot, as int32 codes with float32 occurrence counts; the device
-    scatters them into the ``num_hashes``-wide block. Binary term frequency
+    scatters them into the ``num_hashes``-wide block. The (row, bucket)
+    pairs come from the native COO pass (``native.tokenize_hash_coo``);
+    a column with non-ASCII rows (or the native routes disabled) takes the
+    Python tokenizer and the batch hash, as in the reference. Binary term frequency
     applies ``> 0`` after the scatter. A row with more distinct buckets
     than the cap raises :class:`Unfuseable` at ingest (the batch goes
     staged, counted). Ignore slots contribute their null indicator; Pivot
@@ -643,9 +693,10 @@ def hashed_text_member(
         """One slot's (codes [n, k_cap] int32, counts [n, k_cap] float32);
         the sentinel code ``num_hashes`` is a dump column sliced off after
         the scatter."""
-        tokens, rows = text_ops.row_tokens(
-            values, "", to_lowercase, min_token_length)
-        hcols = text_ops.token_buckets(tokens, num_hashes, seed)
+        rows, hcols = _text_pairs(
+            values, num_hashes, binary_freq, to_lowercase, min_token_length,
+            seed,
+        )
         codes = np.full((n, k_cap), num_hashes, dtype=np.int32)
         weights = np.zeros((n, k_cap), dtype=np.float32)
         if rows.size:

@@ -30,6 +30,8 @@ from typing import Any, Callable
 
 import numpy as np
 
+from ..featurize import stats as fstats
+from ..featurize.engine import FusionPlanner
 from ..types import Prediction
 from ..types.columns import PredictionColumn, column_from_values
 from ..utils.device import resolve_device
@@ -62,6 +64,10 @@ def score_function(
     dev = resolve_device(device)
     model.to(dev)
     plan = model.stage_plan()
+    # one fusion planner per closure: after the first batch learns each
+    # vectorizer's width (or ``prime_fused`` reads them from the fit),
+    # later batches assemble the whole plane into ONE [N, width] buffer
+    fusion = FusionPlanner(plan)
     raw_features = list(model.raw_features)
     result_names = [f.name for f in model.result_features]
     fused_quantized = (
@@ -96,7 +102,7 @@ def score_function(
                 try:
                     fused_holder["program"] = fused.build_fused_plan(
                         plan, result_names, quantize=fused_quantized,
-                        device=dev,
+                        device=dev, fusion=fusion,
                     )
                 except fused.Unfuseable as e:
                     fused_holder["reason"] = str(e)
@@ -143,6 +149,10 @@ def score_function(
         """The plan over raw columns of ``b`` rows: the fused program when
         ``prog`` is given (then the first ``n`` rows are real), else the
         staged loop."""
+        with fusion.batch(b):
+            run_plan_batch(cols, prog, b, n)
+
+    def run_plan_batch(cols: dict[str, Any], prog, b: int, n: int) -> None:
         if prog is None:
             run_stages(cols, plan, b)
             return
@@ -223,15 +233,18 @@ def score_function(
         return score_batch([row])[0]
 
     def prime_fused() -> bool:
-        """Build the fused program now rather than at the first eligible
-        batch; whether one is available."""
+        """Learn the fusion planner's widths from the fit and build the
+        fused program now rather than at the first eligible batch; whether
+        one is available."""
+        fusion.prime()
         return fused_program() is not None
 
     def metadata() -> dict[str, Any]:
         """The fused graph's state and counters, under the reference's
         ``metadata()["fused"]`` keys, and the program's host prefix stages
         (``hostPrefixStages``, the reference's ``describe()`` key; ``None``
-        without a program)."""
+        without a program); ``featurizeStats``, the featurize plane's
+        process-wide ledger."""
         with fused_lock:
             prog = fused_holder["program"]
             snap = dict(fused_counters)
@@ -244,13 +257,14 @@ def score_function(
             "hostPrefixStages": None if prog is None
             else [t.output_name for t in prog.prefix],
             **snap,
-        }}
+        }, "featurizeStats": fstats.snapshot()}
 
     score_one.batch = score_batch
     score_one.columns = score_columns
     score_one.prime_fused = prime_fused
     score_one.metadata = metadata
     score_one.fused_state = fused_holder
+    score_one.fusion = fusion
     return score_one
 
 

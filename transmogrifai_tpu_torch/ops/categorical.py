@@ -15,6 +15,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..featurize.interning import intern_values
 from ..stages.metadata import NULL_STRING, OTHER_STRING, ColumnMeta
 from ..types.columns import Column, SetColumn, TextColumn
 from ..utils.text import clean_string
@@ -31,16 +32,39 @@ def top_values(counts: Counter, top_k: int, min_support: int) -> list[str]:
 
 def pivot_codes(values: Sequence, index: dict, clean_text: bool) -> np.ndarray:
     """Per-row pivot code: -1 null, -2 OTHER, >= 0 vocabulary column.
-    Cleaning and lookup run once per distinct raw value."""
-    code_of: dict = {}
-    codes = np.empty(len(values), dtype=np.int64)
-    for r, raw in enumerate(values):
-        j = code_of.get(raw)
-        if j is None:
-            v = None if raw is None else (clean_string(raw) if clean_text else raw)
-            j = code_of[raw] = -1 if v is None else index.get(v, -2)
-        codes[r] = j
+    Cleaning and lookup run once per distinct raw value: below 4096 rows
+    by a memo dict (cheaper than the native round trip), above by
+    whole-value interning (``featurize.interning.intern_values``, one
+    native pass) and one gather."""
+    n = len(values)
+    if n < 4096:
+        code_of: dict = {}
+        codes = np.empty(n, dtype=np.int64)
+        for r, raw in enumerate(values):
+            j = code_of.get(raw)
+            if j is None:
+                v = _clean(raw, clean_text)
+                j = code_of[raw] = -1 if v is None else index.get(v, -2)
+            codes[r] = j
+        return codes
+    codes = np.full(n, -1, dtype=np.int64)
+    present = np.fromiter((v is not None for v in values), bool, n)
+    if not present.any():
+        return codes
+    texts = list(values) if present.all() else [v for v in values if v is not None]
+    icodes, uniques, _ = intern_values(texts)
+    uniq_col = np.empty(len(uniques), dtype=np.int64)
+    for u, raw in enumerate(uniques):
+        v = _clean(raw, clean_text)
+        uniq_col[u] = -1 if v is None else index.get(v, -2)
+    codes[present] = uniq_col[icodes]
     return codes
+
+
+def _clean(v, clean_text: bool):
+    if v is None:
+        return None
+    return clean_string(v) if clean_text else v
 
 
 def pivot_block(
@@ -203,10 +227,16 @@ class OneHotVectorizer(VectorizerEstimator):
             else:
                 raise TypeError(
                     f"OneHotVectorizer cannot pivot {type(col).__name__}")
-            # clean once per distinct raw value, then merge the counts
+            # value counts by interning: cleaning runs once per distinct
+            # raw value (non-str members take the dict interner)
             counts: Counter = Counter()
-            for raw, c in Counter(raw_values).items():
-                counts[clean_string(raw) if self.clean_text else raw] += c
+            raw = list(raw_values)
+            if raw:
+                _, uniques, ucounts = intern_values(raw)
+                for u, c in zip(uniques, ucounts.tolist()):
+                    u2 = _clean(u, self.clean_text)
+                    if u2 is not None:
+                        counts[u2] += c
             vocabs.append(top_values(counts, self.top_k, self.min_support))
         self.metadata["vocabs"] = vocabs
         return OneHotModel(vocabs, self.track_nulls, self.clean_text)

@@ -1,14 +1,18 @@
 """VectorsCombiner — concatenate every per-type vector into the single
 feature vector fed to the SanityChecker's removal model and the predictor,
-flattening metadata."""
+flattening metadata. Under a fused batch (``featurize.engine``) the members
+already wrote into one buffer, which is returned wholesale; a sparse input
+makes the result a SparseMatrix."""
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
 from ..stages.base import Transformer
 from ..stages.metadata import VectorMetadata
 from ..types import OPVector
-from ..types.columns import Column, VectorColumn
+from ..types.columns import Column, SparseMatrix, VectorColumn
 
 
 class VectorsCombiner(Transformer):
@@ -32,19 +36,35 @@ class VectorsCombiner(Transformer):
         return out
 
     def transform_columns(self, *cols: Column, num_rows: int) -> VectorColumn:
+        from ..featurize import engine as _engine
+
         for c in cols:
             if not isinstance(c, VectorColumn):
                 raise TypeError(f"combine expects vectors, got {type(c).__name__}")
-        if cols:
-            values = np.concatenate(
-                [np.asarray(c.values, dtype=np.float32) for c in cols], axis=1
-            )
-        else:
-            values = np.zeros((num_rows, 0), dtype=np.float32)
         metadata = self._flatten([
             c.metadata if c.metadata is not None else VectorMetadata("anon", ())
             for c in cols
         ])
+        # under a fused batch every member wrote its slice of the shared
+        # plane buffer: the concatenation already happened
+        values = _engine.fused_result(self.uid, cols)
+        if values is None:
+            values = _concat(cols, num_rows)
         if metadata.size != values.shape[1]:
             metadata = None  # an input without metadata: none for the whole
         return VectorColumn(OPVector, values, metadata)
+
+
+def _concat(cols: Sequence[VectorColumn], num_rows: int):
+    """The members' values side by side: a SparseMatrix when any is sparse
+    (dense blocks ride along as COO; consumers densify on their first
+    dense touch), else one float32 array."""
+    if any(c.is_sparse for c in cols):
+        return SparseMatrix.hstack(
+            [c.values for c in cols], [c.dim for c in cols], num_rows
+        )
+    if not cols:
+        return np.zeros((num_rows, 0), dtype=np.float32)
+    return np.concatenate(
+        [np.asarray(c.values, dtype=np.float32) for c in cols], axis=1
+    )

@@ -10,9 +10,9 @@ Reference:
   * GeolocationVectorizer (core/.../stages/impl/feature/GeolocationVectorizer.scala)
     — fill missing with the mean location, track nulls.
 
-TextList terms hash through ``ops.text``'s ``token_buckets`` /
-``murmur3_scatter`` (the reference interns the terms through its featurize
-plane first; the buckets and counts are the same).
+TextList terms are interned once (``featurize.interning.interned_of``):
+each distinct term hashes once, the occurrences ride the code array
+through the native bincount scatter (``featurize.kernels``).
 """
 from __future__ import annotations
 
@@ -22,11 +22,12 @@ from typing import Sequence
 import numpy as np
 
 from ..dataset import Dataset
+from ..featurize import kernels as FK
+from ..featurize.interning import interned_of
 from ..stages.metadata import NULL_STRING, ColumnMeta
 from ..types.columns import Column, ListColumn
 from .base import VectorizerEstimator, VectorizerModel, VectorizerTransformer
 from .defaults import DEFAULTS
-from .text import murmur3_scatter, token_buckets
 
 _MS_PER_DAY = 86_400_000.0
 
@@ -43,17 +44,13 @@ _MONTH_NAMES = (
 )
 
 
-def list_terms(values: Sequence) -> tuple[list[str], np.ndarray]:
-    """(terms, their int64 rows) of a TextList column in row and term
-    order; a term that is not a str hashes as ``str(term)``."""
-    terms: list[str] = []
-    rows: list[int] = []
-    for r, lst in enumerate(values):
-        if lst:
-            for t in lst:
-                terms.append(t if isinstance(t, str) else str(t))
-                rows.append(r)
-    return terms, np.asarray(rows, dtype=np.int64)
+def _term_buckets(tc, num_terms: int, seed: int) -> np.ndarray:
+    """code -> murmur3 bucket of an interned TextList column's vocabulary;
+    a term that is not a str hashes as ``str(term)``."""
+    return FK.hash_vocab(
+        [t if isinstance(t, str) else str(t) for t in tc.vocab],
+        num_terms, seed=seed,
+    )
 
 
 class TextListModel(VectorizerModel):
@@ -79,15 +76,13 @@ class TextListModel(VectorizerModel):
         blocks, metas = [], []
         for fi, (col, feat) in enumerate(zip(cols, self.input_features)):
             width = self.num_terms + (1 if self.track_nulls else 0)
-            out = np.zeros((num_rows, width), dtype=np.float32)
-            terms, rows = list_terms(col.values)
-            if terms:
-                # each distinct term hashes once (murmur3 % num_terms)
-                murmur3_scatter(terms, rows, self.num_terms, self.seed,
-                                self.binary_freq, out)
+            tc = interned_of(col)
+            out = FK.term_count_block(
+                tc, _term_buckets(tc, self.num_terms, self.seed), width,
+                binary=self.binary_freq,
+            )
             if self.track_nulls:
-                empty = np.fromiter((not v for v in col.values), bool, num_rows)
-                out[empty, self.num_terms] = 1.0
+                out[tc.row_counts() == 0, self.num_terms] = 1.0
             if self.idf is not None:
                 out[:, : self.num_terms] *= np.asarray(self.idf[fi])[None, :]
             blocks.append(out)
@@ -140,12 +135,13 @@ class TextListVectorizer(VectorizerEstimator):
             idf = []
             m = dataset.num_rows
             for name in self.input_names:
-                terms, rows = list_terms(dataset[name].values)
-                buckets = token_buckets(terms, self.num_terms, self.seed)
-                # document frequency: the distinct (row, bucket) pairs
-                pairs = np.unique(rows * self.num_terms + buckets)
-                df = np.bincount(pairs % self.num_terms,
-                                 minlength=self.num_terms).astype(np.int64)
+                tc = interned_of(dataset[name])
+                buckets = _term_buckets(tc, self.num_terms, self.seed)
+                # document frequency: one bincount over the distinct
+                # (row, bucket) pairs
+                df = FK.distinct_pair_bincount(
+                    tc.row_index(), buckets[tc.codes], self.num_terms
+                ).astype(np.int64)
                 w = np.log((m + 1.0) / (df + 1.0))
                 w[df < self.min_doc_freq] = 0.0
                 idf.append(w.tolist())

@@ -13,13 +13,12 @@ cleanString); transform expands each learned key into its own column block,
 with per-key null indicators when track_nulls. Unseen keys at transform time
 are ignored (the reference's behavior — the vector shape is fixed at fit).
 
-Host numpy, as in ``transmogrifai_tpu/ops/maps.py``. Two departures, neither
-of which changes a value: a hashed text key's block is assembled dense at
-every row count (the reference switches to a sparse COO plane at
-``SPARSE_MIN_ROWS`` rows), and ``SmartTextMapVectorizer`` summarizes its
-keys one after another (the reference fans them out on its featurize pool).
-``SmartTextMapModel`` hashes through ``ops.text.hash_block``, so map values
-and text columns hash alike. ``DecisionTreeNumericMapBucketizer`` (the
+Host numpy, as in ``transmogrifai_tpu/ops/maps.py``, on the featurize
+plane: ``SmartTextMapVectorizer`` summarizes its keys on the featurize
+pool, and ``SmartTextMapModel`` hashes through ``ops.text.hash_block`` (so
+map values and text columns hash alike), a feature with a hashed key of 64
+buckets or more assembling as a SparseMatrix from ``SPARSE_MIN_ROWS`` rows
+on (``ops.text.hash_block_sparse``) outside a fused batch. ``DecisionTreeNumericMapBucketizer`` (the
 per-key supervised binning) fits and encodes each key through
 ``ops/bucketizers.py``'s scalar helpers, as the reference does.
 """
@@ -34,7 +33,9 @@ import numpy as np
 
 from ..dataset import Dataset
 from ..stages.metadata import NULL_STRING, ColumnMeta
-from ..types.columns import Column, MapColumn
+from ..featurize import engine as _engine
+from ..featurize import parallel as _par
+from ..types.columns import Column, MapColumn, SparseMatrix
 from ..utils.text import clean_string, tokenize
 from .base import VectorizerEstimator, VectorizerModel
 from .categorical import pivot_block, pivot_metas, top_values
@@ -45,9 +46,11 @@ from .phone import DEFAULT_REGION, is_valid_phone
 from .text import (
     HASH,
     PIVOT,
+    SPARSE_MIN_ROWS,
     batch_text_stats,
     decide_method,
     hash_block,
+    hash_block_sparse,
 )
 
 _MS_PER_DAY = 86_400_000.0
@@ -486,6 +489,19 @@ class SmartTextMapModel(VectorizerModel):
                     widths.append(self.num_hashes + nulls)
                 else:
                     widths.append(nulls)
+            if (
+                HASH in self.methods[fi]
+                and self.num_hashes >= 64
+                and num_rows >= SPARSE_MIN_ROWS
+                and not _engine.sink_active(self.uid)
+            ):
+                sparse = self._feature_sparse(fi, feat, by_key, widths,
+                                              num_rows, slot)
+                if sparse is not None:
+                    blocks.append(sparse[0])
+                    metas.append(sparse[1])
+                    slot += len(self.keys[fi])
+                    continue
             # one float32 buffer per map feature; hash keys scatter into it
             out = np.zeros((num_rows, sum(widths)), dtype=np.float32)
             metas_f: list[ColumnMeta] = []
@@ -496,48 +512,82 @@ class SmartTextMapModel(VectorizerModel):
                     None if v is None else str(v) for v in by_key[k]
                 ]
                 if method == PIVOT:
-                    vocab = self.vocabs[fi][ki]
                     out[:, off:off + width] = pivot_block(
-                        values, vocab, self.track_nulls, self.clean_text,
-                        False,
-                    )
-                    metas_f.extend(
-                        _pivot_key_metas(feat.name, feat.ftype, k, vocab,
-                                         self.track_nulls)
+                        values, self.vocabs[fi][ki], self.track_nulls,
+                        self.clean_text, False,
                     )
                 elif method == HASH:
-                    hash_block(
-                        values, self.num_hashes, slot, shared=False,
-                        binary_freq=DEFAULTS.BinaryFreq,
-                        to_lowercase=DEFAULTS.ToLowercase,
-                        min_token_length=DEFAULTS.MinTokenLength,
-                        seed=DEFAULTS.HashSeed,
-                        track_nulls=self.track_nulls,
-                        out=out, col_offset=off,
-                    )
-                    metas_f.extend(
-                        ColumnMeta((feat.name,), feat.ftype.__name__,
-                                   grouping=k, descriptor_value=f"hash_{j}")
-                        for j in range(self.num_hashes)
-                    )
-                    if self.track_nulls:
-                        metas_f.append(
-                            ColumnMeta((feat.name,), feat.ftype.__name__,
-                                       grouping=k, indicator_value=NULL_STRING)
-                        )
+                    hash_block(values, feature_slot=slot, out=out,
+                               col_offset=off, **self._hash_kw())
                 elif self.track_nulls:  # IGNORE
                     for r, v in enumerate(values):
                         if v is None:
                             out[r, off] = 1.0
-                    metas_f.append(
-                        ColumnMeta((feat.name,), feat.ftype.__name__,
-                                   grouping=k, indicator_value=NULL_STRING)
-                    )
+                metas_f.extend(self._key_metas(fi, ki, feat))
                 slot += 1
                 off += width
             blocks.append(out)
             metas.append(metas_f)
         return blocks, metas
+
+    def _hash_kw(self) -> dict:
+        return dict(
+            num_features=self.num_hashes, shared=False,
+            binary_freq=DEFAULTS.BinaryFreq,
+            to_lowercase=DEFAULTS.ToLowercase,
+            min_token_length=DEFAULTS.MinTokenLength,
+            seed=DEFAULTS.HashSeed, track_nulls=self.track_nulls,
+        )
+
+    def _key_metas(self, fi: int, ki: int, feat) -> list[ColumnMeta]:
+        k = self.keys[fi][ki]
+        method = self.methods[fi][ki]
+        if method == PIVOT:
+            return _pivot_key_metas(feat.name, feat.ftype, k,
+                                    self.vocabs[fi][ki], self.track_nulls)
+        metas = []
+        if method == HASH:
+            metas = [
+                ColumnMeta((feat.name,), feat.ftype.__name__,
+                           grouping=k, descriptor_value=f"hash_{j}")
+                for j in range(self.num_hashes)
+            ]
+        if self.track_nulls:
+            metas.append(
+                ColumnMeta((feat.name,), feat.ftype.__name__,
+                           grouping=k, indicator_value=NULL_STRING)
+            )
+        return metas
+
+    def _feature_sparse(self, fi, feat, by_key, widths, num_rows, slot):
+        """One map feature's block as a SparseMatrix and its metas, or None
+        when a hashed key has rows the native COO pass cannot take."""
+        blocks, metas_f, used_widths = [], [], []
+        for ki, (k, width) in enumerate(zip(self.keys[fi], widths)):
+            method = self.methods[fi][ki]
+            if width:
+                values = [None if v is None else str(v) for v in by_key[k]]
+                if method == PIVOT:
+                    block = pivot_block(values, self.vocabs[fi][ki],
+                                        self.track_nulls, self.clean_text,
+                                        False)
+                elif method == HASH:
+                    block = hash_block_sparse(values, feature_slot=slot,
+                                              **self._hash_kw())
+                    if block is None:
+                        return None
+                else:  # IGNORE with track_nulls
+                    nr = np.asarray(
+                        [r for r, v in enumerate(values) if v is None],
+                        dtype=np.int32,
+                    )
+                    block = SparseMatrix(nr, np.zeros(len(nr), np.int32),
+                                         (num_rows, 1))
+                blocks.append(block)
+                used_widths.append(width)
+                metas_f.extend(self._key_metas(fi, ki, feat))
+            slot += 1
+        return SparseMatrix.hstack(blocks, used_widths, num_rows), metas_f
 
 
 class SmartTextMapVectorizer(VectorizerEstimator):
@@ -588,10 +638,13 @@ class SmartTextMapVectorizer(VectorizerEstimator):
             by_key = map_key_values(col, self.clean_keys)
             keys = sorted(by_key)
             methods, vocabs = [], []
-            key_stats = [
-                batch_text_stats(by_key[k], self.max_cardinality, self.clean_text)
+            # the keys' statistics fan out across the pool (their native
+            # passes release the interpreter lock)
+            key_stats = _par.run_tasks([
+                lambda k=k: batch_text_stats(
+                    by_key[k], self.max_cardinality, self.clean_text)
                 for k in keys
-            ]
+            ])
             for k, stats in zip(keys, key_stats):
                 method = decide_method(
                     stats, self.max_cardinality, self.top_k, self.min_support,

@@ -18,6 +18,7 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 
+from ..featurize.interning import interned_of
 from ..stages.base import Transformer
 from ..stages.metadata import ColumnMeta, VectorMetadata
 from ..types import Binary, OPVector, RealMap, RealNN, Text
@@ -211,10 +212,13 @@ class TextLenTransformer(Transformer):
         for f, col in zip(self.input_features, cols):
             assert isinstance(col, (ListColumn, TextColumn))
             if isinstance(col, ListColumn):
-                lens = np.fromiter(
-                    (float(sum(map(len, toks))) for toks in col.values),
-                    np.float64, num_rows,
-                )
+                # the character count of each distinct token once, then
+                # one segment sum over the interned CSR layout
+                tc = interned_of(col)
+                vlen = np.fromiter(map(len, tc.vocab), np.float64, len(tc.vocab))
+                csum = np.zeros(tc.num_tokens + 1, dtype=np.float64)
+                np.cumsum(vlen[tc.codes], out=csum[1:])
+                lens = csum[tc.offsets[1:]] - csum[tc.offsets[:-1]]
             else:
                 lens = np.fromiter(
                     (float(len(v)) if v else 0.0 for v in col.values),

@@ -3,10 +3,8 @@
 Reference: core/.../stages/impl/feature/{TimePeriodTransformer,
 TimePeriodListTransformer, TimePeriodMapTransformer}.scala — extract one
 calendar period (DayOfMonth/DayOfWeek/DayOfYear/HourOfDay/MonthOfYear/
-WeekOfMonth/WeekOfYear) from Date values as Integral. The vectorized
-period extraction ``calendar_periods`` is the port's copy of the
-reference's ``featurize/kernels.py`` one (the featurize plane is not ported
-yet, ``ROADMAP.md`` A2).
+WeekOfMonth/WeekOfYear) from Date values as Integral, through the
+featurize plane's vectorized ``featurize.kernels.calendar_periods``.
 """
 from __future__ import annotations
 
@@ -14,6 +12,7 @@ import datetime as _dt
 
 import numpy as np
 
+from ..featurize.kernels import calendar_periods
 from ..stages.base import Transformer
 from ..types import Date, DateList, Integral, IntegralMap, OPMap
 from ..types.columns import (
@@ -47,37 +46,6 @@ def period_value(ms: int, period: str) -> int:
         return (d.day - 1) // 7 + 1
     if period == "WeekOfYear":
         return d.isocalendar()[1]
-    raise ValueError(f"Unknown time period {period}")
-
-
-def calendar_periods(ms: np.ndarray, period: str) -> np.ndarray:
-    """Vectorized twin of ``period_value`` over an int64 epoch-millis array
-    (UTC, joda conventions: Monday=1, months 1-12, WeekOfMonth 1-based):
-    the reference's ``featurize.kernels.calendar_periods``."""
-    ms = np.asarray(ms, dtype=np.int64)
-    if period == "HourOfDay":
-        return (ms // 3_600_000) % 24
-    if period == "DayOfWeek":
-        return ((ms // 86_400_000 + 3) % 7) + 1  # epoch day 0 = Thursday
-    # calendar math via numpy datetime64 (floor division handles pre-epoch)
-    days = (ms // 86_400_000).astype("datetime64[D]")
-    if period == "DayOfMonth":
-        return (days - days.astype("datetime64[M]")).astype(np.int64) + 1
-    if period == "DayOfYear":
-        return (days - days.astype("datetime64[Y]")).astype(np.int64) + 1
-    if period == "MonthOfYear":
-        return (days.astype("datetime64[M]").astype(np.int64) % 12) + 1
-    if period == "WeekOfMonth":
-        dom = (days - days.astype("datetime64[M]")).astype(np.int64)
-        return dom // 7 + 1
-    if period == "WeekOfYear":
-        # ISO-8601 week number: the week containing this date's Thursday,
-        # counted within that Thursday's year
-        day_idx = ms // 86_400_000
-        dow0 = (day_idx + 3) % 7  # 0 = Monday
-        thursday = (day_idx + (3 - dow0)).astype("datetime64[D]")
-        jan1 = thursday.astype("datetime64[Y]").astype("datetime64[D]")
-        return (thursday - jan1).astype(np.int64) // 7 + 1
     raise ValueError(f"Unknown time period {period}")
 
 

@@ -68,4 +68,6 @@ class FeatureRemovalModel(Model):
         meta = self.new_metadata
         if meta is None and vec.metadata is not None:
             meta = self.new_metadata = vec.metadata.select(self.indices_to_keep)
-        return VectorColumn(OPVector, vec.values[:, self.indices_to_keep], meta)
+        # np.asarray densifies a sparse plane, as the reference does
+        values = np.asarray(vec.values)[:, self.indices_to_keep]
+        return VectorColumn(OPVector, values, meta)

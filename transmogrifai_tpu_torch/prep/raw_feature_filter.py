@@ -23,9 +23,10 @@ workflow rewrites the DAG without the blocklisted features
 (OpWorkflow.setBlocklist :118-167).
 
 Host numpy and Python, as ``transmogrifai_tpu/prep/raw_feature_filter.py``.
-A text histogram hashes each DISTINCT cleaned token once and adds its
-count (the reference hashes every occurrence): the bins hold the same
-integers, so the results are equal.
+A text histogram hashes each DISTINCT cleaned token once, in one native
+batch (``native.murmur3_batch``), and adds its count (the reference hashes
+every occurrence in Python): the bins hold the same integers, so the
+results are equal.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import numpy as np
 
 from ..dataset import Dataset
 from ..features.feature import Feature
+from ..native import murmur3_batch
 from ..types.columns import (
     Column,
     ListColumn,
@@ -45,7 +47,7 @@ from ..types.columns import (
     SetColumn,
     TextColumn,
 )
-from ..utils.text import clean_string, hash_to_index
+from ..utils.text import clean_string
 
 MIN_FILL = 0.001
 MAX_FILL_DIFFERENCE = 0.90
@@ -139,8 +141,10 @@ def compute_distribution(
     cleaned: Counter = Counter()
     for raw, c in counts.items():
         cleaned[clean_string(raw)] += c
-    for tok, c in cleaned.items():
-        hist[hash_to_index(tok, text_bins)] += c
+    if cleaned:
+        bins_of = murmur3_batch(list(cleaned), 42) % np.uint32(text_bins)
+        np.add.at(hist, bins_of.astype(np.int64),
+                  np.fromiter(cleaned.values(), np.float64, len(cleaned)))
     total_tokens = sum(cleaned.values())
     summary = {"count": float(n - nulls), "tokens": float(total_tokens)}
     return FeatureDistribution(name, n, nulls, hist, summary)

@@ -144,9 +144,12 @@ class SanityChecker(Estimator):
         ):
             raise TypeError("SanityChecker takes (numeric label, vector)")
 
-        # the vector is float32: it goes up as it is, and the float64 and
-        # float32 routes convert it on the card without rounding
-        xt = torch.from_numpy(np.ascontiguousarray(vec_col.values)).to(dev)
+        # the vector is float32 (a sparse plane densified on the host): it
+        # goes up as it is, and the float64 and float32 routes convert it
+        # on the card without rounding
+        xt = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(vec_col.values))
+        ).to(dev)
         y = label_col.values.astype(np.float64)
         n_total = xt.shape[0]
         frac = self._sample_fraction(n_total)

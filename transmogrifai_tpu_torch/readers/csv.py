@@ -74,15 +74,18 @@ def _cell(row: list[str], j: int) -> str | None:
 
 
 def _parse_reals(vals: list[str | None]) -> NumericColumn:
-    """An inferred Real column: ``float`` of each stripped non-empty
-    field; a field that does not parse is missing."""
-    values = np.zeros(len(vals), dtype=np.float64)
-    mask = np.zeros(len(vals), dtype=bool)
-    for i, v in enumerate(vals):
-        s = v.strip() if v is not None else ""
-        if s:
+    """An inferred Real column: one batch parse of the fields in native
+    code (``native.parse_doubles``); the few fields ``strtod`` rejects but
+    ``float`` accepts (Unicode digits, exotic whitespace) are parsed again
+    with ``float``. A field that does not parse is missing."""
+    from ..native import parse_doubles
+
+    values, mask = parse_doubles(vals)
+    for i in np.nonzero(~mask)[0]:
+        v = vals[i]
+        if v is not None and v.strip():
             try:
-                values[i] = float(s)
+                values[i] = float(v)
                 mask[i] = True
             except ValueError:
                 pass

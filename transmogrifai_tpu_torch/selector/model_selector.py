@@ -11,8 +11,10 @@ train -> train metrics -> SelectedModel with ModelSelectorSummary metadata.
 The default candidates of each factory take the factory's ``device``
 (``None``: the card). Families that are not ported yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item. The summary keeps
-the reference's keys; those of planes the port does not have yet,
-``compileStats`` (A14) and ``featurizeStats``, are present and ``None``.
+the reference's keys: ``featurizeStats`` is the featurize plane's ledger
+over the selection (``Workflow.train()`` replaces it with the delta over
+the whole train); ``compileStats``, a plane the port does not have yet
+(A14), is present and ``None``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from ..evaluators import (
     MultiClassificationEvaluator,
     RegressionEvaluator,
 )
+from ..featurize import stats as fstats
 from ..models.base import PredictorEstimator, PredictorModel
 from ..models.gbdt import (
     GBTRegressor,
@@ -293,6 +296,7 @@ class ModelSelector(PredictorEstimator):
         }
 
     def fit_arrays(self, x, y, row_mask) -> SelectedModel:
+        featurize_baseline = fstats.snapshot()
         train_idx = np.nonzero(row_mask > 0)[0]
         xt, yt = x[train_idx], y[train_idx]
 
@@ -380,7 +384,7 @@ class ModelSelector(PredictorEstimator):
             "holdoutEvaluation": None,
             "splitterSummary": splitter_summary,
             "compileStats": None,
-            "featurizeStats": None,
+            "featurizeStats": fstats.delta(featurize_baseline),
         }
         self.metadata["modelSelectorSummary"] = summary
         return SelectedModel(best_model, summary)

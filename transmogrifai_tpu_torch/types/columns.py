@@ -7,9 +7,9 @@ model's output is a PredictionColumn of dense (prediction, probability,
 raw) arrays. MultiPickList columns hold one frozenset per row, the list
 types (TextList, DateList, DateTimeList, Geolocation) one Python list per
 row and the map types one dict per row, an empty one meaning missing.
-Semantics match ``transmogrifai_tpu.types.columns``; its ``SparseMatrix``
-(the featurize plane's sparse hash blocks) is not ported yet
-(``ROADMAP.md`` A2): every vector plane here is dense.
+Semantics match ``transmogrifai_tpu.types.columns``. A wide hashed text
+plane of a large batch is a :class:`SparseMatrix` (COO, the featurize
+plane's sparse blocks); dense consumers densify it with ``np.asarray``.
 """
 from __future__ import annotations
 
@@ -19,6 +19,149 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 
 from . import OPMap, Prediction, Storage
+
+
+class SparseMatrix:
+    """COO float32 matrix with implicit value 1.0 per (row, col) pair —
+    duplicates accumulate (token counts). The wide hashed text planes are
+    ~99.8% zeros at 512 buckets (SmartTextVectorizer emits sparse vectors
+    for the same reason, SmartTextVectorizer.scala:79-132); materializing
+    them densely on the host costs ~50x the bytes.
+
+    Ducks enough of the ndarray surface (``shape``, ``__array__``,
+    ``astype``, ``__len__``) that dense consumers keep working — they pay
+    the densification exactly when they touch the values: every site that
+    hands a vector's values to torch goes through ``np.asarray`` first
+    (``torch.as_tensor`` cannot read this class).
+    """
+
+    __slots__ = ("rows", "cols", "vals", "shape", "_dense")
+
+    def __init__(self, rows: np.ndarray, cols: np.ndarray,
+                 shape: tuple[int, int], vals: np.ndarray | None = None):
+        self.rows = np.asarray(rows, dtype=np.int32)
+        self.cols = np.asarray(cols, dtype=np.int32)
+        #: None = implicit 1.0 per pair (token counts / indicators)
+        self.vals = (
+            None if vals is None else np.asarray(vals, dtype=np.float32)
+        )
+        self.shape = (int(shape[0]), int(shape[1]))
+        self._dense: np.ndarray | None = None
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def toarray(self) -> np.ndarray:
+        if self._dense is None:
+            n, d = self.shape
+            if d > 0 and n > 0 and self.nnz:
+                flat = np.bincount(
+                    self.rows.astype(np.int64) * d + self.cols,
+                    weights=self.vals,
+                    minlength=n * d,
+                ).astype(np.float32)
+                self._dense = flat.reshape(n, d)
+            else:
+                self._dense = np.zeros((n, d), dtype=np.float32)
+        return self._dense
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.toarray()
+        if dtype is not None and np.dtype(dtype) != out.dtype:
+            return out.astype(dtype)
+        # matching dtype: hand back the cached plane unless the protocol
+        # explicitly demanded a copy (np.array(..., copy=True)) — mutating
+        # consumers must not corrupt the cache
+        return out.copy() if copy else out
+
+    def astype(self, dtype, copy: bool = True):
+        return self.toarray().astype(dtype, copy=copy)
+
+    def _vals_of(self, keep) -> np.ndarray | None:
+        return None if self.vals is None else self.vals[keep]
+
+    def take_rows(self, indices: np.ndarray) -> "SparseMatrix":
+        """Row gather, renumbered to ``indices`` order. Duplicate indices
+        replicate their rows (matching dense ``x[indices]``); negative
+        indices wrap like numpy's."""
+        indices = np.asarray(indices)
+        if indices.dtype == bool:
+            indices = np.nonzero(indices)[0]
+        n = self.shape[0]
+        src = np.where(indices < 0, indices + n, indices).astype(np.int64)
+        if src.size and (src.min() < 0 or src.max() >= n):
+            raise IndexError(
+                f"take_rows indices out of range for {n} rows"
+            )
+        # CSR-style gather: group pairs by source row, then expand each
+        # output position's row-range (an inverse-remap scatter keeps only
+        # ONE output position per source row and silently zeroes duplicate
+        # gathers)
+        order = np.argsort(self.rows, kind="stable")
+        counts = np.bincount(self.rows, minlength=n)
+        starts = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        reps = counts[src]
+        total = int(reps.sum())
+        out_rows = np.repeat(
+            np.arange(len(src), dtype=np.int32), reps
+        )
+        base = np.repeat(starts[src], reps)
+        cum = np.zeros(len(src) + 1, dtype=np.int64)
+        np.cumsum(reps, out=cum[1:])
+        within = np.arange(total, dtype=np.int64) - np.repeat(cum[:-1], reps)
+        pos = order[base + within]
+        return SparseMatrix(
+            out_rows, self.cols[pos],
+            (len(src), self.shape[1]), self._vals_of(pos),
+        )
+
+    @staticmethod
+    def from_dense(x: np.ndarray) -> "SparseMatrix":
+        """COO form of a dense block (values preserved)."""
+        x = np.asarray(x)
+        r, c = np.nonzero(x)
+        return SparseMatrix(
+            r.astype(np.int32), c.astype(np.int32), x.shape,
+            x[r, c].astype(np.float32),
+        )
+
+    @staticmethod
+    def hstack(blocks: Sequence, widths: Sequence[int],
+               num_rows: int) -> "SparseMatrix":
+        """Concatenate blocks (SparseMatrix or dense ndarray) column-wise
+        into one SparseMatrix; ``widths`` gives each block's column width."""
+        rows_parts, cols_parts, vals_parts = [], [], []
+        any_vals = False
+        off = 0
+        for b, w in zip(blocks, widths):
+            if not isinstance(b, SparseMatrix):
+                b = SparseMatrix.from_dense(b)
+            rows_parts.append(b.rows)
+            cols_parts.append(b.cols + np.int32(off) if off else b.cols)
+            vals_parts.append(b.vals)
+            any_vals = any_vals or b.vals is not None
+            off += int(w)
+        if not rows_parts:
+            return SparseMatrix(
+                np.zeros(0, np.int32), np.zeros(0, np.int32), (num_rows, off)
+            )
+        vals = None
+        if any_vals:
+            vals = np.concatenate(
+                [
+                    v if v is not None else np.ones(len(r), dtype=np.float32)
+                    for v, r in zip(vals_parts, rows_parts)
+                ]
+            )
+        return SparseMatrix(
+            np.concatenate(rows_parts), np.concatenate(cols_parts),
+            (num_rows, off), vals,
+        )
 
 
 class Column:
@@ -149,20 +292,34 @@ class MapColumn(Column):
 
 @dataclasses.dataclass
 class VectorColumn(Column):
-    """OPVector column: float32 [N, D] + column provenance metadata
-    (a ``stages.metadata.VectorMetadata``, or None)."""
+    """OPVector column: float32 [N, D] values, a dense ndarray or a
+    :class:`SparseMatrix`, and column provenance metadata (a
+    ``stages.metadata.VectorMetadata``, or None)."""
 
     feature_type: type
-    values: np.ndarray  # [N, D] float32
+    values: Any  # [N, D] float32 ndarray / SparseMatrix
     metadata: Any = None
 
     def __len__(self) -> int:
         return int(self.values.shape[0])
 
+    @property
+    def dim(self) -> int:
+        return int(self.values.shape[1])
+
+    @property
+    def is_sparse(self) -> bool:
+        return isinstance(self.values, SparseMatrix)
+
     def to_list(self) -> list:
-        return [np.asarray(row) for row in self.values]
+        return [np.asarray(row) for row in np.asarray(self.values)]
 
     def take(self, indices: np.ndarray) -> "VectorColumn":
+        if self.is_sparse:
+            return VectorColumn(
+                self.feature_type, self.values.take_rows(indices),
+                self.metadata,
+            )
         return VectorColumn(
             self.feature_type, np.asarray(self.values)[indices], self.metadata
         )

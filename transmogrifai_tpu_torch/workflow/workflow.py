@@ -30,6 +30,7 @@ import torch
 
 from ..dataset import Dataset
 from ..features.feature import Feature
+from ..featurize import stats as fstats
 from ..readers.core import DataReader, DatasetReader
 from ..selector.model_selector import ModelSelector, SelectedModel
 from ..stages.base import PipelineStage
@@ -192,6 +193,9 @@ class Workflow:
             raise ValueError("No input data: call set_input_dataset or set_reader")
         stages = self._stages()
         self._apply_overrides(stages)
+        # the featurize plane's ledger over this train: the delta over the
+        # whole ingest lands in the selector summary
+        featurize_baseline = fstats.snapshot()
         selectors = [s for s in stages if isinstance(s, ModelSelector)]
         if len(selectors) > 1:
             raise ValueError(
@@ -259,6 +263,9 @@ class Workflow:
             sel_stage = fitted.get(selector.uid)
             if isinstance(sel_stage, SelectedModel):
                 sel_stage.summary["distributedResilience"] = None
+                sel_stage.summary["featurizeStats"] = fstats.delta(
+                    featurize_baseline
+                )
 
         if selector is not None and holdout_data is not None:
             sel_model = fitted[selector.uid]
