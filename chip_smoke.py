@@ -353,6 +353,12 @@ PROFILE_TRIES = 3
 #: (a card whose profiler drops its sessions would otherwise spend minutes
 #: of the run retaking them)
 PROFILE_STREAK = 4
+#: readings of the run taken with CUDA events after which every later
+#: reading tries one session: a profiler that drops sessions now and then
+#: over the whole run never makes a streak (on an H100 80GB HBM3 at 700 W
+#: whose profiler did so: 249 fallbacks and 764 sessions retaken, a wall
+#: of 1057 s, against 568 s where the profiler kept its sessions)
+PROFILE_BUDGET = 16
 
 
 def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
@@ -369,7 +375,8 @@ def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
     the count, so a kernel seen fewer than 3/4 of the expected times (or a
     session that saw none) makes the session be taken again, after a
     growing pause. After ``PROFILE_TRIES`` such sessions (one, after
-    ``PROFILE_STREAK`` such readings in a row) the reading is taken with
+    ``PROFILE_STREAK`` such readings in a row or ``PROFILE_BUDGET`` in the
+    run) the reading is taken with
     CUDA events (``time_ms``, which holds any host gaps) and reported in a
     ``device_ms fallback`` phase of its own: a dropped capture is never
     returned as a reading."""
@@ -377,7 +384,8 @@ def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
 
     fn(*arg_sets[0])
     torch.cuda.synchronize()
-    tries = 1 if device_ms.fallback_streak >= PROFILE_STREAK else PROFILE_TRIES
+    tries = 1 if (device_ms.fallback_streak >= PROFILE_STREAK
+                  or device_ms.event_fallbacks >= PROFILE_BUDGET) else PROFILE_TRIES
     for attempt in range(tries):
         time.sleep(0.25 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3456,17 +3464,14 @@ def same_summary(a: dict, b: dict) -> bool:
                           {k: v for k, v in b.items() if k != ledger}))
 
 
-def check_against_selector_fixture(name: str, summary: dict, scores) -> dict:
-    """A train()'s selector summary and holdout scores against what the JAX
-    package stored at the default grids: tree candidates EQUAL, logistic
-    ones within ``CARD_LR_METRIC_TOL``, the winner and grid equal, a tree
-    winner's train and holdout metrics and scores EQUAL, a logistic one's
-    AuROC / AuPR within ``CARD_LR_METRIC_TOL`` and scores within
-    ``CARD_LR_SCORE_TOL``. Returns the measured differences."""
-    with open(os.path.join(SELECTOR_FIXTURE, f"{name}.json")) as fh:
-        fx = json.load(fh)
-    want_scores = np.load(os.path.join(SELECTOR_FIXTURE, f"{name}.npz"))
-    want = fx["summary"]
+def check_summary_against(name: str, summary: dict, want: dict, tol: float,
+                          metric_keys: tuple) -> dict:
+    """A train()'s selector summary against the JAX package's stored one:
+    candidates (names, uids, grids) equal, tree candidates' values EQUAL,
+    logistic ones within ``tol``, the winner and grid equal, every other key
+    EQUAL but a logistic winner's train and holdout metrics (each of
+    ``metric_keys`` within ``tol``, the rest reported). Returns the measured
+    differences."""
     got = {k: v for k, v in summary.items() if k not in UNPORTED_SUMMARY_KEYS}
     if set(got) != set(want):
         raise AssertionError(f"{name}: summary keys {sorted(got)} differ")
@@ -3484,9 +3489,9 @@ def check_against_selector_fixture(name: str, summary: dict, scores) -> dict:
         elif g["metricValues"] != w["metricValues"]:
             raise AssertionError(f"{name}: tree candidate {g} differs from the "
                                  f"JAX package's {w}")
-    if not glm_diff <= CARD_LR_METRIC_TOL:
+    if not glm_diff <= tol:
         raise AssertionError(f"{name}: logistic candidates {glm_diff} apart "
-                             f"(tolerance {CARD_LR_METRIC_TOL})")
+                             f"(tolerance {tol})")
     if (got["bestModelType"], got["bestGrid"]) != (want["bestModelType"],
                                                    want["bestGrid"]):
         raise AssertionError(f"{name}: winner {got['bestModelType']} "
@@ -3504,14 +3509,33 @@ def check_against_selector_fixture(name: str, summary: dict, scores) -> dict:
         metric_diff[key] = {
             k: float(np.max(np.abs(np.subtract(got[key][k], want[key][k]))))
             for k, v in want[key].items() if isinstance(v, (int, float, list))}
-        for k in ("AuROC", "AuPR"):
-            if not metric_diff[key][k] <= CARD_LR_METRIC_TOL:
+        for k in metric_keys:
+            if not metric_diff[key][k] <= tol:
                 raise AssertionError(f"{name}: {key} {k} off by "
                                      f"{metric_diff[key][k]}")
     rest = [k for k in got if k not in (
         "validationResults", "trainEvaluation", "holdoutEvaluation")]
     if not same_json({k: got[k] for k in rest}, {k: want[k] for k in rest}):
         raise AssertionError(f"{name}: summary fields {rest} differ")
+    return {"candidates": len(gr), "winner": got["bestModelType"],
+            "grid": got["bestGrid"], "tree_candidates_equal": True,
+            "logistic_max_diff": glm_diff, "logistic_tolerance": tol,
+            "jax_top2_margin": ranked[0] - ranked[1],
+            "metric_max_diff": metric_diff}
+
+
+def check_against_selector_fixture(name: str, summary: dict, scores) -> dict:
+    """A train()'s selector summary (``check_summary_against``, logistic
+    values and a logistic winner's AuROC / AuPR within
+    ``CARD_LR_METRIC_TOL``) and holdout scores against what the JAX package
+    stored at the default grids: a tree winner's scores EQUAL, a logistic
+    one's within ``CARD_LR_SCORE_TOL``. Returns the measured differences."""
+    with open(os.path.join(SELECTOR_FIXTURE, f"{name}.json")) as fh:
+        fx = json.load(fh)
+    want_scores = np.load(os.path.join(SELECTOR_FIXTURE, f"{name}.npz"))
+    row = check_summary_against(name, summary, fx["summary"],
+                                CARD_LR_METRIC_TOL, ("AuROC", "AuPR"))
+    glm_winner = row["winner"] in GLM_FAMILIES
     score_diff = {}
     for key in ("prediction", "probability", "raw"):
         d = float(np.max(np.abs(np.asarray(scores[key]) - want_scores[key])))
@@ -3521,12 +3545,7 @@ def check_against_selector_fixture(name: str, summary: dict, scores) -> dict:
             continue  # margins: reported
         if not d <= limit:
             raise AssertionError(f"{name}: holdout {key} off by {d}")
-    return {"candidates": len(gr), "winner": got["bestModelType"],
-            "grid": got["bestGrid"], "tree_candidates_equal": True,
-            "logistic_max_diff": glm_diff,
-            "logistic_tolerance": CARD_LR_METRIC_TOL,
-            "jax_top2_margin": ranked[0] - ranked[1],
-            "metric_max_diff": metric_diff, "score_max_diff": score_diff,
+    return {**row, "score_max_diff": score_diff,
             "score_tolerance": CARD_LR_SCORE_TOL if glm_winner else 0.0}
 
 
@@ -4165,6 +4184,413 @@ def train_dsl(torch, smi: str, counters, ST, TS, score_function,
     }
 
 
+#: the multiclass phases (``tests/torch_fixtures/multiclass_flow.py``): the
+#: fixture the JAX package made, the full-width table's rows, the holdout
+#: tiled to the staged and fused batch sizes, and the fused rows' seed
+MULTICLASS_ROWS = 16384
+MULTICLASS_STAGED_ROWS = 8192
+MULTICLASS_FUSED_ROWS = 65536
+#: a logistic candidate's CV weighted F1 and a logistic winner's metrics on
+#: the card against the JAX package's stored ones, and a logistic winner's
+#: holdout probabilities (stated before the first card run from the CPU's
+#: bounds, ``multiclass_flow.LR_METRIC_TOL`` and ``MULTINOMIAL_PROB_TOL``)
+CARD_MULTI_METRIC_TOL = 2e-4
+CARD_MULTI_PROB_TOL = 1e-5
+#: a multinomial winner's refit lane (weights and intercepts) against a
+#: direct refit on the same mask, on the card (measured on an H100 before
+#: this was stated: 1.62e-5 in each of three runs at the full-width table;
+#: the binary lanes' ``LR_LANE_TOL`` is 185x that reading)
+MULTI_REFIT_TOL = 1e-4
+#: the default RF grid's points per depth group, and the classes of the
+#: full-width label: each group's lanes are folds (3) and the refit mask
+#: x points x classes
+RF_POINTS_PER_DEPTH = 6
+MULTICLASS_CLASSES = 4
+
+
+def multiclass_module():
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import multiclass_flow
+
+    return multiclass_flow
+
+
+def multiclass_fixture(torch, smi: str, counters, load_workflow_model,
+                       score_function) -> dict:
+    """The JAX-recorded multiclass flows at fixture size on the card
+    (``tests/fixtures/torch_multiclass``): each flow's indexer labels,
+    checked vector, candidates, winner and holdout scores against the
+    stored ones (trees EQUAL, logistic within ``CARD_MULTI_*``); the
+    one-vs-rest XGBoost, GBT and decision-tree fits, a decision-tree
+    regressor and the random forest's multiclass sweep (trees and [K * C,
+    N] outputs) EQUAL the stored fits; the JAX-saved model's scores, staged
+    and fused (one program over every class stack), EQUAL the stored
+    ones. Launches are read around the two trains."""
+    from transmogrifai_tpu_torch.models import gbdt as G
+    from transmogrifai_tpu_torch.ops.text_stages import OpStringIndexerModel
+
+    MF = multiclass_module()
+    schema, columns = MF.multiclass_table()
+    out, launches = {}, {k: 0 for k in counters}
+    for name, families in MF.FLOWS.items():
+        with open(os.path.join(MF.FIXTURE, f"{name}.json")) as fh:
+            record = json.load(fh)
+        arrays = np.load(os.path.join(MF.FIXTURE, f"{name}.npz"))
+        ds = MF.dataset("port", schema, columns)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        model, pred, _, _ = MF.train("port", ds, families, device=DEV)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        for k, fn in counters.items():
+            launches[k] += fn.launches
+            fn.launches = 0
+        summary = model.summary_json()["modelSelectorSummary"]
+        check_lanes(f"multiclass_fixture {name}", summary)
+        row = check_summary_against(name, summary, record["summary"],
+                                    CARD_MULTI_METRIC_TOL,
+                                    ("Precision", "Recall", "F1", "Error"))
+        labels = next(s.labels for s in model.fitted.values()
+                      if isinstance(s, OpStringIndexerModel))
+        data = model.score(ds, keep_intermediate_features=True)
+        vec = data[model.selector_info["vectorName"]]
+        if labels != record["labels"] or vec.metadata.column_names() != \
+                record["vector_columns"] or not np.array_equal(
+                    np.asarray(vec.values, np.float32), arrays["x"]):
+            raise AssertionError(f"multiclass_fixture {name}: labels or the "
+                                 "checked vector differ")
+        col = model.score(ds.take(np.asarray(record["holdout_idx"])))[pred.name]
+        glm = row["winner"] in GLM_FAMILIES
+        prob_diff = float(np.abs(col.probability - arrays["probability"]).max())
+        if not prob_diff <= (CARD_MULTI_PROB_TOL if glm else 0.0) or (
+                not glm and not (np.array_equal(col.prediction,
+                                                arrays["prediction"])
+                                 and np.array_equal(col.raw, arrays["raw"]))):
+            raise AssertionError(f"multiclass_fixture {name}: holdout scores "
+                                 f"{prob_diff} from the JAX package's")
+        out[name] = {**row, "train_s": train_s,
+                     "holdout_prob_max_diff": prob_diff,
+                     "prob_tolerance": CARD_MULTI_PROB_TOL if glm else 0.0}
+
+    # the stored fits, refitted on the card
+    fits = np.load(os.path.join(MF.FIXTURE, "fits.npz"))
+    x, y = np.load(os.path.join(MF.FIXTURE, "multiclass_trees.npz"))["x"], \
+        np.load(os.path.join(MF.FIXTURE, "multiclass_trees.npz"))["y"]
+    masks = MF.sweep_masks(len(y))
+
+    def equal(t, prefix):
+        return all(np.array_equal(np.asarray(a), fits[f"{prefix}{f}"],
+                                  equal_nan=True)
+                   for f, a in zip(t._fields, t))
+
+    for name, (family, params) in MF.DIRECT_FITS.items():
+        model = MF.estimator("port", family, device=DEV, **params).fit_arrays(
+            x, y, masks[0])
+        stacks = getattr(model, "trees_per_class", None) or model.forests_per_class
+        if len(stacks) != 4 or not all(equal(t, f"{name}__c{k}__")
+                                       for k, t in enumerate(stacks)):
+            raise AssertionError(f"multiclass_fixture: {name} trees differ")
+    reg = G.DecisionTreeRegressor(max_depth=5, device=DEV).fit_arrays(x, y, masks[0])
+    if not equal(reg.trees, "dt_reg__"):
+        raise AssertionError("multiclass_fixture: decision-tree regressor differs")
+    sweep = G.RandomForestClassifier(device=DEV).fit_arrays_batched_masks(
+        x, y, masks, MF.RF_SWEEP_POINTS)
+    stack = sweep[0][0]._sweep_stack
+    if not (equal(stack["trees"], "rf_sweep__") and np.array_equal(
+            stack["outputs"], fits["rf_sweep__outputs"])):
+        raise AssertionError("multiclass_fixture: the forest sweep differs")
+
+    # the JAX-saved model, staged and fused on the card
+    want = np.load(os.path.join(MF.FIXTURE, "scores.npz"))
+    rows = MF.dataset("port", schema, columns).take(
+        np.arange(MF.FUSED_ROWS)).rows()
+    model = load_workflow_model(os.path.join(MF.FIXTURE, "model"))
+    routes = {}
+    for route in ("staged", "fused"):
+        if route == "fused":
+            os.environ["TPTPU_HOST_PREDICT_MAX"] = str(MF.FUSED_ROWS // 2)
+        try:
+            fn = score_function(model)
+            got = score_matrix(fn.batch(rows))
+        finally:
+            os.environ.pop("TPTPU_HOST_PREDICT_MAX", None)
+        dispatches = fused_md(fn)["dispatches"]
+        ref = np.column_stack([want[f"{route}_prediction"],
+                               want[f"{route}_probability"], want[f"{route}_raw"]])
+        same_scores(f"multiclass_fixture saved model {route}", got, ref, False)
+        if dispatches != (route == "fused"):
+            raise AssertionError(f"multiclass_fixture: {dispatches} fused "
+                                 f"dispatches on the {route} route")
+        routes[route] = {"rows": len(rows), "fused_dispatches": dispatches,
+                         "equal_jax": True}
+    for k in ("hist_binloop", "node_order", "split_search", "serve_trees",
+              "tree_sum"):
+        if not launches[k]:
+            raise AssertionError(f"multiclass_fixture: {k} never ran")
+    return {"card": smi, "rows": len(y), "flows": out,
+            "fits_equal": sorted(MF.DIRECT_FITS) + ["dt_reg", "rf_sweep"],
+            "rf_sweep_lanes": stack["k"], "saved_model": routes,
+            "launches": launches}
+
+
+class ForestLanes:
+    """The lanes (K), depth and trees of every batched forest fit made
+    while it is on (``trees.fit_forest_batched``, which the estimators
+    call through the module)."""
+
+    def __init__(self, TR):
+        self.TR, self.real, self.fits = TR, TR.fit_forest_batched, []
+
+    def __enter__(self):
+        def hook(binned, target, row_mask, num_trees, max_depth, *a, **kw):
+            self.fits.append({"K": int(row_mask.shape[0]),
+                              "max_depth": int(max_depth),
+                              "num_trees": int(num_trees),
+                              "per_lane_targets": np.ndim(target) == 2})
+            return self.real(binned, target, row_mask, num_trees, max_depth,
+                             *a, **kw)
+
+        self.TR.fit_forest_batched = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.TR.fit_forest_batched = self.real
+        return False
+
+
+def train_multiclass(torch, smi: str, counters, TS, ST, score_function,
+                     load_workflow_model) -> dict:
+    """The multiclass flow at full width on the card:
+    ``fit_side_tables.wide_hash_multiclass_table()`` (16384 rows, the wide
+    table's draws with its label cut at the quartiles of the same score
+    into four PickList classes, ``t_sex`` left out so that the fused graph
+    can serve the model) -> ``string_indexed`` -> ``transmogrify`` ->
+    ``sanity_check`` -> ``MultiClassificationModelSelector()`` (LR 8 points,
+    RF 18, 3-fold CV and the refit lane, DataCutter) -> ``train()``:
+    seconds split as ``train_wide`` splits them, the card's busy share,
+    launches per kernel; no NaN lane; every RF group one batched fit of
+    (3 folds + the refit mask) x 6 points x 4 classes lanes; the winner's
+    refit equal to a direct refit; save and load; the holdout tiled to
+    8192 rows scored staged (against ``model.score`` of the holdout) and to
+    65536 rows fused (against the same rows staged): EQUAL for a tree
+    winner, within 1e-6 for a logistic one; one upload, one download and
+    one sync a fused batch; the predictions mapped back to labels.
+    Returns the row and the (x, y) of the checked training vector."""
+    import tempfile
+
+    from transmogrifai_tpu_torch.models import trees as TR
+    from transmogrifai_tpu_torch.ops.text_stages import (
+        OpIndexToString, OpStringIndexerModel,
+    )
+    from transmogrifai_tpu_torch.types import RealNN
+    from transmogrifai_tpu_torch.types.columns import NumericColumn
+
+    MF = multiclass_module()
+    from fit_side_tables import WIDE_CLASSES, wide_hash_multiclass_table
+
+    t0 = time.perf_counter()
+    schema, columns = wide_hash_multiclass_table(MULTICLASS_ROWS)
+    ds = MF.dataset("port", schema, columns)
+    table_s = time.perf_counter() - t0
+    wf, pred, selector, _ = MF.build("port", ds, None, device=DEV)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with UtilizationSampler(period_ms=100) as util, TrainTimer() as timer, \
+            ForestLanes(TR) as lanes:
+        t1 = time.time()
+        p0 = time.perf_counter()
+        model = wf.train()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - p0
+        t2 = time.time()
+    seconds = timer.split(total)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    busy = util.between(t1, t2)
+    summary = model.summary_json()["modelSelectorSummary"]
+    check_lanes("train_multiclass", summary)
+    glm = summary["bestModelType"] in GLM_FAMILIES
+    want_k = (3 + 1) * RF_POINTS_PER_DEPTH * MULTICLASS_CLASSES
+    rf_fits = [f for f in lanes.fits if f["per_lane_targets"]]
+    if len(rf_fits) != 3 or any(f["K"] != want_k for f in rf_fits):
+        raise AssertionError(f"train_multiclass: forest fits {lanes.fits}, "
+                             f"expected 3 groups at K = {want_k}")
+    required = ["hist_binloop", "node_order", "split_search", "leaf_sum"]
+    if not glm:
+        required += ["serve_trees", "tree_sum"]
+    for k in required:
+        if not launches[k]:
+            raise AssertionError(f"train_multiclass: {k} never ran")
+
+    # the winner's refit lane against a direct refit on the same mask
+    train_idx, holdout_idx = selector.splitter.split(ds.num_rows)
+    info = model.selector_info
+    data = model.score(ds.take(train_idx), keep_intermediate_features=True)
+    xt = np.asarray(data[info["vectorName"]].values, dtype=np.float32)
+    yt = data[info["labelName"]].values.astype(np.float32)
+    family, grid = next((est, g) for est, g in selector.models
+                        if type(est).__name__ == summary["bestModelType"])
+    keep = selector.splitter.prepare(yt)
+    t0 = time.perf_counter()
+    want = family.with_params(**summary["bestGrid"]).fit_arrays_batched_masks(
+        xt[keep], yt[keep], [np.ones(int(keep.sum()), np.float32)],
+        [dict(summary["bestGrid"])])[0][0].get_arrays()
+    direct_s = time.perf_counter() - t0
+    got = model.fitted[info["estimatorUid"]].best_model.get_arrays()
+    refit_diff = max(float(np.max(np.abs(np.subtract(got[k], want[k]))))
+                     for k in want) if glm else 0.0
+    if sorted(got) != sorted(want) or (glm and not refit_diff <= MULTI_REFIT_TOL) \
+            or (not glm and not all(np.array_equal(got[k], want[k],
+                                                   equal_nan=True)
+                                    for k in want)):
+        raise AssertionError(f"train_multiclass: the refit differs from a "
+                             f"direct refit ({refit_diff})")
+
+    # save, load, and the holdout staged and fused
+    holdout = ds.take(holdout_idx)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "m"))
+        loaded = load_workflow_model(os.path.join(tmp, "m"))
+    base = holdout.rows()
+    raw_features = [f for f in loaded.raw_features if not f.is_response]
+    stg_rows = (base * (-(-MULTICLASS_STAGED_ROWS // len(base))))[
+        :MULTICLASS_STAGED_ROWS]
+    fn = score_function(loaded)
+    p0 = time.perf_counter()
+    staged_scores = score_matrix(fn.batch(stg_rows))
+    staged_s = time.perf_counter() - p0
+    # a GLM's float64 core on the card blocks its product by the batch's
+    # rows: the reference's 1e-6 across batch sizes, trees EQUAL
+    want_scores = score_matrix(model.score(holdout)[pred.name])
+    reps = -(-MULTICLASS_STAGED_ROWS // len(base))
+    staged_err = same_scores(
+        "train_multiclass staged 8192 rows against model.score", staged_scores,
+        np.tile(want_scores, (reps, 1))[:MULTICLASS_STAGED_ROWS], glm)
+    fused_ds = dataset_of((base * (-(-MULTICLASS_FUSED_ROWS // len(base))))[
+        :MULTICLASS_FUSED_ROWS], raw_features)
+    if not fn.prime_fused():
+        raise AssertionError(f"train_multiclass: no fused program "
+                             f"({fused_md(fn)['reason']})")
+    counter = FusedLaunches(ST, TS)
+    fused = score_matrix(counter.counted(lambda: fn.columns(fused_ds))[pred.name])
+    stg = score_matrix(staged(fn, lambda: fn.columns(fused_ds))[pred.name])
+    fused_err = same_scores("train_multiclass fused", fused, stg, glm)
+    fused_s = host_seconds(lambda: counter.counted(lambda: fn.columns(fused_ds)),
+                           reps=2)
+    transfers = fused_transfers(torch, TS, counter, fn,
+                                lambda: fn.columns(fused_ds),
+                                MULTICLASS_FUSED_ROWS)
+    md = fused_md(fn)
+    if md["fallbacks"]:
+        raise AssertionError(f"train_multiclass: fused fallbacks {md}")
+    if fused.shape[1] != 1 + 2 * MULTICLASS_CLASSES:
+        raise AssertionError(f"train_multiclass: score columns {fused.shape}")
+    # the predicted indices back to the labels
+    labels = next(s.labels for s in loaded.fitted.values()
+                  if isinstance(s, OpStringIndexerModel))
+    named = OpIndexToString(labels).transform_columns(NumericColumn(
+        RealNN, want_scores[:, 0], np.ones(len(want_scores), bool)),
+        num_rows=len(want_scores)).values
+    truth = [r["label"] for r in base]
+    accuracy = float(np.mean([a == b for a, b in zip(named, truth)]))
+    if sorted(labels) != sorted(WIDE_CLASSES) or not set(named) <= set(labels) \
+            or not accuracy > 1.0 / MULTICLASS_CLASSES:
+        raise AssertionError(f"train_multiclass: labels {labels}, accuracy "
+                             f"{accuracy}")
+    return {"card": smi, "rows": ds.num_rows, "table_s": table_s,
+            "vector_columns": int(xt.shape[1]), "classes": labels,
+            "train_rows": model.train_rows, "holdout_rows": model.holdout_rows,
+            **seconds,
+            "device_busy_share": sum(busy) / len(busy) / 100.0 if busy
+            else "not measured", "busy_samples": len(busy),
+            "launches": launches, "forest_fits": rf_fits,
+            "winner": summary["bestModelType"], "grid": summary["bestGrid"],
+            "candidates": len(summary["validationResults"]),
+            "refit_against_direct": "equal" if refit_diff == 0.0
+            else f"within {MULTI_REFIT_TOL}", "refit_max_diff": refit_diff,
+            "direct_refit_s": direct_s,
+            "staged_rows": MULTICLASS_STAGED_ROWS, "staged_s": staged_s,
+            "staged_vs_score_max_abs_err": staged_err,
+            "fused_rows": MULTICLASS_FUSED_ROWS,
+            "fused_vs_staged_max_abs_err": fused_err,
+            "fused_rows_per_s": MULTICLASS_FUSED_ROWS / fused_s,
+            "transfers": transfers, "fused_launches": dict(counter.total),
+            "holdout_accuracy": accuracy,
+            "_xy": (xt[keep], yt[keep])}
+
+
+def multiclass_row(summary: dict, k: int) -> dict:
+    """A kernel's means at the multiclass sweep's lane count, for the
+    kernels line."""
+    return {"K": k, **{key: summary[key] for key in
+                       ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "max_abs_err") if key in summary}}
+
+
+def multiclass_kernels(torch, H, LS, TR, x, y) -> dict:
+    """The training kernels at the multiclass sweep's shapes, on the
+    full-width checked vector: the default RF grid's depth-12 group (6
+    points, one tree) over the selector's masks, 3 folds and the refit
+    mask, x 4 classes, K = 96 as in ``train_multiclass``, captured in the
+    grower (K2, the split search, the leaf sums; the row order beside K2)
+    and each launch held against its plain version and timed beside its
+    bound (every fourth level's launch; K3 every third); then K3 at 256
+    bins on a three-class label (the top two classes merged) over the
+    depth-6 group and the 3 folds, K = 54."""
+    from transmogrifai_tpu_torch.models import gbdt as G
+    from transmogrifai_tpu_torch.selector.model_selector import _rf_grid
+    from transmogrifai_tpu_torch.selector.validators import (
+        CrossValidator, expand_grid,
+    )
+
+    folds = [m.astype(np.float32) for m, _ in
+             CrossValidator(num_folds=3, seed=42).split_masks(y)]
+    # the selector's refit mask rides the sweep as one more lane group
+    masks = folds + [np.ones(len(y), np.float32)]
+    points = expand_grid(_rf_grid())
+    trees_per_fit = points[0]["num_trees"]
+    deep = [dict(p, num_trees=1) for p in points if p["max_depth"] == 12]
+    mid = [dict(p, num_trees=1, max_bins=256) for p in points
+           if p["max_depth"] == 6]
+    out = {}
+    with KernelCapture(H, TR, "hist_binloop", {"rf": 0}) as cap, \
+            SplitCapture(H, TR, {"rf": 0}) as scap, LeafCapture(LS) as lcap:
+        cap.start("rf")
+        scap.start("rf")
+        lcap.path = "multiclass"
+        G.RandomForestClassifier(device=DEV).fit_arrays_batched_masks(
+            x, y, masks, deep)
+    ks = {int(r["args"][1].shape[0]) for r in cap.records}
+    if ks != {(3 + 1) * RF_POINTS_PER_DEPTH * MULTICLASS_CLASSES} or \
+            len(deep) != RF_POINTS_PER_DEPTH:
+        raise AssertionError(f"multiclass_kernels: K2 ran at K = {ks}")
+    weights = {"rf": trees_per_fit}
+    # every fourth captured launch of the tree's levels (each relaunch is
+    # checked and timed in several profiler sessions)
+    out["hist_binloop"] = check_main_launches(torch, H, "hist_binloop",
+                                              cap.records[::4], weights)
+    out["split_search"] = check_split_launches(torch, H, scap.records[::4],
+                                               weights)
+    out["leaf_sum"] = check_leaf_path(torch, H, LS, lcap.records)
+    y3 = np.minimum(y, 2.0).astype(np.float32)
+    with KernelCapture(H, TR, "hist_wide", {"rf": 0}) as cap3:
+        cap3.start("rf")
+        G.RandomForestClassifier(device=DEV).fit_arrays_batched_masks(
+            x, y3, folds, mid)
+    ks3 = {int(r["args"][1].shape[0]) for r in cap3.records}
+    if ks3 != {3 * len(mid) * 3}:
+        raise AssertionError(f"multiclass_kernels: K3 ran at K = {ks3}")
+    out["hist_wide"] = check_main_launches(torch, H, "hist_wide",
+                                           cap3.records[::3], weights,
+                                           library_per_tree=True)
+    H.build_histogram_binloop.launches = H.build_histogram_wide.launches = 0
+    H.node_order.launches = H.split_search.launches = LS.leaf_sum.launches = 0
+    return {"K2_K": sorted(ks)[0], "K3_K": sorted(ks3)[0], **out}
+
+
 #: the fused scoring graph's phase: batches of the twin fixtures' rows
 #: tiled to these counts (20000 buckets to 24576, padded; 65536 is a bucket)
 FUSED_TILES = (20000, 65536)
@@ -4180,13 +4606,15 @@ MIXED_TEXT_REASON = "smart-text member mixes Pivot and Hash slots — not fuseab
 
 
 def score_matrix(out) -> np.ndarray:
-    """[N, 5] prediction, probabilities, raw margins of ``.batch``'s result
-    dicts or of a prediction column (``.columns``)."""
+    """[N, 1 + 2C] prediction, C probabilities, C raw margins of
+    ``.batch``'s result dicts or of a prediction column (``.columns``)."""
     if isinstance(out, list):
         preds = [next(iter(r.values())) for r in out]
-        return np.array([[p["prediction"], p["probability_0"],
-                          p["probability_1"], p["rawPrediction_0"],
-                          p["rawPrediction_1"]] for p in preds])
+        c = sum(k.startswith("probability_") for k in preds[0])
+        return np.array([[p["prediction"]]
+                         + [p[f"probability_{k}"] for k in range(c)]
+                         + [p[f"rawPrediction_{k}"] for k in range(c)]
+                         for p in preds])
     return np.column_stack([np.asarray(out.prediction),
                             np.asarray(out.probability), np.asarray(out.raw)])
 
@@ -4203,9 +4631,10 @@ def same_scores(what: str, got: np.ndarray, want: np.ndarray,
         if not np.array_equal(got, want):
             raise AssertionError(f"{what}: tree scores differ ({err})")
         return err
-    prob_err = float(np.abs(got[:, 1:3] - want[:, 1:3]).max())
-    raw_ok = np.all(np.abs(got[:, 3:] - want[:, 3:])
-                    <= FUSED_GLM_ATOL + 1e-6 * np.abs(want[:, 3:]))
+    c = (got.shape[1] - 1) // 2
+    prob_err = float(np.abs(got[:, 1:1 + c] - want[:, 1:1 + c]).max())
+    raw_ok = np.all(np.abs(got[:, 1 + c:] - want[:, 1 + c:])
+                    <= FUSED_GLM_ATOL + 1e-6 * np.abs(want[:, 1 + c:]))
     if not (np.array_equal(got[:, 0], want[:, 0])
             and prob_err <= FUSED_GLM_ATOL and raw_ok):
         raise AssertionError(f"{what}: GLM scores differ (max {err})")
@@ -5282,6 +5711,25 @@ def main() -> int:
     phase("train_dsl", **train_runs["train_dsl"])
     dsl_scoring = train_runs["train_dsl"]["score_launches"]
     dsl_fused_launches = train_runs["train_dsl"]["fused"]["launches"]
+
+    # the multiclass path: the JAX-recorded flows at fixture size, the
+    # full-width flow through the default multiclass selector, then the
+    # training kernels at its sweep's lane counts
+    t_mc = time.perf_counter()
+    train_runs["multiclass_fixture"] = multiclass_fixture(
+        torch, smi, counters, load_workflow_model, score_function)
+    phase("multiclass_fixture", **train_runs["multiclass_fixture"])
+    train_runs["train_multiclass"] = train_multiclass(
+        torch, smi, counters, TS, ST, score_function, load_workflow_model)
+    mc_xy = train_runs["train_multiclass"].pop("_xy")
+    phase("train_multiclass", **train_runs["train_multiclass"])
+    mc_fused = train_runs["train_multiclass"]["fused_launches"]
+    mc_kernels = multiclass_kernels(torch, H, LS, TR, *mc_xy)
+    del mc_xy
+    phase("multiclass_kernels", **mc_kernels)
+    phase("multiclass", seconds=time.perf_counter() - t_mc)
+    for fn in counters.values():
+        fn.launches = 0
     train_launches = {k: {path: run["launches"][k] for path, run in train_runs.items()}
                       for k in counters}
 
@@ -5364,6 +5812,7 @@ def main() -> int:
                 "tree_sum_device_route"],
             "train_dsl scoring": dsl_scoring["tree_sum_device_route"],
             "train_dsl fused": dsl_fused_launches["tree_sum_device_route"],
+            "train_multiclass fused": mc_fused["tree_sum_device_route"],
             "featurize_plane fused": plane["fused"]["launches"][
                 "tree_sum_device_route"]},
         "max_abs_err": max(route_main["max_abs_err"],
@@ -5415,6 +5864,8 @@ def main() -> int:
         "library_ms": None,
         "shapes": {label: {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
                    for label, r in split_rows.items() if "ms" in r},
+        "multiclass_k96": multiclass_row(mc_kernels["split_search"],
+                                         mc_kernels["K2_K"]),
     }, {
         "name": "leaf_sum",
         "route": "cuda",
@@ -5442,6 +5893,8 @@ def main() -> int:
                                              "plain_ms", "library_ms",
                                              "bound_ms")}
                    for label, r in leaf_rows.items() if "ms" in r},
+        "multiclass_k96": multiclass_row(mc_kernels["leaf_sum"],
+                                         mc_kernels["K2_K"]),
     }, {
         "name": "serve_trees",
         "route": "cuda",
@@ -5461,6 +5914,7 @@ def main() -> int:
                              "train_dsl scoring": dsl_scoring["serve_trees"],
                              "train_dsl fused":
                                  dsl_fused_launches["serve_trees"],
+                             "train_multiclass fused": mc_fused["serve_trees"],
                              "featurize_plane fused":
                                  plane["fused"]["launches"]["serve_trees"]},
         "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
@@ -5492,6 +5946,8 @@ def main() -> int:
         "bound_ms": k2_paths["bound_ms"],
         "bound_by": k2_paths["bound_by"],
         "library_ms": k2_paths["library_ms"],
+        "multiclass_k96": multiclass_row(mc_kernels["hist_binloop"],
+                                         mc_kernels["K2_K"]),
     }, {
         "name": "hist_wide",
         "route": "cuda",
@@ -5506,6 +5962,10 @@ def main() -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+        "launches_by_path": {"regression training": reg["hist_wide_launches"],
+                             **train_launches["hist_wide"]},
+        "multiclass_k54": multiclass_row(mc_kernels["hist_wide"],
+                                         mc_kernels["K3_K"]),
     }, {
         "name": "node_order",
         "route": "cuda",
@@ -5529,6 +5989,8 @@ def main() -> int:
         "bound_ms": orders["bound_ms"],
         "bound_by": "bytes",
         "library_ms": orders["library_ms"],
+        "multiclass_k96": multiclass_row(mc_kernels["hist_binloop"]["node_order"],
+                                         mc_kernels["K2_K"]),
     }, {
         "name": "best_split",
         "route": "cuda",

@@ -139,12 +139,25 @@ def test_fit_model_through_a_dataset():
 
 @pytest.mark.parametrize("family", ["xgb", "rf"])
 def test_multiclass_is_not_ported_yet(family):
-    _, pcls, params = FAMILIES[family]
-    y3 = (np.arange(len(Y)) % 3).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcls(**params, device="cpu").fit_arrays(X, y3, MASKS[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcls(device="cpu").fit_arrays_batched_masks(X, y3, MASKS, GRIDS[family][:1])
+    """Three classes fit one-vs-rest in both entry points, since the
+    multiclass slice (the name is kept from when they raised): one stack per
+    class, each EQUAL to the JAX package's, and equal scores."""
+    jcls, pcls, params = FAMILIES[family]
+    # three classes under every mask
+    y3 = (np.arange(len(Y)) // 7 % 3).astype(np.float32)
+    jm = jcls(**params).fit_arrays(X, y3, MASKS[0])
+    pm = pcls(**params, device="cpu").fit_arrays(X, y3, MASKS[0])
+    pb = pcls(device="cpu").fit_arrays_batched_masks(X, y3, MASKS, GRIDS[family][:1])
+    jb = jcls().fit_arrays_batched_masks(X, y3, MASKS, GRIDS[family][:1])
+    for jmod, pmod in [(jm, pm)] + [(j[0], p[0]) for j, p in zip(jb, pb)]:
+        attr = "trees_per_class" if family == "xgb" else "forests_per_class"
+        jst, pst = getattr(jmod, attr), getattr(pmod, attr)
+        assert len(pst) == len(jst) == 3
+        for jt, pt in zip(jst, pst):
+            for a, b in zip(JG._resolve_trees(jt), pt):
+                assert np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+        for got, want in zip(pmod.predict_arrays(X), jmod.predict_arrays(X)):
+            assert np.array_equal(got, want)
 
 
 def test_estimators_need_a_card_unless_asked_for_the_cpu():

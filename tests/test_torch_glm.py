@@ -276,8 +276,16 @@ def test_jax_saved_glm_arrays_construct_port_models():
 
 
 def test_multinomial_predicts_and_does_not_fit_yet():
-    """Multinomial predict is ported (softmax host epilogue); multinomial
-    fits are A9."""
+    """Multinomial predict (softmax host epilogue) equals the reference's,
+    and since the multiclass slice multinomial fits run too (the name is
+    kept from when they raised): ``fit_arrays`` and a batched sweep, each
+    lane's probabilities within ``MULTINOMIAL_PROB_TOL`` of the JAX
+    package's (``tests/torch_fixtures/multiclass_flow.py`` states it)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "torch_fixtures"))
+    from multiclass_flow import MULTINOMIAL_PROB_TOL
+
     rng = np.random.default_rng(3)
     w, b = rng.normal(size=(X.shape[1], 3)), rng.normal(size=3)
     pm = PLog.LogisticRegressionModel(w, b, 3).to("cpu")
@@ -285,11 +293,16 @@ def test_multinomial_predicts_and_does_not_fit_yet():
     for got, want in zip(pm.predict_arrays(X), jm.predict_arrays(X)):
         np.testing.assert_allclose(got, want, rtol=0, atol=PREDICT_ATOL)
     y3 = (np.arange(len(Y)) % 3).astype(np.float32)
-    est = PLog.LogisticRegression(device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        est.fit_arrays(X, y3, MASKS[0])
-    with pytest.raises(NotImplementedError, match="A9"):
-        est.fit_arrays_batched_masks(X, y3, MASKS, MIXED_GRID[:1])
+    est = PLog.LogisticRegression(max_iter=20, device="cpu")
+    jest = JLog.LogisticRegression(max_iter=20)
+    pairs = [(est.fit_arrays(X, y3, MASKS[0]), jest.fit_arrays(X, y3, MASKS[0]))]
+    got = est.fit_arrays_batched_masks(X, y3, MASKS, MIXED_GRID[:1])
+    want = jest.fit_arrays_batched_masks(X, y3, MASKS, MIXED_GRID[:1])
+    pairs += [(g[0], w_[0]) for g, w_ in zip(got, want)]
+    for p, j in pairs:
+        assert p.weights.shape == (X.shape[1], 3) and p.num_classes == 3
+        np.testing.assert_allclose(p.predict_arrays(X)[1], j.predict_arrays(X)[1],
+                                   rtol=0, atol=MULTINOMIAL_PROB_TOL)
 
 
 def test_estimators_need_a_card_unless_asked_for_the_cpu():

@@ -78,6 +78,7 @@ REQUIRED = (
     "ops/simple.py", "ops/prediction.py", "prep/raw_feature_filter.py",
     "native.py", "featurize/stats.py", "featurize/interning.py",
     "featurize/kernels.py", "featurize/parallel.py", "featurize/engine.py",
+    "ops/text_stages.py",
 )
 
 
@@ -127,6 +128,18 @@ from transmogrifai_tpu_torch.models.linear import LinearRegression
 from transmogrifai_tpu_torch.models.logistic import LogisticRegression
 LogisticRegression(max_iter=5, device="cpu").fit_arrays(x, y, mask)
 LinearRegression(max_iter=5, device="cpu").fit_arrays(x, x[:, 1], mask)
+from transmogrifai_tpu_torch.models.gbdt import (
+    DecisionTreeClassifier, DecisionTreeRegressor, GBTClassifier,
+)
+y3 = np.digitize(x[:, 0], [-0.5, 0.5]).astype(np.float32)
+for est in (XGBoostClassifier(num_round=2, max_depth=2, device="cpu"),
+            RandomForestClassifier(num_trees=2, max_depth=2, device="cpu"),
+            GBTClassifier(max_iter=2, max_depth=2, device="cpu"),
+            DecisionTreeClassifier(max_depth=2, device="cpu"),
+            LogisticRegression(max_iter=5, device="cpu")):
+    assert est.fit_arrays(x, y3, mask).predict_arrays(x)[1].shape == (120, 3)
+DecisionTreeRegressor(max_depth=2, device="cpu").fit_arrays(x, x[:, 1], mask)
+from transmogrifai_tpu_torch.ops.text_stages import OpIndexToString, OpStringIndexer
 from transmogrifai_tpu_torch.features import from_dataset
 from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
 from transmogrifai_tpu_torch.readers import infer_csv_dataset

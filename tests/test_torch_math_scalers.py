@@ -381,7 +381,7 @@ def test_descaler_finds_the_loaded_scaler(tmp_path):
 # ------------------------------------------------------------ the vocabulary
 #: the text vocabulary whose stages are ROADMAP A11's
 A11_NAMES = ("tokenize", "ngram", "remove_stop_words", "tf", "count_vectorize",
-             "idf", "string_indexed", "detect_languages", "detect_mime_types",
+             "idf", "detect_languages", "detect_mime_types",
              "detect_mime_types_map", "is_valid_email", "recognize_entities",
              "word2vec", "lda", "jaccard_similarity", "ngram_similarity",
              "tf_idf")
@@ -432,6 +432,7 @@ VOCABULARY = [
     ("auto_bucketize", lambda f: f["Real"].auto_bucketize(f["RealNN"])),
     ("auto_bucketize_map", lambda f: f["RealMap"].auto_bucketize(
         f["RealNN"], max_depth=3)),
+    ("string_indexed", lambda f: f["Text"].string_indexed()),
     ("email_to_pick_list", lambda f: f["Email"].email_to_pick_list()),
     ("url_map_to_pick_list_map", lambda f: f["URLMap"].url_map_to_pick_list_map()),
     ("to_unit_circle", lambda f: f["Date"].to_unit_circle()),

@@ -311,12 +311,32 @@ def test_default_grids_match_the_reference():
 
 @pytest.mark.parametrize("name,item", [
     ("OpNaiveBayes", "A9"), ("OpLinearSVC", "A9"),
-    ("OpMultilayerPerceptronClassifier", "A9"), ("OpGBTClassifier", "A4"),
-    ("OpDecisionTreeClassifier", "A4"),
+    ("OpMultilayerPerceptronClassifier", "A9"),
+    pytest.param("OpGBTClassifier", None, id="OpGBTClassifier-A4"),
+    pytest.param("OpDecisionTreeClassifier", None, id="OpDecisionTreeClassifier-A4"),
 ])
 def test_families_still_to_port_name_their_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        PMS.make_candidates("BinaryClassification", [name])
+    """A family still to port raises naming its ROADMAP item; A4's, ported
+    in the multiclass slice (``item`` None; their ids keep the item they
+    raised with), build on the CPU with the reference's default grid and
+    fit a binary label."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            PMS.make_candidates("BinaryClassification", [name])
+        return
+    from transmogrifai_tpu.selector import model_selector as JMS
+
+    (est, grid), = PMS.make_candidates("BinaryClassification", [name], device="cpu")
+    (jest, jgrid), = JMS.make_candidates("BinaryClassification", [name])
+    assert type(est).__name__ == type(jest).__name__ and grid == jgrid
+    assert est.get_params() == jest.get_params()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(200, 4)).astype(np.float32)
+    y = (x[:, 0] + 0.3 * rng.normal(size=200) > 0).astype(np.float32)
+    point = {**PV.expand_grid(grid)[0], "max_depth": 3}
+    model = est.with_params(**point).fit_arrays(x, y, np.ones(200, np.float32))
+    pred, prob, _ = model.predict_arrays(x)
+    assert prob.shape == (200, 2) and (pred == y).mean() > 0.8
 
 
 def test_make_candidates_builds_ported_families():
@@ -332,7 +352,9 @@ def test_make_candidates_builds_ported_families():
 def _stage_instances():
     from transmogrifai_tpu_torch.models.linear import LinearRegressionModel
     from transmogrifai_tpu_torch.models.trees import Tree
-    from transmogrifai_tpu_torch.ops import categorical, combiner, numeric, text
+    from transmogrifai_tpu_torch.ops import (
+        categorical, combiner, numeric, text, text_stages,
+    )
     from transmogrifai_tpu_torch.prep.derived_filter import FeatureRemovalModel
     from transmogrifai_tpu_torch.stages.metadata import ColumnMeta, VectorMetadata
 
@@ -358,6 +380,9 @@ def _stage_instances():
         LinearRegressionModel(rng.normal(size=3), -1.25),
         PMS.SelectedModel(PG.BoostedBinaryModel(thr, tree, 0.3, 0.0),
                           {"bestModelType": "XGBoostClassifier"}),
+        PG.BoostedMultiModel(thr, [tree, tree, tree], 0.2, 0.0),
+        text_stages.OpStringIndexerModel(["b", "a", "c"], "skip"),
+        text_stages.OpIndexToString(["b", "a", "c"], "unknown"),
         *_feature_stage_instances(),
         *_dsl_stage_instances(),
     ]
@@ -451,7 +476,7 @@ def test_every_loadable_class_saves():
     assert {type(s).__name__ for s in _stage_instances()} == set(PP.STAGE_CLASSES)
 
 
-@pytest.mark.parametrize("index", range(76))
+@pytest.mark.parametrize("index", range(79))
 def test_params_and_arrays_are_the_inverse_of_loading(index):
     stage = _stage_instances()[index]
     params = json.loads(json.dumps(stage.get_params(), default=PP._json_default))

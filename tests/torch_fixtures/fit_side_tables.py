@@ -28,6 +28,11 @@ can serve it (a member that mixes Pivot and Hash slots cannot be fused), and
 20 Real, 40 x 22 PickList and 513 hashed text (512 buckets and a null
 indicator).
 
+``wide_hash_multiclass_table(n, seed)`` makes ``wide_table``'s draws
+unchanged but ``t_sex``, left out as ``wide_hash_table`` leaves it, and
+replaces the label by four classes, the quartiles of the same score, as a
+``PickList`` of strings (``WIDE_CLASSES``).
+
 Each builder returns ``(schema, columns)``: feature type name and list of
 row values (``None`` for missing) per column name, in column order.
 """
@@ -71,6 +76,34 @@ def _with_empty(rng, values: list, p: float) -> list:
 
 
 def wide_table(n: int = WIDE_ROWS, seed: int = WIDE_SEED):
+    schema, columns, score = _wide_draws(n, seed)
+    schema["label"], columns["label"] = "RealNN", (score > 0).astype(float).tolist()
+    return schema, columns
+
+
+def wide_hash_multiclass_table(n: int = WIDE_ROWS, seed: int = WIDE_SEED):
+    """``wide_table``'s draws without ``t_sex`` (its SmartText member is
+    then hash-only, so the fused scoring graph can serve the model: 1419
+    vector columns) and with the label replaced by four classes: the
+    quartiles of the same linear score, as a ``PickList`` of the strings
+    ``WIDE_CLASSES`` (lowest quartile first), to be indexed with
+    ``string_indexed``."""
+    schema, columns, score = _wide_draws(n, seed)
+    del schema["t_sex"], columns["t_sex"]
+    edges = np.quantile(score, [0.25, 0.5, 0.75])
+    cls = np.searchsorted(edges, score, side="right")
+    schema["label"], columns["label"] = "PickList", [
+        WIDE_CLASSES[int(c)] for c in cls.tolist()]
+    return schema, columns
+
+
+#: the four labels of ``wide_hash_multiclass_table``, lowest quartile first
+WIDE_CLASSES = ("q1_low", "q2_mid_low", "q3_mid_high", "q4_high")
+
+
+def _wide_draws(n: int, seed: int):
+    """(schema, columns, linear score) of ``wide_table``'s rows, before the
+    label."""
     rng = np.random.default_rng(seed)
     schema: dict[str, str] = {}
     columns: dict[str, list] = {}
@@ -112,8 +145,7 @@ def wide_table(n: int = WIDE_ROWS, seed: int = WIDE_SEED):
              - 0.3 * (reals[4] - reals[4].mean()) / reals[4].std()
              + 0.1 * (i0 - 4.5) + 0.5 * (p00 < 3) + 1.0 * female - 0.6
              + rng.normal(0.0, 1.0, n))
-    schema["label"], columns["label"] = "RealNN", (score > 0).astype(float).tolist()
-    return schema, columns
+    return schema, columns, score
 
 
 def wide_hash_table(n: int = WIDE_ROWS, seed: int = WIDE_SEED):

@@ -8,6 +8,14 @@ Run from the repository root, on the CPU, with one JAX device:
     JAX_PLATFORMS=cpu python tests/torch_fixtures/probe_device_route_order.py \
         --fixture tests/fixtures/torch_fused/text_xgb
 
+With ``--stacks C`` (C > 1) each case instead draws C stacks, as a
+one-vs-rest model holds them, and scores them with the JAX package's fused
+core of a ``BoostedMultiModel`` and a ``ForestClassifierModel`` (every
+class stack inside one XLA program, ``jnp.stack(outs, axis=1)``); each JSON
+line says whether that program equals each stack's own program (the
+single-stack orders above) and the port's ``device_core`` on its device
+route (``"single"`` / ``"port"``, boosted and forest apart).
+
 The first form draws a seeded random stack per (depth, trees, rows), scores
 it with the reference's ``predict_boosted_raw`` and ``predict_forest_raw``,
 and sums the same leaf values in each candidate order:
@@ -184,14 +192,54 @@ def probe_shape(depth: int, t: int, n: int) -> dict:
     return out
 
 
-def _run(job: tuple[int, int, list[int]]) -> list[dict]:
-    n, depth, trees = job
+def probe_stacks(depth: int, t: int, n: int, c: int) -> dict:
+    """C class stacks in one fused program against their own programs and
+    the port's device route (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from transmogrifai_tpu.models import gbdt as JG
+    from transmogrifai_tpu.models import trees as JTR
+    from transmogrifai_tpu_torch.models import gbdt as PG
+
+    arrays, stacks = {}, []
+    for k in range(c):
+        sf, sb, lv, x, thr = _stack(t, depth, n, seed=17 * k + 1)
+        stacks.append(JTR.Tree(jnp.asarray(sf), jnp.asarray(sb), jnp.asarray(lv)))
+        for name, a in (("split_feat", sf), ("split_bin", sb), ("leaf_value", lv)):
+            arrays[f"c{k}__{name}"] = a
+    arrays["thresholds"] = thr
+    xj, tj = jnp.asarray(x), jnp.asarray(thr)
+    out = {}
+    for boosted in (True, False):
+        cls = "BoostedMultiModel" if boosted else "ForestClassifierModel"
+        params = {"eta": ETA, "base_score": BASE} if boosted else {}
+        spec = getattr(JG, cls).from_params(params, arrays).fused_predict_spec()
+        fused = np.asarray(jax.jit(lambda plane: spec.core(plane, spec.params))(xj))
+        if boosted:
+            single = [JTR.predict_boosted_raw(xj, tj, st, jnp.float32(ETA),
+                                              jnp.float32(BASE)) for st in stacks]
+        else:
+            single = [JTR.predict_forest_raw(xj, tj, st) for st in stacks]
+        port = getattr(PG, cls).from_params(params, arrays).to("cpu").device_core(
+            torch.from_numpy(x), device_route=True).numpy()
+        match = [name for name, got in (
+            ("single", np.stack([np.asarray(s) for s in single], 1)), ("port", port))
+            if np.array_equal(got, fused)]
+        out["boosted" if boosted else "forest"] = match or ["none"]
+    return out
+
+
+def _run(job: tuple) -> list[dict]:
+    n, depth, trees, c = job
     sys.path.insert(0, ROOT)
     import jax
     import torch
 
     torch.set_num_threads(1)
-    out = [{"rows": n, "depth": depth, "trees": t, **probe_shape(depth, t, n)}
+    out = [{"rows": n, "depth": depth, "trees": t, "stacks": c,
+            **(probe_stacks(depth, t, n, c) if c > 1 else probe_shape(depth, t, n))}
            for t in trees]
     jax.clear_caches()  # one program per shape: keep a worker's memory flat
     return out
@@ -227,7 +275,8 @@ def _ints(spec: str) -> list[int]:
 
 def _summary(lines: list[dict]) -> dict:
     """Per depth and tree count: each order's set of row counts where it
-    matched (boosted and forest both), and the cases the port missed."""
+    matched (boosted and forest both; with ``--stacks``, "single" and
+    "port"), and the cases the port missed."""
     table: dict = {}
     port_differs = []
     for r in lines:
@@ -248,13 +297,14 @@ def main() -> None:
     ap.add_argument("--rows", default=ROWS)
     ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--fixture")
+    ap.add_argument("--stacks", type=int, default=1)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     if args.fixture:
         print(json.dumps(probe_fixture(args.fixture)))
         return
     trees = _ints(args.trees)
-    jobs = [(n, d, trees[i:i + 16]) for n in _ints(args.rows)
+    jobs = [(n, d, trees[i:i + 16], args.stacks) for n in _ints(args.rows)
             for d in _ints(args.depths) for i in range(0, len(trees), 16)]
     lines = []
     if args.jobs > 1:

@@ -11,7 +11,8 @@ attaches them:
 
 The text vocabulary's stages (tokenizers, TF / IDF, word2vec, LDA, the
 detectors and similarities) are ``ROADMAP.md`` A11: their names are
-attached and raise ``NotImplementedError`` naming A11.
+attached and raise ``NotImplementedError`` naming A11; ``string_indexed``
+(``ops/text_stages.OpStringIndexer``) is ported.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from .ops.scalers import (
     PercentileCalibrator,
     ScalerTransformer,
 )
+from .ops.text_stages import OpStringIndexer
 from .ops.time_period import (
     TimePeriodListTransformer,
     TimePeriodMapTransformer,
@@ -122,14 +124,15 @@ Feature.auto_bucketize = _auto_bucketize
 
 # ------------------------------------------------------------------- text dsl
 # RichTextFeature.scala; the stages of every name but the two domain
-# extractors are A11's
+# extractors and the string indexer are A11's
 for _name in (
     "tokenize", "ngram", "remove_stop_words", "tf", "count_vectorize", "idf",
-    "string_indexed", "detect_languages", "detect_mime_types",
+    "detect_languages", "detect_mime_types",
     "detect_mime_types_map", "is_valid_email", "recognize_entities",
     "word2vec", "lda", "jaccard_similarity", "ngram_similarity", "tf_idf",
 ):
     setattr(Feature, _name, _not_ported(_name))
+Feature.string_indexed = _unary(OpStringIndexer)
 Feature.email_to_pick_list = _unary(EmailToPickListTransformer)
 Feature.url_map_to_pick_list_map = _unary(UrlMapToPickListMapTransformer)
 

@@ -1,6 +1,6 @@
-"""Tree-ensemble predictor stages: the binary XGBoost and random-forest
-classifiers and the XGBoost, GBT and random-forest regressors (estimators
-and fitted models).
+"""Tree-ensemble predictor stages: the XGBoost, GBT, random-forest and
+decision-tree classifiers (binary and one-vs-rest multiclass) and
+regressors (estimators and fitted models).
 
 A model holds its quantile thresholds and stacked trees as numpy arrays,
 from a saved model or from a fit; ``to(device)`` validates them once, packs
@@ -16,7 +16,10 @@ for the batch: tree order up to ``TPTPU_HOST_PREDICT_MAX`` rows (default
 The estimators bin the training matrix on the device once, then grow
 trees through ``trees.py``; ``fit_arrays_batched_masks`` fits folds x grid
 points that share their static shape as the K lanes of one batched fit.
-Multiclass labels are not ported yet.
+On three or more classes the boosted families and the decision trees fit
+one-vs-rest, model by model, as the reference does; the random forest
+fits masks x points x classes lanes in one batched fit, lane
+``(mask * n_points + point) * C + c`` training class c's indicator.
 """
 from __future__ import annotations
 
@@ -32,12 +35,6 @@ from . import serve_trees as ST
 from . import trees as TR
 from .base import PredictorEstimator, PredictorModel
 from .base import num_classes as _num_classes
-
-_NOT_PORTED = (
-    "{what} is not ported yet: the port's classifiers train on binary "
-    "labels only (ROADMAP.md, A4: multiclass tree fits)"
-)
-
 
 def _sigmoid(m: np.ndarray) -> np.ndarray:
     return 1.0 / (1.0 + np.exp(-m))
@@ -211,7 +208,7 @@ class _BinnedModel(PredictorModel):
         trees and [K, N] training outputs), so the selected model does not
         keep the whole folds x grid sweep alive; its trees are its own
         copy."""
-        for attr in ("_sweep_stack", "_sweep_lane"):
+        for attr in ("_sweep_stack", "_sweep_lane", "_sweep_lanes"):
             self.__dict__.pop(attr, None)
 
 
@@ -254,6 +251,41 @@ class BoostedBinaryModel(_BinnedModel):
         return (p1 > 0.5).astype(np.float64), prob, raw
 
 
+class BoostedMultiModel(_BinnedModel):
+    """One-vs-rest stack of boosted binary models: per class a sigmoid of
+    its margin, the row normalised by its sum (floored at 1e-12), then the
+    argmax."""
+
+    def __init__(self, thresholds, trees_per_class: list[TR.Tree], eta: float,
+                 base_score: float, uid=None):
+        super().__init__("xgbClassifier", thresholds, uid=uid)
+        self.trees_per_class = trees_per_class
+        self.eta = float(eta)
+        self.base_score = float(base_score)
+
+    @classmethod
+    def from_params(cls, params, arrays):
+        return cls(
+            arrays["thresholds"], _class_trees_from_arrays(arrays),
+            params["eta"], params["base_score"],
+        )
+
+    def get_arrays(self):
+        return _class_stack_arrays(self.thresholds, self.trees_per_class)
+
+    def get_params(self):
+        return {"eta": self.eta, "base_score": self.base_score}
+
+    def _tree_stacks(self):
+        return self.trees_per_class, True
+
+    def predictions_from_core(self, core):
+        margins = np.asarray(core, dtype=np.float64)
+        p = _sigmoid(margins)
+        prob = p / np.maximum(p.sum(axis=1, keepdims=True), 1e-12)
+        return prob.argmax(axis=1).astype(np.float64), prob, margins
+
+
 class ForestClassifierModel(_BinnedModel):
     """Per-class probability forests (leaf value = class fraction)."""
 
@@ -266,11 +298,7 @@ class ForestClassifierModel(_BinnedModel):
         return cls(arrays["thresholds"], _class_trees_from_arrays(arrays))
 
     def get_arrays(self):
-        out = {"thresholds": self.thresholds}
-        for c, t in enumerate(self.forests_per_class):
-            for name, a in t._asdict().items():
-                out[f"c{c}__{name}"] = np.asarray(a)
-        return out
+        return _class_stack_arrays(self.thresholds, self.forests_per_class)
 
     def _tree_stacks(self):
         return self.forests_per_class, False
@@ -287,8 +315,8 @@ class ForestClassifierModel(_BinnedModel):
         prob = probs / np.maximum(probs.sum(axis=1, keepdims=True), 1e-12)
         return prob.argmax(axis=1).astype(np.float64), prob, raw
 
-    # the sweep evaluation batches single-forest (binary) stacks only; the
-    # multiclass hooks come with multiclass fits (ROADMAP.md, A4)
+    # the sweep evaluation: a binary forest reads its one lane, a
+    # multiclass one its C lanes (``_sweep_lanes``) of the fit's outputs
     def predictions_from_sweep(self, preds):
         if len(self.forests_per_class) != 1:
             raise ValueError("sweep path is single-forest only")
@@ -296,11 +324,26 @@ class ForestClassifierModel(_BinnedModel):
             np.asarray(preds, dtype=np.float64)[:, None]
         )
 
+    def predictions_from_sweep_multi(self, rows):
+        """(pred, prob, raw) from [C, N] per-class mean-leaf outputs (one
+        sweep lane per class)."""
+        return self._probs_to_predictions(np.asarray(rows, dtype=np.float64).T)
+
 
 def _stack_arrays(thresholds, trees: TR.Tree) -> dict:
     """The saved arrays of a model with one (host) tree stack."""
     return {"thresholds": thresholds,
             **{name: np.asarray(a) for name, a in trees._asdict().items()}}
+
+
+def _class_stack_arrays(thresholds, stacks: list[TR.Tree]) -> dict:
+    """The saved arrays of a model with a tree stack per class
+    (``c{c}__split_feat`` / ``__split_bin`` / ``__leaf_value``)."""
+    out = {"thresholds": thresholds}
+    for c, t in enumerate(stacks):
+        for name, a in t._asdict().items():
+            out[f"c{c}__{name}"] = np.asarray(a)
+    return out
 
 
 class BoostedRegressionModel(_BinnedModel):
@@ -423,8 +466,9 @@ class _TreeEstimator(PredictorEstimator):
 
     def _fit_group_masks(self, x, y, masks, group_points):
         """Fit len(masks) x len(group_points) models of one static shape as
-        the lanes of one batched fit. ``masks`` is [M, N] float32."""
-        raise NotImplementedError
+        the lanes of one batched fit, or return None: the caller then fits
+        the group model by model. ``masks`` is [M, N] float32."""
+        return None
 
     def fit_arrays_batched_masks(self, x, y, masks, points):
         """Validator hook: folds x grid points, batched per group of points
@@ -446,6 +490,9 @@ class _TreeEstimator(PredictorEstimator):
         models: list[list] = [[None] * len(points) for _ in masks]
         for _, idxs in sorted(groups.items(), key=depth_of):
             fitted = self._fit_group_masks(x, y, masks, [points[i] for i in idxs])
+            if fitted is None:
+                fitted = [[self.with_params(**points[i]).fit_arrays(x, y, m)
+                           for i in idxs] for m in masks]
             for mi in range(len(masks)):
                 for j, i in enumerate(idxs):
                     models[mi][i] = fitted[mi][j]
@@ -463,7 +510,9 @@ class _TreeEstimator(PredictorEstimator):
             getattr(m, "_sweep_stack", None) is None
             or m._sweep_stack.get("outputs") is None
             or not hasattr(m, "predictions_from_sweep")
-            or len(getattr(m, "forests_per_class", [None])) != 1
+            # a multiclass stack reads its C lanes (``_sweep_lanes``)
+            or (len(getattr(m, "forests_per_class", [None])) != 1
+                and getattr(m, "_sweep_lanes", None) is None)
             for m in flat
         ):
             return None
@@ -472,9 +521,14 @@ class _TreeEstimator(PredictorEstimator):
             for fi, (_train_mask, val_mask) in enumerate(folds):
                 val_idx = np.nonzero(val_mask)[0]
                 for gi, m in enumerate(models_by_fold[fi]):
-                    pred, prob, _ = m.predictions_from_sweep(
-                        m._sweep_stack["outputs"][m._sweep_lane][val_idx]
-                    )
+                    outputs = m._sweep_stack["outputs"]
+                    lanes = getattr(m, "_sweep_lanes", None)
+                    if lanes is not None:
+                        pred, prob, _ = m.predictions_from_sweep_multi(
+                            outputs[lanes][:, val_idx])
+                    else:
+                        pred, prob, _ = m.predictions_from_sweep(
+                            outputs[m._sweep_lane][val_idx])
                     metrics = evaluator.evaluate_arrays(y[val_idx], pred, prob)
                     values[gi].append(evaluator.metric_of(metrics))
             return values
@@ -561,9 +615,6 @@ class _BoostedEstimator(_TreeEstimator):
         """This family's params as the boosting knobs (GBT renames them)."""
         return merged
 
-    def _check_labels(self, y: np.ndarray, row_mask: np.ndarray) -> None:
-        """Raise on labels this family does not train on."""
-
     def _base_score(self, y: np.ndarray, row_mask: np.ndarray) -> float:
         """The starting margin of ``fit_arrays``."""
         return 0.0
@@ -576,13 +627,10 @@ class _BoostedEstimator(_TreeEstimator):
     def _model(self, thresholds, trees: TR.Tree, eta: float, base: float):
         raise NotImplementedError
 
-    def fit_arrays(self, x, y, row_mask):
-        row_mask = np.asarray(row_mask, dtype=np.float32)
-        self._check_labels(y, row_mask)
-        base = self._base_score(y, row_mask)
-        dev, thresholds, binned, fgroups = self._binned(x)
+    def _fit_one(self, binned, target, row_mask, base, fgroups) -> TR.Tree:
+        """One boosted stack on ``target``, on the host."""
         trees, _ = TR.fit_boosted(
-            binned, np.asarray(y, dtype=np.float32), row_mask,
+            binned, np.asarray(target, dtype=np.float32), row_mask,
             num_rounds=int(self.num_round), max_depth=int(self.max_depth),
             num_bins=int(self.max_bins), eta=float(self.eta),
             reg_lambda=float(self.reg_lambda), gamma=float(self.gamma),
@@ -590,12 +638,28 @@ class _BoostedEstimator(_TreeEstimator):
             min_info_gain=float(self.min_info_gain), base_score=base,
             objective=self._OBJECTIVE, feature_groups=fgroups,
         )
-        model = self._model(thresholds, _host_tree(trees), float(self.eta), base)
+        return _host_tree(trees)
+
+    def _targets(self, y: np.ndarray, row_mask: np.ndarray) -> list:
+        """The target of each stack ``fit_arrays`` fits: ``y`` alone, or a
+        class indicator each for a one-vs-rest model."""
+        return [y]
+
+    def fit_arrays(self, x, y, row_mask):
+        row_mask = np.asarray(row_mask, dtype=np.float32)
+        y = np.asarray(y)
+        base = self._base_score(y, row_mask)
+        dev, thresholds, binned, fgroups = self._binned(x)
+        stacks = [self._fit_one(binned, t, row_mask, base, fgroups)
+                  for t in self._targets(y, row_mask)]
+        if len(stacks) == 1:
+            model = self._model(thresholds, stacks[0], float(self.eta), base)
+        else:
+            model = BoostedMultiModel(thresholds, stacks, float(self.eta), base)
         model.default_device = dev
         return model
 
     def _fit_group_masks(self, x, y, masks, group_points):
-        self._check_labels(y, masks.max(axis=0))
         base = self._base_scores(y, masks)
         base_k = np.repeat(base, len(group_points)).astype(np.float32)
         yj = np.asarray(y, dtype=np.float32)
@@ -620,8 +684,9 @@ class _BoostedEstimator(_TreeEstimator):
 
 
 class XGBoostClassifier(_BoostedEstimator):
-    """Binary XGBoost (OpXGBoostClassifier parity: eta 0.3, maxDepth 6,
-    lambda 1 by default)."""
+    """XGBoost classification (OpXGBoostClassifier parity: eta 0.3,
+    maxDepth 6, lambda 1 by default); three or more classes fit one
+    boosted stack per class indicator (``BoostedMultiModel``)."""
 
     model_type = "OpXGBoostClassifier"
     _OBJECTIVE = "binary:logistic"
@@ -635,51 +700,28 @@ class XGBoostClassifier(_BoostedEstimator):
                          reg_lambda, gamma, min_child_weight, min_info_gain,
                          max_bins, device=device, uid=uid)
 
-    def _check_labels(self, y, row_mask):
-        if _num_classes(np.asarray(y), row_mask) != 2:
-            raise NotImplementedError(_NOT_PORTED.format(what="multiclass XGBoost"))
+    def _targets(self, y, row_mask):
+        num_classes = _num_classes(y, row_mask)
+        if num_classes == 2:
+            return [y]
+        return [(y == c).astype(np.float32) for c in range(num_classes)]
+
+    def _fit_group_masks(self, x, y, masks, group_points):
+        if _num_classes(np.asarray(y), masks.max(axis=0)) != 2:
+            return None  # the one-vs-rest loop stays sequential
+        return super()._fit_group_masks(x, y, masks, group_points)
 
     def _model(self, thresholds, trees, eta, base):
         return BoostedBinaryModel(thresholds, trees, eta, base)
 
 
-class XGBoostRegressor(_BoostedEstimator):
-    """XGBoost regression (OpXGBoostRegressor parity): squared error, each
-    fit starting from the mean target over its rows."""
+class _SparkNamedBoost:
+    """Spark's GBT knobs (maxIter, stepSize, minInstancesPerNode; defaults
+    20, 0.1, maxDepth 5) over a boosted estimator: variance-style gain with
+    no regularization (lambda 0, gamma 0, min_child_weight =
+    minInstancesPerNode). ``fit_arrays`` syncs the boosting knobs; the
+    batched fits map them per point."""
 
-    model_type = "OpXGBoostRegressor"
-    _OBJECTIVE = "reg:squarederror"
-
-    def __init__(self, num_round: int = 100, eta: float = 0.3,
-                 max_depth: int = 6, reg_lambda: float = 1.0,
-                 gamma: float = 0.0, min_child_weight: float = 1.0,
-                 min_info_gain: float = 0.0, max_bins: int = 32,
-                 device=None, uid: str | None = None):
-        super().__init__("xgbRegressor", num_round, eta, max_depth,
-                         reg_lambda, gamma, min_child_weight, min_info_gain,
-                         max_bins, device=device, uid=uid)
-
-    # the mean target as the reference takes it: numpy's mean in y's own
-    # dtype for one fit, float64 sums over float32 counts for a batch
-    def _base_score(self, y, row_mask):
-        on = row_mask > 0
-        return float(np.mean(np.asarray(y)[on])) if on.any() else 0.0
-
-    def _base_scores(self, y, masks):
-        sums = masks @ np.asarray(y).astype(np.float64)
-        cnts = masks.sum(axis=1)
-        return np.where(cnts > 0, sums / np.maximum(cnts, 1), 0.0)
-
-    def _model(self, thresholds, trees, eta, base):
-        return BoostedRegressionModel(thresholds, trees, eta, base)
-
-
-class GBTRegressor(XGBoostRegressor):
-    """OpGBTRegressor parity: Spark GBT defaults maxIter 20, stepSize 0.1,
-    maxDepth 5; variance-style gain with no regularization (lambda 0,
-    gamma 0, min_child_weight = minInstancesPerNode)."""
-
-    model_type = "OpGBTRegressor"
     _STATIC_GRID_KEYS = ("max_iter", "max_depth", "max_bins")
 
     def __init__(self, max_iter: int = 20, step_size: float = 0.1,
@@ -722,6 +764,49 @@ class GBTRegressor(XGBoostRegressor):
         }
 
 
+class GBTClassifier(_SparkNamedBoost, XGBoostClassifier):
+    """OpGBTClassifier parity: binary or one-vs-rest multiclass."""
+
+    model_type = "OpGBTClassifier"
+
+
+class XGBoostRegressor(_BoostedEstimator):
+    """XGBoost regression (OpXGBoostRegressor parity): squared error, each
+    fit starting from the mean target over its rows."""
+
+    model_type = "OpXGBoostRegressor"
+    _OBJECTIVE = "reg:squarederror"
+
+    def __init__(self, num_round: int = 100, eta: float = 0.3,
+                 max_depth: int = 6, reg_lambda: float = 1.0,
+                 gamma: float = 0.0, min_child_weight: float = 1.0,
+                 min_info_gain: float = 0.0, max_bins: int = 32,
+                 device=None, uid: str | None = None):
+        super().__init__("xgbRegressor", num_round, eta, max_depth,
+                         reg_lambda, gamma, min_child_weight, min_info_gain,
+                         max_bins, device=device, uid=uid)
+
+    # the mean target as the reference takes it: numpy's mean in y's own
+    # dtype for one fit, float64 sums over float32 counts for a batch
+    def _base_score(self, y, row_mask):
+        on = row_mask > 0
+        return float(np.mean(np.asarray(y)[on])) if on.any() else 0.0
+
+    def _base_scores(self, y, masks):
+        sums = masks @ np.asarray(y).astype(np.float64)
+        cnts = masks.sum(axis=1)
+        return np.where(cnts > 0, sums / np.maximum(cnts, 1), 0.0)
+
+    def _model(self, thresholds, trees, eta, base):
+        return BoostedRegressionModel(thresholds, trees, eta, base)
+
+
+class GBTRegressor(_SparkNamedBoost, XGBoostRegressor):
+    """OpGBTRegressor parity."""
+
+    model_type = "OpGBTRegressor"
+
+
 class _ForestEstimator(_TreeEstimator):
     """Bagged forests: the families differ in their target, their feature
     subset rate and their model class."""
@@ -753,33 +838,46 @@ class _ForestEstimator(_TreeEstimator):
     def _colsample(num_features: int) -> float:
         raise NotImplementedError
 
-    def _target(self, y: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
-        """The float32 value each tree's leaves average."""
+    def _model(self, thresholds, forests: list[TR.Tree]):
         raise NotImplementedError
 
-    def _model(self, thresholds, trees: TR.Tree):
+    #: False for the decision trees: one unbagged, full-feature tree
+    _BAGGED = True
+
+    def _forest_one(self, binned, target, row_mask, fgroups, num_features):
+        """One forest on ``target``, on the host."""
+        bagged = self._BAGGED
+        return _host_tree(TR.fit_forest(
+            binned, target, row_mask,
+            num_trees=int(self.num_trees), max_depth=int(self.max_depth),
+            num_bins=int(self.max_bins),
+            subsample_rate=float(self.subsampling_rate) if bagged else 1.0,
+            colsample_rate=float(self._colsample(num_features)) if bagged else 1.0,
+            min_instances=float(self.min_instances_per_node),
+            min_info_gain=float(self.min_info_gain), seed=int(self.seed),
+            bootstrap=bagged, feature_groups=fgroups,
+        ))
+
+    def _targets(self, y: np.ndarray, row_mask: np.ndarray) -> list[np.ndarray]:
+        """The float32 value each forest's leaves average, one per forest."""
         raise NotImplementedError
 
     def fit_arrays(self, x, y, row_mask):
         row_mask = np.asarray(row_mask, dtype=np.float32)
-        target = self._target(np.asarray(y), row_mask)
+        targets = self._targets(np.asarray(y), row_mask)
         dev, thresholds, binned, fgroups = self._binned(x)
-        trees = TR.fit_forest(
-            binned, target, row_mask,
-            num_trees=int(self.num_trees), max_depth=int(self.max_depth),
-            num_bins=int(self.max_bins),
-            subsample_rate=float(self.subsampling_rate),
-            colsample_rate=float(self._colsample(x.shape[1])),
-            min_instances=float(self.min_instances_per_node),
-            min_info_gain=float(self.min_info_gain), seed=int(self.seed),
-            feature_groups=fgroups,
-        )
-        model = self._model(thresholds, _host_tree(trees))
+        model = self._model(thresholds, [
+            self._forest_one(binned, t, row_mask, fgroups, x.shape[1])
+            for t in targets])
         model.default_device = dev
         return model
 
     def _fit_group_masks(self, x, y, masks, group_points):
-        target = self._target(np.asarray(y), masks.max(axis=0))
+        targets = self._targets(np.asarray(y), masks.max(axis=0))
+        if len(targets) != 1:
+            return self._fit_group_masks_multiclass(x, targets, masks,
+                                                    group_points)
+        target = targets[0]
         colsample = self._colsample(x.shape[1])
 
         def run_batched(binned, m0, row_mask_k, knob, fgroups):
@@ -800,13 +898,64 @@ class _ForestEstimator(_TreeEstimator):
 
         return self._batched_group_fit(
             x, masks, group_points, run_batched,
-            lambda th, tr, m, mi: self._model(th, tr),
+            lambda th, tr, m, mi: self._model(th, [tr]),
         )
+
+    def _fit_group_masks_multiclass(self, x, targets, masks, group_points):
+        """The one-vs-rest sweep as one batched fit per static group: lane
+        ``(mask * n_points + point) * C + c`` trains class c's indicator
+        (per-lane targets, [K * C, N]). Each model keeps its C lanes of
+        the fit's [K * C, N] outputs (``_sweep_lanes``) for the sweep's
+        evaluation. Bins with this estimator's ``max_bins``, as the
+        reference does."""
+        dev, thresholds, binned, fgroups = self._binned(x)
+        colsample = self._colsample(x.shape[1])
+        merged = [{**self.get_params(), **p} for p in group_points]
+        n_masks, n_pts, c = masks.shape[0], len(merged), len(targets)
+        ind = np.stack(targets).astype(np.float32)                  # [C, N]
+        rm = np.repeat(np.repeat(masks, n_pts, axis=0), c, axis=0)  # [K*C, N]
+        tg = np.tile(ind, (n_masks * n_pts, 1))                     # [K*C, N]
+
+        def knob(name):
+            return np.repeat(np.asarray(
+                [float(m[name]) for m in merged] * n_masks, dtype=np.float32), c)
+
+        # max_depth is a static grid key: one depth serves the whole group
+        m0 = merged[0]
+        trees, outputs = TR.fit_forest_batched(
+            binned, tg, torch.from_numpy(rm).to(dev),
+            num_trees=int(m0["num_trees"]), max_depth=int(m0["max_depth"]),
+            num_bins=int(m0["max_bins"]),
+            subsample_rate=knob("subsampling_rate"),
+            colsample_rate=float(colsample),
+            min_instances=knob("min_instances_per_node"),
+            min_info_gain=knob("min_info_gain"), seed=int(m0["seed"]),
+            feature_groups=fgroups, return_outputs=True,
+        )
+        stack = {"trees": _host_tree(trees), "thresholds": thresholds,
+                 "k": n_masks * n_pts * c,
+                 "outputs": outputs.detach().cpu().numpy()}
+        models = []
+        for mi in range(n_masks):
+            row = []
+            for j in range(n_pts):
+                lanes = [(mi * n_pts + j) * c + cls for cls in range(c)]
+                model = self._model(thresholds, [
+                    TR.Tree(*(a[lane].copy() for a in stack["trees"]))
+                    for lane in lanes])
+                model.default_device = dev
+                model._sweep_stack = stack
+                model._sweep_lanes = lanes
+                row.append(model)
+            models.append(row)
+        return models
 
 
 class RandomForestClassifier(_ForestEstimator):
-    """Binary random forest (OpRandomForestClassifier parity: Spark's
-    featureSubsetStrategy 'auto' = sqrt for classification)."""
+    """Random-forest classification (OpRandomForestClassifier parity:
+    Spark's featureSubsetStrategy 'auto' = sqrt for classification): one
+    forest on the positive indicator, or one per class indicator on three
+    or more classes."""
 
     model_type = "OpRandomForestClassifier"
 
@@ -823,13 +972,13 @@ class RandomForestClassifier(_ForestEstimator):
     def _colsample(num_features: int) -> float:
         return 1.0 / np.sqrt(max(num_features, 1))
 
-    def _target(self, y, row_mask):
-        if _num_classes(y, row_mask) != 2:
-            raise NotImplementedError(_NOT_PORTED.format(what="multiclass random forest"))
-        return (y == 1).astype(np.float32)
+    def _targets(self, y, row_mask):
+        num_classes = _num_classes(y, row_mask)
+        classes = [1] if num_classes == 2 else range(num_classes)
+        return [(y == c).astype(np.float32) for c in classes]
 
-    def _model(self, thresholds, trees):
-        return ForestClassifierModel(thresholds, [trees])
+    def _model(self, thresholds, forests):
+        return ForestClassifierModel(thresholds, forests)
 
 
 class RandomForestRegressor(_ForestEstimator):
@@ -851,8 +1000,51 @@ class RandomForestRegressor(_ForestEstimator):
     def _colsample(num_features: int) -> float:
         return 1.0 / 3.0
 
-    def _target(self, y, row_mask):
-        return np.asarray(y, dtype=np.float32)
+    def _targets(self, y, row_mask):
+        return [np.asarray(y, dtype=np.float32)]
 
-    def _model(self, thresholds, trees):
-        return ForestRegressionModel(thresholds, trees)
+    def _model(self, thresholds, forests):
+        return ForestRegressionModel(thresholds, forests[0])
+
+
+class _SingleTree:
+    """One unbagged, full-feature tree (the decision trees): the forest
+    estimators with ``num_trees=1`` and ``bootstrap=False``. Its batched
+    fit is refused, so the sweep fits it model by model (the forests'
+    batched fit bootstraps and samples columns); its params mirror
+    ``__init__`` so that saving round-trips."""
+
+    _BAGGED = False
+
+    def __init__(self, max_depth: int = 5, min_instances_per_node: int = 1,
+                 min_info_gain: float = 0.0, max_bins: int = 32,
+                 device=None, uid: str | None = None):
+        super().__init__(
+            num_trees=1, max_depth=max_depth,
+            min_instances_per_node=min_instances_per_node,
+            min_info_gain=min_info_gain, max_bins=max_bins, device=device,
+            uid=uid,
+        )
+
+    def get_params(self):
+        return {
+            "max_depth": self.max_depth,
+            "min_instances_per_node": self.min_instances_per_node,
+            "min_info_gain": self.min_info_gain, "max_bins": self.max_bins,
+        }
+
+    def _fit_group_masks(self, x, y, masks, group_points):
+        return None
+
+
+class DecisionTreeClassifier(_SingleTree, RandomForestClassifier):
+    """OpDecisionTreeClassifier parity: one tree on the positive indicator,
+    or one per class indicator."""
+
+    model_type = "OpDecisionTreeClassifier"
+
+
+class DecisionTreeRegressor(_SingleTree, RandomForestRegressor):
+    """OpDecisionTreeRegressor parity."""
+
+    model_type = "OpDecisionTreeRegressor"

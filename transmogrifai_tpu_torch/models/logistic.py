@@ -1,14 +1,15 @@
 """Logistic regression: the fitted model (binary and multinomial predict)
-and the estimator (binary fits), the port of the JAX package's
-``models/logistic.py``.
+and the estimator, the port of the JAX package's ``models/logistic.py``.
 
-The estimator fits on the card unless built with ``device="cpu"``, through
-``solvers.fit_logistic_binary_batched``. ``sweep_dispatch_masks`` issues a
-folds x grid sweep and returns a collector: the fits run on the device
-while the caller does other work, and the collector's download is the
-sweep's one host sync. Multinomial fits are not ported yet (``ROADMAP.md``
-A9), nor the mesh-sharded sweep (A13) or the compile plane's donation and
-executable bank (A14).
+The estimator fits on the card unless built with ``device="cpu"``: binary
+labels through ``solvers.fit_logistic_binary_batched`` (L-BFGS/OWL-QN),
+three or more classes through ``solvers.fit_logistic_multinomial_batched``
+(FISTA at four times ``max_iter``, as the reference runs it).
+``sweep_dispatch_masks`` issues a folds x grid sweep and returns a
+collector: the fits run on the device while the caller does other work,
+and the collector's download is the sweep's one host sync. Not ported: the
+mesh-sharded sweep (A13) and the compile plane's donation and executable
+bank (A14).
 """
 from __future__ import annotations
 
@@ -22,14 +23,35 @@ from .base import (
     num_classes,
 )
 from .solvers import (
-    download_lanes, fit_logistic_binary, fit_logistic_binary_batched,
-    packed_lanes, to_device,
+    GLMParams, download_lanes, fit_logistic_binary, fit_logistic_binary_batched,
+    fit_logistic_multinomial, fit_logistic_multinomial_batched, packed_lanes,
+    to_device,
 )
 
-_MULTINOMIAL = (
-    "multinomial logistic regression is not ported yet: the port fits "
-    "binary labels only (ROADMAP.md, A9: fit_logistic_multinomial)"
-)
+#: FISTA's iterations per ``max_iter`` for the multinomial fit (the
+#: reference's budget: binary runs quasi-Newton at ``max_iter``)
+MULTINOMIAL_ITERS_PER_MAX_ITER = 4
+
+
+def _multi_packed(params: GLMParams) -> torch.Tensor:
+    """Multinomial lanes as one [K, D * C + C] tensor: the row-major [D, C]
+    weights, then the [C] intercept."""
+    k = params.weights.shape[0]
+    return torch.cat([params.weights.reshape(k, -1), params.intercept], dim=1)
+
+
+def _lane_model(lane: np.ndarray, num_classes: int, dev) -> "LogisticRegressionModel":
+    """A fitted model from one downloaded lane (``packed_lanes`` for two
+    classes, ``_multi_packed`` for more)."""
+    if num_classes == 2:
+        model = LogisticRegressionModel(lane[:-1], lane[-1], 2)
+    else:
+        dc = lane.shape[0] - num_classes
+        model = LogisticRegressionModel(
+            lane[:dc].reshape(dc // num_classes, num_classes), lane[dc:],
+            num_classes)
+    model.default_device = dev
+    return model
 
 
 class LogisticRegressionModel(LinearCoreModel):
@@ -112,19 +134,26 @@ class LogisticRegression(PredictorEstimator):
 
     def fit_arrays(self, x, y, row_mask):
         row_mask = np.asarray(row_mask, dtype=np.float32)
-        if num_classes(y, row_mask) != 2:
-            raise NotImplementedError(_MULTINOMIAL)
+        n_classes = num_classes(y, row_mask)
         dev = resolve_device(self.device)
+        if n_classes != 2:
+            params = fit_logistic_multinomial(
+                np.asarray(x, dtype=np.float32), np.asarray(y, dtype=np.float32),
+                row_mask, float(self.reg_param), float(self.elastic_net_param),
+                n_classes,
+                num_iters=int(self.max_iter) * MULTINOMIAL_ITERS_PER_MAX_ITER,
+                fit_intercept=bool(self.fit_intercept),
+                standardization=bool(self.standardization), device=dev,
+            )
+            lane = torch.cat([params.weights.reshape(-1), params.intercept])
+            return _lane_model(download_lanes([lane[None]])[0], n_classes, dev)
         params = fit_logistic_binary(
             np.asarray(x, dtype=np.float32), np.asarray(y, dtype=np.float32),
             row_mask, float(self.reg_param), float(self.elastic_net_param),
             num_iters=int(self.max_iter), fit_intercept=bool(self.fit_intercept),
             standardization=bool(self.standardization), device=dev,
         )
-        lane = download_lanes([packed_lanes(params)])[0]
-        model = LogisticRegressionModel(lane[:-1], lane[-1], 2)
-        model.default_device = dev
-        return model
+        return _lane_model(download_lanes([packed_lanes(params)])[0], 2, dev)
 
     # ---- batched sweeps ------------------------------------------------
 
@@ -156,11 +185,19 @@ class LogisticRegression(PredictorEstimator):
         """One mask, many grid points."""
         return self.fit_arrays_batched_masks(x, y, [row_mask], grid_points)[0]
 
-    def _batched_fit(self, xd, yd, rm, regs, ens, statics, dev) -> torch.Tensor:
-        """One static group's lanes, [k, D + 1] on the device. The lane
-        count pads onto its bucket with copies of lane 0; the real lanes
-        are sliced back with ``[:k]``."""
+    def _batched_fit(self, xd, yd, rm, regs, ens, n_classes, statics,
+                     dev) -> torch.Tensor:
+        """One static group's lanes on the device: binary [k, D + 1], the
+        lane count padded onto its bucket with copies of lane 0 and the
+        real lanes sliced back with ``[:k]``; multinomial [k, D * C + C],
+        unpadded, as the reference's ``vmap`` runs them."""
         fit_intercept, max_iter, standardization = statics
+        if n_classes != 2:
+            return _multi_packed(fit_logistic_multinomial_batched(
+                xd, yd, rm, regs, ens, n_classes,
+                num_iters=max_iter * MULTINOMIAL_ITERS_PER_MAX_ITER,
+                fit_intercept=fit_intercept, standardization=standardization,
+                device=dev))
         k, (rm, regs, ens) = bucketing.bucket_sweep_lanes(rm, regs, ens)
         out = fit_logistic_binary_batched(
             xd, yd, rm, regs, ens, num_iters=max_iter,
@@ -179,8 +216,7 @@ class LogisticRegression(PredictorEstimator):
         group's lanes in one copy and builds the models."""
         masks = [np.asarray(m, dtype=np.float32) for m in masks]
         groups, sequential = self._static_groups(grid_points)
-        if num_classes(y, np.max(np.stack(masks), axis=0)) != 2:
-            raise NotImplementedError(_MULTINOMIAL)
+        n_classes = num_classes(y, np.max(np.stack(masks), axis=0))
         n_masks = len(masks)
         dev = resolve_device(self.device)
         stacked_groups: list[tuple[list[int], torch.Tensor]] = []
@@ -192,12 +228,10 @@ class LogisticRegression(PredictorEstimator):
                 regs, ens = self._grid_values(pts * n_masks)
                 rm = np.repeat(masksp, len(pts), axis=0)  # [K, N], mask-major
                 stacked_groups.append((idxs, self._batched_fit(
-                    xd, yd, rm, regs, ens, statics, dev)))
+                    xd, yd, rm, regs, ens, n_classes, statics, dev)))
 
         def make_model(lane):
-            model = LogisticRegressionModel(lane[:-1], lane[-1], 2)
-            model.default_device = dev
-            return model
+            return _lane_model(lane, n_classes, dev)
 
         def collect() -> list[list]:
             lanes = (download_lanes([s for _, s in stacked_groups])

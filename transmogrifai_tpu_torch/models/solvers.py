@@ -1,5 +1,6 @@
-"""Training solvers for the binary logistic and linear GLMs, in PyTorch on
-an explicit device: the port of the JAX package's ``models/solvers.py``.
+"""Training solvers for the logistic (binary and multinomial) and linear
+GLMs, in PyTorch on an explicit device: the port of the JAX package's
+``models/solvers.py``.
 
 Losses follow Spark semantics: mean log-loss / squared error over the
 unmasked rows + lambda * (alpha*||w||_1 + (1-alpha)/2*||w||_2^2), the
@@ -22,8 +23,8 @@ reference within stated tolerances, not bit for bit
 (``tests/test_torch_solvers.py``). On the card they must run in full
 float32: ``_check_precision`` refuses a fit while TF32 matmuls are on.
 
-Not ported here: ``fit_logistic_multinomial``, ``fit_linear_svc`` and
-``fit_glm_irls`` (``ROADMAP.md`` A9).
+Not ported here: ``fit_linear_svc`` and ``fit_glm_irls`` (``ROADMAP.md``
+A9).
 """
 from __future__ import annotations
 
@@ -541,3 +542,98 @@ def fit_logistic_binary_batched(
     b = b_std - (w_std * mean_total / safe).sum(dim=1)
     return GLMParams(weights=w, intercept=b if fit_intercept
                      else torch.zeros_like(b))
+
+
+def fit_logistic_multinomial_batched(
+    x, y, row_masks, reg_params, elastic_nets, num_classes: int,
+    num_iters: int = 200, fit_intercept: bool = True,
+    standardization: bool = True, device=None,
+) -> GLMParams:
+    """K softmax regressions (Spark multinomial logistic parity) sharing
+    one feature matrix x [N, D] (y [N] class ids, row_masks [K, N],
+    reg_params and elastic_nets [K]): the reference's per-lane FISTA
+    (``fit_logistic_multinomial`` under ``vmap``) with the lanes batched.
+    Each lane standardizes explicitly, as the reference does (``xs``
+    [K, N, D], made lane by lane by ``_standardize``); per iteration one
+    batched [N, D] x [D, C] product, a softmax, and one batched [D, N] x
+    [N, C] gradient product. Returns weights [K, D, C], intercept [K, C] on
+    the device."""
+    dev = resolve_device(device)
+    _check_precision(dev)
+    x = to_device(x, dev)
+    y = to_device(y, dev)
+    rm = to_device(row_masks, dev)
+    regs = to_device(reg_params, dev)
+    ens = to_device(elastic_nets, dev)
+    k_fits, (n_rows, d) = rm.shape[0], x.shape
+    c = int(num_classes)
+    n = torch.clamp_min(rm.sum(dim=1), 1.0)                 # [K]
+    xs = torch.empty((k_fits, n_rows, d), dtype=x.dtype, device=dev)
+    mean = torch.zeros((k_fits, d), dtype=x.dtype, device=dev)
+    std = torch.ones((k_fits, d), dtype=x.dtype, device=dev)
+    for k in range(k_fits):
+        if standardization:
+            xs_k, mean_k, std_k, const_k = _standardize(x, rm[k])
+            if fit_intercept:
+                mean[k] = mean_k
+            else:
+                xs_k = _scale_only(x, rm[k], std_k, const_k)
+            std[k] = std_k
+        else:
+            xs_k = torch.where(rm[k][:, None] > 0, x, 0.0)
+        xs[k] = xs_k
+    y1h = (y[:, None] == torch.arange(c, device=dev, dtype=y.dtype)[None, :]
+           ).to(x.dtype)                                    # [N, C]
+    l1 = (regs * ens)[:, None]                              # [K, 1]
+    l2 = (regs * (1.0 - ens))[:, None, None]                # [K, 1, 1]
+    dc = d * c
+    rmc = rm[:, :, None]
+
+    def unpack(params):
+        return params[:, :dc].reshape(k_fits, d, c), params[:, dc:]
+
+    def grad(params):
+        w, b = unpack(params)
+        logits = torch.bmm(xs, w)
+        if fit_intercept:
+            logits = logits + b[:, None, :]
+        r = (torch.softmax(logits, dim=-1) - y1h[None]) * rmc  # [K, N, C]
+        gw = torch.bmm(xs.transpose(1, 2), r) / n[:, None, None] + l2 * w
+        gb = (r.sum(dim=1) / n[:, None] if fit_intercept
+              else torch.zeros_like(b))
+        return torch.cat([gw.reshape(k_fits, dc), gb], dim=1)
+
+    def prox(params, step):
+        return torch.cat([_soft_threshold(params[:, :dc], step * l1),
+                          params[:, dc:]], dim=1)
+
+    col = (xs * xs).sum(dim=1) / n[:, None]                 # [K, D]
+    lip = 0.5 * col.sum(dim=1, keepdim=True) + l2[:, :, 0]  # [K, 1]
+    step = 1.0 / torch.clamp_min(lip, 1e-6)
+    params0 = torch.zeros((k_fits, dc + c), dtype=x.dtype, device=dev)
+    params = _fista(grad, prox, params0, step, num_iters)
+    del xs
+    w_std, b_std = unpack(params)
+    w = w_std / std[:, :, None]
+    b = b_std - (w_std * (mean / std)[:, :, None]).sum(dim=1)
+    return GLMParams(weights=w, intercept=b if fit_intercept
+                     else torch.zeros_like(b))
+
+
+def fit_logistic_multinomial(
+    x, y, row_mask, reg_param, elastic_net, num_classes: int,
+    num_iters: int = 200, fit_intercept: bool = True,
+    standardization: bool = True, device=None,
+) -> GLMParams:
+    """Softmax regression, one fit: the K=1 lane of
+    ``fit_logistic_multinomial_batched``. Weights [D, C], intercept [C] on
+    the device."""
+    dev = resolve_device(device)
+    out = fit_logistic_multinomial_batched(
+        x, y, to_device(row_mask, dev)[None, :],
+        np.asarray([reg_param], dtype=np.float32),
+        np.asarray([elastic_net], dtype=np.float32), num_classes,
+        num_iters=num_iters, fit_intercept=fit_intercept,
+        standardization=standardization, device=dev,
+    )
+    return GLMParams(weights=out.weights[0], intercept=out.intercept[0])

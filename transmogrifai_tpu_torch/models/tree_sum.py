@@ -59,6 +59,16 @@ order of the table; every other shape keeps the order above.
   16385, 20000, 24576, 40960, 49152, 57344, 98304) the grid's order. Row
   counts outside that range were not measured and keep the grid's order.
 
+A one-vs-rest model's class stacks (``BoostedMultiModel``, a multiclass
+``ForestClassifierModel``) run inside one XLA program in the reference's
+fused graph, one reduction per stack. ``probe_device_route_order.py
+--stacks C`` held that program against each stack's own program and
+against the port's device route: equal, boosted and forest, in every case
+measured (C = 4: depths 1-6 with 1-40, 48, 50, 64, 100 and 128 trees at
+256 and 2048 rows; C = 3: depths 1-6 with 1-40, 50, 64 and 100 trees at
+300 and 1024 rows). So each stack takes this table's order for its own
+shape, as the port's ``device_core`` sums it.
+
 On a CUDA tensor each wrapper launches the hand-written kernel
 (``csrc/tree_sum.cu``) or raises; on a CPU tensor it runs the plain
 version (``tree_sum_plain``, ``tree_sum_device_route_plain``: Python loops

@@ -32,6 +32,9 @@ from ..evaluators import (
 from ..featurize import stats as fstats
 from ..models.base import PredictorEstimator, PredictorModel
 from ..models.gbdt import (
+    DecisionTreeClassifier,
+    DecisionTreeRegressor,
+    GBTClassifier,
     GBTRegressor,
     RandomForestClassifier,
     RandomForestRegressor,
@@ -64,9 +67,6 @@ XGB_GAMMA_BINARY = [0.8]
 #: families of the reference's enums that the port does not train yet, by
 #: the ``ROADMAP.md`` item that brings them
 _NOT_PORTED = {
-    "OpGBTClassifier": "A4",
-    "OpDecisionTreeClassifier": "A4",
-    "OpDecisionTreeRegressor": "A4",
     "OpNaiveBayes": "A9",
     "OpLinearSVC": "A9",
     "OpMultilayerPerceptronClassifier": "A9",
@@ -79,8 +79,8 @@ BINARY_CLASSIFICATION_MODELS: dict[str, type | None] = {
     "OpLogisticRegression": LogisticRegression,
     "OpRandomForestClassifier": RandomForestClassifier,
     "OpXGBoostClassifier": XGBoostClassifier,
-    "OpGBTClassifier": None,
-    "OpDecisionTreeClassifier": None,
+    "OpGBTClassifier": GBTClassifier,
+    "OpDecisionTreeClassifier": DecisionTreeClassifier,
     "OpNaiveBayes": None,
     "OpLinearSVC": None,
     "OpMultilayerPerceptronClassifier": None,
@@ -89,7 +89,7 @@ MULTI_CLASSIFICATION_MODELS: dict[str, type | None] = {
     "OpLogisticRegression": LogisticRegression,
     "OpRandomForestClassifier": RandomForestClassifier,
     "OpXGBoostClassifier": XGBoostClassifier,
-    "OpDecisionTreeClassifier": None,
+    "OpDecisionTreeClassifier": DecisionTreeClassifier,
     "OpNaiveBayes": None,
     "OpMultilayerPerceptronClassifier": None,
 }
@@ -98,7 +98,7 @@ REGRESSION_MODELS: dict[str, type | None] = {
     "OpRandomForestRegressor": RandomForestRegressor,
     "OpGBTRegressor": GBTRegressor,
     "OpXGBoostRegressor": XGBoostRegressor,
-    "OpDecisionTreeRegressor": None,
+    "OpDecisionTreeRegressor": DecisionTreeRegressor,
     "OpGeneralizedLinearRegression": None,
 }
 
@@ -137,9 +137,12 @@ def _default_grid_for(cls: type) -> dict[str, Sequence[Any]]:
         LinearRegression: _lr_grid(),
         RandomForestClassifier: _rf_grid(),
         RandomForestRegressor: _rf_grid(),
+        GBTClassifier: _gbt_grid(),
         GBTRegressor: _gbt_grid(),
         XGBoostClassifier: _xgb_binary_grid(),
         XGBoostRegressor: _xgb_binary_grid(),
+        DecisionTreeClassifier: _tree_grid(),
+        DecisionTreeRegressor: _tree_grid(),
     }
     return grids.get(cls, {})
 
@@ -168,6 +171,14 @@ def _gbt_grid() -> dict[str, Sequence[Any]]:
         "min_info_gain": MIN_INFO_GAIN,
         "min_instances_per_node": MIN_INSTANCES,
         "max_iter": MAX_ITER_TREE,
+    }
+
+
+def _tree_grid() -> dict[str, Sequence[Any]]:
+    return {
+        "max_depth": MAX_DEPTH,
+        "min_info_gain": MIN_INFO_GAIN,
+        "min_instances_per_node": MIN_INSTANCES,
     }
 
 
@@ -252,12 +263,16 @@ class SelectedModel(PredictorModel):
 
 
 def _refit_outputs(model) -> np.ndarray | None:
-    """The refit lane's raw training outputs, which its batched fit already
-    computed, or None."""
+    """The refit's raw training outputs, which its batched fit already
+    computed: its lane's [N], a multiclass forest's C lanes [C, N]
+    (``_sweep_lanes``), or None."""
     stack = getattr(model, "_sweep_stack", None)
-    if stack is None or stack.get("outputs") is None or not hasattr(
-        model, "predictions_from_sweep"
-    ):
+    if stack is None or stack.get("outputs") is None:
+        return None
+    lanes = getattr(model, "_sweep_lanes", None)
+    if lanes is not None:
+        return np.asarray(stack["outputs"])[lanes]
+    if not hasattr(model, "predictions_from_sweep"):
         return None
     return np.asarray(stack["outputs"])[model._sweep_lane]
 
@@ -349,6 +364,7 @@ class ModelSelector(PredictorEstimator):
                 # the refit lane's outputs on xt came with its fit: take them
                 # before the stack is freed, so train metrics need no predict
                 refit_raw = _refit_outputs(best_model)
+                refit_multi = getattr(best_model, "_sweep_lanes", None) is not None
                 detach = getattr(best_model, "detach_from_sweep", None)
                 if detach is not None:
                     detach()
@@ -361,7 +377,9 @@ class ModelSelector(PredictorEstimator):
                 best_model = final_est.fit_arrays(xt, yt, final_mask)
 
         if refit_raw is not None:
-            pred, prob, _ = best_model.predictions_from_sweep(refit_raw)
+            from_sweep = (best_model.predictions_from_sweep_multi if refit_multi
+                          else best_model.predictions_from_sweep)
+            pred, prob, _ = from_sweep(refit_raw)
         else:
             pred, prob, _ = best_model.predict_arrays(xt)
         train_metrics = self.evaluator.evaluate_arrays(yt, pred, prob)
@@ -428,8 +446,10 @@ def MultiClassificationModelSelector(
     device=None,
 ) -> ModelSelector:
     """Multiclass selector (MultiClassificationModelSelector.scala; default
-    candidates LR + RF (:61-63), DataCutter, weighted F1). The port's
-    families fit binary labels only: multiclass fits wait for A4 and A9."""
+    3-fold CV, DataCutter, weighted F1; default candidates LR + RF per
+    modelTypesToUse :61-63, on ``device``): the multinomial logistic lanes
+    and the random forest's one-vs-rest lanes, masks x points x classes in
+    one batched fit per depth group."""
     if models is None:
         models = [
             (LogisticRegression(device=device), _lr_grid()),

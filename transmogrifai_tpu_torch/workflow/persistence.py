@@ -27,14 +27,14 @@ import numpy as np
 from .. import types as T
 from ..features.feature import Feature, FeatureGeneratorStage
 from ..models.gbdt import (
-    BoostedBinaryModel, BoostedRegressionModel, ForestClassifierModel,
-    ForestRegressionModel,
+    BoostedBinaryModel, BoostedMultiModel, BoostedRegressionModel,
+    ForestClassifierModel, ForestRegressionModel,
 )
 from ..models.linear import LinearRegressionModel
 from ..models.logistic import LogisticRegressionModel
 from ..ops import (
     bucketizers, dates, domains, lists, maps, phone, prediction, scalers,
-    simple, time_period,
+    simple, text_stages, time_period,
 )
 from ..ops import math as opmath
 from ..ops.categorical import OneHotModel
@@ -59,8 +59,10 @@ STAGE_CLASSES: dict[str, type] = {
         NumericVectorizerModel, BinaryVectorizer, RealNNVectorizer,
         OneHotModel, SmartTextModel, VectorsCombiner, FeatureRemovalModel,
         SelectedModel,
-        BoostedBinaryModel, ForestClassifierModel, BoostedRegressionModel,
-        ForestRegressionModel, LogisticRegressionModel, LinearRegressionModel,
+        BoostedBinaryModel, BoostedMultiModel, ForestClassifierModel,
+        BoostedRegressionModel, ForestRegressionModel, LogisticRegressionModel,
+        LinearRegressionModel,
+        text_stages.OpStringIndexerModel, text_stages.OpIndexToString,
         dates.DateVectorizer, dates.DateToUnitCircleTransformer,
         time_period.TimePeriodTransformer,
         time_period.TimePeriodListTransformer,
