@@ -171,8 +171,8 @@ paths:
   ``DSL_CPU_ROWS``. F2 (the arithmetic, scaler and log stages over
   ``wide_hash_table``) fuses with those stages as its host prefix: 65536
   fresh rows fused EQUAL staged, one upload, one download, one sync.
-* the featurize plane (``featurize_plane``, last): every phase above runs
-  on it, as it is the default route (native host kernels from
+* the featurize plane (``featurize_plane``, before the hardened
+  closure): every phase above runs on it, as it is the default route (native host kernels from
   ``native/tptpu_native.cpp``, built by ``transmogrifai_tpu_torch/
   native.py`` into ``_build/`` with ``g++`` beside the CUDA builds; the
   chunked pool; COO hash planes from 4096 rows; fused block assembly in
@@ -188,6 +188,21 @@ paths:
   the plane-off closure's scores) and 65536 rows fused, the fusion
   planner's widths cross-checked, EQUAL staged, one upload, one download,
   one sync.
+* the hardened scoring closure (``serving_hardening``, last): the three
+  serving fixtures (their training profiles loaded) at 8192 rows staged
+  and 65536 fused, held to ``tests/fixtures/torch_hardening/
+  jax_results.json`` (the JAX closure's results, ``tests/torch_fixtures/
+  make_hardening_fixtures.py``; the scenarios are ``tests/torch_fixtures/
+  hardening.py``): (a) the default closure EQUAL the all-off one and the
+  JAX package's scores, clean counters, the same launches, one upload /
+  download / sync a fused batch; (b) four malformed rows quarantined
+  exactly; (c) a covered stage's breaker opened by a fault plan routes a
+  65536-row batch staged and defaulted, its probe closes it, the next
+  batch fuses; (d) a shifted feature alerts alone, the report EQUAL; (e) a
+  ``KernelLaunchError`` injected into K1's launch propagates out of
+  ``.batch`` and ``.columns`` with no quarantine, breaker failure or
+  fallback; (f) host rows/s default against all-off and seconds per
+  family.
 
 Kernel K4, the fused split search, is on no path of the reference (its
 policy never takes it); it is held against its plain version at the
@@ -3049,7 +3064,9 @@ def check_fit_fixture(name: str, vec, summary, route: str) -> dict:
     """Hold a fit-side run to what the JAX package stored for ``name``:
     vector bit for bit and metadata column for column (where stored),
     keep-set, reasons and column names equal, statistics within the
-    route's tolerance. Returns the largest statistic differences."""
+    route's tolerance. Returns the largest statistic differences and
+    ``vector_checked``: whether the fixture stores the vector (the wide
+    table's stores its keep-set only), so whether the vector was held."""
     with open(os.path.join(FIT_SIDE, f"{name}.json")) as fh:
         want = json.load(fh)
     arrays = np.load(os.path.join(FIT_SIDE, f"{name}.npz"))
@@ -3081,7 +3098,7 @@ def check_fit_fixture(name: str, vec, summary, route: str) -> dict:
                                  f"(tolerance {FIT_STATS_ATOL[route]})")
         errs[key] = err
     return {"columns": len(keep) + len(reasons), "kept": len(keep),
-            "vector_equal": "vector" in arrays.files,
+            "vector_checked": "vector" in arrays.files,
             "stats_max_err": errs, "stats_tolerance": FIT_STATS_ATOL[route],
             "route": route}
 
@@ -5321,6 +5338,299 @@ def featurize_plane(torch, smi: str, ST, TS, trained, score_function,
     }
 
 
+# ------------------------------------------------ the hardened closure
+def hardening_module():
+    """``tests/torch_fixtures/hardening.py``: the hardening scenarios, the
+    card's constants and the JAX package's stored results."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import hardening
+
+    return hardening
+
+
+def launch_counts(ST, TS) -> tuple[int, int, int]:
+    """(K1, tree sum, device-route sum) launches so far."""
+    return (ST.serve_trees.launches, TS.tree_sum.launches,
+            TS.tree_sum_device_route.launches)
+
+
+def counted_launches(ST, TS, record: dict, label: str, call):
+    """``call()``, recording the K1 / tree-sum / route-sum launches it made
+    under ``label``."""
+    before = launch_counts(ST, TS)
+    out = call()
+    record[label] = [a - b for a, b in zip(launch_counts(ST, TS), before)]
+    return out
+
+
+def clean_counters(name: str, fn) -> dict:
+    """The default closure's health after clean traffic: no guarded or
+    quarantined row and no breaker transition, or the phase fails (a
+    kernel that returned NaN would otherwise pass as a default)."""
+    md = fn.metadata()
+    moved = {nm: b["transitions"] for nm, b in md["breakers"].items()
+             if b["transitions"] or b["consecutiveFailures"]}
+    got = {"guardedRows": md["scoreGuard"]["guardedRows"],
+           "quarantinedRows": md["quarantine"]["quarantinedRows"],
+           "breakersMoved": moved,
+           "fusedFallbacks": md["fused"]["fallbacks"]}
+    if got != {"guardedRows": 0, "quarantinedRows": 0, "breakersMoved": {},
+               "fusedFallbacks": 0}:
+        raise AssertionError(f"serving_hardening {name}: clean traffic "
+                             f"moved the counters {got}")
+    return got
+
+
+def hardening_clean(torch, ST, TS, H, P, name, fn, off, tiles, want,
+                    stored) -> dict:
+    """(a): the default closure EQUAL the all-off closure and the JAX
+    package's scores, staged and fused, through ``.batch`` and
+    ``.columns``; its counters clean; the same launches as the all-off
+    closure; a fused batch one upload, one download, one sync."""
+    glm = name == "lr"
+    launches: dict = {}
+    errs = {}
+    for kind, (rows, ds) in tiles.items():
+        got = {}
+        for label, f in (("default", fn), ("all_off", off)):
+            out = counted_launches(ST, TS, launches, f"{label} {kind} batch",
+                                   lambda: f.batch(rows))
+            cols = counted_launches(
+                ST, TS, launches, f"{label} {kind} columns",
+                lambda: next(iter(f.columns(ds).values())))
+            got[label] = (out, score_matrix(out), score_matrix(cols))
+        d_out, d_b, d_c = got["default"]
+        _, o_b, o_c = got["all_off"]
+        errs[kind] = {
+            "default_vs_all_off": same_scores(f"{name} {kind}", d_b, o_b,
+                                              False),
+            "columns_default_vs_all_off": same_scores(
+                f"{name} {kind} columns", d_c, o_c, False),
+            "columns_vs_batch": same_scores(f"{name} {kind} columns", d_c,
+                                            d_b, False),
+        }
+        if kind == "staged":
+            errs[kind]["vs_jax"] = check_scores(name, d_out, want)
+        else:
+            errs[kind]["vs_jax"] = same_scores(
+                f"{name} fused vs jax", d_b, jax_reference(name, len(d_b)),
+                glm)
+        for call in ("batch", "columns"):
+            if (launches[f"default {kind} {call}"]
+                    != launches[f"all_off {kind} {call}"]):
+                raise AssertionError(
+                    f"serving_hardening {name}: launches {launches}")
+    prog = fn.fused_state["program"]
+    k1, route = expected_launches(TS, prog, H.FUSED_ROWS)
+    if launches["default fused batch"] != [k1, 0, route]:
+        raise AssertionError(f"serving_hardening {name}: fused launches "
+                             f"{launches['default fused batch']}, expected "
+                             f"{[k1, 0, route]}")
+    transfers = fused_transfers(
+        torch, TS, FusedLaunches(ST, TS), fn,
+        lambda: fn.batch(tiles["fused"][0]), H.FUSED_ROWS)
+    counters = clean_counters(name, fn)
+    fresh = H.scenario_card_clean(P, name)
+    H.same(fresh, stored["clean"], 0.0, f"{name} (a) counters")
+    return {"max_abs_err": errs, "launches": launches,
+            "fused_transfers": transfers, "counters": counters,
+            "counters_equal_jax": True}
+
+
+def jax_reference(name: str, n: int) -> np.ndarray:
+    """The JAX package's scores of the fixture's rows tiled to ``n``
+    (``score_matrix`` columns): its fused scores for the trees
+    (``jax_fused_scores``), its staged ones for the GLM (``expected.npz``),
+    which ``same_scores`` holds the port's fused GLM to within
+    ``FUSED_GLM_ATOL``."""
+    if name != "lr":
+        want = jax_fused_scores()[name]
+    else:
+        _, _, stored = load_fixture(name)
+        want = np.column_stack([stored["prediction"], stored["probability"],
+                                stored["raw"]])
+    return np.resize(want, (n, want.shape[1]))
+
+
+def hardening_quarantine(H, P, name, clean_scores, stored) -> dict:
+    """(b): ``age`` malformed on ``MALFORMED_ROWS`` of 8192: exactly those
+    rows quarantined, records and counters EQUAL the JAX package's (the
+    defaults' scores within the model's tolerance), every other row EQUAL
+    (a)."""
+    q = H.scenario_card_quarantine(P, name)
+    H.same(H.public(q), stored["quarantine"], H.tolerance(name),
+           f"{name} (b)")
+    got = score_matrix(q["_out"])
+    keep = np.setdiff1d(np.arange(H.STAGED_ROWS), H.MALFORMED_ROWS)
+    same_scores(f"{name} (b) other rows", got[keep], clean_scores[keep],
+                False)
+    return {"records": q["records"],
+            "quarantinedRows": q["counters"]["quarantine"]["quarantinedRows"]}
+
+
+def hardening_breaker(H, P, name, stored) -> dict:
+    """(c): the covered stage of ``age`` fails twice and its breaker opens;
+    with the plan gone, a 65536-row batch goes staged and defaulted, the
+    probe after the cooldown runs staged and closes the breaker, and the
+    next batch fuses. Breaker states, counters and the default EQUAL the
+    JAX package's; the probe's and the fused batch's scores EQUAL its
+    scores (trees' fused EQUAL; lr within 1e-6 of its staged ones)."""
+    c = H.scenario_card_breaker(P, name, H.FUSED_ROWS)
+    if c["fused"] != [0, 0, 1]:
+        raise AssertionError(f"serving_hardening {name}: fused {c['fused']}")
+    H.same(H.public(c), stored["breaker"], H.tolerance(name),
+           f"{name} (c)")
+    batches = c["_batches"]
+    default = c["default"]
+    if any(H.plain(r) != default for r in batches[0]["scores"]):
+        raise AssertionError(f"serving_hardening {name}: an open breaker "
+                             "left a row undefaulted")
+    errs = {}
+    for label, b in (("probe_staged", batches[1]), ("fused", batches[2])):
+        m = score_matrix(b["scores"])
+        errs[label] = same_scores(f"{name} (c) {label}", m,
+                                  jax_reference(name, len(m)), name == "lr")
+    return {"stage": c["stage"], "fused": c["fused"],
+            "states": [s["state"] for s in c["states"]],
+            "max_abs_err_vs_jax_fused": errs}
+
+
+def hardening_kernel_fault(ST, fn, tiles) -> dict:
+    """(e): a ``KernelLaunchError`` injected into K1's launch (``_walk``)
+    comes out of ``.batch`` and ``.columns``, staged and fused; no row is
+    quarantined, no breaker records a failure, no fallback is counted."""
+    from transmogrifai_tpu_torch.utils.cuda_build import KernelLaunchError
+
+    def fault(*a, **kw):
+        raise KernelLaunchError("serve_trees kernel launch failed: injected")
+
+    before = fn.metadata()
+    real = ST._walk
+    ST._walk = fault
+    raised = []
+    try:
+        for kind, (rows, ds) in tiles.items():
+            for call, run in (("batch", lambda: fn.batch(rows)),
+                              ("columns", lambda: fn.columns(ds))):
+                try:
+                    run()
+                except KernelLaunchError:
+                    raised.append(f"{kind} {call}")
+                    continue
+                raise AssertionError(f"serving_hardening: a kernel fault in "
+                                     f"a {kind} {call} was absorbed")
+    finally:
+        ST._walk = real
+    md = fn.metadata()
+    moved = {nm: b for nm, b in md["breakers"].items()
+             if b["consecutiveFailures"] or b["transitions"]}
+    if (md["quarantine"]["quarantinedRows"], moved, md["fused"]["fallbacks"],
+            md["fused"]["dispatches"]) != (0, {}, 0,
+                                          before["fused"]["dispatches"]):
+        raise AssertionError(f"serving_hardening: a kernel fault moved the "
+                             f"counters {md['quarantine']} {moved} "
+                             f"{md['fused']}")
+    return {"raised": raised, "quarantinedRows": 0, "breakerFailures": 0,
+            "fusedFallbacks": 0}
+
+
+def hardening_cost(fn, off, tiles, reps: int) -> dict:
+    """(f): host rows/s of ``.batch`` and ``.columns``, staged and fused,
+    for the default and the all-off closure, and the seconds per family
+    (``record_serve_batch``'s ``stagesMs``) of one more batch of each."""
+    from transmogrifai_tpu_torch.telemetry import spans as tspans
+
+    rates, families = {}, {}
+    for label, f in (("default", fn), ("all_off", off)):
+        for kind, (rows, ds) in tiles.items():
+            for call, run in (("batch", lambda: f.batch(rows)),
+                              ("columns", lambda: f.columns(ds))):
+                key = f"{label} {kind} {call}"
+                rates[key] = len(rows) / host_seconds(run, reps=reps)
+                run()
+                trace = tspans.recent_serve_traces()[-1]
+                families[key] = {k: v / 1e3
+                                 for k, v in trace["stagesMs"].items()}
+                families[key]["total"] = trace["durMs"] / 1e3
+    return {"rows_per_s": rates, "family_seconds": families}
+
+
+def serving_hardening(torch, smi: str, ST, TS, load_workflow_model,
+                      score_function) -> dict:
+    """The hardened scoring closure on the card over the three JAX-saved
+    serving fixtures (profiles included), at ``fused_serving``'s tiles
+    (8192 rows staged, 65536 fused): (a) clean, (b) quarantine, (c) a
+    covered breaker against the fused gate, (d) drift, (e) a kernel fault,
+    (f) the cost of the hardening. K1's and both tree sums' launches are
+    counted from 0 over the phase."""
+    from transmogrifai_tpu_torch.resilience import ScoreGuard
+
+    H = hardening_module()
+    P = H.package("port", DEV)
+    stored = H.load_results()["card"]
+    t0 = time.perf_counter()
+    for wrapper in (ST.serve_trees, TS.tree_sum, TS.tree_sum_device_route):
+        wrapper.launches = 0
+    out: dict = {"card": smi}
+    for name in ("xgb", "rf", "lr"):
+        t_model = time.perf_counter()
+        path, rows, want = load_fixture(name)
+        model = load_workflow_model(path)
+        if not model.serving_profiles:
+            raise AssertionError(f"serving_hardening {name}: no profiles")
+        fn = score_function(model)
+        off = score_function(model, sentinel=False, breaker=False,
+                             drift=False, guard=ScoreGuard(fallback="off"))
+        for f in (fn, off):
+            if not f.prime_fused():
+                raise AssertionError(f"serving_hardening {name}: no fused "
+                                     "program")
+        tiles = {}
+        for kind, n in (("staged", H.STAGED_ROWS), ("fused", H.FUSED_ROWS)):
+            big = H.tiled(rows, n)
+            tiles[kind] = (big, dataset_of(big, model.raw_features))
+        rec = {"a_clean": hardening_clean(torch, ST, TS, H, P, name, fn, off,
+                                          tiles, want, stored[name])}
+        phase(f"serving_hardening {name} (a) clean", card=smi,
+              **rec["a_clean"])
+        clean = score_matrix(off.batch(tiles["staged"][0]))
+        rec["b_quarantine"] = hardening_quarantine(H, P, name, clean,
+                                                   stored[name])
+        phase(f"serving_hardening {name} (b) quarantine",
+              **rec["b_quarantine"])
+        rec["c_breaker"] = hardening_breaker(H, P, name, stored[name])
+        phase(f"serving_hardening {name} (c) breaker", **rec["c_breaker"])
+        drift = H.scenario_card_drift(P, name)
+        H.same(drift, stored[name]["drift"], 0.0, f"{name} (d)")
+        rec["d_drift"] = {"alerts": drift["batch"]["alerts"],
+                          "columns_alerts": drift["columns"]["alerts"],
+                          "report_equals_jax": True}
+        phase(f"serving_hardening {name} (d) drift", **rec["d_drift"])
+        if name != "lr":
+            rec["e_kernel_fault"] = hardening_kernel_fault(ST, fn, tiles)
+            phase(f"serving_hardening {name} (e) kernel fault",
+                  **rec["e_kernel_fault"])
+        rec["f_cost"] = hardening_cost(fn, off, tiles, HARDENING_REPS)
+        phase(f"serving_hardening {name} (f) cost", card=smi,
+              **rec["f_cost"])
+        rec["seconds"] = time.perf_counter() - t_model
+        out[name] = rec
+    out["launches"] = dict(zip(("serve_trees", "tree_sum",
+                                "tree_sum_device_route"),
+                               launch_counts(ST, TS)))
+    for wrapper in (ST.serve_trees, TS.tree_sum, TS.tree_sum_device_route):
+        wrapper.launches = 0
+    if not all(out["launches"].values()):
+        raise AssertionError(f"serving_hardening: launches {out['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+#: the timed calls of ``serving_hardening``'s cost sub-phase, each the
+#: least of this many
+HARDENING_REPS = 3
+
+
 def start_on_card(torch, sources: list[str]) -> str:
     """Print the environment and the card's name and power limit, and
     build the kernels of ``sources`` (one nvcc each, all started together),
@@ -5740,6 +6050,13 @@ def main() -> int:
     del wide_hash_trained
     phase("featurize_plane", **plane)
 
+    # the hardened scoring closure: sentinel, quarantine, breakers against
+    # the fused gate, drift, a kernel fault, and the hardening's cost
+    hardening = serving_hardening(torch, smi, ST, TS, load_workflow_model,
+                                  score_function)
+    phase("serving_hardening", launches=hardening["launches"],
+          seconds=hardening["seconds"])
+
     phase("wall", seconds=time.perf_counter() - t_start,
           profiler_missed_activities=device_ms.missed_activities,
           profiler_sessions_retaken=device_ms.empty_sessions,
@@ -5776,7 +6093,9 @@ def main() -> int:
         "launches": ts_launches,
         "launches_by_path": {**ts_counts,
                              "fit_side to_train": fit_launches["tree_sum"],
-                             **train_launches["tree_sum"]},
+                             **train_launches["tree_sum"],
+                             "serving_hardening":
+                                 hardening["launches"]["tree_sum"]},
         "max_abs_err": ts_all["max_abs_err"],
         "ms": ts_all["ms"],
         "ms_by_path": ts_all["ms_by_path"],
@@ -5814,6 +6133,8 @@ def main() -> int:
             "train_dsl fused": dsl_fused_launches["tree_sum_device_route"],
             "train_multiclass fused": mc_fused["tree_sum_device_route"],
             "featurize_plane fused": plane["fused"]["launches"][
+                "tree_sum_device_route"],
+            "serving_hardening": hardening["launches"][
                 "tree_sum_device_route"]},
         "max_abs_err": max(route_main["max_abs_err"],
                            max(r["max_abs_err"] for r in route_rows.values())),
@@ -5916,7 +6237,9 @@ def main() -> int:
                                  dsl_fused_launches["serve_trees"],
                              "train_multiclass fused": mc_fused["serve_trees"],
                              "featurize_plane fused":
-                                 plane["fused"]["launches"]["serve_trees"]},
+                                 plane["fused"]["launches"]["serve_trees"],
+                             "serving_hardening":
+                                 hardening["launches"]["serve_trees"]},
         "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
                            k1_reg["max_abs_err"]),
         "ms": k1_paths["packed_ms"],

@@ -79,6 +79,11 @@ REQUIRED = (
     "native.py", "featurize/stats.py", "featurize/interning.py",
     "featurize/kernels.py", "featurize/parallel.py", "featurize/engine.py",
     "ops/text_stages.py",
+    "utils/streaming_histogram.py", "analysis/schedule.py",
+    "telemetry/metrics.py", "telemetry/spans.py", "telemetry/events.py",
+    "telemetry/runlog.py", "resilience/retry.py", "resilience/faults.py",
+    "resilience/guards.py", "resilience/sentinel.py", "serving/deadline.py",
+    "serving/shedding.py",
 )
 
 
@@ -107,6 +112,17 @@ with open({os.path.join(FIXTURE, "rows.json")!r}) as fh:
     rows = json.load(fh)
 fn = score_function(load_workflow_model({FIXTURE!r}, device="cpu"), device="cpu")
 out = fn.batch(rows[:8])
+from transmogrifai_tpu_torch import testkit
+from transmogrifai_tpu_torch.serving import deadline, shedding
+plan = testkit.fault_plan().malform_row("age", rows=(1,)).shift_feature(
+    "fare", 50.0)
+with testkit.install_faults(plan), deadline.active(
+        deadline.DeadlineBudget(60.0)):
+    fn.batch(rows[:8])
+md = fn.metadata()
+assert [r.index for r in fn.quarantine.last] == [1]
+assert md["drift"]["enabled"] and md["quarantine"]["quarantinedRows"] == 1
+assert not shedding.drift_shed()
 import os
 os.environ["TPTPU_HOST_PREDICT_MAX"] = "0"
 quantized = score_function(load_workflow_model({FIXTURE!r}, device="cpu"),

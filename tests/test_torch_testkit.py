@@ -246,6 +246,18 @@ def test_drifted_equals_the_reference():
 
 @pytest.mark.parametrize("name", ["fault_plan", "install_faults"])
 def test_fault_harness_names_its_item(name):
-    with pytest.raises(NotImplementedError, match="A12"):
-        getattr(PTK, name)(None) if name == "install_faults" \
-            else getattr(PTK, name)()
+    """The fault harness is ported (``resilience/faults.py``): ``fault_plan``
+    gives a fresh seeded plan of the port's, ``install_faults`` installs it
+    over a block, as the JAX package's testkit does with its own."""
+    from transmogrifai_tpu.resilience import faults as jax_faults
+    from transmogrifai_tpu_torch.resilience import faults
+
+    if name == "fault_plan":
+        plan, ref = PTK.fault_plan(seed=7), JTK.fault_plan(seed=7)
+        assert isinstance(plan, faults.FaultPlan) and plan.seed == ref.seed
+        assert plan.fired == ref.fired == []
+        return
+    plan, ref = PTK.fault_plan(), JTK.fault_plan()
+    with PTK.install_faults(plan), JTK.install_faults(ref):
+        assert faults.active() is plan and jax_faults.active() is ref
+    assert faults.active() is None and jax_faults.active() is None

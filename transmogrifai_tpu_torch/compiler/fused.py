@@ -37,9 +37,12 @@ hidden behind a slower path.
 
 The members' widths are cross-checked against the scoring closure's
 ``featurize.engine.FusionPlanner`` (the widths its batches learned) when
-it has any. Left for later: the explain lanes (``_fused_eval_explain``,
-ROADMAP A10), the executable bank and warmup (A14), breaker and fault-plan
-gating (A8).
+it has any. The scoring closure gates the route (``local/scoring.py``:
+no installed fault plan, every covered stage's breaker closed) and guards
+the prediction; each batch's upload and download land in the transfer
+census (``telemetry/runlog.py``). Left for later: the explain lanes
+(``_fused_eval_explain``, ROADMAP A10), the executable bank and warmup
+(A14).
 """
 from __future__ import annotations
 
@@ -484,12 +487,18 @@ class FusedServingProgram:
         arrays = [d[k] for d, ks in zip(ingest, keys) for k in ks]
         if any(a.shape[0] != b for a in arrays):
             raise ValueError(f"fused ingest: expected {b} rows")
+        from ..telemetry import runlog, spans
+
         buf = self._staging.acquire(arrays)
+        t0 = spans.clock()
         views = iter(buf.upload(arrays))
+        runlog.record_upload(buf.nbytes, spans.clock() - t0)
         dev_ingest = [{k: next(views) for k in ks} for ks in keys]
         plane = self.gather(self.assemble(dev_ingest, params), params)
         core = self.pspec.core(plane, params["predictor"])
+        t0 = spans.clock()
         host = core[:n].cpu().numpy()
+        runlog.record_download(host.nbytes, spans.clock() - t0)
         self._staging.release(buf)
         return host, {
             "uploads": 1, "downloads": 1,

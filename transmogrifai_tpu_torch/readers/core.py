@@ -2,7 +2,10 @@
 A reader reads its source records and applies each raw feature's
 extraction, giving one Column per raw feature. The aggregate, streaming
 and joined readers are not ported yet (``ROADMAP.md`` A12);
-``DatasetReader`` passes an already columnar dataset through."""
+``DatasetReader`` passes an already columnar dataset through. Record
+reads go through a ``RetryPolicy`` (``resilience/retry.py``): transient
+errors back off and retry, every other error, a kernel fault among them,
+fails at once."""
 from __future__ import annotations
 
 from typing import Any, Callable, Iterable, Sequence
@@ -14,16 +17,34 @@ from ..features.feature import Feature, FeatureGeneratorStage
 class DataReader:
     """Base reader (DataReader.scala:57)."""
 
+    #: retry policy for record I/O; None picks the module default
+    #: (``resilience.retry.default_io_policy``)
+    retry_policy = None
+
     def __init__(self, key_fn: Callable[[Any], str] | None = None):
         self.key_fn = key_fn
 
     def read_records(self) -> Iterable[Any]:  # pragma: no cover - abstract
         raise NotImplementedError
 
+    def _read_records_with_retry(self) -> list[Any]:
+        from ..resilience.retry import default_io_policy
+
+        policy = self.retry_policy or default_io_policy()
+        records, attempts = policy.call(lambda: list(self.read_records()))
+        if attempts > 1:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "reader %s succeeded after %d attempts",
+                type(self).__name__, attempts,
+            )
+        return records
+
     def generate_dataset(self, raw_features: Sequence[Feature]) -> Dataset:
         """One column per raw feature, extracted from the records; keyed
         readers add the ``key`` column."""
-        records = list(self.read_records())
+        records = self._read_records_with_retry()
         cols = {}
         for f in raw_features:
             stage = f.origin_stage
@@ -44,6 +65,19 @@ class DataReader:
                 **cols,
             }
         return Dataset.of(cols)
+
+
+class SimpleReader(DataReader):
+    """One record per row (DataReaders.Simple, DataReaders.scala:44)."""
+
+    def __init__(
+        self, records: Iterable[Any], key_fn: Callable[[Any], str] | None = None
+    ):
+        super().__init__(key_fn)
+        self._records = records
+
+    def read_records(self) -> Iterable[Any]:
+        return self._records
 
 
 class DatasetReader(DataReader):

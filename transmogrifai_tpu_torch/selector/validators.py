@@ -14,9 +14,13 @@ pool; the card runs their kernels in the order the threads issue them.
 One difference from the reference's isolation: an error of the kernels or
 the card (``utils.cuda_build.is_kernel_fault``: a kernel that did not
 build, load or launch, or a CUDA runtime error) is a fault of the program,
-not of a candidate, and propagates out of ``validate``. The reference's
-checkpoint and resume keys, fault plan, run-ledger pulses and retry policy
-are not ported yet (``ROADMAP.md`` A12): each candidate makes one attempt.
+not of a candidate, and propagates out of ``validate``; the retry policy
+never retries it. Each family's sweep runs under ``retry_policy``
+(``resilience/retry.py``): a transient failure backs off and retries before
+the family is excluded, a fatal one excludes it at once, and the attempts
+land in ``last_attempt_info``. An installed fault plan is consulted inside
+the retried region (``fail_candidate``). The reference's checkpoint and
+resume keys and run-ledger pulses are not ported yet (``ROADMAP.md`` A12).
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import numpy as np
 
 from ..evaluators.base import Evaluator
 from ..models.base import PredictorEstimator
+from ..resilience import faults
+from ..resilience.retry import RetryPolicy
 from ..utils.cuda_build import is_kernel_fault
 
 log = logging.getLogger(__name__)
@@ -78,6 +84,11 @@ class Validator:
 
     #: candidate-fit parallelism (OpValidator.scala:371-379 default 8)
     parallelism: int = 8
+    #: retry policy for candidate sweeps: transient failures back off and
+    #: retry BEFORE the candidate-exclusion path; fatal errors (bad grid,
+    #: shape mismatch) and kernel faults are never retried
+    retry_policy: RetryPolicy = RetryPolicy(max_attempts=3, base_delay=0.25,
+                                            max_delay=2.0)
 
     def __init__(self, seed: int = 42):
         self.seed = seed
@@ -126,10 +137,14 @@ class Validator:
                 points_list.append(e)
 
         def run(est, points):
+            """One family's sweep, retried: (results, attempts)."""
             if isinstance(points, Exception):
                 raise points
-            return self._sweep_family(
-                est, points, folds, x, y, evaluator, extra_masks=extra_masks
+            return self.retry_policy.call(
+                lambda: self._sweep_family(
+                    est, points, folds, x, y, evaluator,
+                    extra_masks=extra_masks,
+                )
             )
 
         n_workers = max(1, min(self.parallelism, len(candidates)))
@@ -158,14 +173,19 @@ class Validator:
             name = type(est).__name__
             failed = isinstance(out, Exception)
             if failed:  # candidate-level isolation
-                log.warning("Model %s failed validation: %s", name, out)
+                attempts = getattr(out, "_retry_attempts", 1)
+                log.warning(
+                    "Model %s failed validation after %d attempt(s): %s",
+                    name, attempts, out,
+                )
                 errors.append(f"{name}: {out}")
             else:
+                out, attempts = out
                 results.extend(out)
             self.last_attempt_info.append({
                 "modelName": name,
                 "modelUID": est.uid,
-                "attempts": 1,
+                "attempts": attempts,
                 "error": str(out) if failed else None,
                 "excluded": failed,
                 "fromCheckpoint": False,
@@ -186,6 +206,11 @@ class Validator:
         evaluator: Evaluator,
         extra_masks: Sequence[np.ndarray] = (),
     ) -> list[CandidateResult]:
+        plan = faults.active()
+        if plan is not None:
+            # inside the retried region: each retry attempt re-consults the
+            # plan, so "fails twice then succeeds" scripts exactly
+            plan.on_candidate_fit(est)
         per_point_values: list[list[float]] = [[] for _ in points]
         batched_masks = batched_masks_hook(est)
         models_by_fold = None

@@ -7,9 +7,8 @@ with a probability-of-empty control; ``limit(n)`` materializes n values and
 ``to_column(n)`` / ``random_dataset`` produce the columnar form directly.
 The draws are numpy ``default_rng`` draws in the same order as
 ``transmogrifai_tpu.testkit``'s, so a seed gives the same values and
-masks in both packages. The fault harness (``fault_plan``,
-``install_faults``) waits for ``resilience/faults.py`` (``ROADMAP.md``
-A12).
+masks in both packages. ``fault_plan`` and ``install_faults`` are the
+fault harness (``resilience/faults.py``).
 """
 from __future__ import annotations
 
@@ -437,21 +436,33 @@ class RandomVector:
 
 # -------------------------------------------------------------- fault testkit
 def fault_plan(seed: int = 42) -> "Any":
-    """A resilience ``FaultPlan`` (the reference's deterministic
-    fault-injection harness). It needs ``resilience/faults.py``, which the
-    port does not have yet."""
-    raise NotImplementedError(
-        "testkit.fault_plan needs resilience/faults.py, which is not ported "
-        "yet: ROADMAP.md A12"
-    )
+    """A fresh resilience ``FaultPlan`` — the deterministic fault-injection
+    harness (raise on the Nth fit, fail a candidate, NaN a stage output,
+    tear a file; serving side: malform incoming rows, fail or slow a
+    scoring stage, tear a training profile, shift a feature's observed
+    stream). Install it over a block with ``install_faults``::
+
+        plan = (testkit.fault_plan()
+                .malform_row("age", rows=(2,))         # quarantine row 2
+                .fail_stage_transform("pred", times=3)  # trip the breaker
+                .shift_feature("age", offset=50.0))     # drifted stream
+        with testkit.install_faults(plan):
+            fn = score_function(model)
+            fn.batch(rows)
+
+    The checkpoint, stream and distributed faults wait for their planes
+    (``ROADMAP.md`` A12, A13)."""
+    from .resilience.faults import FaultPlan
+
+    return FaultPlan(seed=seed)
 
 
 def install_faults(plan: "Any"):
-    """Install a FaultPlan process-globally; not ported yet (A12)."""
-    raise NotImplementedError(
-        "testkit.install_faults needs resilience/faults.py, which is not "
-        "ported yet: ROADMAP.md A12"
-    )
+    """Context manager installing a FaultPlan process-globally (see
+    ``resilience.faults.installed``)."""
+    from .resilience.faults import installed
+
+    return installed(plan)
 
 
 def drifted(generator: RandomGenerator, offset: float) -> RandomGenerator:

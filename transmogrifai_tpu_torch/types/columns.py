@@ -372,6 +372,8 @@ _STORAGE_DTYPE = {
 
 #: string forms the Binary codec reads as True
 TRUE_TOKENS = frozenset(("true", "1", "1.0", "yes", "t"))
+#: string forms the schema sentinel coerces to False
+FALSE_TOKENS = frozenset(("false", "0", "0.0", "no", "f"))
 
 
 def _coerce(storage: Storage, feature_type: type, v: Any) -> Any:

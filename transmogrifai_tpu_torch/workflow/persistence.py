@@ -10,10 +10,12 @@ package saved loads in the other. Each saved stage class maps to the
 port's class of the same name; the loader rebuilds the feature DAG and
 puts the predictors' arrays on the device. The raw feature filter's
 results (``rffResults``) and the blocklist travel as the reference writes
-them. The manifest fields of planes the port does not have yet (serving
-and attribution profiles, the distributed-resilience ledger, the analysis
-and run reports, sensitive features) are written as ``null``, which the
-reference's loader accepts.
+them, and so do the serving profiles (``servingProfiles``, the drift
+sentinel's training baseline), so a model either package saved brings
+them to the other's drift sentinel. The manifest fields of planes the port
+does not have yet (attribution profiles, the distributed-resilience
+ledger, the analysis and run reports, sensitive features) are written as
+``null``, which the reference's loader accepts.
 """
 from __future__ import annotations
 
@@ -200,7 +202,7 @@ def save_workflow_model(model: "WorkflowModel", path: str) -> None:  # noqa: F82
         "rffResults": model.rff_results,
         "blocklisted": model.blocklisted,
         "sensitiveFeatures": None,
-        "servingProfiles": None,
+        "servingProfiles": model.serving_profiles,
         "attributionProfiles": None,
         "distResilience": None,
         "analysis": None,
@@ -216,9 +218,10 @@ def _stage_arrays(npz: Any, uid: str, source: str) -> dict[str, np.ndarray]:
         if k.startswith(prefix):
             try:
                 out[k[len(prefix):]] = npz[k]
-            except (OSError, ValueError) as e:
+            except Exception as e:
                 raise ModelLoadError(
-                    f"{source}: member '{k}' (stage {uid}) is corrupt: {e}"
+                    f"{source}: member '{k}' (stage {uid}) is corrupt or "
+                    f"truncated: {e}"
                 ) from e
     return out
 
@@ -235,13 +238,22 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
         with open(manifest_path) as fh:
             manifest = json.load(fh)
     except FileNotFoundError:
-        raise ModelLoadError(f"{path}: no manifest.json") from None
+        raise ModelLoadError(
+            f"{path}: no manifest.json — not a saved model directory "
+            "(or the save was interrupted before commit)"
+        ) from None
     except json.JSONDecodeError as e:
-        raise ModelLoadError(f"{manifest_path} is corrupt: {e}") from e
+        raise ModelLoadError(
+            f"{manifest_path} is corrupt or truncated: {e}"
+        ) from e
     try:
         npz = np.load(npz_path, allow_pickle=False)
     except FileNotFoundError:
         raise ModelLoadError(f"{path}: missing arrays.npz") from None
+    except Exception as e:
+        raise ModelLoadError(
+            f"{npz_path} is corrupt or truncated: {e}"
+        ) from e
 
     with npz:
         raw_features = []
@@ -263,7 +275,8 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
             except KeyError as e:
                 raise ModelLoadError(
                     f"{npz_path}: stage {entry['uid']} ({entry['class']}) is "
-                    f"missing member {e}"
+                    f"missing member {e} — the save was likely torn; delete "
+                    "and refit"
                 ) from e
             stage.uid = entry["uid"]
             stage.operation_name = entry["operationName"]
@@ -293,5 +306,6 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
         holdout_rows=manifest.get("holdoutRows", 0),
         rff_results=manifest.get("rffResults"),
         blocklisted=manifest.get("blocklisted", []),
+        serving_profiles=manifest.get("servingProfiles"),
         device=dev,
     )

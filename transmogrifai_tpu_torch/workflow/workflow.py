@@ -16,9 +16,13 @@ callback and run reports (A12), an execution mesh (A13), sensitive
 feature detection (A11). ``with_raw_feature_filter`` runs the
 RawFeatureFilter before the holdout split (and before workflow CV's
 folds) and rewrites the DAG without the blocklisted features. ``train()`` validates the stages with
-``validate_stages`` in place of the reference's preflight analysis (A14);
-the serving and attribution profiles are ``None`` until A8 and A10, and
-``summary_pretty`` leaves out the insights lines until A10.
+``validate_stages`` in place of the reference's preflight analysis (A14).
+``train()`` stores the serving profiles (``resilience.sentinel.
+compute_serving_profiles`` over the training rows) that the scoring
+closure's drift sentinel compares the live stream with; the attribution
+profiles are ``None`` until A10, and ``summary_pretty`` leaves out the
+insights lines until A10. Its serving-resilience line sums the counters
+of every live score function built off the model.
 """
 from __future__ import annotations
 
@@ -289,6 +293,14 @@ class Workflow:
                 fitted_data, selector_info, self.result_features
             )
 
+        # serving-drift profiles (resilience/sentinel.py): per-raw-feature
+        # fill rate + value histogram over the training rows, persisted in
+        # the model artifact so score_function's drift sentinel can compare
+        # the live stream against what the model was trained on
+        from ..resilience.sentinel import compute_serving_profiles
+
+        serving_profiles = compute_serving_profiles(train_data, raw_features)
+
         model = WorkflowModel(
             result_features=self.result_features,
             raw_features=tuple(raw_features),
@@ -300,6 +312,7 @@ class Workflow:
             blocklisted=list(self.blocklisted_features),
             label_summary=label_summary,
             training_params=dict(self._stage_overrides),
+            serving_profiles=serving_profiles,
         )
         if selector is not None:
             # the live evaluator keeps a custom one working in memory (the
@@ -372,6 +385,7 @@ class WorkflowModel:
         blocklisted: list[str] | None = None,
         label_summary: dict[str, Any] | None = None,
         training_params: dict[str, Any] | None = None,
+        serving_profiles: dict[str, Any] | None = None,
         device: torch.device | None = None,
     ):
         self.result_features = result_features
@@ -384,6 +398,10 @@ class WorkflowModel:
         self.blocklisted = blocklisted or []
         self.label_summary = label_summary
         self.training_params = training_params or {}
+        #: per-raw-feature training distributions for the serve-time drift
+        #: sentinel (fill rate + StreamingHistogram JSON); None on models
+        #: saved without them
+        self.serving_profiles = serving_profiles
         self.device = device
 
     def to(self, device=None) -> "WorkflowModel":
@@ -584,6 +602,11 @@ class WorkflowModel:
                         f"Excluded {a['modelName']} after "
                         f"{a.get('attempts', 1)} attempt(s): {a.get('error')}"
                     )
+                elif a.get("attempts", 1) > 1:
+                    lines.append(
+                        f"Retried {a['modelName']}: succeeded on attempt "
+                        f"{a['attempts']}"
+                    )
             lines.append("")
             lines.append(f"Selected model {sel['bestModelType']} with parameters:")
             params: dict[str, Any] = {"modelType": sel["bestModelType"]}
@@ -622,4 +645,40 @@ class WorkflowModel:
             f"Trained on {s['trainRows']} rows (holdout {s['holdoutRows']}); "
             f"{len(s['rawFeatures'])} raw features"
         )
+        serve = self._serving_resilience_line()
+        if serve:
+            lines.append(serve)
         return "\n".join(lines)
+
+    def _serving_resilience_line(self) -> str | None:
+        """Aggregate serve-side counters from every live score function
+        built off this model (local.scoring keeps weak references), so one
+        report covers train-side retries AND serve-side degradation."""
+        quarantined = guarded = drift_alerts = breaker_trips = 0
+        seen = False
+        for ref in getattr(self, "_serving_monitors", []):
+            fn = ref()
+            if fn is None:
+                continue
+            try:
+                md = fn.metadata()
+            except Exception as e:  # monitoring must never break the summary
+                log.debug("serving monitor skipped: %s", e)
+                continue
+            seen = True
+            quarantined += md["quarantine"]["quarantinedRows"]
+            guarded += md["scoreGuard"]["guardedRows"]
+            drift = md.get("drift") or {}
+            drift_alerts += drift.get("driftAlertsTotal", 0)
+            for br in md["breakers"].values():
+                t = br["transitions"]
+                breaker_trips += t.get("closed->open", 0) + t.get(
+                    "half_open->open", 0
+                )
+        if not seen:
+            return None
+        return (
+            f"Serving resilience: {quarantined} quarantined row(s), "
+            f"{guarded} guarded row(s), {drift_alerts} drift alert(s), "
+            f"{breaker_trips} breaker trip(s)"
+        )
