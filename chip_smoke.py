@@ -5631,6 +5631,406 @@ def serving_hardening(torch, smi: str, ST, TS, load_workflow_model,
 HARDENING_REPS = 3
 
 
+def serving_plane_module():
+    """``tests/torch_fixtures/serving_plane.py``: the serving plane's
+    scenarios, the canary's constants and the JAX package's stored
+    decision."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import serving_plane
+
+    return serving_plane
+
+
+#: (a): single-row requests, their client threads and the service's
+#: workers; (b): the offered rates (requests/s), the virtual seconds of
+#: arrivals and the deadline; (c): the fleet's rate, its replicas and the
+#: kill; the direct calls timed beside them (medians of this many)
+PLANE_REQUESTS = 4096
+PLANE_CLIENTS = 4
+PLANE_WORKERS = 2
+PLANE_RATES = {"light": 1000.0, "overload": 50000.0}
+PLANE_SECONDS = 2.0
+PLANE_DEADLINE = 0.05
+PLANE_FLEET_RATE = 5000.0
+PLANE_FLEET_KILL_AT = 1.0
+PLANE_DIRECT_REPS = 50
+#: the virtual seconds of the light run from an empty latency history
+PLANE_COLD_SECONDS = 0.5
+
+
+def family_totals(P) -> dict:
+    """{stage family: (batches, seconds)} of ``record_serve_batch``'s
+    histograms so far."""
+    return {h.labels.get("stage", "total"): (h.count, h.sum)
+            for h in P.metrics.REGISTRY.histograms_named("tptpu_serve_seconds")}
+
+
+def family_seconds(before: dict, after: dict) -> dict:
+    """Seconds, batches and mean ms a batch per stage family between two
+    ``family_totals``."""
+    out = {}
+    for stage, (n, secs) in after.items():
+        n0, s0 = before.get(stage, (0, 0.0))
+        out[stage] = {"seconds": secs - s0, "batches": n - n0,
+                      "mean_ms": (secs - s0) / max(n - n0, 1) * 1e3}
+    return out
+
+
+class GcPauses:
+    """Host pauses of Python's garbage collector over a block
+    (``gc.callbacks``): collections by generation, the longest pause and
+    their sum, in host seconds."""
+
+    def __enter__(self):
+        import gc
+
+        self.by_gen = [0, 0, 0]
+        self.total_s = 0.0
+        self.max_s = 0.0
+        self._t0 = None
+
+        def cb(stage, info):
+            if stage == "start":
+                self._t0 = time.perf_counter()
+            elif self._t0 is not None:
+                dt = time.perf_counter() - self._t0
+                self.by_gen[info["generation"]] += 1
+                self.total_s += dt
+                self.max_s = max(self.max_s, dt)
+                self._t0 = None
+
+        self._cb = cb
+        gc.callbacks.append(cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+        return False
+
+    def report(self) -> dict:
+        return {"collections_by_generation": self.by_gen,
+                "max_ms": self.max_s * 1e3, "total_s": self.total_s}
+
+
+def plane_worker_mode(SP, P, ST, TS, name, fn, rows, want) -> dict:
+    """(a): ``PLANE_REQUESTS`` single-row requests from ``PLANE_CLIENTS``
+    threads through a worker-mode service: every result EQUAL ``fn.batch``
+    of its row called directly (the logistic model's within its fixture
+    tolerance, with its largest difference printed) and, trees and
+    logistic alike, the JAX package's stored scores within the fixture's
+    tolerance; reconciled, no service thread left, no row quarantined or
+    guarded; a tree batch launches K1 once and the tree sum once per
+    stack, and no batch fuses."""
+    md0 = fn.metadata()
+    before = launch_counts(ST, TS)
+    res = SP.worker_mode(P, fn, rows, PLANE_REQUESTS, PLANE_CLIENTS,
+                         seed=17, workers=PLANE_WORKERS)
+    launches = [a - b for a, b in zip(launch_counts(ST, TS), before)]
+    got, idx = res.pop("_results"), res.pop("_idx")
+    md = fn.metadata()
+    stacks = 0 if name == "lr" else 1
+    want_launches = [res["batches"] * stacks, res["batches"] * stacks, 0]
+    if res["errors"] or res["outcomes"] != ["completed"]:
+        raise AssertionError(f"serving_plane {name} (a): outcomes "
+                             f"{res['outcomes']} errors {res['errors']}")
+    direct = SP.direct_mismatches(fn, rows, got, idx, PROB_ATOL[name])
+    vs_jax = check_scores(name, got, {k: v[idx] for k, v in want.items()})
+    moved = {
+        "quarantinedRows": md["quarantine"]["quarantinedRows"]
+        - md0["quarantine"]["quarantinedRows"],
+        "guardedRows": md["scoreGuard"]["guardedRows"]
+        - md0["scoreGuard"]["guardedRows"],
+        "fusedDispatches": md["fused"]["dispatches"]
+        - md0["fused"]["dispatches"]}
+    problems = []
+    if not res["reconciled"] or res["threads"]:
+        problems.append(f"reconciled {res['reconciled']} threads "
+                        f"{res['threads']}")
+    if direct["mismatched"]:
+        problems.append(f"{direct['mismatched']} results differ from the "
+                        "direct closure's")
+    if name != "lr" and direct["max_abs_err"] != 0.0:
+        problems.append(f"tree results differ: {direct['max_abs_err']}")
+    if any(moved.values()):
+        problems.append(f"counters moved {moved}")
+    if launches != want_launches:
+        problems.append(f"launches {launches}, expected {want_launches}")
+    if problems:
+        raise AssertionError(f"serving_plane {name} (a): {problems}")
+    return {**res, "launches": launches, "direct": direct,
+            "max_abs_err_vs_jax": vs_jax, "counters_moved": moved}
+
+
+def plane_bench(SP, P, name, fn, rows) -> dict:
+    """(b): the bench-mode load test (the measured batch time advances the
+    virtual clock) at each of ``PLANE_RATES`` for ``PLANE_SECONDS`` with a
+    ``PLANE_DEADLINE`` deadline; per rate the report's goodput, latency
+    percentiles, shed rate and batches, the rows a batch, the seconds per
+    family from ``record_serve_batch`` and the garbage collector's pauses.
+    Each run must reconcile, and the light one complete 90% of its
+    requests. The runs follow ``plane_direct`` on a reset
+    registry and do not reset it: the deadline gate admits against the
+    pipeline's p95 of the serve-latency histograms, which then hold the
+    direct calls' 102 batches of 1 and 256 rows, the history of a warm
+    standing service (an empty one makes a single slow first batch the
+    p95, and the gate then refuses every request: ``ROADMAP.md`` "Found
+    in the reference")."""
+    out = {}
+    for label, rate in PLANE_RATES.items():
+        fam0 = family_totals(P)
+        snap0 = P.export.serving_snapshot()
+        t0 = time.perf_counter()
+        with GcPauses() as gc_pauses:
+            rep = P.serving.run_loadtest(
+                fn, rows, rate=rate, duration=PLANE_SECONDS, seed=23,
+                deadline=PLANE_DEADLINE)
+        wall = time.perf_counter() - t0
+        snap = P.export.serving_snapshot()
+        rows_run = snap["serveRows"] - snap0["serveRows"]
+        batches_run = snap["serveBatches"] - snap0["serveBatches"]
+        if not rep["reconciled"]:
+            raise AssertionError(f"serving_plane {name} (b) {label}: not "
+                                 f"reconciled {rep}")
+        if label == "light" and rep["completed"] < 0.9 * rep["offered"]:
+            raise AssertionError(f"serving_plane {name} (b) light: a light "
+                                 f"load was refused or shed {rep}")
+        out[label] = {
+            "offered_per_s": rate, "goodput_rows_per_s":
+                rep["goodput_rows_per_s"],
+            "latency_ms": rep["latency_ms"], "shed_rate": rep["shed_rate"],
+            "shed": rep["shed"], "rejected": rep["rejected"],
+            "completed": rep["completed"], "batches": rep["batches"],
+            "rows_per_batch": rows_run / max(batches_run, 1),
+            "max_queue_depth_rows": rep["max_queue_depth_rows"],
+            "virtual_end_s": rep["virtual_end_s"],
+            "family_seconds": family_seconds(fam0, family_totals(P)),
+            "gc_pauses": gc_pauses.report(),
+            "reconciled": rep["reconciled"], "wall_s": wall}
+    return out
+
+
+def plane_cold_gate(SP, P, name, fn, rows) -> dict:
+    """(b) from an empty history: the light run for ``PLANE_COLD_SECONDS``
+    on a reset registry, where the deadline gate's p95 holds only this
+    run's own batches. Either the gate admits on (the p95 ends within the
+    deadline and 90% of the requests complete) or it refuses as the
+    reference does (the p95 ends above the deadline and deadline requests
+    are refused at admission): a run that fits neither fails."""
+    SP.reset(P)
+    rep = P.serving.run_loadtest(
+        fn, rows, rate=PLANE_RATES["light"], duration=PLANE_COLD_SECONDS,
+        seed=31, deadline=PLANE_DEADLINE)
+    p95 = P.deadline.pipeline_p95()
+    out = {"offered": rep["offered"], "completed": rep["completed"],
+           "rejected": rep["rejected"], "shed_rate": rep["shed_rate"],
+           "batches": rep["batches"], "latency_ms": rep["latency_ms"],
+           "pipeline_p95_ms": p95 * 1e3,
+           "refuses": p95 > PLANE_DEADLINE}
+    admits = rep["completed"] >= 0.9 * rep["offered"]
+    refuses = out["refuses"] and rep["rejected"].get("deadline", 0) > 0
+    if not rep["reconciled"] or not (refuses or (admits and not out["refuses"])):
+        raise AssertionError(f"serving_plane {name} (b) empty history: {out}")
+    return out
+
+
+def plane_direct(fn, rows) -> dict:
+    """Host seconds of ``fn.batch`` of 1 row and of 256 rows called
+    directly (medians of ``PLANE_DIRECT_REPS``, after one warm call); the
+    calls also give the serve-latency histograms their history."""
+    out = {}
+    for n in (1, 256):
+        batch = (rows * -(-n // len(rows)))[:n]
+        fn.batch(batch)
+        secs = []
+        for _ in range(PLANE_DIRECT_REPS):
+            t0 = time.perf_counter()
+            fn.batch(batch)
+            secs.append(time.perf_counter() - t0)
+        out[f"batch_{n}_ms"] = statistics.median(secs) * 1e3
+    out["rows_per_s_at_256"] = 256 / (out["batch_256_ms"] / 1e3)
+    return out
+
+
+def plane_fleet(SP, P, fn, rows) -> dict:
+    """(c): ``run_fleet_loadtest`` in bench mode, 2 replicas of the xgb
+    closure, ``PLANE_FLEET_RATE`` requests/s for ``PLANE_SECONDS`` with
+    ``kill_replica(1, at=PLANE_FLEET_KILL_AT)``: 0 dropped, reconciled at
+    every instant, replica 1 lost, every completed result EQUAL the
+    direct closure's; beside it one replica at the same rate."""
+    submitted: list = []
+
+    def on_fleet(fleet):
+        submit = fleet.submit
+
+        def recording(rows_, *a, **kw):
+            h = submit(rows_, *a, **kw)
+            submitted.append((rows_, h))
+            return h
+
+        fleet.submit = recording
+        return None
+
+    out = {}
+    for replicas in (2, 1):
+        SP.reset(P)
+        for row in rows[:PLANE_DIRECT_REPS]:  # the deadline gate's history
+            fn.batch([dict(row)])
+        submitted.clear()
+        plan = P.faults.FaultPlan(seed=3)
+        if replicas == 2:
+            plan.kill_replica(1, at=PLANE_FLEET_KILL_AT)
+        t0 = time.perf_counter()
+        with P.faults.installed(plan), GcPauses() as gc_pauses:
+            rep = P.serving.run_fleet_loadtest(
+                fn, rows, rate=PLANE_FLEET_RATE, duration=PLANE_SECONDS,
+                replicas=replicas, seed=29, deadline=PLANE_DEADLINE,
+                plan=plan, on_fleet=on_fleet)
+        wall = time.perf_counter() - t0
+        done = [(r, h) for r, h in submitted
+                if h.outcome in ("completed", "quarantined")]
+        direct = fn.batch([dict(r) for r, _ in done]) if done else []
+        differ = sum(h.results[0] != d for (_, h), d in zip(done, direct))
+        out[f"replicas_{replicas}"] = {
+            k: rep[k] for k in (
+                "offered", "admitted", "completed", "shed", "rejected",
+                "shed_rate", "latency_ms", "goodput_rows_per_s", "dropped",
+                "reconciled", "reconciled_every_instant", "replicas_lost",
+                "lost_replicas", "orphans_adopted", "hedges_fired",
+                "router_dispatched", "virtual_end_s")}
+        out[f"replicas_{replicas}"].update(
+            wall_s=wall, results_checked=len(done), results_differ=differ,
+            gc_pauses=gc_pauses.report(),
+            fired=sorted({k for k, _ in plan.fired}))
+    two = out["replicas_2"]
+    if (two["dropped"], two["reconciled_every_instant"],
+            two["lost_replicas"], two["results_differ"]) != (0, True, [1], 0):
+        raise AssertionError(f"serving_plane (c): {two}")
+    if not two["results_checked"] or not out["replicas_1"]["reconciled"]:
+        raise AssertionError(f"serving_plane (c): {out}")
+    SP.reset(P)
+    return out
+
+
+def plane_kernel_fault(SP, P, ST, fn, rows) -> dict:
+    """(e): a ``KernelLaunchError`` injected into K1's launch (``_walk``)
+    inside a worker-mode service and a two-replica fleet: the fault
+    reaches the caller (``submit``, ``stop``; the fleet's ``pump_all``,
+    ``tick``, ``submit``, ``stop``), every request settles ``error`` with
+    it, nothing is hedged, adopted or retried, the ledgers reconcile.
+    Then in the registry's mirror scoring, as the shadow and as the
+    canary's control: the fault fails the fleet and voids the window (its
+    reports, ``evaluate_canary`` and ``promote`` re-raise it), and nothing
+    is promoted or rolled back."""
+    inject = SP.k1_fault(ST, "_walk")
+    SP.reset(P)
+    fault = ["KernelLaunchError", None]
+    svc = SP.kernel_fault_service(P, fn, rows, inject, workers=PLANE_WORKERS)
+    if (svc["handles"] != [{"outcome": "error", "error": fault}] * 5
+            or svc["submit"] != fault or svc["stop"] != fault
+            or not svc["reconciled"] or svc["threads"]
+            or svc["stats"]["errors"] != 5):
+        raise AssertionError(f"serving_plane (e) service: {svc}")
+    SP.reset(P)
+    fleet = SP.kernel_fault_fleet(P, fn, rows, inject)
+    if ((fleet["pump_all"], fleet["tick"], fleet["submit"], fleet["stop"])
+            != (fault,) * 4
+            or fleet["handles"] != [{"outcome": "error", "error": fault}] * 4
+            or (fleet["hedges"], fleet["adopted"], fleet["lost"]) != (0, 0, [])
+            or not fleet["reconciled"] or fleet["outstanding"]):
+        raise AssertionError(f"serving_plane (e) fleet: {fleet}")
+    mirror = {}
+    for mode in ("shadow", "canary"):
+        SP.reset(P)
+        got = mirror[mode] = SP.mirror_kernel_fault(P, fn, rows, inject, mode)
+        raised = [got[k] for k in ("pump_all", "report", "submit", "tick",
+                                   "stop", "fleet_fault")]
+        raised += ([got["stop_shadow"]] if mode == "shadow"
+                   else [got["evaluate"], got["promote"]])
+        if (raised != [fault] * len(raised)
+                or got["handles"] != ["completed"] * 2
+                or got["mirror_errors"] or got["promotions"]
+                or got["rollbacks"] or not all(got.get("unchanged", [True]))
+                or got["replica_faults"] != [None, None]
+                or got["hedges"] or got["lost"] or not got["reconciled"]):
+            raise AssertionError(f"serving_plane (e) {mode} mirror: {got}")
+    SP.reset(P)
+    md = fn.metadata()
+    return {"service": {k: svc[k] for k in ("submit", "stop", "handles",
+                                             "reconciled", "stats")},
+            "mirror": {mode: {k: v for k, v in got.items()
+                              if k in ("pump_all", "evaluate", "promote",
+                                       "mirror_errors", "promotions",
+                                       "rollbacks")}
+                       for mode, got in mirror.items()},
+            "fleet": {k: fleet[k] for k in ("pump_all", "tick", "submit",
+                                             "stop", "hedges", "adopted",
+                                             "lost", "errors",
+                                             "reconciled")},
+            "quarantinedRows": md["quarantine"]["quarantinedRows"]}
+
+
+def serving_plane(torch, smi: str, ST, TS) -> dict:
+    """The serving plane on the card (``serving/``) over the three
+    JAX-saved serving fixtures with the default hardened closure: (a)
+    worker mode, (b) the bench-mode load test at two rates with the direct
+    calls beside it and a short light run from an empty latency history
+    before them, (c) a two-replica fleet losing replica 1, (d) the canary
+    gate against the JAX package's decision, (e) a kernel fault in a
+    service, in a fleet and in the registry's mirror scoring. K1's and both tree sums' launches are
+    counted from 0 over (a)-(d); (e)'s injected faults launch nothing."""
+    SP = serving_plane_module()
+    P = SP.package("port", DEV)
+    stored = SP.load_results()
+    t0 = time.perf_counter()
+    for wrapper in (ST.serve_trees, TS.tree_sum, TS.tree_sum_device_route):
+        wrapper.launches = 0
+    out: dict = {"card": smi}
+    fns = {}
+    for name in ("xgb", "rf", "lr"):
+        t_model = time.perf_counter()
+        path, rows, want = load_fixture(name)
+        fn = fns[name] = P.score(P.load(path))
+        SP.reset(P)
+        rec = {"a_worker_mode": plane_worker_mode(SP, P, ST, TS, name, fn,
+                                                  rows, want)}
+        phase(f"serving_plane {name} (a) worker mode", card=smi,
+              **rec["a_worker_mode"])
+        rec["b_empty_history"] = plane_cold_gate(SP, P, name, fn, rows)
+        phase(f"serving_plane {name} (b) empty history", card=smi,
+              **rec["b_empty_history"])
+        SP.reset(P)
+        rec["b_direct"] = plane_direct(fn, rows)
+        rec["b_loadtest"] = plane_bench(SP, P, name, fn, rows)
+        phase(f"serving_plane {name} (b) loadtest", card=smi,
+              **rec["b_loadtest"], direct=rec["b_direct"])
+        rec["seconds"] = time.perf_counter() - t_model
+        out[name] = rec
+    _, rows, _ = load_fixture("xgb")
+    out["c_fleet"] = plane_fleet(SP, P, fns["xgb"], rows)
+    phase("serving_plane (c) fleet", card=smi, **out["c_fleet"])
+    SP.reset(P)
+    canary = SP.canary(P)
+    SP.same(canary, stored["canary"], 0.0, "serving_plane (d)")
+    out["d_canary"] = {k: canary["decision"][k] for k in (
+        "decision", "codes", "compared", "agreement", "canaryServed",
+        "controlServed")}
+    out["d_canary"]["equals_jax"] = True
+    phase("serving_plane (d) canary", **out["d_canary"])
+    out["launches"] = dict(zip(("serve_trees", "tree_sum",
+                                "tree_sum_device_route"),
+                               launch_counts(ST, TS)))
+    out["e_kernel_fault"] = plane_kernel_fault(SP, P, ST, fns["xgb"], rows)
+    phase("serving_plane (e) kernel fault", **out["e_kernel_fault"])
+    for wrapper in (ST.serve_trees, TS.tree_sum, TS.tree_sum_device_route):
+        wrapper.launches = 0
+    if not (out["launches"]["serve_trees"] and out["launches"]["tree_sum"]):
+        raise AssertionError(f"serving_plane: launches {out['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def start_on_card(torch, sources: list[str]) -> str:
     """Print the environment and the card's name and power limit, and
     build the kernels of ``sources`` (one nvcc each, all started together),
@@ -5660,7 +6060,204 @@ def start_on_card(torch, sources: list[str]) -> str:
     return smi
 
 
-def main() -> int:
+#: every kernel source the script builds
+SOURCES = ["serve_trees", "tree_sum", "node_order", "hist_binloop", "hist_wide",
+           "best_split", "split_search", "leaf_sum"]
+
+
+def run_fit_side(torch, smi, M) -> dict:
+    """The fit side of the flagship flow: the twins against the JAX
+    package's stored results, the full-width table, and the checked vector
+    into a tree fit with its kernels' counts read around it."""
+    flagship, x, y = fit_side_flagship(torch, smi)
+    phase("fit_side flagship", **flagship)
+    phase("fit_side wide", **fit_side_wide(torch, smi))
+    to_train = fit_side_to_train(torch, M.G, M.H, M.ST, M.TS, x, y, smi)
+    phase("fit_side to_train", **to_train)
+    return {"launches": to_train["launches"]}
+
+
+def run_train_flagship(torch, smi, M) -> dict:
+    """train(): the five-line flow at the default selector, the flagship
+    twin held to the JAX package's selector fixture; each with the
+    kernels' counts read around exactly its train()."""
+    runs = {}
+    for name, label in (("selector", "train_flagship"),
+                        ("workflow_cv", "train_flagship workflow_cv"),
+                        ("selector_trees", "train_flagship trees")):
+        runs[label] = train_flagship(torch, smi, name, M.counters)
+        phase(label, **runs[label])
+    return {"train_runs": runs}
+
+
+def run_train_wide(torch, smi, M) -> dict:
+    """train() at full width; the first model is kept for
+    ``fused_serving``."""
+    runs = {}
+    for trees_only, label in ((False, "train_wide"), (True, "train_wide trees")):
+        runs[label] = train_wide(torch, smi, M.counters, trees_only)
+        model = runs[label].pop("_model")
+        if not trees_only:
+            M.shared["wide_model"] = model
+        del model
+        phase(label, **runs[label])
+    return {"train_runs": runs}
+
+
+def run_fused_serving(torch, smi, M) -> dict:
+    """The fused scoring graph: one upload and one download a batch above
+    the host-predict cutoff, K1 and the device-route sum inside; its
+    hashed twin is kept for ``featurize_plane``."""
+    fused = fused_serving(torch, smi, M.ST, M.TS, M.TR,
+                          M.shared.pop("wide_model"),
+                          M.load_workflow_model, M.score_function)
+    M.shared["wide_hash_trained"] = fused.pop("_trained")
+    phase("fused_serving", **fused)
+    return fused
+
+
+def run_train_all_types(torch, smi, M) -> dict:
+    """Every type of transmogrify's default dispatch through train() and
+    scoring above the cutoff, with the kernels' counts read around them."""
+    run = train_all_types(torch, smi, M.counters, M.score_function,
+                          M.load_workflow_model)
+    phase("train_all_types", **run)
+    return {"train_runs": {"train_all_types": run}}
+
+
+def run_train_dsl(torch, smi, M) -> dict:
+    """The DSL's stages and the raw feature filter through train(),
+    scoring staged and fused with a host prefix."""
+    t0 = time.perf_counter()
+    run = train_dsl(torch, smi, M.counters, M.ST, M.TS, M.score_function,
+                    M.load_workflow_model)
+    run["seconds"] = time.perf_counter() - t0
+    phase("train_dsl", **run)
+    return {"train_runs": {"train_dsl": run}}
+
+
+def run_multiclass(torch, smi, M) -> dict:
+    """The multiclass path: the JAX-recorded flows at fixture size, the
+    full-width flow through the default multiclass selector, then the
+    training kernels at its sweep's lane counts."""
+    t0 = time.perf_counter()
+    fixture = multiclass_fixture(torch, smi, M.counters, M.load_workflow_model,
+                                 M.score_function)
+    phase("multiclass_fixture", **fixture)
+    run = train_multiclass(torch, smi, M.counters, M.TS, M.ST,
+                           M.score_function, M.load_workflow_model)
+    xy = run.pop("_xy")
+    phase("train_multiclass", **run)
+    kernels = multiclass_kernels(torch, M.H, M.LS, M.TR, *xy)
+    del xy
+    phase("multiclass_kernels", **kernels)
+    phase("multiclass", seconds=time.perf_counter() - t0)
+    for fn in M.counters.values():
+        fn.launches = 0
+    return {"train_runs": {"multiclass_fixture": fixture,
+                           "train_multiclass": run},
+            "kernels": kernels}
+
+
+def run_featurize_plane(torch, smi, M) -> dict:
+    """The featurize plane against the plain routes, its scoring staged and
+    fused; K1's and the route sum's launches of its fused batches
+    counted."""
+    plane = featurize_plane(torch, smi, M.ST, M.TS,
+                            M.shared.pop("wide_hash_trained"),
+                            M.score_function, M.native_so_before)
+    phase("featurize_plane", **plane)
+    return plane
+
+
+def run_serving_hardening(torch, smi, M) -> dict:
+    """The hardened scoring closure: sentinel, quarantine, breakers against
+    the fused gate, drift, a kernel fault, and the hardening's cost."""
+    run = serving_hardening(torch, smi, M.ST, M.TS, M.load_workflow_model,
+                            M.score_function)
+    phase("serving_hardening", launches=run["launches"],
+          seconds=run["seconds"])
+    return run
+
+
+def run_serving_plane(torch, smi, M) -> dict:
+    """The serving plane: worker mode, the bench-mode load test, a fleet
+    losing a replica, the canary gate and a kernel fault, over the
+    hardened closure."""
+    run = serving_plane(torch, smi, M.ST, M.TS)
+    phase("serving_plane", launches=run["launches"], seconds=run["seconds"])
+    return run
+
+
+#: the phases after the kernels' checks and the main path, in the order a
+#: whole run takes them; each prints its lines and returns its record. A
+#: partial run (``--phases a,b``) takes the named ones in the order named.
+PHASES = {
+    "fit_side": run_fit_side,
+    "train_flagship": run_train_flagship,
+    "train_wide": run_train_wide,
+    "fused_serving": run_fused_serving,
+    "train_all_types": run_train_all_types,
+    "train_dsl": run_train_dsl,
+    "multiclass": run_multiclass,
+    "featurize_plane": run_featurize_plane,
+    "serving_hardening": run_serving_hardening,
+    "serving_plane": run_serving_plane,
+}
+
+#: a phase that takes over what another left, and that phase
+NEEDS = {"fused_serving": "train_wide", "featurize_plane": "fused_serving"}
+
+
+def parse_phases(argv: list[str]) -> list[str] | None:
+    """The phases ``--phases a,b`` names, or None for the whole run."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one CUDA card.")
+    ap.add_argument(
+        "--phases", default=None,
+        help="a run of only these comma-separated phases (of "
+        f"{', '.join(PHASES)}), after the build and K1's and the tree "
+        "sum's checks; prints no kernels line")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return None
+    names = [p.strip() for p in args.phases.split(",") if p.strip()]
+    unknown = [n for n in names if n not in PHASES]
+    if unknown or not names:
+        ap.error(f"unknown phases {unknown or names}; choose from "
+                 f"{', '.join(PHASES)}")
+    for i, name in enumerate(names):
+        if name in NEEDS and NEEDS[name] not in names[:i]:
+            ap.error(f"phase {name} needs {NEEDS[name]} named before it")
+    return names
+
+
+def check_kernels_untimed(torch, ST, TS) -> None:
+    """A partial run's checks: K1 and the tree sum held bit for bit against
+    their plain versions at their synthetic shapes, untimed."""
+    for label, (binned, sf, sb, lv, _) in k1_inputs().items():
+        phase(f"serve_trees {label}", **check_traversal(
+            torch, ST, label, binned, sf, sb, lv, timed=False))
+    rng = np.random.default_rng(7)
+    for label, (n, t, boosted) in TREE_SUM_SHAPES.items():
+        per_tree = torch.from_numpy(rng.normal(size=(n, t)).astype(
+            np.float32)).to(DEV)
+        phase(f"tree_sum {label}", **check_tree_sum(
+            torch, TS, label, per_tree, boosted, 0.02, 0.37, timed=False))
+
+
+def print_device(torch) -> None:
+    """The last line: the platform, the card's name and the card count."""
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+def main(argv: list[str] | None = None) -> int:
+    names = parse_phases(sys.argv[1:] if argv is None else argv)
     import torch
 
     t_start = time.perf_counter()
@@ -5668,18 +6265,31 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     native_so_before = file_sha256(NATIVE_SO)
+    import types
+
     from transmogrifai_tpu_torch import load_workflow_model, score_function
     from transmogrifai_tpu_torch.models import gbdt as G
     from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import leaf_sum as LS
     from transmogrifai_tpu_torch.models import serve_trees as ST
     from transmogrifai_tpu_torch.models import tree_sum as TS
     from transmogrifai_tpu_torch.models import trees as TR
 
-    from transmogrifai_tpu_torch.models import leaf_sum as LS
-
-    smi = start_on_card(torch, ["serve_trees", "tree_sum", "node_order",
-                                "hist_binloop", "hist_wide", "best_split",
-                                "split_search", "leaf_sum"])
+    smi = start_on_card(torch, SOURCES)
+    M = types.SimpleNamespace(
+        G=G, H=H, LS=LS, ST=ST, TS=TS, TR=TR,
+        load_workflow_model=load_workflow_model, score_function=score_function,
+        counters=path_counters(H, LS, ST, TS),
+        native_so_before=native_so_before, shared={})
+    if names is not None:
+        check_kernels_untimed(torch, ST, TS)
+        for fn in M.counters.values():
+            fn.launches = 0
+        for name in names:
+            PHASES[name](torch, smi, M)
+        phase("phases", names=names, seconds=time.perf_counter() - t_start)
+        print_device(torch)
+        return 0
 
     # the tree-sum kernel at its shapes (launches here are not counted)
     rng = np.random.default_rng(7)
@@ -5971,91 +6581,21 @@ def main() -> int:
     LS.leaf_sum.launches = 0
     ST.serve_trees.launches = 0
 
-    # the fit side of the flagship flow: the twins against the JAX
-    # package's stored results, the full-width table, and the checked
-    # vector into a tree fit with its kernels' counts read around it
-    flagship, checked_x, checked_y = fit_side_flagship(torch, smi)
-    phase("fit_side flagship", **flagship)
-    phase("fit_side wide", **fit_side_wide(torch, smi))
-    to_train = fit_side_to_train(torch, G, H, ST, TS, checked_x, checked_y, smi)
-    phase("fit_side to_train", **to_train)
-    fit_launches = to_train["launches"]
-
-    # train(): the five-line flow at the default selector, the flagship twin
-    # held to the JAX package's selector fixture, then the full width; each
-    # with the kernels' counts read around exactly its train()
-    counters = path_counters(H, LS, ST, TS)
-    train_runs = {}
-    for name, label in (("selector", "train_flagship"),
-                        ("workflow_cv", "train_flagship workflow_cv"),
-                        ("selector_trees", "train_flagship trees")):
-        train_runs[label] = train_flagship(torch, smi, name, counters)
-        phase(label, **train_runs[label])
-    wide_models = {}
-    for trees_only, label in ((False, "train_wide"), (True, "train_wide trees")):
-        train_runs[label] = train_wide(torch, smi, counters, trees_only)
-        wide_models[label] = train_runs[label].pop("_model")
-        phase(label, **train_runs[label])
-
-    # the fused scoring graph: one upload and one download a batch above the
-    # host-predict cutoff, K1 and the device-route sum inside
-    fused = fused_serving(torch, smi, ST, TS, TR, wide_models["train_wide"],
-                          load_workflow_model, score_function)
-    del wide_models
-    wide_hash_trained = fused.pop("_trained")
-    phase("fused_serving", **fused)
-
-    # every type of transmogrify's default dispatch through train() and
-    # scoring above the cutoff, with the kernels' counts read around them
-    train_runs["train_all_types"] = train_all_types(
-        torch, smi, counters, score_function, load_workflow_model)
-    phase("train_all_types", **train_runs["train_all_types"])
+    records = {name: run(torch, smi, M) for name, run in PHASES.items()}
+    fit_launches = records["fit_side"]["launches"]
+    train_runs = {label: run for rec in records.values()
+                  for label, run in rec.get("train_runs", {}).items()}
+    train_launches = {k: {path: run["launches"][k] for path, run in train_runs.items()}
+                      for k in M.counters}
+    fused = records["fused_serving"]
     all_types_scoring = train_runs["train_all_types"]["score_launches"]
-
-    # the DSL's stages and the raw feature filter through train(), scoring
-    # staged and fused with a host prefix
-    t_dsl = time.perf_counter()
-    train_runs["train_dsl"] = train_dsl(
-        torch, smi, counters, ST, TS, score_function, load_workflow_model)
-    train_runs["train_dsl"]["seconds"] = time.perf_counter() - t_dsl
-    phase("train_dsl", **train_runs["train_dsl"])
     dsl_scoring = train_runs["train_dsl"]["score_launches"]
     dsl_fused_launches = train_runs["train_dsl"]["fused"]["launches"]
-
-    # the multiclass path: the JAX-recorded flows at fixture size, the
-    # full-width flow through the default multiclass selector, then the
-    # training kernels at its sweep's lane counts
-    t_mc = time.perf_counter()
-    train_runs["multiclass_fixture"] = multiclass_fixture(
-        torch, smi, counters, load_workflow_model, score_function)
-    phase("multiclass_fixture", **train_runs["multiclass_fixture"])
-    train_runs["train_multiclass"] = train_multiclass(
-        torch, smi, counters, TS, ST, score_function, load_workflow_model)
-    mc_xy = train_runs["train_multiclass"].pop("_xy")
-    phase("train_multiclass", **train_runs["train_multiclass"])
     mc_fused = train_runs["train_multiclass"]["fused_launches"]
-    mc_kernels = multiclass_kernels(torch, H, LS, TR, *mc_xy)
-    del mc_xy
-    phase("multiclass_kernels", **mc_kernels)
-    phase("multiclass", seconds=time.perf_counter() - t_mc)
-    for fn in counters.values():
-        fn.launches = 0
-    train_launches = {k: {path: run["launches"][k] for path, run in train_runs.items()}
-                      for k in counters}
-
-    # the featurize plane against the plain routes, its scoring staged and
-    # fused; K1's and the route sum's launches of its fused batches counted
-    plane = featurize_plane(torch, smi, ST, TS, wide_hash_trained,
-                            score_function, native_so_before)
-    del wide_hash_trained
-    phase("featurize_plane", **plane)
-
-    # the hardened scoring closure: sentinel, quarantine, breakers against
-    # the fused gate, drift, a kernel fault, and the hardening's cost
-    hardening = serving_hardening(torch, smi, ST, TS, load_workflow_model,
-                                  score_function)
-    phase("serving_hardening", launches=hardening["launches"],
-          seconds=hardening["seconds"])
+    mc_kernels = records["multiclass"]["kernels"]
+    plane = records["featurize_plane"]
+    hardening = records["serving_hardening"]
+    plane_run = records["serving_plane"]
 
     phase("wall", seconds=time.perf_counter() - t_start,
           profiler_missed_activities=device_ms.missed_activities,
@@ -6095,7 +6635,9 @@ def main() -> int:
                              "fit_side to_train": fit_launches["tree_sum"],
                              **train_launches["tree_sum"],
                              "serving_hardening":
-                                 hardening["launches"]["tree_sum"]},
+                                 hardening["launches"]["tree_sum"],
+                             "serving_plane":
+                                 plane_run["launches"]["tree_sum"]},
         "max_abs_err": ts_all["max_abs_err"],
         "ms": ts_all["ms"],
         "ms_by_path": ts_all["ms_by_path"],
@@ -6135,6 +6677,8 @@ def main() -> int:
             "featurize_plane fused": plane["fused"]["launches"][
                 "tree_sum_device_route"],
             "serving_hardening": hardening["launches"][
+                "tree_sum_device_route"],
+            "serving_plane": plane_run["launches"][
                 "tree_sum_device_route"]},
         "max_abs_err": max(route_main["max_abs_err"],
                            max(r["max_abs_err"] for r in route_rows.values())),
@@ -6239,7 +6783,9 @@ def main() -> int:
                              "featurize_plane fused":
                                  plane["fused"]["launches"]["serve_trees"],
                              "serving_hardening":
-                                 hardening["launches"]["serve_trees"]},
+                                 hardening["launches"]["serve_trees"],
+                             "serving_plane":
+                                 plane_run["launches"]["serve_trees"]},
         "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
                            k1_reg["max_abs_err"]),
         "ms": k1_paths["packed_ms"],
@@ -6340,10 +6886,7 @@ def main() -> int:
                                              "plain_ms", "bound_ms")}
                    for label, r in k4.items()},
     }]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
+    print_device(torch)
     return 0
 
 

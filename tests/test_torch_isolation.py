@@ -83,7 +83,10 @@ REQUIRED = (
     "telemetry/metrics.py", "telemetry/spans.py", "telemetry/events.py",
     "telemetry/runlog.py", "resilience/retry.py", "resilience/faults.py",
     "resilience/guards.py", "resilience/sentinel.py", "serving/deadline.py",
-    "serving/shedding.py",
+    "serving/shedding.py", "analysis/findings.py", "insights/ledger.py",
+    "telemetry/export.py", "resilience/distributed.py", "serving/queue.py",
+    "serving/batcher.py", "serving/service.py", "serving/router.py",
+    "serving/fleet.py", "serving/registry.py", "serving/loadtest.py",
 )
 
 
@@ -123,6 +126,29 @@ md = fn.metadata()
 assert [r.index for r in fn.quarantine.last] == [1]
 assert md["drift"]["enabled"] and md["quarantine"]["quarantinedRows"] == 1
 assert not shedding.drift_shed()
+from transmogrifai_tpu_torch.serving import (
+    FleetConfig, FleetService, ModelRegistry, ScoringService, ServiceConfig,
+    run_fleet_loadtest, run_loadtest,
+)
+from transmogrifai_tpu_torch.telemetry import render_prometheus
+svc = ScoringService(fn, ServiceConfig(workers=0)).start(wait_warmup=True)
+handles = [svc.submit(r) for r in rows[:8]]
+while svc.pump():
+    pass
+svc.stop()
+assert [h.result(1)[0] for h in handles] == fn.batch(rows[:8])
+fleet = FleetService(fn, FleetConfig(replicas=2, service=ServiceConfig(
+    workers=0))).start()
+ModelRegistry(fleet)
+fleet.submit(rows[0])
+fleet.pump_until_quiet()
+fleet.stop()
+assert fleet.reconcile()["reconciled"]
+assert run_loadtest(fn, rows, rate=100.0, duration=0.1,
+                    service_time=lambda n: 0.001)["reconciled"]
+assert run_fleet_loadtest(fn, rows, rate=100.0, duration=0.1,
+                          service_time=lambda n: 0.001)["reconciled"]
+assert "tptpu_service_admitted" in render_prometheus()
 import os
 os.environ["TPTPU_HOST_PREDICT_MAX"] = "0"
 quantized = score_function(load_workflow_model({FIXTURE!r}, device="cpu"),

@@ -18,12 +18,15 @@ Counters are cumulative per process. A consumer that wants a per-phase
 view (the model selector's summary, ``Workflow.train()``) takes a
 ``snapshot()`` before and reports ``delta(before)`` after. The counters
 sit under one lock of their own, where the reference shares
-``telemetry.metrics.LedgerCore`` with its other ledgers; the port has no
-telemetry registry yet (ROADMAP A12).
+``telemetry.metrics.LedgerCore`` with its other ledgers. The ledger
+registers itself as the ``featurize`` source of the metrics registry, so
+``telemetry.render_prometheus()`` exposes it as the reference's does.
 """
 from __future__ import annotations
 
 import threading
+
+from ..telemetry import metrics as _tm
 
 _COUNTER_KEYS = (
     "rowsFeaturized",        # rows through instrumented vectorizer stages
@@ -139,6 +142,7 @@ def _pool_utilization(counts: dict) -> float | None:
 
 
 _STATS = FeaturizeStats()
+_tm.REGISTRY.register_source("featurize", _STATS.snapshot)
 
 
 def stats() -> FeaturizeStats:

@@ -922,6 +922,15 @@ def score_function(
         # guard / breaker / drift path
         return score_batch([row], explain=explain)[0]
 
+    def kernel_libraries() -> list[str]:
+        """The CUDA libraries the plan's predictors load on this closure's
+        device (none on the CPU): what a serving service builds at start
+        so its first batch pays no ``nvcc``."""
+        if dev.type != "cuda":
+            return []
+        return sorted({lib for t in plan if isinstance(t, PredictorModel)
+                       for lib in t.kernel_libraries})
+
     def prime_fused() -> bool:
         """Learn the fusion planner's widths from the fit and build the
         fused program now rather than at the first eligible batch; whether
@@ -970,6 +979,8 @@ def score_function(
     score_one.batch = score_batch
     score_one.columns = score_columns
     score_one.prime_fused = prime_fused
+    score_one.check_explain = check_explain
+    score_one.kernel_libraries = kernel_libraries
     score_one.metadata = metadata
     score_one.fused_state = fused_holder
     score_one.fusion = fusion

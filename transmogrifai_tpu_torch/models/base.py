@@ -18,6 +18,9 @@ from ..utils import uid as uid_util
 
 class PredictorModel(Model):
     output_type = Prediction
+    #: the CUDA libraries (``csrc/<name>.cu``) this model's predict loads
+    #: on the card; a serving service builds them at start
+    kernel_libraries: tuple[str, ...] = ()
 
     def predict_arrays(
         self, x: np.ndarray

@@ -79,6 +79,9 @@ def _validate_stack(t: TR.Tree, num_features: int) -> None:
 class _BinnedModel(PredictorModel):
     """Shared state for binned-tree models."""
 
+    #: K1 walks the stacks, the tree sum adds them (both routes)
+    kernel_libraries = ("serve_trees", "tree_sum")
+
     def __init__(self, operation_name: str, thresholds: np.ndarray, uid=None):
         super().__init__(operation_name, uid=uid)
         self.thresholds = np.asarray(thresholds, dtype=np.float32)

@@ -11,10 +11,20 @@ replays the same failure sequence on every run: the recovery paths
 exercised deterministically, no flaky process killing required.
 
 Every method of the reference's plan that scripts a fault is here. The
-hooks of the stream, retrain, checkpoint and fleet faults wait for their
-consumers (``ROADMAP.md`` A8b, A12): their scripting methods record the
-fault, which then never fires. ``fail_host`` and ``straggle_collective`` raise
-``NotImplementedError``: the distributed plane is A13.
+serving plane consumes the fleet and load-test faults as the reference
+does: ``burst_arrivals`` through :meth:`FaultPlan.arrival_multiplier` and
+:meth:`FaultPlan.burst_replica` (``serving/loadtest.py``), ``kill_replica``
+and ``partition_replica`` through :meth:`FaultPlan.replicas_to_kill` and
+:meth:`FaultPlan.replica_partitioned` (``serving/fleet.py``,
+``serving/router.py``), ``drop_heartbeat`` through
+:meth:`FaultPlan.on_heartbeat` (the fleet's ``HostSentinel``), and
+``slow_replica`` through :func:`replica_scope`. The hooks of the stream,
+retrain and checkpoint faults (``fail_chunk_read``, ``tear_stream_chunk``,
+``corrupt_chunk``, ``oom_chunk``, ``crash_after_chunk``, ``fail_retrain``,
+``crash_retrain``, ``corrupt_new_chunk``, ``corrupt_shard``) wait for
+their consumers (``ROADMAP.md`` A12): their scripting methods record the
+fault, which then never fires. ``fail_host`` and ``straggle_collective``
+raise ``NotImplementedError``: the distributed plane is A13.
 
 ``SimulatedCrash`` derives from ``BaseException`` on purpose: it models a
 process death (preemption, OOM-kill) and must sail through every
@@ -542,6 +552,81 @@ class FaultPlan:
             if extra:
                 self.simulated_seconds += extra
             return extra
+
+    def arrival_multiplier(self, t: float) -> float:
+        """Product of every burst window covering harness-virtual time
+        ``t`` (1.0 outside all windows). The first query inside a window
+        lands in ``fired``."""
+        with self._lock:
+            mult = 1.0
+            for f in self._burst_windows:
+                if f["start"] <= t < f["end"]:
+                    if not f["fired"]:
+                        f["fired"] = True
+                        self.fired.append(("burst", f"t={f['start']:g}"))
+                    mult *= f["multiplier"]
+            return mult
+
+    def burst_replica(self, t: float) -> Any | None:
+        """The replica a burst window covering ``t`` pins arrivals to
+        (first keyed window wins), or None — the fleet loadtest harness
+        bypasses the router for pinned arrivals so one replica takes the
+        whole hot-spot."""
+        with self._lock:
+            for f in self._burst_windows:
+                if f.get("replica") is None:
+                    continue
+                if f["start"] <= t < f["end"]:
+                    return f["replica"]
+            return None
+
+    def replicas_to_kill(self, now: float) -> list[Any]:
+        """Replica kills due at harness-virtual time ``now`` (each fires
+        exactly once; firings land in ``fired``)."""
+        with self._lock:
+            due = []
+            for f in self._replica_kill_faults:
+                if f["fired"] or f["at"] > now:
+                    continue
+                f["fired"] = True
+                due.append(f["replica"])
+                self.fired.append(
+                    ("kill_replica", f"{f['replica']}@t={f['at']:g}")
+                )
+            return due
+
+    def replica_partitioned(self, replica: Any, now: float) -> bool:
+        """True while ``replica`` sits inside a scripted partition window.
+        The first positive query per fault lands in ``fired``."""
+        with self._lock:
+            for f in self._replica_partitions:
+                if f["replica"] != replica:
+                    continue
+                if f["start"] <= now < f["end"]:
+                    if not f["fired"]:
+                        f["fired"] = True
+                        self.fired.append(
+                            ("partition", f"{replica}@t={f['start']:g}")
+                        )
+                    return True
+            return False
+
+
+    def on_heartbeat(self, host: Any) -> bool:
+        """True = swallow this heartbeat (HostSentinel.beat). Fires per
+        beat; only the FIRST firing per fault lands in ``fired``."""
+        with self._lock:
+            for f in self._heartbeat_faults:
+                if f["times"] is not None and f["count"] >= f["times"]:
+                    continue
+                if f["host"] != host:
+                    continue
+                f["count"] += 1
+                if f["count"] == 1:
+                    self.fired.append(("heartbeat", str(host)))
+                return True
+        return False
+
 
     def on_score_row(self, row: dict, index: int) -> dict | None:
         """Return a corrupted copy of an incoming row, or None to keep it."""

@@ -202,6 +202,10 @@ class SelectedModel(PredictorModel):
         self.best_model = best_model
         self.metadata["modelSelectorSummary"] = summary
 
+    @property
+    def kernel_libraries(self) -> tuple[str, ...]:
+        return self.best_model.kernel_libraries
+
     def to(self, device) -> "SelectedModel":
         self.best_model.to(device)
         return self

@@ -9,14 +9,25 @@
   two registries, and neither reaches the other.
 * :mod:`telemetry.events` — the structured event log (breaker
   transitions, drift alerts, fused fallbacks).
-* :mod:`telemetry.runlog` — the host<->device transfer ledger only; the
-  run recorder, its reports and the regression sentinel are
-  ``ROADMAP.md`` A12, as is ``export`` (Prometheus and Chrome traces).
+* :mod:`telemetry.export` — ``render_prometheus()``, the text exposition
+  of the registry and every ledger source (the scoring closures', the
+  serving services' and fleets'), and the serve-latency snapshots.
+* :mod:`telemetry.runlog` — the host<->device transfer ledger and the
+  cross-run ``diff_runs`` / ``RegressionSentinel`` verdicts (the model
+  registry's canary gate). The run recorder and its reports are
+  ``ROADMAP.md`` A12, as are the Chrome trace export, the phase breakdown
+  and the summary line.
 """
 from __future__ import annotations
 
 from . import events  # noqa: F401
 from . import runlog  # noqa: F401
+from .export import (  # noqa: F401
+    metrics_snapshot,
+    render_prometheus,
+    serve_latency_summary,
+    serving_snapshot,
+)
 from .metrics import (  # noqa: F401
     REGISTRY,
     Counter,

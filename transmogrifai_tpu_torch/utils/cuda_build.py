@@ -25,7 +25,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+#: held by every build and load: two threads asking for one library (a
+#: serving service's start and a batch) run one ``nvcc``
+_lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: per kernel source: nvcc's output from the build this process ran
 #: (ptxas registers / shared memory / spills), for the smoke report
@@ -102,7 +104,13 @@ def library_path(name: str) -> str:
 
 def build(names: list[str]) -> dict[str, float]:
     """Compile every missing library among ``names``, one ``nvcc`` process
-    per source, all started together. Returns seconds per built source."""
+    per source, all started together, under the module's lock. Returns
+    seconds per built source."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names: list[str]) -> dict[str, float]:
     pending = {n: library_path(n) for n in names}
     pending = {n: p for n, p in pending.items() if not os.path.exists(p)}
     if not pending:
