@@ -6031,6 +6031,695 @@ def serving_plane(torch, smi: str, ST, TS) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the other families, the combiner and the insights plane (A9, A10)
+# --------------------------------------------------------------------------
+#: the families phase's rows (``wide_hash_table``'s width: 1419 vector
+#: columns), the rows of its card-against-CPU fits, and the trees' rounds
+#: in those fits (the CPU's plain histograms are the time there)
+FAMILIES_ROWS = 16384
+FAMILIES_CPU_ROWS = 2048
+FAMILIES_CPU_TREES = 10
+#: card against CPU: Naive Bayes' pi and theta (relative), the SVC's
+#: weights (relative to the largest |w|) and the GLR's fitted means
+#: (relative to the largest), the MLP's probabilities; the logistic and
+#: linear lanes keep ``GLM_LOGISTIC_TOL`` and ``GLM_LINEAR_TOL``; trees EQUAL
+FAMILY_NB_RTOL = 1e-6
+FAMILY_LINEAR_RTOL = 1e-4
+#: the MLP card against CPU: Adam carries the products' last-ulp
+#: differences (cuBLAS against the CPU's BLAS) over its 100 steps; at 2048 x
+#: 1409 the card read 1.1e-5 (binary) and 7.6e-4 (4 classes, PERF.md), so
+#: the bound is 5x the larger, and the losses' gap per step is printed
+FAMILY_MLP_ATOL = 4e-3
+#: the tree families' grids in the families phase (cut from the default
+#: grids, which ``train_wide``, ``train_regression`` and ``train_multiclass``
+#: run: the phase's new code is the other families, at their default
+#: grids, and the selector over the whole catalog)
+FAMILY_TREE_GRIDS = {
+    "RandomForestClassifier": {"max_depth": [3, 6], "num_trees": [10],
+                               "min_instances_per_node": [10, 100]},
+    "XGBoostClassifier": {"num_round": [20], "eta": [0.3], "max_depth": [6],
+                          "min_child_weight": [1.0, 10.0]},
+    "GBTClassifier": {"max_depth": [3, 6], "max_iter": [5]},
+    "DecisionTreeClassifier": {"max_depth": [3, 6, 12],
+                               "min_instances_per_node": [10, 100]},
+}
+FAMILY_TREE_GRIDS.update({k.replace("Classifier", "Regressor"): v
+                          for k, v in FAMILY_TREE_GRIDS.items()})
+#: the combiner's two binary selectors
+COMBINER_SELECTORS = (["OpLogisticRegression", "OpLinearSVC",
+                       "OpMultilayerPerceptronClassifier"],
+                      ["OpDecisionTreeClassifier"])
+
+
+def families_dataset(kind: str):
+    """``wide_hash_table(FAMILIES_ROWS)``'s predictors with a label of the
+    kind: its binary label; the quartiles of its linear score as classes
+    0-3 (``wide_hash_multiclass_table``'s classes, as RealNN); or a
+    positive continuous target, exp(0.3 x score) (the GLR's gamma and
+    poisson families need y > 0)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    from fit_side_tables import WIDE_SEED, _wide_draws
+
+    from transmogrifai_tpu_torch import types as PT
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.types.columns import column_from_values
+
+    schema, columns, score = _wide_draws(FAMILIES_ROWS, WIDE_SEED)
+    del schema["t_sex"], columns["t_sex"]
+    if kind == "BinaryClassification":
+        label = (score > 0).astype(float)
+    elif kind == "MultiClassification":
+        edges = np.quantile(score, [0.25, 0.5, 0.75])
+        label = np.searchsorted(edges, score, side="right").astype(float)
+    else:
+        label = np.exp(0.3 * score)
+    schema["label"], columns["label"] = "RealNN", label.tolist()
+    return Dataset.of({k: column_from_values(
+        PT.feature_type_by_name(schema[k]), v) for k, v in columns.items()})
+
+
+def family_selector(kind: str, names, combine: str | None = None):
+    """The kind's selector over ``names`` on the card, at their default
+    grids but the tree families' (``FAMILY_TREE_GRIDS``); with ``combine``
+    a ``SelectedModelCombiner`` of two binary selectors over
+    ``COMBINER_SELECTORS`` in that strategy."""
+    from transmogrifai_tpu_torch.selector import combiner as C
+    from transmogrifai_tpu_torch.selector import model_selector as MS
+
+    def candidates(names):
+        return [(e, FAMILY_TREE_GRIDS.get(type(e).__name__, g))
+                for e, g in MS.make_candidates(kind, names)]
+
+    if combine is not None:
+        s1, s2 = (MS.BinaryClassificationModelSelector(models=candidates(n))
+                  for n in COMBINER_SELECTORS)
+        return C.SelectedModelCombiner(
+            s1, s2, getattr(C.CombinationStrategy, combine))
+    factory = {"BinaryClassification": MS.BinaryClassificationModelSelector,
+               "MultiClassification": MS.MultiClassificationModelSelector,
+               "Regression": MS.RegressionModelSelector}[kind]
+    return factory(models=candidates(names))
+
+
+def family_train(torch, kind: str, names, counters, combine=None):
+    """``Workflow.train()`` of the selector on the card, with its seconds
+    split (each family's sweep among them), the attribution baseline's
+    seconds inside it, and the kernels' launches around exactly it."""
+    from transmogrifai_tpu_torch.features import from_dataset
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.utils import uid
+    from transmogrifai_tpu_torch.workflow.workflow import Workflow
+
+    ds = families_dataset(kind)
+    uid.reset()
+    label, predictors = from_dataset(ds, response="label")
+    checked = label.sanity_check(transmogrify(list(predictors)),
+                                 remove_bad_features=True)
+    selector = family_selector(kind, names, combine)
+    pred = selector.set_input(label, checked).get_output()
+    wf = Workflow().set_result_features(pred).set_input_dataset(ds)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with TrainTimer() as timer:
+        t0 = time.perf_counter()
+        model = wf.train()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    return model, pred, ds, timer.split(total), launches
+
+
+def family_estimators(summary: dict, kind: str, names) -> dict:
+    """Each family's best grid point of a selection: class name ->
+    (estimator on the card, grid)."""
+    from transmogrifai_tpu_torch.selector import model_selector as MS
+
+    larger = kind != "Regression"
+    best: dict = {}
+    for r in summary["validationResults"]:
+        cur = best.get(r["modelName"])
+        better = cur is None or (r["metricMean"] > cur["metricMean"]
+                                 if larger else r["metricMean"] < cur["metricMean"])
+        if better and np.isfinite(r["metricMean"]):
+            best[r["modelName"]] = r
+    ests = {type(e).__name__: e for e, _ in MS.make_candidates(kind, names)}
+    return {name: (ests[name], r["grid"]) for name, r in best.items()}
+
+
+#: each tree family's rounds knob
+TREE_ROUNDS = {"XGBoostClassifier": "num_round", "XGBoostRegressor": "num_round",
+               "RandomForestClassifier": "num_trees",
+               "RandomForestRegressor": "num_trees",
+               "GBTClassifier": "max_iter", "GBTRegressor": "max_iter"}
+
+
+def cpu_point(grid: dict, est) -> dict:
+    """The grid point with a tree family's rounds cut to
+    ``FAMILIES_CPU_TREES`` (the CPU's plain histograms are the time of
+    these fits)."""
+    out = dict(grid)
+    knob = TREE_ROUNDS.get(type(est).__name__)
+    if knob is not None:
+        out[knob] = min(int(out.get(knob, getattr(est, knob))),
+                        FAMILIES_CPU_TREES)
+    return out
+
+
+def same_family_fit(name: str, card, cpu, x) -> float:
+    """Card against CPU for one family's fit: trees EQUAL; the other
+    families within their bounds. Returns the largest difference."""
+    a, b = card.get_arrays(), cpu.get_arrays()
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"families {name}: arrays {sorted(a)} {sorted(b)}")
+    if name == "NaiveBayes":
+        err = max(float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k])))
+                  for k in ("pi", "theta"))
+        tol = FAMILY_NB_RTOL
+    elif name == "MLPClassifier":
+        err = float(np.max(np.abs(card.predict_arrays(x)[1]
+                                  - cpu.predict_arrays(x)[1])))
+        tol = FAMILY_MLP_ATOL
+    elif name == "LinearSVC":
+        scale = float(np.max(np.abs(b["weights"]))) or 1.0
+        err = max(float(np.max(np.abs(a[k] - b[k]))) for k in
+                  ("weights", "intercept")) / scale
+        tol = FAMILY_LINEAR_RTOL
+    elif name == "GeneralizedLinearRegression":
+        # at full width the IRLS normal equations ([1410, 1410] over 2048
+        # rows, many sparse hashed columns) are ill-conditioned: the float32
+        # solves on the card and the CPU have landed 2.9e-3 of the largest
+        # weight apart (PERF.md); the fitted means are held instead
+        got, want = card.predict_arrays(x)[0], cpu.predict_arrays(x)[0]
+        err = float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) or 1.0))
+        tol = FAMILY_LINEAR_RTOL
+    elif name in ("LogisticRegression", "LinearRegression"):
+        err = max(float(np.max(np.abs(a[k] - b[k]))) for k in a)
+        tol = (GLM_LOGISTIC_TOL if name == "LogisticRegression"
+               else GLM_LINEAR_TOL[0] * 10)
+    else:
+        err = max((float(np.max(np.abs(np.asarray(a[k], np.float64)
+                                       - np.asarray(b[k], np.float64))))
+                   if np.size(a[k]) else 0.0) for k in a)
+        if not all(np.array_equal(a[k], b[k], equal_nan=True) for k in a):
+            raise AssertionError(f"families {name}: trees differ ({err})")
+        tol = 0.0
+    if not err <= tol:
+        raise AssertionError(f"families {name}: card against cpu {err} > {tol}")
+    return err
+
+
+def mlp_loss_gaps(card_est, cpu_est, x, y, mask) -> dict:
+    """The MLP's losses on the card against the CPU's, step by step: the
+    relative gap at steps 1, 10, 50 and the last, and its largest."""
+    from transmogrifai_tpu_torch.models import mlp
+
+    losses = []
+    for est in (card_est, cpu_est):
+        k = int(max(y.max() + 1, 2))
+        sizes = (x.shape[1], *est.hidden_layers, k)
+        _, loss = mlp.train_mlp(x, np.eye(k, dtype=np.float32)[y.astype(int)],
+                                mask, sizes, int(est.max_iter),
+                                float(est.step_size), int(est.seed),
+                                compute_dtype=est.compute_dtype,
+                                device=est.device)
+        losses.append(np.asarray(loss, np.float64))
+    gap = np.abs(losses[0] - losses[1]) / np.abs(losses[1])
+    steps = [s for s in (1, 10, 50, len(gap)) if s <= len(gap)]
+    return {"steps": {str(s): float(gap[s - 1]) for s in steps},
+            "max": float(gap.max())}
+
+
+def family_holds(torch, model, pred, ds, kind: str, names, summary) -> dict:
+    """Each family's best point refit on the card at full rows (its
+    seconds), then fitted on the card and on the CPU over
+    ``FAMILIES_CPU_ROWS`` rows (trees at ``FAMILIES_CPU_TREES`` rounds) and
+    held to each other. Naive Bayes fits a non-negative plane (|x|)
+    there, whatever the selection did with it."""
+    info = model.selector_info
+    full = model.score(ds, keep_intermediate_features=True)
+    x = np.asarray(full[info["vectorName"]].values, dtype=np.float32)
+    y = np.asarray(full[info["labelName"]].values, dtype=np.float32)
+    ests = family_estimators(summary, kind, names)
+    if "NaiveBayes" not in ests and "OpNaiveBayes" in names:
+        from transmogrifai_tpu_torch.models.naive_bayes import NaiveBayes
+
+        ests["NaiveBayes"] = (NaiveBayes(), {"smoothing": 1.0})
+    out = {"_vector_columns": int(x.shape[1])}
+    xs, ys = x[:FAMILIES_CPU_ROWS], y[:FAMILIES_CPU_ROWS]
+    for name, (est, grid) in sorted(ests.items()):
+        xf = np.abs(x) if name == "NaiveBayes" else x
+        card_est = est.with_params(**grid)
+        card_est.device = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_est.fit_arrays(xf, y, np.ones(len(y), np.float32))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        point = cpu_point(grid, est)
+        xh = np.abs(xs) if name == "NaiveBayes" else xs
+        mask = np.ones(len(ys), np.float32)
+        a = est.with_params(**point)
+        a.device = None
+        b = est.with_params(**point)
+        b.device = "cpu"
+        card_fit = a.fit_arrays(xh, ys, mask)
+        cpu_fit = b.fit_arrays(xh, ys, mask)
+        err = same_family_fit(name, card_fit, cpu_fit, xh)
+        out[name] = {"grid": grid, "full_fit_s": fit_s,
+                     "cpu_point": point, "card_vs_cpu": err}
+        if name == "GeneralizedLinearRegression":
+            w_a, w_b = card_fit.weights, cpu_fit.weights
+            out[name]["weights_gap_rel"] = float(
+                np.max(np.abs(w_a - w_b)) / (np.max(np.abs(w_b)) or 1.0))
+        if name == "MLPClassifier":
+            out[name]["loss_gap_per_step"] = mlp_loss_gaps(a, b, xh, ys, mask)
+    return out
+
+
+def families(torch, smi: str, counters) -> dict:
+    """The rest of the selector's catalog on the card at full width
+    (``wide_hash_table(16384)``, 1419 vector columns): a binary selector
+    over every binary candidate, a multiclass one over the multiclass
+    names, a regression selector whose candidates include the GLR (the
+    regression ``train()`` on the card), and a ``SelectedModelCombiner``
+    of two binary selectors in both strategies. Per train(): seconds, each
+    family's sweep seconds, the attribution baseline's seconds and the
+    kernels' launches; no family excluded but Naive Bayes on a plane with
+    negative values, which is excluded as the reference's validator
+    excludes it; each family's best point held to the CPU route."""
+    from transmogrifai_tpu_torch.selector import model_selector as MS
+
+    out: dict = {"card": smi}
+    runs: dict = {}
+    for kind, key in (("BinaryClassification", "binary"),
+                      ("MultiClassification", "multiclass"),
+                      ("Regression", "regression")):
+        names = list(getattr(MS, {
+            "BinaryClassification": "BINARY_CLASSIFICATION_MODELS",
+            "MultiClassification": "MULTI_CLASSIFICATION_MODELS",
+            "Regression": "REGRESSION_MODELS"}[kind]))
+        model, pred, ds, seconds, launches = family_train(
+            torch, kind, names, counters)
+        summary = model.summary_json()["modelSelectorSummary"]
+        excluded = {a["modelName"]: a.get("error") for a in
+                    summary["candidateAttempts"] if a["excluded"]}
+        negatives = bool(np.any(np.asarray(model.score(
+            ds.take(np.arange(256)), keep_intermediate_features=True)[
+                model.selector_info["vectorName"]].values) < 0))
+        allowed = {"NaiveBayes"} if negatives else set()
+        if set(excluded) - allowed or any(
+                "non-negative" not in str(e) for e in excluded.values()):
+            raise AssertionError(f"families {key}: excluded {excluded}")
+        results = summary["validationResults"]
+        if not all(np.isfinite(r["metricMean"]) for r in results):
+            raise AssertionError(f"families {key}: a NaN candidate")
+        holds = family_holds(torch, model, pred, ds, kind, names, summary)
+        width = holds.pop("_vector_columns")
+        run = {"train": seconds, "launches": launches, "vector_columns": width,
+               "attribution_baseline_s": model.attribution_seconds,
+               "attribution_groups": len(
+                   (model.attribution_profiles or {}).get("groups", {})),
+               "winner": summary["bestModelType"], "grid": summary["bestGrid"],
+               "candidates": len(results), "excluded": excluded,
+               "families": holds}
+        phase(f"families {key}", card=smi, **run)
+        runs[f"families {key}"] = run
+        if key == "binary":
+            out["_wide"] = (model, pred)
+        del model
+    for strategy in ("BEST", "WEIGHTED"):
+        model, pred, ds, seconds, launches = family_train(
+            torch, "BinaryClassification", None, counters, combine=strategy)
+        summary = model.summary_json()["modelSelectorSummary"]
+        rt = check_round_trip(model, ds.take(np.arange(min(2048, ds.num_rows))),
+                              pred)
+        run = {"train": seconds, "launches": launches,
+               "strategy": summary.get("combinationStrategy"),
+               "winner": summary["bestModelType"],
+               "weights": summary.get("weights"),
+               "validation_results": len(summary["validationResults"]),
+               "attribution_baseline_s": model.attribution_seconds, **rt}
+        if summary.get("combinationStrategy") != strategy.capitalize():
+            raise AssertionError(f"families combiner {strategy}: {summary}")
+        phase(f"families combiner {strategy.lower()}", card=smi, **run)
+        runs[f"families combiner {strategy.lower()}"] = run
+        del model
+    out["train_runs"] = runs
+    return out
+
+
+#: the insights phase: the lane batches' rows, the rows timed for explain
+#: rows/s against the plain batch, and the repetitions
+INSIGHTS_REPS = 3
+INSIGHTS_WIDE_ROWS = 4096
+INSIGHTS_WIDE_EXPLAIN_ROWS = 64
+INSIGHTS_WIDE_BUDGET = 1 << 27
+
+
+def insights_module():
+    """``tests/torch_fixtures/insights_flow.py``: the insights scenarios,
+    the card's shapes and the JAX package's stored attributions."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import insights_flow
+
+    return insights_flow
+
+
+class LaneFault:
+    """A context manager under which K1's launch on the card (``ST._walk``)
+    raises ``KernelLaunchError`` for a plane of more than ``rows`` rows
+    only (the lanes, not the batch's base), or, with ``rows=None``, for
+    every plane while ``arm()`` is on."""
+
+    def __init__(self, ST, rows: int | None):
+        self.ST, self.rows, self.armed, self.raised = ST, rows, False, 0
+
+    def arm(self, call):
+        def armed(*a, **kw):
+            self.armed = True
+            try:
+                return call(*a, **kw)
+            finally:
+                self.armed = False
+        return armed
+
+    def __enter__(self):
+        from transmogrifai_tpu_torch.utils.cuda_build import KernelLaunchError
+
+        real = self.real = self.ST._walk
+
+        def walk(*a, **kw):
+            n = a[0].shape[0] if a and hasattr(a[0], "shape") else 0
+            if (self.rows is not None and n > self.rows) or (
+                    self.rows is None and self.armed):
+                self.raised += 1
+                raise KernelLaunchError("serve_trees launch failed: injected")
+            return real(*a, **kw)
+
+        self.ST._walk = walk
+        return self
+
+    def __exit__(self, *exc):
+        self.ST._walk = self.real
+        return False
+
+
+def insights_fault_checks(torch, I, P, ST, fused_fn, rows_fused) -> dict:
+    """A ``KernelLaunchError`` in K1 on the card reaches the caller from the
+    staged lanes (``.batch``, ``.columns``), from the fused explain core
+    (the lane plane's launch; the base's succeeds), from a service and
+    from ``train()``'s attribution baseline; no row is quarantined and no
+    fallback counted."""
+    from transmogrifai_tpu_torch.insights import drift, loco
+    from transmogrifai_tpu_torch.utils.cuda_build import KernelLaunchError
+
+    out = {}
+    fn = P.score(P.load(I.model_path("xgb")))
+    rows = I.fixture_rows("xgb", 64)
+    real = loco.explain_batch
+    with LaneFault(ST, None) as lf:
+        loco.explain_batch = lf.arm(real)
+        try:
+            for label, call in (("batch", lambda: fn.batch(rows, explain=3)),
+                                ("columns", lambda: fn.columns(
+                                    dataset_of(rows, P.load(I.model_path(
+                                        "xgb")).raw_features), explain=3))):
+                try:
+                    call()
+                    raise AssertionError(f"insights fault {label}: no raise")
+                except KernelLaunchError:
+                    out[f"staged_{label}"] = "KernelLaunchError"
+        finally:
+            loco.explain_batch = real
+    out["staged_quarantined"] = fn.metadata()["quarantine"]["quarantinedRows"]
+    b = bucket_rows(len(rows_fused))
+    with LaneFault(ST, b) as lf:
+        try:
+            fused_fn.batch(rows_fused, explain=3)
+            raise AssertionError("insights fault fused: no raise")
+        except KernelLaunchError:
+            out["fused_core"] = "KernelLaunchError"
+    out["fused_fallbacks"] = fused_fn.metadata()["fused"]["fallbacks"]
+    svc = P.serving.ScoringService(fn, P.serving.ServiceConfig(workers=0))
+    svc.start()
+    with LaneFault(ST, None) as lf:
+        loco.explain_batch = lf.arm(real)
+        try:
+            h = svc.submit(rows[0], explain=2)
+            try:
+                svc.pump()
+                raise AssertionError("insights fault service: no raise")
+            except KernelLaunchError:
+                out["service_pump"] = "KernelLaunchError"
+            out["service_handle"] = h.outcome
+            try:
+                svc.stop()
+            except KernelLaunchError:
+                out["service_stop"] = "KernelLaunchError"
+        finally:
+            loco.explain_batch = real
+    real_profile = drift.explain_batch
+    with LaneFault(ST, None) as lf:
+        drift.explain_batch = lf.arm(real_profile)
+        try:
+            try:
+                I.train_trees(P)
+                raise AssertionError("insights fault train: no raise")
+            except KernelLaunchError:
+                out["train_baseline"] = "KernelLaunchError"
+        finally:
+            drift.explain_batch = real_profile
+    if (out["staged_quarantined"] or out["fused_fallbacks"]
+            or out.get("service_handle") != "error"
+            or "service_stop" not in out):
+        raise AssertionError(f"insights faults: {out}")
+    return out
+
+
+def bucket_rows(n: int) -> int:
+    from transmogrifai_tpu_torch.local.scoring import bucket
+
+    return bucket(n)
+
+
+def lane_batch(ST, TS, call) -> tuple:
+    """(call(), K1's, the tree sum's and the route sum's launches in it)."""
+    before = launch_counts(ST, TS)
+    out = call()
+    return out, tuple(a - b for a, b in zip(launch_counts(ST, TS), before))
+
+
+def insights_wide(P, I, counter, model, pred) -> dict:
+    """``.columns(explain=3)`` on the full-width model the families phase
+    trained (its ~900 column groups): at ``INSIGHTS_WIDE_ROWS`` rows one
+    fused run cannot hold the lanes under the default lane budget, so the
+    attributions are skipped and counted and the scores kept; at
+    ``INSIGHTS_WIDE_EXPLAIN_ROWS`` rows under ``INSIGHTS_WIDE_BUDGET`` the
+    fused lanes agree with the staged sweep within the reference's 1e-5
+    between its routes, and a group the staged sweep finds exactly 0 (no
+    weight) is exactly 0 fused. Explain rows/s against the plain batch, and
+    the attribution drift report's alerts (64 rows repeated against the
+    256-row baseline)."""
+    fn = P.score(model)
+    big = wide_hash_dataset(INSIGHTS_WIDE_ROWS, FUSED_WIDE_SEED)
+    small = big.take(np.arange(INSIGHTS_WIDE_EXPLAIN_ROWS))
+    before = P.ledger.snapshot()["explainBudgetSkips"]
+    with scoped_env({"TPTPU_HOST_PREDICT_MAX": "32"}):
+        skipped = fn.columns(big, explain=3)
+        if skipped["attributions"] is not None or pred.name not in skipped:
+            raise AssertionError("insights wide: the budget skip")
+        skips = P.ledger.snapshot()["explainBudgetSkips"] - before
+        with scoped_env({"TPTPU_EXPLAIN_LANE_BUDGET": str(INSIGHTS_WIDE_BUDGET)}):
+            sweeps = []
+            observe = fn.attribution_drift.observe
+            fn.attribution_drift.observe = lambda names, diffs: (
+                sweeps.append(diffs.copy()), observe(names, diffs))
+            fused_attrs = counter.counted(
+                lambda: fn.columns(small, explain=3))["attributions"]
+            staged_attrs = staged(fn, lambda: fn.columns(
+                small, explain=3))["attributions"]
+            fn.attribution_drift.observe = observe
+            I.same_attributions(fused_attrs, staged_attrs, 1e-5)
+            fused_d, staged_d = sweeps
+            zero = ~staged_d.any(axis=0)
+            if fused_d[:, zero].any() or not np.allclose(
+                    fused_d, staged_d, rtol=0, atol=1e-5):
+                raise AssertionError(
+                    "insights wide: the fused sweep's diffs differ from the "
+                    f"staged one's ({int(zero.sum())} groups exactly 0 "
+                    "staged)")
+            plain_s = host_seconds(lambda: fn.columns(small), INSIGHTS_REPS)
+            explain_s = host_seconds(lambda: fn.columns(small, explain=3),
+                                     INSIGHTS_REPS)
+    md = fused_md(fn)
+    if md["fallbacks"] or skips != 1:
+        raise AssertionError(f"insights wide: {md}, {skips} budget skips")
+    best = getattr(model.fitted[model.selector_info["estimatorUid"]],
+                   "best_model", None)
+    drift = fn.metadata()["attributions"]["drift"]
+    return {"winner": type(best).__name__,
+            "groups": len(fn.metadata()["attributions"]["groups"] or []),
+            "groups_exactly_0": int(zero.sum()),
+            "fused_vs_staged_diffs_max": float(np.abs(fused_d - staged_d).max()),
+            "drift_rows": drift["rowsObserved"],
+            "drift_alerts": len(drift["alerts"]),
+            "budget_skip_rows": INSIGHTS_WIDE_ROWS, "budget_skips": skips,
+            "rows": INSIGHTS_WIDE_EXPLAIN_ROWS,
+            "lane_budget": INSIGHTS_WIDE_BUDGET,
+            "dispatches": md["dispatches"], "fallbacks": md["fallbacks"],
+            "fused_vs_staged_within": 1e-5,
+            "plain_rows_per_s": INSIGHTS_WIDE_EXPLAIN_ROWS / plain_s,
+            "explain_rows_per_s": INSIGHTS_WIDE_EXPLAIN_ROWS / explain_s}
+
+
+def insights(torch, smi: str, ST, TS, counter, wide) -> dict:
+    """``explain=3`` on the card: (a) the serving fixtures staged (600 rows:
+    16 lanes of 1024 rows) and fused (100 rows, the cutoff at 64: 16 lanes
+    of 128 rows through the device route), each held to the JAX package's
+    stored attributions (trees EQUAL, lr within 1e-6), with K1's and the
+    tree sums' launches per explained batch; the fused batch's transfers
+    (one upload, one download, one sync); explain rows/s against the plain
+    batch; the synthetic depth-6 stacks' lanes above the cutoff (8 x 2500
+    rows) EQUAL the port's CPU route; (b) ``.columns`` on the full-width model the families phase
+    trained (``insights_wide``); (c) through ``ScoringService``: each request's attributions
+    EQUAL a direct batch's; (d) a kernel fault in the staged lanes, the
+    fused explain core, a service and ``train()``'s baseline reaches the
+    caller."""
+    I = insights_module()
+    P = I.package("port", DEV)
+    stored = I.load_results()
+    out: dict = {"card": smi}
+    t0 = time.perf_counter()
+    for wrapper in (ST.serve_trees, TS.tree_sum, TS.tree_sum_device_route):
+        wrapper.launches = 0
+    for name in ("xgb", "rf", "lr"):
+        atol = 0.0 if name in I.TREES else I.GLM_ATOL
+        rec = {}
+        for route, n in (("staged", I.CHIP_ROWS),
+                         ("fused", I.CHIP_FUSED_ROWS)):
+            want = I.from_json(stored["models"][name][route])
+            (attrs, fn), launches = lane_batch(
+                ST, TS, lambda: I.explain_fixture(P, name, n, route))
+            I.same_attributions(attrs, want, atol)
+            err = max((abs(g[k] - w[k]) for g, w in zip(attrs, want)
+                       for k in w), default=0.0)
+            rows = I.fixture_rows(name, n)
+            env = ({"TPTPU_FUSED": "0"} if route == "staged" else
+                   {"TPTPU_HOST_PREDICT_MAX": str(I.CHIP_FUSED_CUTOFF)})
+            with scoped_env(env):
+                plain_s = host_seconds(lambda: fn.batch(rows), INSIGHTS_REPS)
+                explain_s = host_seconds(lambda: fn.batch(rows, explain=3),
+                                         INSIGHTS_REPS)
+                _, again = lane_batch(ST, TS, lambda: fn.batch(rows, explain=3))
+                if route == "fused":
+                    _, syncs, msgs = count_syncs(
+                        torch, lambda: fn.batch(rows, explain=3))
+                    copies = dispatched_copies(
+                        torch, lambda: fn.batch(rows, explain=3))
+                    if (copies["h2d"], copies["d2h"], syncs) != (1, 1, 1):
+                        raise AssertionError(
+                            f"insights {name} fused: {copies} copies, "
+                            f"{syncs} syncs ({msgs})")
+                    rec["fused_transfers"] = {
+                        "uploads": copies["h2d"], "downloads": copies["d2h"],
+                        "host_syncs": syncs}
+            rec[route] = {
+                "rows": n, "equals_jax": atol == 0.0,
+                "max_abs_err_vs_jax": err,
+                "launches_first_batch": dict(zip(
+                    ("serve_trees", "tree_sum", "tree_sum_device_route"),
+                    launches)),
+                "launches_per_explained_batch": dict(zip(
+                    ("serve_trees", "tree_sum", "tree_sum_device_route"),
+                    again)),
+                "plain_rows_per_s": n / plain_s,
+                "explain_rows_per_s": n / explain_s,
+                "groups": len(fn.metadata()["attributions"]["groups"])}
+        phase(f"insights {name}", card=smi, **rec)
+        out[name] = rec
+    # the lanes above the host-predict cutoff at a row count that is not a
+    # power of two (8 lanes x 2500 rows), depth 6, 2 and 4 tree windows:
+    # EQUAL the port's CPU route, which equals the JAX package's there
+    # (tests/test_torch_insights.py)
+    CPU = I.package("port", "cpu")
+    depth6 = {}
+    for trees in (40, 100):
+        x, card_models = I.depth6_models(P, trees)
+        _, cpu_models = I.depth6_models(CPU, trees)
+        groups = P.loco.column_groups(None, x.shape[1], count_fallback=False)
+        for kind, cm, hm in zip(("boosted", "forest"), card_models,
+                                cpu_models):
+            (got, info), launches = lane_batch(
+                ST, TS, lambda: P.loco.explain_batch(cm, x, groups))
+            want, _ = CPU.loco.explain_batch(hm, x, groups)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"insights depth6 {trees} {kind}: "
+                                     "the card's diffs differ from the CPU's")
+            depth6[f"{kind}_{trees}"] = {
+                "lane_rows": info["lanes"] * x.shape[0], "equal_cpu": True,
+                "launches": dict(zip(("serve_trees", "tree_sum",
+                                      "tree_sum_device_route"), launches))}
+    out["depth6"] = depth6
+    phase("insights depth6", card=smi, **depth6)
+    if wide is not None:
+        out["wide"] = insights_wide(P, I, counter, *wide)
+        phase("insights wide", card=smi, **out["wide"])
+    # (c) the service
+    fn = P.score(P.load(I.model_path("xgb")))
+    rows = I.fixture_rows("xgb", 48)
+    svc = P.serving.ScoringService(fn, P.serving.ServiceConfig(
+        workers=0, max_batch_rows=16))
+    svc.start()
+    hs = [svc.submit(r, explain=3) for r in rows]
+    while svc.pump():
+        pass
+    svc.stop()
+    direct = I.attributions(fn.batch(rows, explain=3))
+    I.same_attributions([h.result(1)[0]["attributions"] for h in hs], direct,
+                        0.0)
+    out["service"] = {"requests": len(rows), "equal_direct": True,
+                      "completed": svc.stats()["completed"]}
+    phase("insights service", card=smi, **out["service"])
+    out["launches"] = dict(zip(("serve_trees", "tree_sum",
+                                "tree_sum_device_route"),
+                               launch_counts(ST, TS)))
+    for wrapper in (ST.serve_trees, TS.tree_sum, TS.tree_sum_device_route):
+        wrapper.launches = 0
+    # (d) kernel faults (launch nothing that is counted)
+    with scoped_env({"TPTPU_HOST_PREDICT_MAX": str(I.CHIP_FUSED_CUTOFF)}):
+        fused_fn = P.score(P.load(I.model_path("xgb")))
+        rows_fused = I.fixture_rows("xgb", I.CHIP_FUSED_ROWS)
+        fused_fn.batch(rows_fused)
+        out["faults"] = insights_fault_checks(torch, I, P, ST, fused_fn,
+                                              rows_fused)
+    phase("insights kernel faults", **out["faults"])
+    for wrapper in (ST.serve_trees, TS.tree_sum, TS.tree_sum_device_route):
+        wrapper.launches = 0
+    if not (out["launches"]["serve_trees"] and out["launches"]["tree_sum"]
+            and out["launches"]["tree_sum_device_route"]):
+        raise AssertionError(f"insights: launches {out['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+@contextlib.contextmanager
+def scoped_env(env: dict):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def start_on_card(torch, sources: list[str]) -> str:
     """Print the environment and the card's name and power limit, and
     build the kernels of ``sources`` (one nvcc each, all started together),
@@ -6189,6 +6878,26 @@ def run_serving_plane(torch, smi, M) -> dict:
     return run
 
 
+def run_families(torch, smi, M) -> dict:
+    """The rest of the selector's catalog at full width, the regression
+    selector (GLR among its candidates) and the combiner; the binary
+    model is kept for ``insights``."""
+    t0 = time.perf_counter()
+    run = families(torch, smi, M.counters)
+    M.shared["families_wide"] = run.pop("_wide")
+    phase("families", seconds=time.perf_counter() - t0)
+    return run
+
+
+def run_insights(torch, smi, M) -> dict:
+    """``explain=3`` staged, fused and through the service, held to the JAX
+    package's stored attributions, with the kernel-fault checks."""
+    run = insights(torch, smi, M.ST, M.TS, FusedLaunches(M.ST, M.TS),
+                   M.shared.pop("families_wide"))
+    phase("insights", launches=run["launches"], seconds=run["seconds"])
+    return run
+
+
 #: the phases after the kernels' checks and the main path, in the order a
 #: whole run takes them; each prints its lines and returns its record. A
 #: partial run (``--phases a,b``) takes the named ones in the order named.
@@ -6203,10 +6912,13 @@ PHASES = {
     "featurize_plane": run_featurize_plane,
     "serving_hardening": run_serving_hardening,
     "serving_plane": run_serving_plane,
+    "families": run_families,
+    "insights": run_insights,
 }
 
 #: a phase that takes over what another left, and that phase
-NEEDS = {"fused_serving": "train_wide", "featurize_plane": "fused_serving"}
+NEEDS = {"fused_serving": "train_wide", "featurize_plane": "fused_serving",
+         "insights": "families"}
 
 
 def parse_phases(argv: list[str]) -> list[str] | None:
@@ -6596,6 +7308,7 @@ def main(argv: list[str] | None = None) -> int:
     plane = records["featurize_plane"]
     hardening = records["serving_hardening"]
     plane_run = records["serving_plane"]
+    insights_run = records["insights"]
 
     phase("wall", seconds=time.perf_counter() - t_start,
           profiler_missed_activities=device_ms.missed_activities,
@@ -6637,7 +7350,8 @@ def main(argv: list[str] | None = None) -> int:
                              "serving_hardening":
                                  hardening["launches"]["tree_sum"],
                              "serving_plane":
-                                 plane_run["launches"]["tree_sum"]},
+                                 plane_run["launches"]["tree_sum"],
+                             "insights": insights_run["launches"]["tree_sum"]},
         "max_abs_err": ts_all["max_abs_err"],
         "ms": ts_all["ms"],
         "ms_by_path": ts_all["ms_by_path"],
@@ -6679,7 +7393,11 @@ def main(argv: list[str] | None = None) -> int:
             "serving_hardening": hardening["launches"][
                 "tree_sum_device_route"],
             "serving_plane": plane_run["launches"][
-                "tree_sum_device_route"]},
+                "tree_sum_device_route"],
+            "insights": insights_run["launches"]["tree_sum_device_route"],
+            **{f"{path}": launches for path, launches in
+               train_launches["tree_sum_device_route"].items()
+               if path.startswith("families")}},
         "max_abs_err": max(route_main["max_abs_err"],
                            max(r["max_abs_err"] for r in route_rows.values())),
         "ms": route_main["ms"],
@@ -6785,7 +7503,9 @@ def main(argv: list[str] | None = None) -> int:
                              "serving_hardening":
                                  hardening["launches"]["serve_trees"],
                              "serving_plane":
-                                 plane_run["launches"]["serve_trees"]},
+                                 plane_run["launches"]["serve_trees"],
+                             "insights":
+                                 insights_run["launches"]["serve_trees"]},
         "max_abs_err": max(main["max_abs_err"], k1_train["max_abs_err"],
                            k1_reg["max_abs_err"]),
         "ms": k1_paths["packed_ms"],

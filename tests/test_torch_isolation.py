@@ -87,6 +87,10 @@ REQUIRED = (
     "telemetry/export.py", "resilience/distributed.py", "serving/queue.py",
     "serving/batcher.py", "serving/service.py", "serving/router.py",
     "serving/fleet.py", "serving/registry.py", "serving/loadtest.py",
+    "models/naive_bayes.py", "models/svc.py", "models/glm.py",
+    "models/isotonic.py", "models/mlp.py", "selector/combiner.py",
+    "insights/loco.py", "insights/correlation.py",
+    "insights/model_insights.py", "insights/drift.py",
 )
 
 
@@ -170,6 +174,16 @@ from transmogrifai_tpu_torch.models.linear import LinearRegression
 from transmogrifai_tpu_torch.models.logistic import LogisticRegression
 LogisticRegression(max_iter=5, device="cpu").fit_arrays(x, y, mask)
 LinearRegression(max_iter=5, device="cpu").fit_arrays(x, x[:, 1], mask)
+from transmogrifai_tpu_torch.models.glm import GeneralizedLinearRegression
+from transmogrifai_tpu_torch.models.mlp import MLPClassifier
+from transmogrifai_tpu_torch.models.naive_bayes import NaiveBayes
+from transmogrifai_tpu_torch.models.svc import LinearSVC
+NaiveBayes(device="cpu").fit_arrays(np.abs(x), y, mask)
+LinearSVC(max_iter=2, device="cpu").fit_arrays(x, y, mask)
+GeneralizedLinearRegression("poisson", max_iter=2, device="cpu").fit_arrays(
+    x, np.abs(x[:, 1]), mask)
+MLPClassifier(hidden_layers=(3,), max_iter=2, device="cpu").fit_arrays(x, y, mask)
+assert all(len(r["attributions"]) == 2 for r in fn.batch(rows[:4], explain=2))
 from transmogrifai_tpu_torch.models.gbdt import (
     DecisionTreeClassifier, DecisionTreeRegressor, GBTClassifier,
 )

@@ -558,7 +558,8 @@ def test_default_multiclass_selector_trains_its_candidates():
 def test_make_candidates_covers_every_ported_multiclass_name():
     ported = [n for n, c in PMS.MULTI_CLASSIFICATION_MODELS.items() if c is not None]
     assert ported == ["OpLogisticRegression", "OpRandomForestClassifier",
-                      "OpXGBoostClassifier", "OpDecisionTreeClassifier"]
+                      "OpXGBoostClassifier", "OpDecisionTreeClassifier",
+                      "OpNaiveBayes", "OpMultilayerPerceptronClassifier"]
     cands = PMS.make_candidates("MultiClassification", ported, device="cpu")
     want = JMS.make_candidates("MultiClassification", ported)
     assert [(type(e).__name__, g) for e, g in cands] == [
@@ -569,8 +570,10 @@ def test_make_candidates_covers_every_ported_multiclass_name():
             assert cls is None or cls.__name__ == jcls.__name__
             if cls is not None:
                 assert PMS._default_grid_for(cls) == JMS._default_grid_for(jcls)
-    assert not {"OpGBTClassifier", "OpDecisionTreeClassifier",
-                "OpDecisionTreeRegressor"} & set(PMS._NOT_PORTED)
+    # every family of the reference's enums is ported
+    for catalog in ("BINARY_CLASSIFICATION_MODELS",
+                    "MULTI_CLASSIFICATION_MODELS", "REGRESSION_MODELS"):
+        assert None not in getattr(PMS, catalog).values()
 
 
 def test_multiclass_on_the_card():

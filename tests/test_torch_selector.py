@@ -310,20 +310,18 @@ def test_default_grids_match_the_reference():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("OpNaiveBayes", "A9"), ("OpLinearSVC", "A9"),
-    ("OpMultilayerPerceptronClassifier", "A9"),
+    pytest.param("OpNaiveBayes", None, id="OpNaiveBayes-A9"),
+    pytest.param("OpLinearSVC", None, id="OpLinearSVC-A9"),
+    pytest.param("OpMultilayerPerceptronClassifier", None,
+                 id="OpMultilayerPerceptronClassifier-A9"),
     pytest.param("OpGBTClassifier", None, id="OpGBTClassifier-A4"),
     pytest.param("OpDecisionTreeClassifier", None, id="OpDecisionTreeClassifier-A4"),
 ])
 def test_families_still_to_port_name_their_item(name, item):
-    """A family still to port raises naming its ROADMAP item; A4's, ported
-    in the multiclass slice (``item`` None; their ids keep the item they
-    raised with), build on the CPU with the reference's default grid and
-    fit a binary label."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            PMS.make_candidates("BinaryClassification", [name])
-        return
+    """The families once still to port (their ids keep the ROADMAP item
+    they raised with: A4's in the multiclass slice, A9's in the families
+    slice) build on the CPU with the reference's default grid and fit a
+    binary label; an SVC has no probability column."""
     from transmogrifai_tpu.selector import model_selector as JMS
 
     (est, grid), = PMS.make_candidates("BinaryClassification", [name], device="cpu")
@@ -333,10 +331,15 @@ def test_families_still_to_port_name_their_item(name, item):
     rng = np.random.default_rng(5)
     x = rng.normal(size=(200, 4)).astype(np.float32)
     y = (x[:, 0] + 0.3 * rng.normal(size=200) > 0).astype(np.float32)
-    point = {**PV.expand_grid(grid)[0], "max_depth": 3}
+    if name == "OpNaiveBayes":  # counts: non-negative features
+        x = np.abs(x) * (x > 0)
+    point = dict(PV.expand_grid(grid)[0]) if grid else {}
+    if hasattr(est, "max_depth"):
+        point["max_depth"] = 3
     model = est.with_params(**point).fit_arrays(x, y, np.ones(200, np.float32))
     pred, prob, _ = model.predict_arrays(x)
-    assert prob.shape == (200, 2) and (pred == y).mean() > 0.8
+    assert (pred == y).mean() > 0.8
+    assert prob is None if name == "OpLinearSVC" else prob.shape == (200, 2)
 
 
 def test_make_candidates_builds_ported_families():
@@ -385,6 +388,40 @@ def _stage_instances():
         text_stages.OpIndexToString(["b", "a", "c"], "unknown"),
         *_feature_stage_instances(),
         *_dsl_stage_instances(),
+        *_family_stage_instances(),
+    ]
+
+
+def _family_stage_instances():
+    """One instance of each stage class of the other families, the
+    combiner and the insights plane, with params off their defaults."""
+    from transmogrifai_tpu_torch.insights.correlation import (
+        RecordInsightsCorrModel,
+    )
+    from transmogrifai_tpu_torch.insights.loco import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.models import glm, isotonic, mlp, naive_bayes, svc
+    from transmogrifai_tpu_torch.selector.combiner import CombinedModel
+
+    rng = np.random.default_rng(4)
+    lr = PL.LogisticRegressionModel(rng.normal(size=3), np.float64(0.5), 2)
+    return [
+        naive_bayes.NaiveBayesModel(rng.normal(size=2), rng.normal(size=(2, 3)),
+                                    "bernoulli"),
+        svc.LinearSVCModel(rng.normal(size=3), 0.25),
+        glm.GeneralizedLinearRegressionModel(rng.normal(size=3), -0.5,
+                                             "gamma", "log"),
+        mlp.MLPClassifierModel(
+            [{"w": rng.normal(size=(3, 4)).astype(np.float32),
+              "b": rng.normal(size=4).astype(np.float32)},
+             {"w": rng.normal(size=(4, 2)).astype(np.float32),
+              "b": rng.normal(size=2).astype(np.float32)}], 2),
+        isotonic.IsotonicRegressionCalibratorModel([0.0, 0.5, 1.0],
+                                                   [0.1, 0.4, 0.9], False),
+        CombinedModel(lr, svc.LinearSVCModel(rng.normal(size=3), 0.1), 0.7,
+                      0.3, "BinaryClassification"),
+        RecordInsightsLOCO(lr, top_k=5, strategy="positive_negative"),
+        RecordInsightsCorrModel(rng.normal(size=(2, 3)), "zscore",
+                                rng.normal(size=3), np.abs(rng.normal(size=3)), 4),
     ]
 
 
@@ -476,7 +513,7 @@ def test_every_loadable_class_saves():
     assert {type(s).__name__ for s in _stage_instances()} == set(PP.STAGE_CLASSES)
 
 
-@pytest.mark.parametrize("index", range(79))
+@pytest.mark.parametrize("index", range(87))
 def test_params_and_arrays_are_the_inverse_of_loading(index):
     stage = _stage_instances()[index]
     params = json.loads(json.dumps(stage.get_params(), default=PP._json_default))

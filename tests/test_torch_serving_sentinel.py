@@ -239,8 +239,9 @@ def test_empty_batch_and_explain_zero():
     fn = P.score(P.load(H.model_path("twin")))
     assert fn.batch([]) == []
     assert fn.batch([], explain=0) == []
-    with pytest.raises(NotImplementedError, match="A10"):
-        fn.batch([{"x1": 1.0, "x2": 2.0}], explain=2)
+    assert fn.batch([], explain=2) == []
+    out = fn.batch([{"x1": 1.0, "x2": 2.0}], explain=2)
+    assert len(out[0]["attributions"]) == 2
 
 
 def test_isolation_raise_restores_fail_fast():
@@ -283,7 +284,8 @@ def test_guard_raise_is_not_swallowed_by_isolation():
 
 def test_metadata_has_the_reference_keys():
     """``metadata()`` carries the reference's keys; the planes not ported
-    yet hold ``None``."""
+    yet hold ``None``, and ``attributions`` (the insights plane) has the
+    reference's sub-keys."""
     from transmogrifai_tpu.local.scoring import score_function as jax_sf
     from transmogrifai_tpu.workflow.persistence import load_workflow_model
 
@@ -293,9 +295,10 @@ def test_metadata_has_the_reference_keys():
     md = fn.metadata()
     jmd = jax_sf(load_workflow_model(H.model_path("twin"))).metadata()
     assert set(md) == set(jmd)
-    for key in ("analysis", "compileStats", "attributions", "distributed",
+    for key in ("analysis", "compileStats", "distributed",
                 "retrainLedger", "telemetry"):
         assert md[key] is None
+    assert set(md["attributions"]) == set(jmd["attributions"])
     assert set(jmd["fused"]) <= set(md["fused"])
 
 

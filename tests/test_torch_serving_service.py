@@ -219,23 +219,25 @@ def test_tree_model_through_the_service_equals_the_reference():
 
 # ---------------------------------------------------------- port-only rules
 def test_explain_is_refused_at_admission():
-    """``explain=k`` raises the closure's ``NotImplementedError`` (A10) at
-    ``submit``, before queuing: nothing is admitted, nothing is queued,
-    and a plain request still scores."""
+    """A negative ``explain`` is refused at ``submit``, before queuing:
+    nothing is admitted, nothing is queued. ``explain=k`` (k > 0) is
+    admitted since the insights plane: it rides the batch beside a plain
+    request, which keeps no attributions."""
     S.reset(PORT)
     svc = PORT.serving.ScoringService(
         S.score_fn(PORT), PORT.serving.ServiceConfig(workers=0))
     svc.start()
-    with pytest.raises(NotImplementedError, match="A10"):
-        svc.submit(dict(S.service_rows()[0]), explain=2)
+    with pytest.raises(ValueError):
+        svc.submit(dict(S.service_rows()[0]), explain=-1)
     s = svc.stats()
     assert s["admitted"] == 0 and s["queueDepthRows"] == 0
+    he = svc.submit(dict(S.service_rows()[0]), explain=2)
     h = svc.submit(dict(S.service_rows()[0]))
     svc.pump()
     svc.stop()
-    assert h.outcome == "completed"
-    with pytest.raises(ValueError):
-        svc.submit(dict(S.service_rows()[0]), explain=-1)
+    assert h.outcome == "completed" and he.outcome == "completed"
+    assert len(he.result(1)[0]["attributions"]) == 2
+    assert "attributions" not in h.result(1)[0]
 
 
 def test_explain_passes_a_closure_that_can_explain():

@@ -40,9 +40,10 @@ The members' widths are cross-checked against the scoring closure's
 it has any. The scoring closure gates the route (``local/scoring.py``:
 no installed fault plan, every covered stage's breaker closed) and guards
 the prediction; each batch's upload and download land in the transfer
-census (``telemetry/runlog.py``). Left for later: the explain lanes
-(``_fused_eval_explain``, ROADMAP A10), the executable bank and warmup
-(A14).
+census (``telemetry/runlog.py``). ``run_explain`` adds the LOCO lanes of
+``explain=k`` to the same run: the base core and every lane core, with
+one upload and one download. Left for later: the executable bank and
+warmup (A14).
 """
 from __future__ import annotations
 
@@ -100,7 +101,12 @@ class PredictorPlan:
     """The model family's device core: ``core(plane, params)`` -> the
     [N] or [N, k] float32 core on the device, ``epilogue(core_np)`` the
     host float64 tail shared with the staged path, ``outputs_per_row`` the
-    core's values per row (its download size)."""
+    core's values per row (its download size). ``row_wise``: each row's
+    core is the same function of that row alone at any row count (a GLM's
+    product), so the explain lanes may share one call with the base; a
+    tree core's summation order depends on the row count (the device
+    route's orders), so its lanes take a call of their own, as the
+    reference's program does."""
 
     stage: Any
     in_dim: int | None
@@ -109,6 +115,7 @@ class PredictorPlan:
     epilogue: Callable[[np.ndarray], tuple]
     outputs_per_row: int
     descriptor: str = ""
+    row_wise: bool = False
 
 
 # --------------------------------------------------------------------------
@@ -473,6 +480,20 @@ class FusedServingProgram:
             plane = torch.index_select(plane, 1, idx)
         return plane
 
+    @property
+    def predictor_input_meta(self):
+        """The fit-static VectorMetadata of the plane the predictor reads
+        (what ``explain=k`` groups by), or None where none is recoverable."""
+        producer = self.chain[-1] if self.chain else self.combiner
+        for attr in ("_meta_cache", "_flatten_cache"):
+            cached = getattr(producer, attr, None)
+            if cached is not None and getattr(cached[1], "columns", None) is not None:
+                return cached[1]
+        meta = getattr(producer, "new_metadata", None)
+        if meta is not None and getattr(meta, "columns", None) is not None:
+            return meta
+        return None
+
     def run(self, cols: dict, b: int, n: int) -> tuple[np.ndarray, dict]:
         """The program over already-built raw columns of ``b`` rows (``n``
         real, the rest copies of row 0). Returns ``(core, info)``: the
@@ -480,6 +501,22 @@ class FusedServingProgram:
         upload (the ingest arrays, in one buffer) and one download (the
         core). Raises :class:`Unfuseable` from an ingest (the text cap)
         before anything is uploaded."""
+        core, _, info = self._run(cols, b, n, None)
+        return core, info
+
+    def run_explain(self, cols: dict, b: int, n: int, lane_masks: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray, dict]:
+        """``run`` with the LOCO lanes of ``explain=k``: lane ``g`` is the
+        plane with the columns of ``lane_masks[g]`` zeroed on the device
+        (``torch.where``: exact zeros, as the staged sweep makes them), and
+        the base core and every lane core come from one run of launches.
+        The masks go up in the ingest's buffer and the lane cores come
+        down with the base core: still one upload and one download.
+        Returns ``(core [n, ...], lane_core [lanes * n, ...], info)``, the
+        real rows of each lane."""
+        return self._run(cols, b, n, lane_masks)
+
+    def _run(self, cols, b, n, lane_masks):
         params = self._device_params()
         ingest = [m.ingest([cols[nm] for nm in m.stage.input_names])
                   for m in self.members]
@@ -487,23 +524,55 @@ class FusedServingProgram:
         arrays = [d[k] for d, ks in zip(ingest, keys) for k in ks]
         if any(a.shape[0] != b for a in arrays):
             raise ValueError(f"fused ingest: expected {b} rows")
+        lanes = 0
+        if lane_masks is not None:
+            lane_masks = np.ascontiguousarray(lane_masks, dtype=np.float32)
+            lanes = int(lane_masks.shape[0])
+            arrays = arrays + [lane_masks]
         from ..telemetry import runlog, spans
 
         buf = self._staging.acquire(arrays)
         t0 = spans.clock()
-        views = iter(buf.upload(arrays))
+        views = list(buf.upload(arrays))
         runlog.record_upload(buf.nbytes, spans.clock() - t0)
-        dev_ingest = [{k: next(views) for k in ks} for ks in keys]
+        it = iter(views)
+        dev_ingest = [{k: next(it) for k in ks} for ks in keys]
         plane = self.gather(self.assemble(dev_ingest, params), params)
-        core = self.pspec.core(plane, params["predictor"])
+        if lanes:
+            masks = views[-1]
+            zero = torch.zeros((), dtype=plane.dtype, device=plane.device)
+            lane_planes = torch.where(masks[:, None, :] > 0, zero,
+                                      plane[None, :, :])
+            if self.pspec.row_wise:
+                # one product over the base and every lane: a row whose
+                # zeroed columns carry no weight gets the base's bits, so
+                # its contribution is exactly 0, as on the reference's
+                # CPU; two products of different row counts may block
+                # their sums differently on the card
+                both = torch.cat([plane[None], lane_planes]).reshape(
+                    (lanes + 1) * b, plane.shape[1])
+                out = self.pspec.core(both, params["predictor"])
+            else:
+                core = self.pspec.core(plane, params["predictor"])
+                lane_core = self.pspec.core(
+                    lane_planes.reshape(lanes * b, plane.shape[1]),
+                    params["predictor"])
+                out = torch.cat([core, lane_core])
+            out = out.reshape(lanes + 1, b, *out.shape[1:])[:, :n]
+        else:
+            out = self.pspec.core(plane, params["predictor"])[:n]
         t0 = spans.clock()
-        host = core[:n].cpu().numpy()
+        host = out.cpu().numpy()
         runlog.record_download(host.nbytes, spans.clock() - t0)
         self._staging.release(buf)
-        return host, {
-            "uploads": 1, "downloads": 1,
+        info = {
+            "uploads": 1, "downloads": 1, "lanes": lanes,
             "upBytes": int(buf.nbytes), "downBytes": int(host.nbytes),
         }
+        if not lanes:
+            return host, None, info
+        tail = host.shape[2:]
+        return host[0], host[1:].reshape(lanes * n, *tail), info
 
     def epilogue(self, core: np.ndarray) -> tuple:
         """The host float64 tail mapping the downloaded core to

@@ -14,10 +14,11 @@ the drift monitor reads: mean |contribution|, the sign mix (how often
 the group pushed the score up vs down), and top-k hit counts (how often
 the group made a row's returned top-k).
 
-In the port the explain lanes are not ported yet (``ROADMAP.md`` A10), so
-nothing records an explain sweep or raises a drift alert: every counter
-stays 0 unless a caller bumps it. The model registry's canary gate reads
-``attributionDriftAlerts`` (``serving/registry.py``).
+The recorders are the LOCO sweeps (``insights/loco.py``'s stage, the
+scoring closure's staged and fused ``explain=k``, the train-time baseline
+of ``insights/drift.py``) and the attribution drift monitor. The model
+registry's canary gate reads ``attributionDriftAlerts``
+(``serving/registry.py``).
 
 Counters are cumulative per process; consumers wanting a per-phase view
 take ``snapshot()`` before and ``delta(before)`` after. The counter dict,

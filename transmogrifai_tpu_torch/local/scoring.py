@@ -50,10 +50,23 @@ goes staged and is counted (``dispatch_error``), and so is a batch whose
 host prefix degraded (``prefix_degraded``); any other error in a fused
 dispatch propagates (the reference degrades on any error).
 
-Not ported yet: the explain lanes (``explain=k``, ``ROADMAP.md`` A10), the
-static plan audit (``audit``) and the compile-plane ledger (A14), the
-retrain ledger and the telemetry export (A12), the distributed summary
-(A13); their ``metadata()`` keys hold ``None``.
+``explain=k`` adds top-k LOCO attributions (``insights/loco.py``) to each
+row: staged, one batched sweep over the batch's assembled feature plane
+(padded to the bucket with copies of row 0, as the reference pads every
+batch); fused, the lanes ride the batch's own run of launches
+(``FusedServingProgram.run_explain``: one upload, one download). Explain
+work is the load shedder's first casualty (tier 1) and is skipped when a
+request's remaining deadline budget cannot cover the ``explain`` family's
+p95, or (fused) when the lanes exceed ``TPTPU_EXPLAIN_LANE_BUDGET``; each
+skip is counted on the attribution ledger, and every sweep feeds the
+attribution drift monitor (``insights/drift.py``, over the model's
+``attribution_profiles``). The reference degrades attributions to None on
+any explain error; the port does so on every error but a kernel fault,
+which propagates like any other.
+
+Not ported yet: the static plan audit (``audit``) and the compile-plane
+ledger (A14), the retrain ledger and the telemetry export (A12), the
+distributed summary (A13); their ``metadata()`` keys hold ``None``.
 """
 from __future__ import annotations
 
@@ -67,6 +80,9 @@ import numpy as np
 
 from ..featurize import stats as fstats
 from ..featurize.engine import FusionPlanner
+from ..insights import ledger as _attr_ledger
+from ..insights import loco as _loco
+from ..insights.drift import AttributionDriftMonitor
 from ..models.base import PredictorModel
 from ..resilience import faults
 from ..resilience.guards import ScoreGuard, ScoreGuardError
@@ -244,6 +260,20 @@ def score_function(
     qlog = QuarantineLog()
     raise_on_stage_error = isolation == "raise"
 
+    # ---- the explain plane: LOCO attributions of ``explain=k`` ride the
+    # last fitted predictor's feature plane; the column groups resolve once
+    # from the fit-static vector metadata at the first sweep
+    explain_model = next(
+        (t for t in reversed(plan) if isinstance(t, PredictorModel)), None
+    )
+    explain_vec = (
+        explain_model.input_names[-1] if explain_model is not None else None
+    )
+    explain_state: dict[str, Any] = {}
+    attribution_drift = AttributionDriftMonitor(
+        getattr(model, "attribution_profiles", None)
+    )
+
     # ---- the fused scoring graph
     fused_quantized = (
         quantized if quantized is not None
@@ -365,12 +395,184 @@ def score_function(
             count=count,
         )
 
-    def dispatch_fused(prog, cols, b: int, n: int, fam_seconds) -> None:
-        """The fused segment: ingest codecs up, the predictor's core down,
-        the host epilogue shared with the staged path, the guard over the
-        ``n`` real rows."""
+    def explain_gate(m: int, led) -> bool:
+        """The shed and deadline gates shared by the staged sweep and the
+        fused lanes; False: the attributions degrade for this batch (typed
+        and counted; scores are never affected)."""
+        # shed tier 1: explain work is the first casualty of overload
+        if _sshed.explain_shed():
+            led.count_shed(m)
+            _tm.REGISTRY.counter("tptpu_serve_explain_shed_total").inc(m)
+            return False
+        # the explain family's own p95: a request whose remaining budget
+        # cannot cover it keeps its scores and drops the explanations
+        bgt = _sdl.current()
+        if bgt is not None:
+            required = _sdl.family_p95("explain")
+            remaining = bgt.remaining()
+            if remaining <= 0.0 or remaining < required:
+                led.count_deadline_skip()
+                _tm.REGISTRY.counter(
+                    "tptpu_serve_explain_deadline_skips_total").inc()
+                _tevents.emit(
+                    "explain_deadline_skip",
+                    remainingMs=round(remaining * 1e3, 3),
+                    requiredMs=round(required * 1e3, 3),
+                )
+                return False
+        return True
+
+    def resolve_groups(meta, width: int):
+        """(groups, names), published once and atomically: service workers
+        racing the first sweep never see the pair half-built."""
+        resolved = explain_state.get("resolved")
+        if resolved is None:
+            groups = _loco.column_groups(meta, width)
+            resolved = explain_state["resolved"] = (
+                groups, [name for name, _ in groups])
+        return resolved
+
+    def explain_degraded(e: Exception, what: str) -> None:
+        """An explain error that is not a kernel fault: counted, and the
+        batch's attributions degrade to None (its scores stand)."""
+        _attr_ledger.stats().count_error()
+        _tm.REGISTRY.counter("tptpu_serve_explain_errors_total").inc()
+        log.warning(
+            "%s failed (%s: %s): scores kept, attributions degraded to None",
+            what, type(e).__name__, e,
+        )
+
+    def finish_explain(names, diffs, m: int, k: int, lanes: int,
+                       deduped: int, padded: int, seconds: float, ts: float,
+                       fam) -> list[dict[str, float]]:
+        """The sweep's tail shared by both routes: top-k maps, the ledger,
+        the drift monitor and the explain family's latency."""
+        maps, hits = _loco.top_k_maps(diffs, names, k)
+        led = _attr_ledger.stats()
+        led.record_explain(m, seconds, lanes=lanes, deduped=deduped,
+                           padded=padded)
+        led.record_groups(names, diffs, hits)
+        _tm.REGISTRY.counter("tptpu_serve_explain_rows_total").inc(m)
+        # the drift window yields to the drift shed tier
+        if attribution_drift.enabled and not _sshed.drift_shed():
+            attribution_drift.observe(names, diffs)
+        if fam is not None:
+            fam["explain"] = fam.get("explain", 0.0) + seconds
+            _tspans.record_span("serve/explain", ts, seconds, rows=m,
+                                lanes=len(names))
+        return maps
+
+    def run_explain(cols: dict[str, Any], m: int, k: int, dead: set,
+                    fam) -> list[dict[str, float]] | None:
+        """The staged sweep over the batch's assembled feature plane: top-k
+        maps for the ``m`` rows, or None where explain degraded (shed,
+        deadline, a dead plane or prediction, or an error that is not a
+        kernel fault)."""
+        if explain_model is None:
+            raise ValueError(
+                "explain=k requires a fitted predictor stage in the "
+                "scoring plan"
+            )
+        if (explain_model.output_name in dead or explain_vec in dead
+                or explain_vec not in cols):
+            return None
+        if not explain_gate(m, _attr_ledger.stats()):
+            return None
+        try:
+            ts = _tspans.clock()
+            vec = cols[explain_vec]
+            x = np.asarray(vec.values, dtype=np.float32)[:m]
+            groups, names = resolve_groups(
+                getattr(vec, "metadata", None), x.shape[1])
+            pcol = cols[explain_model.output_name]
+            prob = getattr(pcol, "probability", None)
+            base_prob = None if prob is None else np.asarray(prob)[:m]
+            base_pred = (np.asarray(pcol.prediction)[:m]
+                         if base_prob is None else None)
+            # the reference sweeps the batch padded to its bucket with
+            # copies of row 0: the lanes' row count picks the device
+            # route's summation order, so the port pads the same way
+            b = bucket(m)
+            if b > m:
+                pad = np.zeros(b - m, dtype=np.int64)
+                x = np.concatenate([x, x[pad]])
+                if base_prob is not None:
+                    base_prob = np.concatenate([base_prob, base_prob[pad]])
+                else:
+                    base_pred = np.concatenate([base_pred, base_pred[pad]])
+            diffs, info = _loco.explain_batch(
+                explain_model, x, groups,
+                base_prob=base_prob, base_pred=base_pred,
+            )
+            return finish_explain(
+                names, diffs[:m], m, k, info["lanes"], info["deduped"],
+                info["padded"], _tspans.clock() - ts, ts, fam)
+        except Exception as e:
+            if is_kernel_fault(e):
+                raise
+            explain_degraded(e, "explain sweep")
+            return None
+
+    def fused_explain_request(prog, b: int, n: int) -> dict | None:
+        """The lane masks of a fused ``explain=k`` batch, or None where the
+        shared gates or the lane budget (the fused sweep is one run over
+        ``(lanes + 1) x b x width``) skip the attributions."""
+        led = _attr_ledger.stats()
+        if not explain_gate(n, led):
+            return None
+        groups, names = resolve_groups(prog.predictor_input_meta, prog.width)
+        from ..compiler.bucketing import lane_bucket
+
+        kb = lane_bucket(len(groups))
+        if (kb + 1) * b * max(1, prog.width) > _loco._lane_budget():
+            led.count_budget_skip()
+            _tevents.emit("explain_budget_skip", lanes=kb, rows=b,
+                          width=prog.width)
+            return None
+        return {
+            "masks": _loco.group_masks(groups, prog.width, lanes=kb),
+            "groups": groups, "names": names,
+            "kb": kb, "pad": kb - len(groups),
+        }
+
+    def finish_fused_explain(runinfo: dict, m: int, k: int,
+                             fam) -> list[dict[str, float]] | None:
+        """The tail of a sweep whose lanes rode the fused run."""
+        state = runinfo.get("fused_lane_state")
+        if state is None:
+            return None
+        try:
+            ts = _tspans.clock()
+            lane_pred, lane_prob, _ = runinfo["prog"].epilogue(
+                runinfo["lane_core"])
+            base, base_class = _loco.base_from_arrays(
+                runinfo["prob"], runinfo["pred"])
+            scores = _loco.scores_from_outputs(
+                lane_pred, lane_prob, base_class, state["kb"], m)
+            diffs = np.ascontiguousarray(
+                (base[None, :] - scores).T[:, : len(state["groups"])])
+            return finish_explain(
+                state["names"], diffs, m, k, state["kb"], 0, state["pad"],
+                _tspans.clock() - ts, ts, fam)
+        except Exception as e:
+            if is_kernel_fault(e):
+                raise
+            explain_degraded(e, "fused explain lanes")
+            return None
+
+    def dispatch_fused(prog, cols, b: int, n: int, fam_seconds,
+                       explain_k: int = 0, runinfo: dict | None = None) -> None:
+        """The fused segment: ingest codecs up, the predictor's core (and,
+        for ``explain_k``, every LOCO lane's core) down, the host epilogue
+        shared with the staged path, the guard over the ``n`` real rows."""
+        lane_state = (fused_explain_request(prog, b, n)
+                      if explain_k else None)
         ts = _tspans.clock()
-        core, info = prog.run(cols, b, n)
+        if lane_state is None:
+            core, info = prog.run(cols, b, n)
+        else:
+            core, lane_core, info = prog.run_explain(
+                cols, b, n, lane_state["masks"])
         pred, prob, raw = prog.epilogue(core)
         pcol = PredictionColumn(
             Prediction,
@@ -380,6 +582,9 @@ def score_function(
         )
         cols[prog.predictor.output_name] = guarded(prog.predictor, pcol, n)
         count_dispatch()
+        if lane_state is not None and runinfo is not None:
+            runinfo.update(fused_lane_state=lane_state, lane_core=lane_core,
+                           prog=prog, pred=pred, prob=prob)
         if fam_seconds is not None:
             dur = _tspans.clock() - ts
             fam_seconds["dispatch"] = fam_seconds.get("dispatch", 0.0) + dur
@@ -398,6 +603,7 @@ def score_function(
         skip: frozenset = frozenset(),
         fam_seconds: dict[str, float] | None = None,
         runinfo: dict | None = None,
+        explain_k: int = 0,
     ) -> tuple[set, list, dict]:
         """The stage plan over raw columns of ``b`` rows (``n`` real; the
         fused route pads, the staged loop runs its own rows), with
@@ -431,7 +637,8 @@ def score_function(
                 # fallback try: a DeadlineExceeded propagates typed
                 _sdl.checkpoint("dispatch")
                 try:
-                    dispatch_fused(prog, cols, b, n, fam_seconds)
+                    dispatch_fused(prog, cols, b, n, fam_seconds, explain_k,
+                                   runinfo)
                 except Unfuseable as e:  # the text cap: the batch's own
                     count_fallback("dispatch_error", e)
                 else:
@@ -714,12 +921,16 @@ def score_function(
         explain = int(explain or 0)
         if explain < 0:
             raise ValueError(f"explain must be >= 0, got {explain}")
-        if explain:
-            raise NotImplementedError(
-                "explain=k needs the insights plane, not ported yet "
-                "(ROADMAP.md A10)"
-            )
         return explain
+
+    def attributions(runinfo: dict, cols, m: int, k: int, dead: set,
+                     fam) -> list[dict[str, float]] | None:
+        """The batch's top-k maps, after its scores are rendered: a fused
+        batch finishes the lanes its run carried, a staged one sweeps its
+        assembled plane."""
+        if runinfo.get("fused"):
+            return finish_fused_explain(runinfo, m, k, fam)
+        return run_explain(cols, m, k, dead, fam)
 
     def result_column(cols: dict[str, Any], name: str, n: int):
         col = cols[name]
@@ -729,7 +940,7 @@ def score_function(
         rows: list[dict[str, Any]], explain: int = 0
     ) -> list[dict[str, Any]]:
         n = len(rows)
-        check_explain(explain)
+        explain = check_explain(explain)
         if n == 0:
             return []
         tel = _tspans.enabled()
@@ -748,6 +959,7 @@ def score_function(
         m = len(survivors)
         degraded: list[str] = []
         poisoned: dict[int, tuple[str, Exception]] = {}
+        attr_maps: list[dict[str, float]] | None = None
         if m:
             prog = fused_route(m)
             b = bucket(m) if prog is not None else m
@@ -764,6 +976,7 @@ def score_function(
             dead, failures, cause = run_plan(
                 cols, prog, b, m, tuple(survivors),
                 fam_seconds=fam if tel else None, runinfo=runinfo,
+                explain_k=explain,
             )
             degraded = [nm for nm in result_names if nm in dead]
             td = _tspans.clock() if tel else 0.0
@@ -777,6 +990,12 @@ def score_function(
                 fam["download"] = _tspans.clock() - td
             if not runinfo.get("fused"):
                 census_downloads(m, degraded, fam.get("download", 0.0))
+            if explain:
+                # attributions ride the batch after its scores render: the
+                # sweep reuses the assembled plane and the batch's own
+                # prediction as the base
+                attr_maps = attributions(runinfo, cols, m, explain, dead,
+                                         fam if tel else None)
             # per-row isolation: a fresh stage failure bisects the
             # survivors so only the poisoning row(s) are quarantined;
             # results dead from an OPEN breaker are not recovered
@@ -822,6 +1041,16 @@ def score_function(
             ))
             for nm in result_names:
                 out[i][nm] = default_value(nm)
+        if explain:
+            # every row answers the explain request: its top-k map, or None
+            # for a quarantined or poisoned row and for a batch whose
+            # explain work was shed or skipped
+            for j, i in enumerate(survivors):
+                out[i]["attributions"] = (
+                    None if attr_maps is None or i in poisoned
+                    else attr_maps[j])
+            for i in invalid:
+                out[i]["attributions"] = None
         if tel:
             _tspans.record_serve_batch("batch", n, started, fam)
         return out
@@ -836,7 +1065,7 @@ def score_function(
         per row: poisoning rows get default values in the AFFECTED result
         columns only (the row-dict path quarantines the whole row)."""
         n = len(dataset)
-        check_explain(explain)
+        explain = check_explain(explain)
         if n == 0:
             return {}
         tel = _tspans.enabled()
@@ -864,6 +1093,7 @@ def score_function(
         dead, failures, cause = run_plan(
             cols, prog, b, n, tuple(range(n)),
             fam_seconds=fam if tel else None, runinfo=runinfo,
+            explain_k=explain,
         )
         td = _tspans.clock() if tel else 0.0
         degraded = [nm for nm in result_names if nm in dead]
@@ -875,6 +1105,9 @@ def score_function(
             fam["download"] = _tspans.clock() - td
         if not runinfo.get("fused"):
             census_downloads(n, degraded, fam.get("download", 0.0))
+        attr_maps = (attributions(runinfo, cols, n, explain, dead,
+                                  fam if tel else None)
+                     if explain else None)
         fail_names = [nm for nm in degraded if cause.get(nm) == "failure"]
         if failures and fail_names and n > 1:
             segments: dict[str, list] = {nm: [] for nm in fail_names}
@@ -913,6 +1146,8 @@ def score_function(
         for nm in degraded:
             if nm not in out:
                 out[nm] = default_column(nm, n)
+        if explain:
+            out["attributions"] = attr_maps
         if tel:
             _tspans.record_serve_batch("columns", n, started, fam)
         return out
@@ -947,6 +1182,7 @@ def score_function(
         # the slow, lock-free parts first (the drift report walks every
         # feature's histogram and may emit events)
         drift_report = drift_sentinel.report()
+        attribution_drift_report = attribution_drift.report()
         breaker_stats = {nm: br.stats() for nm, br in list(breakers.items())}
         with fused_lock:
             prog = fused_holder["program"]
@@ -970,7 +1206,13 @@ def score_function(
             "quarantine": qlog.stats(),
             "breakers": breaker_stats,
             "drift": drift_report,
-            "attributions": None,
+            "attributions": {
+                "available": explain_model is not None,
+                "groups": (None if explain_state.get("resolved") is None
+                           else explain_state["resolved"][1]),
+                "ledger": _attr_ledger.snapshot(),
+                "drift": attribution_drift_report,
+            },
             "distributed": None,
             "retrainLedger": None,
             "telemetry": None,
@@ -979,7 +1221,6 @@ def score_function(
     score_one.batch = score_batch
     score_one.columns = score_columns
     score_one.prime_fused = prime_fused
-    score_one.check_explain = check_explain
     score_one.kernel_libraries = kernel_libraries
     score_one.metadata = metadata
     score_one.fused_state = fused_holder
@@ -988,6 +1229,7 @@ def score_function(
     score_one.sentinel = sentinel
     score_one.breakers = breakers
     score_one.drift = drift_sentinel
+    score_one.attribution_drift = attribution_drift
     score_one.quarantine = qlog
     # the model keeps weak references to its live score functions so
     # summary_pretty() reports serve-side resilience counters

@@ -196,7 +196,7 @@ class LinearCoreModel(PredictorModel):
             stage=self, in_dim=int(params["w"].shape[0]), params=params,
             core=core, epilogue=self.predictions_from_core,
             outputs_per_row=int(np.prod(params["w"].shape[1:], dtype=int)),
-            descriptor=self.fused_descriptor(),
+            descriptor=self.fused_descriptor(), row_wise=True,
         )
 
     def fused_descriptor(self) -> str:

@@ -23,8 +23,11 @@ reference within stated tolerances, not bit for bit
 (``tests/test_torch_solvers.py``). On the card they must run in full
 float32: ``_check_precision`` refuses a fit while TF32 matmuls are on.
 
-Not ported here: ``fit_linear_svc`` and ``fit_glm_irls`` (``ROADMAP.md``
-A9).
+``fit_linear_svc`` runs FISTA on the Huberized hinge; ``fit_glm_irls``
+runs iteratively reweighted least squares, one ``torch.linalg.solve`` of
+the [D+1, D+1] normal equations per iteration, the reference's
+``lax.switch`` over the family and link codes becoming Python branches on
+the static code.
 """
 from __future__ import annotations
 
@@ -637,3 +640,174 @@ def fit_logistic_multinomial(
         standardization=standardization, device=dev,
     )
     return GLMParams(weights=out.weights[0], intercept=out.intercept[0])
+
+
+def fit_linear_svc(
+    x, y, row_mask, reg_param, num_iters: int = 400,
+    fit_intercept: bool = True, standardization: bool = True, device=None,
+) -> GLMParams:
+    """Linear SVM (OpLinearSVC parity) through the Huberized hinge + L2:
+    the hinge smoothed on a band of width ``delta`` = 0.1, so FISTA has a
+    true Lipschitz constant. y [N] in {0, 1}. Weights [D], intercept scalar
+    on the device."""
+    dev = resolve_device(device)
+    _check_precision(dev)
+    x = to_device(x, dev)
+    y = to_device(y, dev)
+    row_mask = to_device(row_mask, dev)
+    n = torch.clamp_min(row_mask.sum(), 1.0)
+    d = x.shape[1]
+    if standardization:
+        xs, mean, std, const = _standardize(x, row_mask)
+        if not fit_intercept:
+            mean = torch.zeros(d, dtype=x.dtype, device=dev)
+            xs = _scale_only(x, row_mask, std, const)
+    else:
+        xs = torch.where(row_mask[:, None] > 0, x, 0.0)
+        mean = torch.zeros(d, dtype=x.dtype, device=dev)
+        std = torch.ones(d, dtype=x.dtype, device=dev)
+    s = 2.0 * y - 1.0
+    delta = _f32(0.1)
+    reg = _f32(reg_param)
+
+    def grad(params):
+        w, b = params[:-1], params[-1]
+        z = xs @ w
+        if fit_intercept:
+            z = z + b
+        margin = s * z
+        # dL/dmargin of the Huberized hinge: -1 below the band, linear in it
+        slope = -torch.clamp((1.0 - margin) / delta, 0.0, 1.0)
+        r = slope * s * row_mask
+        gw = (xs * r[:, None]).sum(0) / n + reg * w
+        gb = r.sum() / n if fit_intercept else torch.zeros_like(b)
+        return torch.cat([gw, gb.reshape(1)])
+
+    def prox(params, _step):
+        return params
+
+    col = (xs * xs).sum(0) / n
+    lip = (col.sum() + 1.0) / delta + reg
+    step = 1.0 / torch.clamp_min(lip, 1e-6)
+    params0 = torch.zeros(d + 1, dtype=x.dtype, device=dev)
+    params = _fista(grad, prox, params0, step, num_iters)
+    w_std, b_std = params[:-1], params[-1]
+    w = w_std / std
+    b = b_std - (w_std * mean / std).sum()
+    return GLMParams(weights=w, intercept=b if fit_intercept
+                     else torch.zeros_like(b))
+
+
+# GLM family and link codes (Spark GeneralizedLinearRegression parity)
+GLM_FAMILIES = {"gaussian": 0, "binomial": 1, "poisson": 2, "gamma": 3}
+GLM_LINKS = {"identity": 0, "log": 1, "logit": 2, "inverse": 3, "sqrt": 4}
+GLM_DEFAULT_LINK = {
+    "gaussian": "identity", "binomial": "logit", "poisson": "log",
+    "gamma": "inverse",
+}
+
+
+def _glm_linkinv(link: int, eta, eps):
+    if link == 0:
+        return eta
+    if link == 1:
+        return torch.exp(eta)
+    if link == 2:
+        return torch.sigmoid(eta)
+    if link == 3:
+        return 1.0 / torch.where(torch.abs(eta) > eps, eta, eps)
+    return eta * eta
+
+
+def _glm_dmu_deta(link: int, eta, mu, eps):
+    if link == 0:
+        return torch.ones_like(eta)
+    if link == 1:
+        return mu
+    if link == 2:
+        return mu * (1.0 - mu)
+    if link == 3:
+        return -mu * mu
+    return 2.0 * torch.sqrt(torch.clamp_min(mu, eps))
+
+
+def _glm_variance(family: int, mu):
+    if family == 0:
+        return torch.ones_like(mu)
+    if family == 1:
+        return mu * (1.0 - mu)
+    if family == 2:
+        return mu
+    return mu * mu
+
+
+def _glm_init_eta(family: int, link: int, y, eps):
+    """The family-aware starting point on the linear scale."""
+    if family == 0:
+        mu0 = y
+    elif family == 1:
+        mu0 = (y + 0.5) / 2.0
+    elif family == 2:
+        mu0 = torch.clamp_min(y, 0.0) + 0.1
+    else:
+        mu0 = torch.clamp_min(y, eps)
+    if link == 0:
+        return mu0
+    if link == 1:
+        return torch.log(torch.clamp_min(mu0, eps))
+    if link == 2:
+        return torch.log(torch.clamp_min(mu0, eps)
+                         / torch.clamp_min(1.0 - mu0, eps))
+    if link == 3:
+        return 1.0 / torch.clamp_min(mu0, eps)
+    return torch.sqrt(torch.clamp_min(mu0, 0.0))
+
+
+def fit_glm_irls(
+    x, y, row_mask, reg_param, family: int = 0, link: int = 0,
+    num_iters: int = 25, fit_intercept: bool = True, device=None,
+) -> GLMParams:
+    """Iteratively reweighted least squares for generalized linear models
+    (OpGeneralizedLinearRegression parity, Spark GLR's IRLS with L2 only):
+    a fixed ``num_iters`` of float32 normal-equation solves
+    (``torch.linalg.solve``), the intercept unregularized. Weights [D],
+    intercept scalar on the device."""
+    dev = resolve_device(device)
+    _check_precision(dev)
+    x = to_device(x, dev)
+    y = to_device(y, dev)
+    row_mask = to_device(row_mask, dev)
+    n = torch.clamp_min(row_mask.sum(), 1.0)
+    if fit_intercept:
+        xa = torch.cat([x, torch.ones((x.shape[0], 1), dtype=x.dtype,
+                                      device=dev)], dim=1)
+    else:
+        xa = x
+    da = xa.shape[1]
+    eps = torch.tensor(1e-7, dtype=x.dtype, device=dev)
+    eye = torch.eye(da, dtype=x.dtype, device=dev)
+    reg = _f32(reg_param) * eye
+    if fit_intercept:  # the intercept is not regularized
+        reg[da - 1, da - 1] = 0.0
+
+    def normal_eq(w, z):
+        xw = xa * w[:, None]
+        return xw.T @ xa / n, xw.T @ z / n
+
+    eta0 = _glm_init_eta(family, link, y, eps)
+    xtwx0, xtwz0 = normal_eq(row_mask, eta0)
+    beta = torch.linalg.solve(
+        xtwx0 + (_f32(reg_param) + eps) * eye, xtwz0)
+    for _ in range(num_iters):
+        eta = xa @ beta
+        mu = _glm_linkinv(link, eta, eps)
+        dmu = _glm_dmu_deta(link, eta, mu, eps)
+        dmu = torch.where(torch.abs(dmu) > eps, dmu, eps)
+        var = torch.maximum(_glm_variance(family, mu), eps)
+        z = eta + (y - mu) / dmu
+        xtwx, xtwz = normal_eq(row_mask * dmu * dmu / var, z)
+        beta = torch.linalg.solve(xtwx + reg + eps * eye, xtwz)
+    if fit_intercept:
+        return GLMParams(weights=beta[:-1], intercept=beta[-1])
+    return GLMParams(weights=beta,
+                     intercept=torch.zeros((), dtype=x.dtype, device=dev))

@@ -1,6 +1,6 @@
 """Model selection (reference: core/.../stages/impl/selector/): the
-validators and the model selector with its three factories. The selector
-combiner is not ported yet (``ROADMAP.md`` A9)."""
+validators, the model selector with its three factories, and the selector
+combiner."""
 from .validators import CrossValidator, TrainValidationSplit  # noqa: F401
 from .model_selector import (  # noqa: F401
     BINARY_CLASSIFICATION_MODELS,
@@ -12,4 +12,9 @@ from .model_selector import (  # noqa: F401
     RegressionModelSelector,
     SelectedModel,
     make_candidates,
+)
+from .combiner import (  # noqa: F401
+    CombinationStrategy,
+    CombinedModel,
+    SelectedModelCombiner,
 )

@@ -9,8 +9,8 @@ best estimator -> splitter.validationPrepare -> refit winner on prepared
 train -> train metrics -> SelectedModel with ModelSelectorSummary metadata.
 
 The default candidates of each factory take the factory's ``device``
-(``None``: the card). Families that are not ported yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item. The summary keeps
+(``None``: the card), and so do ``make_candidates``' estimators, every
+family of the reference's enums among them. The summary keeps
 the reference's keys: ``featurizeStats`` is the featurize plane's ledger
 over the selection (``Workflow.train()`` replaces it with the delta over
 the whole train); ``compileStats``, a plane the port does not have yet
@@ -41,8 +41,12 @@ from ..models.gbdt import (
     XGBoostClassifier,
     XGBoostRegressor,
 )
+from ..models.glm import GeneralizedLinearRegression
 from ..models.linear import LinearRegression
 from ..models.logistic import LogisticRegression
+from ..models.mlp import MLPClassifier
+from ..models.naive_bayes import NaiveBayes
+from ..models.svc import LinearSVC
 from ..prep.splitters import DataBalancer, DataCutter, DataSplitter
 from .validators import CrossValidator, TrainValidationSplit, Validator
 
@@ -64,42 +68,33 @@ XGB_MIN_CHILD_WEIGHT = [1.0, 10.0]
 XGB_MAX_DEPTH_BINARY = [10]
 XGB_GAMMA_BINARY = [0.8]
 
-#: families of the reference's enums that the port does not train yet, by
-#: the ``ROADMAP.md`` item that brings them
-_NOT_PORTED = {
-    "OpNaiveBayes": "A9",
-    "OpLinearSVC": "A9",
-    "OpMultilayerPerceptronClassifier": "A9",
-    "OpGeneralizedLinearRegression": "A9",
-}
-
 # the full candidate enums (*ModelSelector.scala); names beyond the defaults
 # are opt-in through ``make_candidates``
-BINARY_CLASSIFICATION_MODELS: dict[str, type | None] = {
+BINARY_CLASSIFICATION_MODELS: dict[str, type] = {
     "OpLogisticRegression": LogisticRegression,
     "OpRandomForestClassifier": RandomForestClassifier,
     "OpXGBoostClassifier": XGBoostClassifier,
     "OpGBTClassifier": GBTClassifier,
     "OpDecisionTreeClassifier": DecisionTreeClassifier,
-    "OpNaiveBayes": None,
-    "OpLinearSVC": None,
-    "OpMultilayerPerceptronClassifier": None,
+    "OpNaiveBayes": NaiveBayes,
+    "OpLinearSVC": LinearSVC,
+    "OpMultilayerPerceptronClassifier": MLPClassifier,
 }
-MULTI_CLASSIFICATION_MODELS: dict[str, type | None] = {
+MULTI_CLASSIFICATION_MODELS: dict[str, type] = {
     "OpLogisticRegression": LogisticRegression,
     "OpRandomForestClassifier": RandomForestClassifier,
     "OpXGBoostClassifier": XGBoostClassifier,
     "OpDecisionTreeClassifier": DecisionTreeClassifier,
-    "OpNaiveBayes": None,
-    "OpMultilayerPerceptronClassifier": None,
+    "OpNaiveBayes": NaiveBayes,
+    "OpMultilayerPerceptronClassifier": MLPClassifier,
 }
-REGRESSION_MODELS: dict[str, type | None] = {
+REGRESSION_MODELS: dict[str, type] = {
     "OpLinearRegression": LinearRegression,
     "OpRandomForestRegressor": RandomForestRegressor,
     "OpGBTRegressor": GBTRegressor,
     "OpXGBoostRegressor": XGBoostRegressor,
     "OpDecisionTreeRegressor": DecisionTreeRegressor,
-    "OpGeneralizedLinearRegression": None,
+    "OpGeneralizedLinearRegression": GeneralizedLinearRegression,
 }
 
 
@@ -123,10 +118,6 @@ def make_candidates(
                 f"{sorted(catalog)}"
             )
         cls = catalog[name]
-        if cls is None:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP.md, {_NOT_PORTED[name]})"
-            )
         out.append((cls(device=device), _default_grid_for(cls)))
     return out
 
@@ -143,6 +134,13 @@ def _default_grid_for(cls: type) -> dict[str, Sequence[Any]]:
         XGBoostRegressor: _xgb_binary_grid(),
         DecisionTreeClassifier: _tree_grid(),
         DecisionTreeRegressor: _tree_grid(),
+        NaiveBayes: {"smoothing": [1.0]},
+        LinearSVC: {"reg_param": REGULARIZATION, "max_iter": MAX_ITER_LIN},
+        MLPClassifier: {},
+        GeneralizedLinearRegression: {
+            "family": ["gaussian", "poisson", "gamma"],
+            "reg_param": REGULARIZATION,
+        },
     }
     return grids.get(cls, {})
 

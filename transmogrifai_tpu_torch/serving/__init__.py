@@ -21,8 +21,8 @@ The plane is host code: it takes its closure's device (``cuda`` unless
 the closure was built with ``device="cpu"``) and never picks one. A
 kernel fault is never contained by a service, a hedge, an adoption or a
 retry: it fails the service (or fleet) and reaches the caller
-(``service.py``, ``fleet.py``). ``explain=k`` is refused at admission
-until the explain lanes are ported (``ROADMAP.md`` A10).
+(``service.py``, ``fleet.py``). ``explain=k`` rides the micro-batcher
+and the fleet's dispatch like any request.
 """
 from .batcher import BatchPlan, MicroBatcher
 from .deadline import DeadlineBudget, DeadlineExceeded

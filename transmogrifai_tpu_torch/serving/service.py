@@ -35,10 +35,10 @@ request still queued, with outcome ``error`` carrying the fault (so the
 reconciliation invariant still holds), and marks the service failed:
 admissions close and :meth:`submit` re-raises the fault itself;
 :meth:`pump` re-raises it, and so does :meth:`stop` once it has joined
-the workers. ``explain=k`` (``k > 0``) is refused at :meth:`submit`
-with the closure's ``NotImplementedError`` (the explain lanes are
-``ROADMAP.md`` A10) before the request is queued, so it never fails its
-batch-mates.
+the workers. ``explain=k`` rides the micro-batcher like any request: the
+batch explains at its largest member's k and each member keeps its own
+top-k; admission budgets the ``explain`` family's p95 beside the
+pipeline's for an explain request with a deadline.
 """
 from __future__ import annotations
 
@@ -327,9 +327,8 @@ class ScoringService:
         pipeline p95 — including the explain family's p95 for explain
         requests — even before queuing) — admission control rejects
         early, it never blocks. A failed service re-raises its kernel
-        fault; a closure that cannot explain (the port's, until
-        ``ROADMAP.md`` A10) raises its ``NotImplementedError`` for
-        ``explain > 0`` here, before queuing."""
+        fault; a negative ``explain`` raises ``ValueError`` here, before
+        queuing."""
         if self._fault is not None:
             raise self._fault
         if isinstance(rows, dict):
@@ -339,9 +338,6 @@ class ScoringService:
         explain = int(explain or 0)
         if explain < 0:
             raise ValueError(f"explain must be >= 0, got {explain}")
-        check_explain = getattr(self.score_fn, "check_explain", None)
-        if explain and check_explain is not None:
-            check_explain(explain)
         now = self.clock()
         if self._stop.is_set() or self.queue.closed:
             self._count_rejected("stopped")

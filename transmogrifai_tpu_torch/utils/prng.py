@@ -1,5 +1,5 @@
 """Counter-based random draws that reproduce the JAX package's bagging draws
-bit for bit: threefry2x32 keys (``PRNGKey``, ``split``), ``uniform`` and the
+bit for bit: threefry2x32 keys (``PRNGKey``, ``split``), ``uniform``, ``normal`` and the
 Poisson draw for rates below 10 (Knuth's loop), as ``jax.random`` computes
 them with ``jax_threefry_partitionable`` on.
 
@@ -94,3 +94,114 @@ def poisson(key: np.ndarray, lam: float, num: int) -> np.ndarray:
         k = np.where(log_prod > -lam, k + 1, k).astype(np.int32)
         log_prod = log_prod + _log_f32(uniform(sub, num))
     return (k - 1).astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# jax.random.normal: uniform on (-1, 1), then sqrt(2) * erfinv, with the
+# float32 erfinv XLA's CPU backend emits (Giles' polynomial over -log1p(-x^2))
+# and that backend's log1p and log, every multiply-add fused as it fuses
+# them. Exact IEEE operations in a fixed order, so the same bits anywhere.
+# --------------------------------------------------------------------------
+_F = np.float32
+_ERFINV_LT5 = np.array(
+    [2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+     0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941],
+    dtype=np.float32)
+_ERFINV_GE5 = np.array(
+    [-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+     0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682],
+    dtype=np.float32)
+#: Cephes' rational log1p for |x| < sqrt(2) - 1, highest degree first
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """float32 ``a*b + c`` rounded once (the f32 product is exact in
+    float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _log_xla(v: np.ndarray) -> np.ndarray:
+    """float32 log as XLA's CPU backend computes it (Eigen's Cephes-style
+    ``plog``), for positive finite inputs."""
+    v = np.asarray(v, np.float32)
+    tiny = _F(1.17549435e-38)
+    bits = np.where(v <= tiny, tiny, v).astype(np.float32).view(np.int32)
+    e = _F(1) + ((bits >> 23) - 127).astype(np.float32)
+    m = ((bits & np.int32(-2139095041)) | np.int32(0x3F000000)).view(np.float32)
+    small = m < _F(0.707106781186547524)
+    e = (e - np.where(small, _F(1), _F(0))).astype(np.float32)
+    x = ((m - _F(1)) + np.where(small, m, _F(0))).astype(np.float32)
+    x2 = (x * x).astype(np.float32)
+    x3 = (x2 * x).astype(np.float32)
+    y = _fma(x, _F(7.0376836292E-2), _F(-1.1514610310E-1))
+    y1 = _fma(x, _F(-1.2420140846E-1), _F(1.4249322787E-1))
+    y2 = _fma(x, _F(2.0000714765E-1), _F(-2.4999993993E-1))
+    y = _fma(y, x, _F(1.1676998740E-1))
+    y1 = _fma(y1, x, _F(-1.6668057665E-1))
+    y2 = _fma(y2, x, _F(3.3333331174E-1))
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    s = _fma(y, x3, (_F(-2.12194440e-4) * e).astype(np.float32))
+    t = _fma(_F(-0.5), x2, x)
+    return _fma(_F(0.693359375), e, (t + s).astype(np.float32))
+
+
+def _log1p_xla(x: np.ndarray) -> np.ndarray:
+    """float32 log1p as XLA's CPU backend computes it: Cephes' rational
+    form below sqrt(2) - 1 in magnitude, ``log(1 + x)`` above."""
+    x = np.asarray(x, np.float32)
+    num = np.zeros_like(x)
+    den = np.zeros_like(x)
+    for c in _LOG1P_NUM:
+        num = _fma(num, x, _F(c))
+    for c in _LOG1P_DEN:
+        den = _fma(den, x, _F(c))
+    x2 = (x * x).astype(np.float32)
+    s = ((x * x2).astype(np.float32) * (num / den).astype(np.float32)
+         ).astype(np.float32)
+    s = (x + _fma(_F(-0.5), x2, s)).astype(np.float32)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        large = _log_xla((x + _F(1)).astype(np.float32))
+    return np.where(np.abs(x) < _F(0.41421356237309504880), s, large)
+
+
+def _erfinv_xla(x: np.ndarray) -> np.ndarray:
+    """float32 erfinv as XLA emits it (Giles' single-precision
+    polynomial), for |x| < 1."""
+    x = np.asarray(x, np.float32)
+    w = -_log1p_xla((-x * x).astype(np.float32))
+    lt = w < _F(5)
+    with np.errstate(invalid="ignore"):
+        w = np.where(lt, w - _F(2.5), np.sqrt(w) - _F(3)).astype(np.float32)
+    p = np.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).astype(np.float32)
+    for i in range(1, 9):
+        p = _fma(p, w, np.where(lt, _ERFINV_LT5[i], _ERFINV_GE5[i]))
+    return (p * x).astype(np.float32)
+
+
+def normal(key: np.ndarray, shape, scale=None) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` in float32, bit for bit: uniform
+    on [nextafter(-1, 0), 1) from the top 23 bits of each word, then
+    ``sqrt(2) * erfinv``. ``scale`` gives ``normal(key, shape) * scale``
+    as a jitted program computes it: XLA folds the two constants,
+    ``erfinv(u) * (sqrt(2) * scale)``."""
+    shape = tuple(int(s) for s in np.atleast_1d(shape)) if shape != () else ()
+    num = int(np.prod(shape, dtype=np.int64))
+    bits = (random_bits(key, num) >> np.uint32(9)) | np.uint32(0x3F800000)
+    floats = bits.view(np.float32) - _F(1.0)
+    lo = np.nextafter(_F(-1.0), _F(0.0))
+    # (1 - lo) rounds to 2.0 in float32, so the scale is exact
+    u = np.maximum(lo, (floats * _F(2.0) + lo).astype(np.float32))
+    c = _F(np.sqrt(2))
+    if scale is not None:
+        c = (c * _F(scale)).astype(np.float32)
+        return (_erfinv_xla(u) * c).astype(np.float32).reshape(shape)
+    return (c * _erfinv_xla(u)).astype(np.float32).reshape(shape)

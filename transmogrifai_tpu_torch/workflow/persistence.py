@@ -12,10 +12,12 @@ puts the predictors' arrays on the device. The raw feature filter's
 results (``rffResults``) and the blocklist travel as the reference writes
 them, and so do the serving profiles (``servingProfiles``, the drift
 sentinel's training baseline), so a model either package saved brings
-them to the other's drift sentinel. The manifest fields of planes the port
-does not have yet (attribution profiles, the distributed-resilience
-ledger, the analysis and run reports, sensitive features) are written as
-``null``, which the reference's loader accepts.
+them to the other's drift sentinel, and the attribution profiles
+(``attributionProfiles``, the attribution drift monitor's baseline). The
+manifest fields of planes the port does not have yet (the
+distributed-resilience ledger, the analysis and run reports, sensitive
+features) are written as ``null``, which the reference's loader
+accepts.
 """
 from __future__ import annotations
 
@@ -28,12 +30,19 @@ import numpy as np
 
 from .. import types as T
 from ..features.feature import Feature, FeatureGeneratorStage
+from ..insights.correlation import RecordInsightsCorrModel
+from ..insights.loco import RecordInsightsLOCO
 from ..models.gbdt import (
     BoostedBinaryModel, BoostedMultiModel, BoostedRegressionModel,
     ForestClassifierModel, ForestRegressionModel,
 )
+from ..models.glm import GeneralizedLinearRegressionModel
+from ..models.isotonic import IsotonicRegressionCalibratorModel
 from ..models.linear import LinearRegressionModel
 from ..models.logistic import LogisticRegressionModel
+from ..models.mlp import MLPClassifierModel
+from ..models.naive_bayes import NaiveBayesModel
+from ..models.svc import LinearSVCModel
 from ..ops import (
     bucketizers, dates, domains, lists, maps, phone, prediction, scalers,
     simple, text_stages, time_period,
@@ -44,6 +53,7 @@ from ..ops.combiner import VectorsCombiner
 from ..ops.numeric import BinaryVectorizer, NumericVectorizerModel, RealNNVectorizer
 from ..ops.text import SmartTextModel
 from ..prep.derived_filter import FeatureRemovalModel
+from ..selector.combiner import CombinedModel
 from ..selector.model_selector import SelectedModel
 from ..stages.base import PipelineStage
 from ..utils.device import resolve_device
@@ -63,7 +73,10 @@ STAGE_CLASSES: dict[str, type] = {
         SelectedModel,
         BoostedBinaryModel, BoostedMultiModel, ForestClassifierModel,
         BoostedRegressionModel, ForestRegressionModel, LogisticRegressionModel,
-        LinearRegressionModel,
+        LinearRegressionModel, NaiveBayesModel, LinearSVCModel,
+        GeneralizedLinearRegressionModel, MLPClassifierModel,
+        IsotonicRegressionCalibratorModel, CombinedModel,
+        RecordInsightsLOCO, RecordInsightsCorrModel,
         text_stages.OpStringIndexerModel, text_stages.OpIndexToString,
         dates.DateVectorizer, dates.DateToUnitCircleTransformer,
         time_period.TimePeriodTransformer,
@@ -203,7 +216,7 @@ def save_workflow_model(model: "WorkflowModel", path: str) -> None:  # noqa: F82
         "blocklisted": model.blocklisted,
         "sensitiveFeatures": None,
         "servingProfiles": model.serving_profiles,
-        "attributionProfiles": None,
+        "attributionProfiles": model.attribution_profiles,
         "distResilience": None,
         "analysis": None,
         "runReport": None,
@@ -307,5 +320,6 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
         rff_results=manifest.get("rffResults"),
         blocklisted=manifest.get("blocklisted", []),
         serving_profiles=manifest.get("servingProfiles"),
+        attribution_profiles=manifest.get("attributionProfiles"),
         device=dev,
     )

@@ -19,14 +19,21 @@ folds) and rewrites the DAG without the blocklisted features. ``train()`` valida
 ``validate_stages`` in place of the reference's preflight analysis (A14).
 ``train()`` stores the serving profiles (``resilience.sentinel.
 compute_serving_profiles`` over the training rows) that the scoring
-closure's drift sentinel compares the live stream with; the attribution
-profiles are ``None`` until A10, and ``summary_pretty`` leaves out the
-insights lines until A10. Its serving-resilience line sums the counters
-of every live score function built off the model.
+closure's drift sentinel compares the live stream with, and the
+attribution baseline (``insights.drift.compute_attribution_profile``: one
+LOCO sweep over at most ``TPTPU_ATTRIBUTION_PROFILE_ROWS`` training rows,
+default 256, 0 disables) that the closure's attribution drift monitor
+compares ``explain=k`` sweeps with. The reference drops any failure of the
+baseline; the port drops every failure but a kernel fault
+(``utils.cuda_build.is_kernel_fault``), which propagates out of
+``train()``. ``summary_pretty`` carries the reference's insights lines.
+Its serving-resilience line sums the counters of every live score
+function built off the model.
 """
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -38,7 +45,9 @@ from ..featurize import stats as fstats
 from ..readers.core import DataReader, DatasetReader
 from ..selector.model_selector import ModelSelector, SelectedModel
 from ..stages.base import PipelineStage
+from ..telemetry import spans as _tspans
 from ..types.columns import NumericColumn, VectorColumn
+from ..utils.cuda_build import is_kernel_fault
 from ..utils.device import resolve_device
 from .dag import compute_dag, raw_features_of, validate_stages
 from .fit import apply_transformations_dag, fit_and_transform_dag
@@ -301,6 +310,16 @@ class Workflow:
 
         serving_profiles = compute_serving_profiles(train_data, raw_features)
 
+        # attribution baseline (insights/drift.py): one batched LOCO sweep
+        # over a bounded training sample, persisted next to servingProfiles
+        attribution_profiles = None
+        attribution_seconds = None
+        if selector_info is not None:
+            t0 = time.perf_counter()
+            attribution_profiles = _attribution_baseline(
+                fitted, selector_info, fitted_data)
+            attribution_seconds = time.perf_counter() - t0
+
         model = WorkflowModel(
             result_features=self.result_features,
             raw_features=tuple(raw_features),
@@ -313,12 +332,55 @@ class Workflow:
             label_summary=label_summary,
             training_params=dict(self._stage_overrides),
             serving_profiles=serving_profiles,
+            attribution_profiles=attribution_profiles,
         )
+        #: wall seconds of the attribution baseline inside this train()
+        model.attribution_seconds = attribution_seconds
         if selector is not None:
             # the live evaluator keeps a custom one working in memory (the
             # name in selector_info covers a loaded model)
             model._live_evaluator = selector.evaluator
         return model
+
+
+def _attribution_baseline(
+    fitted: dict[str, Any],
+    selector_info: dict[str, Any],
+    fitted_data: Dataset,
+) -> dict[str, Any] | None:
+    """The train-time baseline attribution profile (insights/drift.py): a
+    best-effort capture that never fails a train, except on a kernel
+    fault, which is a fault of the card and propagates."""
+    import os
+
+    try:
+        max_rows = int(os.environ.get("TPTPU_ATTRIBUTION_PROFILE_ROWS", "256"))
+    except ValueError:
+        max_rows = 256
+    if max_rows <= 0:
+        return None
+    sel_model = fitted.get(selector_info["estimatorUid"])
+    vec_name = selector_info["vectorName"]
+    if sel_model is None or vec_name not in fitted_data:
+        return None
+    vec = fitted_data[vec_name]
+    if not isinstance(vec, VectorColumn):
+        return None
+    try:
+        from ..insights.drift import compute_attribution_profile
+
+        with _tspans.span("train/attribution", rows=min(max_rows, len(vec))):
+            return compute_attribution_profile(
+                sel_model,
+                np.asarray(vec.values, dtype=np.float32),
+                vec.metadata,
+                max_rows=max_rows,
+            )
+    except Exception as e:
+        if is_kernel_fault(e):
+            raise
+        log.warning("attribution baseline capture skipped: %s", e)
+        return None
 
 
 def _label_summary(
@@ -386,6 +448,7 @@ class WorkflowModel:
         label_summary: dict[str, Any] | None = None,
         training_params: dict[str, Any] | None = None,
         serving_profiles: dict[str, Any] | None = None,
+        attribution_profiles: dict[str, Any] | None = None,
         device: torch.device | None = None,
     ):
         self.result_features = result_features
@@ -402,6 +465,9 @@ class WorkflowModel:
         #: sentinel (fill rate + StreamingHistogram JSON); None on models
         #: saved without them
         self.serving_profiles = serving_profiles
+        #: the train-time per-group LOCO contribution baseline the
+        #: attribution drift monitor compares explain sweeps with
+        self.attribution_profiles = attribution_profiles
         self.device = device
 
     def to(self, device=None) -> "WorkflowModel":
@@ -573,8 +639,9 @@ class WorkflowModel:
     def summary_pretty(self) -> str:
         """Human-readable training summary (the reference README's
         summaryPretty): the evaluated families, the selected model's
-        parameter table and one combined holdout / training metric table.
-        The insights tables wait for A10."""
+        parameter table, one combined holdout / training metric table, the
+        correlation-ranked top insights and contributions tables, and the
+        attribution ledger's "Record insights" line."""
         from ..utils.table import render_table
 
         s = self.summary_json()
@@ -641,6 +708,10 @@ class WorkflowModel:
                     )
                 )
                 lines.append("")
+            lines.extend(self._insights_lines())
+        insights_line = self._record_insights_line()
+        if insights_line:
+            lines.append(insights_line)
         lines.append(
             f"Trained on {s['trainRows']} rows (holdout {s['holdoutRows']}); "
             f"{len(s['rawFeatures'])} raw features"
@@ -649,6 +720,81 @@ class WorkflowModel:
         if serve:
             lines.append(serve)
         return "\n".join(lines)
+
+    def _insights_lines(self) -> list[str]:
+        """The top insights by label correlation and the model's top
+        contributions (README: "Top model insights computed using
+        correlation"); all or nothing, best effort."""
+        from ..insights.model_insights import model_insights
+        from ..utils.table import render_table
+
+        try:
+            ins = model_insights(self)
+            derived = [d for f in ins.get("features", [])
+                       for d in f.get("derivedFeatures", [])]
+            lines: list[str] = []
+            with_corr = [
+                d for d in derived
+                if isinstance(d.get("corr"), (int, float))
+                and np.isfinite(d["corr"])
+            ]
+            with_corr.sort(key=lambda d: -d["corr"])
+            pos = [d for d in with_corr if d["corr"] >= 0]
+            if with_corr:
+                lines.append("Top model insights computed using correlation:")
+                if pos:
+                    lines.append(render_table(
+                        ["Top Positive Insights", "Correlation"],
+                        [[d["derivedFeatureName"], f"{d['corr']:.4f}"]
+                         for d in pos[:7]],
+                    ))
+                negs = [d for d in reversed(with_corr) if d["corr"] < 0]
+                if negs:
+                    lines.append(render_table(
+                        ["Top Negative Insights", "Correlation"],
+                        [[d["derivedFeatureName"], f"{d['corr']:.4f}"]
+                         for d in negs[:7]],
+                    ))
+                lines.append("")
+            with_contrib = [d for d in derived
+                            if isinstance(d.get("contribution"), (int, float))]
+            with_contrib.sort(key=lambda d: -abs(d["contribution"]))
+            if with_contrib and any(d["contribution"] for d in with_contrib):
+                lines.append("Top Contributions:")
+                lines.append(render_table(
+                    ["Top Contributions", "Value"],
+                    [[d["derivedFeatureName"], f"{d['contribution']:.4f}"]
+                     for d in with_contrib[:7]],
+                ))
+                lines.append("")
+            return lines
+        except Exception as e:  # insights stay best-effort, but observable
+            log.warning("summary insights section degraded: %s: %s",
+                        type(e).__name__, e)
+            return []
+
+    def _record_insights_line(self) -> str | None:
+        """The attribution ledger's one-line view (train-time baseline
+        sweeps and any serve-time ``explain=k`` work)."""
+        from ..insights import ledger as _attr_ledger
+
+        att = _attr_ledger.snapshot()
+        if not (att.get("rowsExplained") or att.get("profilesCaptured")):
+            return None
+        rate = att.get("explainRowsPerSec")
+        rate_s = f" @ {rate:,} rows/s" if rate else ""
+        profiled = len((self.attribution_profiles or {}).get("groups", {}))
+        return (
+            f"Record insights: {att.get('rowsExplained', 0):,} "
+            f"row(s) explained{rate_s}, "
+            f"{att.get('laneDispatches', 0)} lane(s) dispatched "
+            f"({att.get('lanesDeduped', 0)} deduped, "
+            f"{att.get('lanesPadded', 0)} padded), "
+            f"{profiled} group(s) profiled, "
+            f"{att.get('attributionDriftAlerts', 0)} attribution "
+            f"drift alert(s), {att.get('explainShedRows', 0)} "
+            f"row(s) shed"
+        )
 
     def _serving_resilience_line(self) -> str | None:
         """Aggregate serve-side counters from every live score function
