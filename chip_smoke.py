@@ -120,8 +120,10 @@ paths:
   (a logistic one's within the stated tolerances); a save and load round
   trip and ``score_function``'s ``fn.batch`` equal ``model.score``.
   ``train_wide`` runs the flow on ``fit_side_tables.wide_table()`` (16384
-  rows, 1423 vector columns), with the default candidates and with the
-  tree candidates only (``train_wide trees``): ``train()``'s seconds split
+  rows, 1423 vector columns) with the default candidates, and on
+  ``wide_hash_table()`` (16384 rows, 1419 vector columns) with the tree
+  candidates only (``train_wide trees``, the model ``fused_serving``
+  scores fused): ``train()``'s seconds split
   by part and family, the card's busy share over the train, the kernels'
   launches, and the winner's refit lane against a direct refit on the same
   mask (a tree winner's trees EQUAL; a logistic winner's weights within
@@ -151,7 +153,8 @@ paths:
 * every feature type (``train_all_types``): the 22 type groups of
   ``transmogrify``'s default dispatch (``tests/torch_fixtures/
   all_types.py``, 16384 rows) through ``sanity_check`` on the card, the
-  default tree candidates and ``train()``, then 20000 fresh rows scored
+  default tree candidates at the CPU tests' small grids and ``train()``,
+  then 20000 fresh rows scored
   above the cutoff (staged: the fused planner refuses the plan); the
   vector, keep-set, selector summary (at the CPU tests' small grids) and
   scores EQUAL the port's CPU runs; ``train()``'s seconds, the card's
@@ -160,7 +163,8 @@ paths:
   ``tests/torch_fixtures/dsl_flow.py``'s F1 (16384 rows of the full-width
   table with a sparse, a leaking and a drifting column and a numeric map;
   arithmetic, scalers, log / sqrt, fixed and decision-tree bucketizers and
-  a percentile calibrator; the default tree candidates;
+  a percentile calibrator; the default tree candidates at the small
+  grids;
   ``with_raw_feature_filter`` against 16384 drifted scoring rows) through
   ``train()`` on the card, then 20000 fresh rows (staged: the planner
   refuses the bucketizer members). The filter's results and blocklist
@@ -336,8 +340,13 @@ SMALL_FITS = {
 }
 
 
+#: the script's start, for the seconds each phase line carries as ``t``
+T0 = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    print(json.dumps({"phase": name, **fields,
+                      "t": round(time.perf_counter() - T0, 3)}), flush=True)
 
 
 def time_ms(torch, fn, arg_sets, reps: int = 20, rounds: int = 7) -> float:
@@ -362,18 +371,18 @@ def time_ms(torch, fn, arg_sets, reps: int = 20, rounds: int = 7) -> float:
 
 
 #: profiler sessions ``device_ms`` tries before it turns to CUDA events
-PROFILE_TRIES = 3
+PROFILE_TRIES = 2
 #: readings in a row taken with CUDA events after which ``device_ms`` tries
 #: one profiler session, not ``PROFILE_TRIES``, until a session succeeds
 #: (a card whose profiler drops its sessions would otherwise spend minutes
 #: of the run retaking them)
 PROFILE_STREAK = 4
 #: readings of the run taken with CUDA events after which every later
-#: reading tries one session: a profiler that drops sessions now and then
-#: over the whole run never makes a streak (on an H100 80GB HBM3 at 700 W
+#: reading takes CUDA events without a session: a profiler that drops
+#: sessions now and then over the whole run never makes a streak (on an H100 80GB HBM3 at 700 W
 #: whose profiler did so: 249 fallbacks and 764 sessions retaken, a wall
 #: of 1057 s, against 568 s where the profiler kept its sessions)
-PROFILE_BUDGET = 16
+PROFILE_BUDGET = 8
 
 
 def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
@@ -390,8 +399,8 @@ def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
     the count, so a kernel seen fewer than 3/4 of the expected times (or a
     session that saw none) makes the session be taken again, after a
     growing pause. After ``PROFILE_TRIES`` such sessions (one, after
-    ``PROFILE_STREAK`` such readings in a row or ``PROFILE_BUDGET`` in the
-    run) the reading is taken with
+    ``PROFILE_STREAK`` such readings in a row; none, after
+    ``PROFILE_BUDGET`` in the run) the reading is taken with
     CUDA events (``time_ms``, which holds any host gaps) and reported in a
     ``device_ms fallback`` phase of its own: a dropped capture is never
     returned as a reading."""
@@ -399,8 +408,9 @@ def device_ms(torch, fn, arg_sets, calls: int = 12) -> float:
 
     fn(*arg_sets[0])
     torch.cuda.synchronize()
-    tries = 1 if (device_ms.fallback_streak >= PROFILE_STREAK
-                  or device_ms.event_fallbacks >= PROFILE_BUDGET) else PROFILE_TRIES
+    tries = (0 if device_ms.event_fallbacks >= PROFILE_BUDGET
+             else 1 if device_ms.fallback_streak >= PROFILE_STREAK
+             else PROFILE_TRIES)
     for attempt in range(tries):
         time.sleep(0.25 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -793,7 +803,7 @@ def check_tree_sum(torch, TS, name, per_tree, boosted, eta, base,
 #: kernel / library pairs of the tree sum's comparisons that decide whether
 #: it is slower than one torch.sum (the tree order at (a), (b) and
 #: serving's captured calls); the others take 2
-MUST_PAIRS = 16
+MUST_PAIRS = 8
 #: one-sided sign-test level at which a side is called faster
 SIGN_LEVEL = 0.05
 
@@ -1707,13 +1717,13 @@ def hist_times(torch, H, kernel, args, m, b, reps: int = 5,
     return out
 
 
-def check_node_order(torch, H, node, g, h, m) -> dict:
+def check_node_order(torch, H, node, g, h, m, timed: bool = True) -> dict:
     """The row-order kernel (``node_order``) on card tensors against its
     plain version on the same tensors and on the CPU: order, start and count
-    equal element for element, and a relaunch equal too; then timed with
-    the inputs out of L2 against the plain version, one stable
-    ``torch.sort`` of the slots (the library call: it gives the order, not
-    the runs) and the bound."""
+    equal element for element, and a relaunch equal too; then, with
+    ``timed``, timed with the inputs out of L2 against the plain version,
+    one stable ``torch.sort`` of the slots (the library call: it gives the
+    order, not the runs) and the bound."""
     got = H.node_order(node, m, g, h)
     again = H.node_order(node, m, g, h)
     want = H.node_order_plain(node, m, g, h)
@@ -1729,6 +1739,8 @@ def check_node_order(torch, H, node, g, h, m) -> dict:
                                  "version's or between launches by up to "
                                  f"{diff}")
         err = max(err, diff)
+    if not timed:
+        return {"bit_identical_to_plain": True, "max_abs_err": err}
     bound, by = order_bound(torch, node, m)
     cold = l2_cold_copies([node, g, h], 16 * node.numel())
     ms, source = sourced_ms(torch, lambda a, b, c: H.node_order(a, m, b, c),
@@ -1855,26 +1867,35 @@ class KernelCapture:
         return False
 
 
+#: the main path's captured launches: every one is checked against its
+#: plain version; the first of each tree and every ``MAIN_TIMED_EVERY``-th
+#: are timed (each timing takes several profiler sessions: timing every
+#: launch took about 110 s of the whole script, every 4th about 35 s)
+MAIN_TIMED_EVERY = 8
+
+
 def check_main_launches(torch, H, kernel, records, weights: dict,
                         library_per_tree: bool = False,
-                        cpu_check: bool = True) -> dict:
+                        cpu_check: bool = True, timed_every: int = 1) -> dict:
     """Each captured main-path launch of a histogram kernel held against
     its plain version (``hist_accuracy``: the relaunch must equal the main
     path's own histogram bit for bit; the first launch of each tree also
-    against the CPU's plain version) and timed (``hist_times``). The
-    summary weighs each launch by how often its tree recurs on the path
-    (``weights``: rounds for boosting, trees per group for a forest), which
-    estimates the mean launch of the whole path. With ``library_per_tree``
-    the GEMM pair is timed at the first launch of each tree only, and the
-    library mean is taken over those; without ``cpu_check`` no launch is
-    held against the CPU's plain version."""
+    against the CPU's plain version), its row order too; the first launch
+    of each tree and every ``timed_every``-th launch timed (``hist_times``).
+    The summary weighs each timed launch by how often its tree recurs on
+    the path (``weights``: rounds for boosting, trees per group for a
+    forest), which estimates the mean launch of the whole path. With
+    ``library_per_tree`` the GEMM pair is timed at the first launch of each
+    tree only, and the library mean is taken over those; without
+    ``cpu_check`` no launch is held against the CPU's plain version."""
     rows, seen = [], set()
-    for rec in records:
+    for i, rec in enumerate(records):
         args, m, b = rec["args"], rec["m"], rec["b"]
         binned, node, g, h = args
         counts = H.node_order(node, m, g, h)[2]
         name = f"{rec['tree']} level {rec['level']} B={b}"
         first = rec["tree"] not in seen
+        timed = first or i % timed_every == 0
         row = {
             "tree": rec["tree"], "level": rec["level"],
             "N": binned.shape[0], "F": binned.shape[1], "B": b,
@@ -1884,9 +1905,11 @@ def check_main_launches(torch, H, kernel, records, weights: dict,
             "longest_slot_run": int(counts.max()),
             **hist_accuracy(torch, H, kernel, name, args, m, b, rec["out"],
                             cpu_check=first and cpu_check),
-            **hist_times(torch, H, kernel, args, m, b, reps=3,
-                         library=first or not library_per_tree),
-            "node_order": check_node_order(torch, H, node, g, h, m),
+            **(hist_times(torch, H, kernel, args, m, b, reps=3,
+                          library=first or not library_per_tree)
+               if timed else {}),
+            "node_order": check_node_order(torch, H, node, g, h, m,
+                                           timed=timed),
         }
         seen.add(rec["tree"])
         row["weight"] = weights[rec["family"]]
@@ -1895,24 +1918,28 @@ def check_main_launches(torch, H, kernel, records, weights: dict,
     if not rows:
         raise AssertionError(f"no {kernel} launch of the training path was "
                              "captured")
+    timed_rows = [r for r in rows if "kernel_ms" in r]
 
-    def mean(key, subset=rows):
+    def mean(key, subset=timed_rows):
         return (sum(r["weight"] * r[key] for r in subset)
                 / sum(r["weight"] for r in subset))
 
     by_bytes, by_ops = (
-        sum(r["weight"] * r["bound_ms"] for r in rows if r["bound_by"] == by)
+        sum(r["weight"] * r["bound_ms"] for r in timed_rows
+            if r["bound_by"] == by)
         for by in ("bytes", "operations")
     )
     return {
-        "basis": "mean per launch, each launch weighted by how often its "
+        "basis": "mean per timed launch (the first of each tree and every "
+                 f"{timed_every}th), each launch weighted by how often its "
                  "tree recurs on the path",
         "weights": weights, "captured_launches": len(rows),
+        "timed_launches": len(timed_rows),
         "estimated_path_launches": sum(r["weight"] for r in rows),
         "ms": mean("kernel_ms"), "wrapper_ms": mean("wrapper_ms"),
         "kernel_only_ms": mean("kernel_only_ms"), "order_ms": mean("order_ms"),
         "plain_ms": mean("plain_ms"),
-        "library_ms": mean("library_ms", [r for r in rows
+        "library_ms": mean("library_ms", [r for r in timed_rows
                                           if r["library_ms"] is not None]),
         "library_basis": ("first launch of each tree" if library_per_tree
                           else "every captured launch"),
@@ -1922,10 +1949,10 @@ def check_main_launches(torch, H, kernel, records, weights: dict,
         "max_err_over_tol": max(r["max_err_over_tol"] for r in rows),
         "node_order": {
             **{key: mean(key, [r["node_order"] | {"weight": r["weight"]}
-                               for r in rows])
+                               for r in timed_rows])
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
             "max_abs_err": max(r["node_order"]["max_abs_err"] for r in rows),
-            "ms_sources": source_counts([r["node_order"] for r in rows]),
+            "ms_sources": source_counts([r["node_order"] for r in timed_rows]),
         },
         "launches": rows,
     }
@@ -2827,13 +2854,15 @@ class SplitCapture(KernelCapture):
         return self
 
 
-def check_split_launches(torch, H, records, weights: dict) -> dict:
+def check_split_launches(torch, H, records, weights: dict,
+                         timed_every: int = 1) -> dict:
     """Each captured split search of a training path relaunched against its
     plain version and the path's own result (the first of each tree also
-    against the CPU's plain version) and timed; the means weighted by how
-    often each tree recurs on the path (``weights``), as K2's are."""
+    against the CPU's plain version); the first call of each tree and every
+    ``timed_every``-th call timed; the means weighted by how often each
+    tree recurs on the path (``weights``), as K2's are."""
     rows, seen = [], set()
-    for rec in records:
+    for i, rec in enumerate(records):
         hist = rec["args"][0]
         k, m, f, b, _ = hist.shape
         first = rec["tree"] not in seen
@@ -2842,28 +2871,33 @@ def check_split_launches(torch, H, records, weights: dict) -> dict:
                "F": f, "B": b, "weight": weights[rec["family"]],
                **check_split(torch, H, f"{rec['tree']} level {rec['level']} "
                              f"B={b}", rec["args"], want=rec["out"],
+                             timed=first or i % timed_every == 0,
                              cpu_check=first)}
         rows.append(row)
         rec["out"] = rec["args"] = None
     if not rows:
         raise AssertionError("no split_search call of the training path was "
                              "captured")
+    timed_rows = [r for r in rows if "ms" in r]
 
     def mean(key):
-        return sum(r["weight"] * r[key] for r in rows) / sum(r["weight"] for r in rows)
+        return (sum(r["weight"] * r[key] for r in timed_rows)
+                / sum(r["weight"] for r in timed_rows))
 
     return {
-        "basis": "mean per call, each call weighted by how often its tree "
+        "basis": "mean per timed call (the first of each tree and every "
+                 f"{timed_every}th), each call weighted by how often its tree "
                  "recurs on the path",
         "weights": weights, "captured_calls": len(rows),
+        "timed_calls": len(timed_rows),
         "estimated_path_calls": sum(r["weight"] for r in rows),
-        "launches_per_call": max(r["launches_per_call"] for r in rows),
+        "launches_per_call": max(r["launches_per_call"] for r in timed_rows),
         **{key: mean(key) for key in ("ms", "wrapper_ms", "plain_ms",
                                       "bound_ms")},
         "ms_over_bound": mean("ms") / mean("bound_ms"),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
-        else "operations",
-        "ms_sources": source_counts(rows, "ms_source"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                   for r in timed_rows) else "operations",
+        "ms_sources": source_counts(timed_rows, "ms_source"),
         "max_abs_err": 0.0, "bit_identical": True,
         "calls": rows,
     }
@@ -3673,8 +3707,10 @@ def profiled_busy_share(torch, ds, trees_only: bool) -> dict:
 
 def train_wide(torch, smi: str, counters, trees_only: bool = False) -> dict:
     """The five-line flow at full width: ``fit_side_tables.wide_table()``
-    (16384 rows, 1423 vector columns) through the default selector (with
-    only its tree candidates if ``trees_only``) on the card: train()'s
+    (16384 rows, 1423 vector columns) through the default selector, or with
+    ``trees_only`` ``wide_hash_table()`` (16384 rows, 1419 vector columns,
+    a hash-only SmartText member: the model ``fused_serving`` scores fused)
+    through its tree candidates only, on the card: train()'s
     seconds split, the card's busy share over the train (nvidia-smi's
     utilization.gpu, sampled every 100 ms), launches per kernel; no family
     excluded and no NaN lane; the winner's refit equal to a direct
@@ -3683,16 +3719,21 @@ def train_wide(torch, smi: str, counters, trees_only: bool = False) -> dict:
     winner's holdout scored through K1 and the tree sum; ``model.score`` of
     the holdout rows equal to ``score_function``'s."""
     sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
-    from fit_side_tables import wide_table
+    from fit_side_tables import WIDE_SEED, wide_table
 
     from transmogrifai_tpu_torch import types as PT
     from transmogrifai_tpu_torch.dataset import Dataset
     from transmogrifai_tpu_torch.types.columns import column_from_values
 
-    schema, columns = wide_table()
-    ds = Dataset.of({
-        k: column_from_values(PT.feature_type_by_name(schema[k]), v)
-        for k, v in columns.items()})
+    if trees_only:
+        table = "wide_hash_table"
+        ds = wide_hash_dataset(WIDE_HASH_TRAIN_ROWS, WIDE_SEED)
+    else:
+        table = "wide_table"
+        schema, columns = wide_table()
+        ds = Dataset.of({
+            k: column_from_values(PT.feature_type_by_name(schema[k]), v)
+            for k, v in columns.items()})
     for fn in counters.values():
         fn.launches = 0
     with UtilizationSampler(period_ms=100) as util:
@@ -3774,7 +3815,7 @@ def train_wide(torch, smi: str, counters, trees_only: bool = False) -> dict:
                                  "from a direct refit's")
     holdout = ds.take(holdout_idx)
     rt = check_round_trip(model, holdout, pred)
-    return {"card": smi, "rows": ds.num_rows,
+    return {"card": smi, "table": table, "rows": ds.num_rows,
             "vector_columns": int(xt.shape[1]), "train_rows": model.train_rows,
             "holdout_rows": model.holdout_rows, **seconds,
             **busy_share, "launches": launches,
@@ -3783,15 +3824,22 @@ def train_wide(torch, smi: str, counters, trees_only: bool = False) -> dict:
             "refit_against_direct": "equal" if refit_diff == 0.0
             else f"within {LR_LANE_TOL}",
             "refit_max_diff": refit_diff, "refit_controls_max_diff": controls,
-            "direct_refit_s": direct_s, **rt, "_model": model}
+            "direct_refit_s": direct_s, **rt, "_model": model,
+            "_trained": (model, pred, seconds, summary)}
 
 
 #: the all-types phase (``tests/torch_fixtures/all_types.py``): its training
 #: rows, the fresh rows it scores (above the host-predict cutoff), and the
-#: rows of the small-grid flow trained on the card and on the CPU
+#: rows of the small-grid flow trained on the card and on the CPU (cut from
+#: 4096: the CPU's train took 18.5 s there)
 ALL_TYPES_ROWS = 16384
+#: ``train_all_types`` and ``train_dsl`` train their 16384 rows at the CPU
+#: tests' small tree grids (cut from the default grids for the whole
+#: script's time: the default grids' sweeps run in ``train_flagship``,
+#: ``train_wide`` and ``families``)
+FEATURE_PHASE_SMALL_GRIDS = True
 ALL_TYPES_FRESH_ROWS = 20000
-ALL_TYPES_SMALL_ROWS = 4096
+ALL_TYPES_SMALL_ROWS = 1024
 
 
 def all_types_module():
@@ -3819,14 +3867,16 @@ def train_all_types(torch, smi: str, counters, score_function,
     20% of each empty) through ``from_dataset`` -> ``transmogrify`` ->
     ``sanity_check`` (statistics on the card) ->
     ``BinaryClassificationModelSelector`` over the default tree candidates
-    -> ``Workflow.train()``, then ``score_function`` on 20000 fresh rows
+    at the small grids (``FEATURE_PHASE_SMALL_GRIDS``) ->
+    ``Workflow.train()``, then ``score_function`` on 20000 fresh rows
     (the fused planner refuses the plan: the batch scores staged, through
     K1 and the device-route sum). Held EQUAL to the port's CPU runs: the
     vector and keep-set to the feature side fitted on the CPU on the same
     training rows; the scores to the card's model saved, loaded on the CPU
     and scoring the same rows; and, since the default grids' CPU run would
     take about an hour, the flow at the CPU tests' small grids on the
-    table's first 4096 rows, trained on the card and on the CPU: selector
+    table's first ``ALL_TYPES_SMALL_ROWS`` rows, trained on the card and on
+    the CPU: selector
     summary and fresh scores."""
     import tempfile
 
@@ -3837,8 +3887,8 @@ def train_all_types(torch, smi: str, counters, score_function,
     rows = fresh.rows([n for n in fresh.columns if n != "label"])
     table_s = time.perf_counter() - t0
 
-    wf, pred, checked, selector = AT.build_flow("port", ds, grids=False,
-                                                device=DEV)
+    wf, pred, checked, selector = AT.build_flow(
+        "port", ds, grids=FEATURE_PHASE_SMALL_GRIDS, device=DEV)
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -3943,13 +3993,14 @@ def train_all_types(torch, smi: str, counters, score_function,
 #: the DSL phase (``tests/torch_fixtures/dsl_flow.py``): F1's training and
 #: scoring rows, the fresh rows it scores above the host-predict cutoff,
 #: the small-grid flow's rows held to the JAX package's fixture, the rows of
-#: its CPU comparison (cut from 4096: the port's CPU histograms over F1's
-#: ~1460 columns take ~80 s at 4096 rows on an 8-core host), and F2's
+#: its CPU comparison (cut from 4096, then 1024: the port's CPU histograms
+#: over F1's ~1460 columns take ~80 s at 4096 rows and 16 s at 1024 on an
+#: 8-core host), and F2's
 #: fresh rows scored fused
 DSL_ROWS = 16384
 DSL_FRESH_ROWS = 20000
 DSL_SMALL_ROWS = 4096
-DSL_CPU_ROWS = 1024
+DSL_CPU_ROWS = 512
 DSL_FUSED_ROWS = 65536
 DSL_FUSED_SEED = 2031
 DSL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_dsl")
@@ -4068,10 +4119,9 @@ def dsl_fused(torch, ST, TS, D, score_function) -> dict:
     fused = score_matrix(counter.counted(lambda: fn.columns(fresh))[name])
     stg = score_matrix(staged(fn, lambda: fn.columns(fresh))[name])
     err = same_scores("train_dsl fused", fused, stg, False)
-    fused_s = host_seconds(lambda: counter.counted(lambda: fn.columns(fresh)),
-                           reps=2)
-    staged_s = host_seconds(lambda: staged(fn, lambda: fn.columns(fresh)),
-                            reps=2)
+    fused_s = host_seconds(
+        lambda: counter.counted(lambda: fn.columns(fresh)))
+    staged_s = host_seconds(lambda: staged(fn, lambda: fn.columns(fresh)))
     transfers = fused_transfers(torch, TS, counter, fn,
                                 lambda: fn.columns(fresh), DSL_FUSED_ROWS)
     md = fused_md(fn)
@@ -4092,7 +4142,8 @@ def dsl_fused(torch, ST, TS, D, score_function) -> dict:
 def train_dsl(torch, smi: str, counters, ST, TS, score_function,
               load_workflow_model) -> dict:
     """The DSL's stages and the raw feature filter on the card: F1 (the
-    default tree candidates) through ``train()`` with the filter against
+    default tree candidates at the small grids,
+    ``FEATURE_PHASE_SMALL_GRIDS``) through ``train()`` with the filter against
     drifted scoring rows, then 20000 fresh rows (staged: the planner refuses
     the bucketizer members). Held EQUAL to the port's CPU runs: the filter's
     results and blocklist to the same filter on the CPU; the vector and
@@ -4110,7 +4161,8 @@ def train_dsl(torch, smi: str, counters, ST, TS, score_function,
     rows = D.fresh_rows(D.dsl_table, DSL_FRESH_ROWS, D.SEED + 2)
     table_s = time.perf_counter() - t0
 
-    flow = D.build_f1("port", ds, score_ds, grids=False, device=DEV)
+    flow = D.build_f1("port", ds, score_ds, grids=FEATURE_PHASE_SMALL_GRIDS,
+                      device=DEV)
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -4495,8 +4547,8 @@ def train_multiclass(torch, smi: str, counters, TS, ST, score_function,
     fused = score_matrix(counter.counted(lambda: fn.columns(fused_ds))[pred.name])
     stg = score_matrix(staged(fn, lambda: fn.columns(fused_ds))[pred.name])
     fused_err = same_scores("train_multiclass fused", fused, stg, glm)
-    fused_s = host_seconds(lambda: counter.counted(lambda: fn.columns(fused_ds)),
-                           reps=2)
+    fused_s = host_seconds(
+        lambda: counter.counted(lambda: fn.columns(fused_ds)))
     transfers = fused_transfers(torch, TS, counter, fn,
                                 lambda: fn.columns(fused_ds),
                                 MULTICLASS_FUSED_ROWS)
@@ -4680,7 +4732,7 @@ def fused_md(fn) -> dict:
     return fn.metadata()["fused"]
 
 
-def host_seconds(call, reps: int = 3) -> float:
+def host_seconds(call, reps: int = 1) -> float:
     """The least host-clock seconds of ``reps`` calls of ``call``, each
     after a full garbage collection (a collection that falls inside a call
     costs it tens of milliseconds on the large heaps of this script)."""
@@ -4996,9 +5048,9 @@ def fused_twins(torch, TS, TR, counter, load_workflow_model,
                     np.resize(jax[name], fused.shape), False)
             rates[name][n] = {
                 "fused_rows_per_s": n / host_seconds(
-                    lambda: counter.counted(lambda: fn.batch(big)), reps=2),
+                    lambda: counter.counted(lambda: fn.batch(big))),
                 "staged_rows_per_s": n / host_seconds(
-                    lambda: staged(fn, lambda: fn.batch(big)), reps=2)}
+                    lambda: staged(fn, lambda: fn.batch(big)))}
         n = FUSED_TILES[-1]
         big = (rows * -(-n // len(rows)))[:n]
         transfers[name] = fused_transfers(torch, TS, counter, fn,
@@ -5027,24 +5079,9 @@ def wide_hash_dataset(n: int, seed: int):
         PT.feature_type_by_name(schema[k]), v) for k, v in columns.items()})
 
 
-def train_wide_hash(torch) -> tuple:
-    """The default selector's tree candidates trained on
-    ``wide_hash_table(16384)``, as ``train_wide trees`` trains
-    ``wide_table``: (model, prediction feature, seconds, selector summary)."""
-    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
-    from fit_side_tables import WIDE_SEED
-
-    t0 = time.perf_counter()
-    model, pred, _, seconds = train_flow(
-        torch, wide_hash_dataset(WIDE_HASH_TRAIN_ROWS, WIDE_SEED), "label",
-        False, trees_only=True)
-    seconds["wall_s"] = time.perf_counter() - t0
-    return model, pred, seconds, model.summary_json()["modelSelectorSummary"]
-
-
 def fused_full_width(torch, TS, TR, counter, trained, score_function) -> dict:
     """65536 fresh rows of ``wide_hash_table`` through ``.columns`` of the
-    model ``train_wide_hash`` trained: fused EQUAL staged,
+    model ``train_wide trees`` trained: fused EQUAL staged,
     ``quantized=True`` EQUAL the float32 plane, with the program's
     ``describe()``, transfers and device span."""
     model, pred, seconds, summary = trained
@@ -5060,9 +5097,8 @@ def fused_full_width(torch, TS, TR, counter, trained, score_function) -> dict:
     fused = score_matrix(counter.counted(lambda: fn.columns(fresh))[pred.name])
     stg = score_matrix(staged(fn, lambda: fn.columns(fresh))[pred.name])
     fused_s = host_seconds(lambda: counter.counted(
-        lambda: fn.columns(fresh)), reps=2)
-    staged_s = host_seconds(lambda: staged(fn, lambda: fn.columns(fresh)),
-                            reps=2)
+        lambda: fn.columns(fresh)))
+    staged_s = host_seconds(lambda: staged(fn, lambda: fn.columns(fresh)))
     err = same_scores("wide_hash fused", fused, stg, False)
     qerr = same_scores("wide_hash quantized", score_matrix(counter.counted(
         lambda: quant.columns(fresh))[pred.name]), fused, False)
@@ -5125,7 +5161,7 @@ def fused_refusals(torch, wide_model, load_workflow_model,
     return out
 
 
-def fused_serving(torch, smi: str, ST, TS, TR, wide_model,
+def fused_serving(torch, smi: str, ST, TS, TR, wide_model, trained,
                   load_workflow_model, score_function) -> dict:
     """The fused scoring graph on the card (``compiler/fused.py``): the
     twin fixtures and a full-width hash-text model fused, the refused
@@ -5133,7 +5169,6 @@ def fused_serving(torch, smi: str, ST, TS, TR, wide_model,
     over the fused batches (``FusedLaunches``; the staged batches they are
     compared with are not counted)."""
     t0 = time.perf_counter()
-    trained = train_wide_hash(torch)
     ST.serve_trees.launches = TS.tree_sum_device_route.launches = 0
     counter = FusedLaunches(ST, TS)
     twins, rates, transfers, spans = fused_twins(
@@ -5157,8 +5192,7 @@ def fused_serving(torch, smi: str, ST, TS, TR, wide_model,
             "transfers_per_batch": transfers,
             f"span_{FUSED_TILES[-1]}": spans,
             "wide_hash": wide, "refused": refusals,
-            "launches": launches, "seconds": time.perf_counter() - t0,
-            "_trained": trained}
+            "launches": launches, "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------- the featurize plane
@@ -5537,7 +5571,8 @@ def hardening_kernel_fault(ST, fn, tiles) -> dict:
 def hardening_cost(fn, off, tiles, reps: int) -> dict:
     """(f): host rows/s of ``.batch`` and ``.columns``, staged and fused,
     for the default and the all-off closure, and the seconds per family
-    (``record_serve_batch``'s ``stagesMs``) of one more batch of each."""
+    (``record_serve_batch``'s ``stagesMs``) of the last timed call of
+    each."""
     from transmogrifai_tpu_torch.telemetry import spans as tspans
 
     rates, families = {}, {}
@@ -5547,7 +5582,6 @@ def hardening_cost(fn, off, tiles, reps: int) -> dict:
                               ("columns", lambda: f.columns(ds))):
                 key = f"{label} {kind} {call}"
                 rates[key] = len(rows) / host_seconds(run, reps=reps)
-                run()
                 trace = tspans.recent_serve_traces()[-1]
                 families[key] = {k: v / 1e3
                                  for k, v in trace["stagesMs"].items()}
@@ -5628,7 +5662,7 @@ def serving_hardening(torch, smi: str, ST, TS, load_workflow_model,
 
 #: the timed calls of ``serving_hardening``'s cost sub-phase, each the
 #: least of this many
-HARDENING_REPS = 3
+HARDENING_REPS = 1
 
 
 def serving_plane_module():
@@ -5643,13 +5677,15 @@ def serving_plane_module():
 
 #: (a): single-row requests, their client threads and the service's
 #: workers; (b): the offered rates (requests/s), the virtual seconds of
-#: arrivals and the deadline; (c): the fleet's rate, its replicas and the
-#: kill; the direct calls timed beside them (medians of this many)
+#: arrivals (cut from 2.0 for the whole script's time) and the deadline;
+#: (c): the fleet's rate, its virtual seconds of arrivals and the kill; the
+#: direct calls timed beside them (medians of this many)
 PLANE_REQUESTS = 4096
 PLANE_CLIENTS = 4
 PLANE_WORKERS = 2
 PLANE_RATES = {"light": 1000.0, "overload": 50000.0}
-PLANE_SECONDS = 2.0
+PLANE_SECONDS = 1.0
+PLANE_FLEET_SECONDS = 2.0
 PLANE_DEADLINE = 0.05
 PLANE_FLEET_RATE = 5000.0
 PLANE_FLEET_KILL_AT = 1.0
@@ -5855,7 +5891,7 @@ def plane_direct(fn, rows) -> dict:
 
 def plane_fleet(SP, P, fn, rows) -> dict:
     """(c): ``run_fleet_loadtest`` in bench mode, 2 replicas of the xgb
-    closure, ``PLANE_FLEET_RATE`` requests/s for ``PLANE_SECONDS`` with
+    closure, ``PLANE_FLEET_RATE`` requests/s for ``PLANE_FLEET_SECONDS`` with
     ``kill_replica(1, at=PLANE_FLEET_KILL_AT)``: 0 dropped, reconciled at
     every instant, replica 1 lost, every completed result EQUAL the
     direct closure's; beside it one replica at the same rate."""
@@ -5884,7 +5920,7 @@ def plane_fleet(SP, P, fn, rows) -> dict:
         t0 = time.perf_counter()
         with P.faults.installed(plan), GcPauses() as gc_pauses:
             rep = P.serving.run_fleet_loadtest(
-                fn, rows, rate=PLANE_FLEET_RATE, duration=PLANE_SECONDS,
+                fn, rows, rate=PLANE_FLEET_RATE, duration=PLANE_FLEET_SECONDS,
                 replicas=replicas, seed=29, deadline=PLANE_DEADLINE,
                 plan=plan, on_fleet=on_fleet)
         wall = time.perf_counter() - t0
@@ -6036,10 +6072,12 @@ def serving_plane(torch, smi: str, ST, TS) -> dict:
 # --------------------------------------------------------------------------
 #: the families phase's rows (``wide_hash_table``'s width: 1419 vector
 #: columns), the rows of its card-against-CPU fits, and the trees' rounds
-#: in those fits (the CPU's plain histograms are the time there)
-FAMILIES_ROWS = 16384
+#: in those fits (the CPU's plain histograms are the time there); cut from
+#: 16384 rows and 10 rounds so the whole script keeps inside its time limit
+#: with the text phase
+FAMILIES_ROWS = 8192
 FAMILIES_CPU_ROWS = 2048
-FAMILIES_CPU_TREES = 10
+FAMILIES_CPU_TREES = 3
 #: card against CPU: Naive Bayes' pi and theta (relative), the SVC's
 #: weights (relative to the largest |w|) and the GLR's fitted means
 #: (relative to the largest), the MLP's probabilities; the logistic and
@@ -6066,6 +6104,11 @@ FAMILY_TREE_GRIDS = {
 }
 FAMILY_TREE_GRIDS.update({k.replace("Classifier", "Regressor"): v
                           for k, v in FAMILY_TREE_GRIDS.items()})
+#: the multiclass selector's XGBoost grid, cut to 10 rounds for the whole
+#: script's time (one-vs-rest over 4 classes: its sweep set the 21.7 s of
+#: that train()'s validation at 20)
+FAMILY_MULTI_TREE_GRIDS = {**FAMILY_TREE_GRIDS, "XGBoostClassifier": {
+    **FAMILY_TREE_GRIDS["XGBoostClassifier"], "num_round": [10]}}
 #: the combiner's two binary selectors
 COMBINER_SELECTORS = (["OpLogisticRegression", "OpLinearSVC",
                        "OpMultilayerPerceptronClassifier"],
@@ -6101,14 +6144,18 @@ def families_dataset(kind: str):
 
 def family_selector(kind: str, names, combine: str | None = None):
     """The kind's selector over ``names`` on the card, at their default
-    grids but the tree families' (``FAMILY_TREE_GRIDS``); with ``combine``
+    grids but the tree families' (``FAMILY_TREE_GRIDS``, the multiclass
+    selector's ``FAMILY_MULTI_TREE_GRIDS``); with ``combine``
     a ``SelectedModelCombiner`` of two binary selectors over
     ``COMBINER_SELECTORS`` in that strategy."""
     from transmogrifai_tpu_torch.selector import combiner as C
     from transmogrifai_tpu_torch.selector import model_selector as MS
 
+    grids = (FAMILY_MULTI_TREE_GRIDS if kind == "MultiClassification"
+             else FAMILY_TREE_GRIDS)
+
     def candidates(names):
-        return [(e, FAMILY_TREE_GRIDS.get(type(e).__name__, g))
+        return [(e, grids.get(type(e).__name__, g))
                 for e, g in MS.make_candidates(kind, names)]
 
     if combine is not None:
@@ -6374,7 +6421,7 @@ def families(torch, smi: str, counters) -> dict:
 
 #: the insights phase: the lane batches' rows, the rows timed for explain
 #: rows/s against the plain batch, and the repetitions
-INSIGHTS_REPS = 3
+INSIGHTS_REPS = 1
 INSIGHTS_WIDE_ROWS = 4096
 INSIGHTS_WIDE_EXPLAIN_ROWS = 64
 INSIGHTS_WIDE_BUDGET = 1 << 27
@@ -6706,6 +6753,368 @@ def insights(torch, smi: str, ST, TS, counter, wide) -> dict:
     return out
 
 
+#: the text phase: the JAX package's embeddings configuration
+#: (baseline_cpu.make_topic_corpus at its defaults, bench.py embeddings:
+#: 5000 documents x 40 tokens, V = 2000, 10 topics); the SGD steps and the
+#: documents of the card-against-CPU comparisons; the documents the text
+#: train() scores
+TEXT_CORPUS = dict(n_docs=5000, n_topics=10, words_per_topic=200, doc_len=40)
+TEXT_CPU_STEPS = 50
+TEXT_PROFILE_STEPS = 50
+TEXT_LDA_CPU_DOCS = 500
+TEXT_SCORE_DOCS = 1000
+#: the card against the port's CPU route: SGNS vectors after
+#: TEXT_CPU_STEPS steps relative to the largest |w| (the one-hot GEMM
+#: against index_add_; measured 4.2e-8 on an H100); LDA topic_word relative
+#: to its largest entry and theta absolute (CUDA's digamma and reductions
+#: against the CPU's, compounded over 20 x 11 iterations; measured 2.1e-5
+#: and 1.5e-5 over the first 500 documents, 10 topics; over the first 300
+#: they read 1.3e-3 and 8.0e-4, argmax topics EQUAL: fewer documents pin
+#: the topics less and the EM carries the last ulps further); a logistic
+#: winner's
+#: probabilities
+TEXT_SGNS_RTOL = 2e-6
+TEXT_LDA_RTOL = 1e-4
+TEXT_LDA_THETA_ATOL = 1e-4
+TEXT_LR_ATOL = 1e-6
+#: the reference's quality floors (tests/test_dsl_transformers.py)
+TEXT_P10_FLOOR = 0.8
+TEXT_LDA_FLOOR = 0.7
+
+
+#: the text train()'s stage settings (``text.FULL_STAGES`` where None)
+TEXT_STAGES = None
+
+
+def text_module():
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import text as TX
+
+    return TX
+
+
+def profiled_kernels(torch, fn) -> tuple:
+    """(fn(), the CUDA kernels it launched and their device seconds, from
+    ``torch.profiler``; "not measured" where the profiler saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith(("Memcpy", "Memset"))]
+    launches = sum(e.count for e in events)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if not launches:
+        return out, "not measured", "not measured"
+    return out, launches, busy
+
+
+def text_word2vec(torch, BC, PE) -> dict:
+    """(a) OpWord2Vec on the card at the reference's configuration: the
+    fit's seconds, the SGD loop's launches and device seconds (a second fit
+    under the profiler, bit-equal to the first), precision@10, the
+    vocabulary against an independent count, and the card against the CPU
+    route over the same pre-sampled batches."""
+    from transmogrifai_tpu_torch import types as PT
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.types.columns import ListColumn
+
+    vocab, ids, _ = BC.make_topic_corpus(**TEXT_CORPUS)
+    docs = np.empty(len(ids), dtype=object)
+    for d, row in enumerate(ids):
+        docs[d] = [vocab[i] for i in row]
+    ds = Dataset.of({"text": ListColumn(PT.TextList, docs)})
+    feat = FeatureBuilder.TextList("text").as_predictor()
+
+    def fit():
+        est = PE.OpWord2Vec(vector_size=100, window_size=5, min_count=1,
+                            max_vocab=len(vocab))
+        est.set_input(feat)
+        return est, est.fit(ds)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est, model = fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = est.metadata["trainSteps"]
+    _, pairs = est.vocabulary_and_pairs(ds["text"])
+    # the SGD loop again, its inputs already on the card: the second fit of
+    # the vectors over the same pre-sampled steps, timed alone
+    centers, contexts, neg, lr_sched = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+        for a in PE.sgns_batches(pairs, len(model.vocab), steps))
+    w0 = torch.from_numpy(PE.sgns_start(len(model.vocab), 100, 42)).to(DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = PE.sgns_steps(w0, centers, contexts, neg, lr_sched)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    if not np.array_equal(again.cpu().numpy(), model.vectors):
+        raise AssertionError("text word2vec: two card fits differ")
+    window = [a[:TEXT_PROFILE_STEPS] for a in (centers, contexts, neg, lr_sched)]
+    _, syncs, sync_kinds = count_syncs(
+        torch, lambda: PE.sgns_steps(w0, *window))
+    # launches and device time a step, from the profiler over a window (a
+    # session over every step slows late in a long run)
+    _, window_launches, window_busy = profiled_kernels(
+        torch, lambda: PE.sgns_steps(w0, *window))
+    del centers, contexts, neg, lr_sched, window, again
+    per_step = (window_launches / TEXT_PROFILE_STEPS
+                if isinstance(window_launches, int) else window_launches)
+    counts = np.bincount(ids.ravel(), minlength=len(vocab))
+    want_vocab = [vocab[i] for i in sorted(
+        range(len(vocab)), key=lambda i: (-counts[i], vocab[i]))]
+    if model.vocab != want_vocab:
+        raise AssertionError("text word2vec: the vocabulary differs from the "
+                             "counted order")
+    order = [model.vocab.index(t) for t in vocab]
+    p10 = BC.w2v_neighbor_precision(vocab, model.vectors[order],
+                                    TEXT_CORPUS["words_per_topic"])
+    if not p10 >= TEXT_P10_FLOOR:
+        raise AssertionError(f"text word2vec: precision@10 {p10}")
+    card = PE.sgns_train(pairs, len(model.vocab), 100, steps=TEXT_CPU_STEPS)
+    cpu = PE.sgns_train(pairs, len(model.vocab), 100, steps=TEXT_CPU_STEPS,
+                        device="cpu")
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    if not err <= TEXT_SGNS_RTOL:
+        raise AssertionError(f"text word2vec: card against cpu {err}")
+    return {"vocab": len(model.vocab), "pairs": int(len(pairs)),
+            "steps": steps, "fit_s": fit_s, "sgd_loop_s": loop_s,
+            "sgd_step_ms": loop_s / steps * 1e3,
+            "launches": int(round(per_step * steps))
+            if isinstance(per_step, float) else per_step,
+            "launches_per_step": per_step,
+            "launches_source": f"torch.profiler over {TEXT_PROFILE_STEPS} "
+                               "steps, times the steps",
+            "device_busy_ms_per_step": window_busy / TEXT_PROFILE_STEPS * 1e3
+            if isinstance(window_busy, float) else window_busy,
+            "host_syncs_in_50_steps": syncs,
+            "sync_kinds": sync_kinds, "precision_at_10": p10,
+            "two_fits": "bit-equal", "vocab_equals_counted_order": True,
+            "card_vs_cpu_rel_err": err, "card_vs_cpu_steps": TEXT_CPU_STEPS,
+            "card_vs_cpu_tolerance": TEXT_SGNS_RTOL}
+
+
+def text_lda(torch, BC, PE) -> dict:
+    """(b) OpLDA on the card at k = 10, 20 EM iterations over the corpus's
+    [5000, 2000] counts: seconds and peak memory of the fit, the transform
+    on the card, topic purity and document accuracy, and the card against
+    the CPU route on the first TEXT_LDA_CPU_DOCS documents."""
+    from transmogrifai_tpu_torch import types as PT
+    from transmogrifai_tpu_torch.dataset import Dataset
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.stages.metadata import VectorMetadata
+    from transmogrifai_tpu_torch.types.columns import VectorColumn
+
+    vocab, ids, doc_topics = BC.make_topic_corpus(**TEXT_CORPUS)
+    k = TEXT_CORPUS["n_topics"]
+    counts = np.zeros((len(ids), len(vocab)), dtype=np.float32)
+    np.add.at(counts, (np.repeat(np.arange(len(ids)), ids.shape[1]),
+                       ids.ravel()), 1.0)
+    ds = Dataset.of({"counts": VectorColumn(
+        PT.OPVector, counts, VectorMetadata("counts", ()))})
+    feat = FeatureBuilder.OPVector("counts").as_predictor()
+    est = PE.OpLDA(k=k, max_iter=20)
+    est.set_input(feat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = est.fit(ds)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    theta = model.transform_columns(ds["counts"], num_rows=len(ids)).values
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    purity, acc = BC.lda_quality(model.topic_word, theta, doc_topics,
+                                 TEXT_CORPUS["words_per_topic"])
+    if not (purity >= TEXT_LDA_FLOOR and acc >= TEXT_LDA_FLOOR):
+        raise AssertionError(f"text lda: purity {purity}, accuracy {acc}")
+    (_, _), launches, busy = profiled_kernels(
+        torch, lambda: PE.lda_fit(counts, k, iters=20, seed=42))
+    sub = counts[:TEXT_LDA_CPU_DOCS]
+    lam_c, theta_c = PE.lda_fit(sub, k, iters=20, seed=42)
+    t0 = time.perf_counter()
+    lam_p, theta_p = PE.lda_fit(sub, k, iters=20, seed=42, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    lam_err = float(np.abs(lam_c - lam_p).max() / np.abs(lam_p).max())
+    theta_err = float(np.abs(theta_c - theta_p).max())
+    tr_c = PE.lda_transform(sub, lam_c)
+    tr_err = float(np.abs(tr_c - PE.lda_transform(sub, lam_c, device="cpu")
+                          ).max())
+    if not (lam_err <= TEXT_LDA_RTOL and theta_err <= TEXT_LDA_THETA_ATOL
+            and tr_err <= TEXT_LDA_THETA_ATOL
+            and np.array_equal(theta_c.argmax(1), theta_p.argmax(1))):
+        raise AssertionError(f"text lda: card against cpu topic_word "
+                             f"{lam_err}, theta {theta_err}, transform "
+                             f"{tr_err}")
+    return {"docs": len(ids), "vocab": len(vocab), "k": k, "em_iters": 20,
+            "fit_s": fit_s, "transform_s": transform_s,
+            "peak_memory_bytes": peak, "launches": launches,
+            "device_busy_s": busy, "topic_purity": purity,
+            "doc_accuracy": acc, "card_vs_cpu_docs": TEXT_LDA_CPU_DOCS,
+            "cpu_fit_s": cpu_s, "topic_word_rel_err": lam_err,
+            "theta_abs_err": theta_err, "transform_abs_err": tr_err,
+            "argmax_topics": "equal",
+            "tolerances": {"topic_word_rel": TEXT_LDA_RTOL,
+                           "theta_abs": TEXT_LDA_THETA_ATOL}}
+
+
+def text_train(torch, smi: str, counters, TX, ds, rows, candidates: str,
+               prefit=None) -> dict:
+    """(c) The text flow through train() on the card: word2vec, count
+    vectors into LDA, TF-IDF and language detection of the documents
+    (authors in front), sanity checked, a binary selector over
+    ``candidates`` (``text.build_flow``'s), with sensitive-feature
+    detection; ``prefit`` (a model) lends its fitted stages but the
+    selector's. Then ``score_function(model)`` on ``rows`` (fresh
+    documents), staged
+    after the fused attempt is refused as the reference refuses it, held to
+    the same model scored on the CPU route: trees EQUAL, a logistic winner
+    within TEXT_LR_ATOL. Launches are read around the train() and around
+    the scoring."""
+    import json as _json
+    import tempfile
+    import types as _types
+
+    from transmogrifai_tpu_torch import load_workflow_model, score_function
+
+    flow = TX.build_flow("port", ds, candidates, stages=TEXT_STAGES)
+    if prefit is not None:
+        flow["workflow"].with_model_stages(_types.SimpleNamespace(fitted={
+            k: v for k, v in prefit.fitted.items()
+            if k != prefit.selector_info["estimatorUid"]}))
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with UtilizationSampler(period_ms=100) as util, TrainTimer() as timer:
+        t0 = time.time()
+        model = flow["workflow"].train()
+        torch.cuda.synchronize()
+        t1 = time.time()
+    train_s = t1 - t0
+    train_launches = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    busy = util.between(t0, t1)
+    summary = model.summary_json()
+    sel = summary["modelSelectorSummary"]
+    check_lanes(f"text {candidates}", sel)
+    for k in ("hist_binloop", "split_search"):
+        if not train_launches[k]:
+            raise AssertionError(f"text {candidates}: {k} never ran")
+    sensitive = summary["sensitiveFeatures"]
+    if [(r["name"], r["kind"]) for r in sensitive or []] != [("text", "Name")]:
+        raise AssertionError(f"text {candidates}: sensitive features "
+                             f"{sensitive}")
+    with open(os.path.join(ROOT, "tests", "fixtures", "torch_text",
+                           "jax_results.json")) as fh:
+        want_reason = _json.load(fh)["trees"]["fused"]["reason"]
+    fn = score_function(model)
+    with scoped_env({"TPTPU_HOST_PREDICT_MAX": "0"}):
+        fn.batch(rows[:64])  # the fused attempt, refused
+    fused = TX.fused_state(fn)
+    if fused["active"] or fused["reason"] != want_reason:
+        raise AssertionError(f"text {candidates}: fused state {fused}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn.batch(rows)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    score_launches = {k: fn_.launches for k, fn_ in counters.items()}
+    for fn_ in counters.values():
+        fn_.launches = 0
+    name = flow["pred"].name
+    got = TX.probabilities(out, name)
+    if not np.isfinite(got).all():
+        raise AssertionError(f"text {candidates}: a non-finite score")
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(os.path.join(tmp, "model"))
+        cpu_model = load_workflow_model(os.path.join(tmp, "model"),
+                                        device="cpu")
+    want = TX.probabilities(score_function(cpu_model, device="cpu").batch(rows),
+                            name)
+    winner = sel["bestModelType"]
+    diff = float(np.abs(got - want).max())
+    if winner in GLM_FAMILIES:
+        if not diff <= TEXT_LR_ATOL:
+            raise AssertionError(f"text {candidates}: card against cpu {diff}")
+    else:
+        if not np.array_equal(got, want):
+            raise AssertionError(f"text {candidates}: the card's tree scores "
+                                 "differ from the CPU route's")
+        for k in ("serve_trees", "tree_sum"):
+            if not score_launches[k]:
+                raise AssertionError(f"text {candidates}: a tree winner's "
+                                     f"scoring never ran {k}")
+    return {"card": smi, "candidates": candidates,
+            "rows": ds.num_rows, "train_rows": model.train_rows,
+            "holdout_rows": model.holdout_rows,
+            "prefitted_stages": 0 if prefit is None else len(prefit.fitted) - 1,
+            "vector_columns": int(np.asarray(model.score(
+                ds.take(np.arange(8)), keep_intermediate_features=True)[
+                    model.selector_info["vectorName"]].values).shape[1]),
+            **timer.split(train_s),
+            "device_busy_share": sum(busy) / len(busy) / 100.0 if busy
+            else "not measured", "busy_samples": len(busy),
+            "winner": winner, "grid": sel["bestGrid"],
+            "holdout_metrics": {k: v for k, v in (
+                sel.get("holdoutEvaluation") or {}).items()
+                if not isinstance(v, list)},
+            "sensitive_features": sensitive, "fused": fused,
+            "score_rows": len(rows), "score_s": score_s,
+            "card_vs_cpu_scores": "equal" if diff == 0.0
+            else f"{diff} (within {TEXT_LR_ATOL})",
+            "launches": train_launches, "score_launches": score_launches,
+            "_model": model}
+
+
+def text_phase(torch, smi: str, counters) -> dict:
+    """The text phase: (a) word2vec, (b) LDA, (c) the text train() at the
+    default selector, then with the tree candidates at small grids over
+    the first model's fitted text stages, so that a tree winner's scoring
+    runs K1 and the tree sum whichever family the default selector picks."""
+    from transmogrifai_tpu_torch.ops import embeddings as PE
+
+    TX = text_module()
+    BC = TX.BC
+    t0 = time.perf_counter()
+    w2v = text_word2vec(torch, BC, PE)
+    w2v["part_s"] = time.perf_counter() - t0
+    phase("text word2vec", card=smi, **w2v)
+    t1 = time.perf_counter()
+    lda = text_lda(torch, BC, PE)
+    lda["part_s"] = time.perf_counter() - t1
+    phase("text lda", card=smi, **lda)
+    ds = TX.text_table("port", **TEXT_CORPUS)
+    rows = TX.score_rows(TX.text_table(
+        "port", **dict(TEXT_CORPUS, n_docs=TEXT_SCORE_DOCS, seed=TX.FRESH_SEED)))
+    runs = {}
+    prefit = None
+    for candidates, label in (("default", "text train"),
+                              ("trees", "text train trees")):
+        t1 = time.perf_counter()
+        run = text_train(torch, smi, counters, TX, ds, rows, candidates, prefit)
+        run["part_s"] = time.perf_counter() - t1
+        prefit = run.pop("_model")
+        runs[f"{label} scoring"] = {"launches": run.pop("score_launches")}
+        runs[label] = run
+        phase(label, **run, score_launches=runs[f"{label} scoring"]["launches"])
+    del prefit
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in counters}
+    for k in ("hist_binloop", "split_search", "serve_trees", "tree_sum"):
+        if not launches[k]:
+            raise AssertionError(f"text: {k} never ran in the phase")
+    return {"seconds": time.perf_counter() - t0, "word2vec": w2v, "lda": lda,
+            "launches": launches, "train_runs": runs}
+
+
 @contextlib.contextmanager
 def scoped_env(env: dict):
     old = {k: os.environ.get(k) for k in env}
@@ -6786,9 +7195,12 @@ def run_train_wide(torch, smi, M) -> dict:
     for trees_only, label in ((False, "train_wide"), (True, "train_wide trees")):
         runs[label] = train_wide(torch, smi, M.counters, trees_only)
         model = runs[label].pop("_model")
-        if not trees_only:
+        trained = runs[label].pop("_trained")
+        if trees_only:
+            M.shared["wide_hash_trained"] = trained
+        else:
             M.shared["wide_model"] = model
-        del model
+        del model, trained
         phase(label, **runs[label])
     return {"train_runs": runs}
 
@@ -6799,8 +7211,8 @@ def run_fused_serving(torch, smi, M) -> dict:
     hashed twin is kept for ``featurize_plane``."""
     fused = fused_serving(torch, smi, M.ST, M.TS, M.TR,
                           M.shared.pop("wide_model"),
+                          M.shared["wide_hash_trained"],
                           M.load_workflow_model, M.score_function)
-    M.shared["wide_hash_trained"] = fused.pop("_trained")
     phase("fused_serving", **fused)
     return fused
 
@@ -6889,6 +7301,15 @@ def run_families(torch, smi, M) -> dict:
     return run
 
 
+def run_text(torch, smi, M) -> dict:
+    """The text stages on the card: word2vec and LDA at the reference's
+    embeddings configuration, then a text flow through train() (K2, the
+    split search, K1 and the tree sum) and its scoring."""
+    run = text_phase(torch, smi, M.counters)
+    phase("text", seconds=run["seconds"], launches=run["launches"])
+    return run
+
+
 def run_insights(torch, smi, M) -> dict:
     """``explain=3`` staged, fused and through the service, held to the JAX
     package's stored attributions, with the kernel-fault checks."""
@@ -6914,6 +7335,7 @@ PHASES = {
     "serving_plane": run_serving_plane,
     "families": run_families,
     "insights": run_insights,
+    "text": run_text,
 }
 
 #: a phase that takes over what another left, and that phase
@@ -7190,7 +7612,8 @@ def main(argv: list[str] | None = None) -> int:
     # counted)
     split_weights = {"xgb": XGB_GRID[0]["num_round"],
                      "rf": RF_GRID[0]["num_trees"]}
-    split_train = check_split_launches(torch, H, split_records, split_weights)
+    split_train = check_split_launches(torch, H, split_records, split_weights,
+                                       timed_every=MAIN_TIMED_EVERY)
     del split_records
     H.split_search.launches = 0
     phase("split_search main_path", **split_train)
@@ -7200,7 +7623,8 @@ def main(argv: list[str] | None = None) -> int:
     phase("tree_sum main_path training", **ts_sums["training"])
     # K2 at the training path's own launches (relaunches are not counted)
     k2 = check_main_launches(torch, H, "hist_binloop", records, weights={
-        "xgb": XGB_GRID[0]["num_round"], "rf": RF_GRID[0]["num_trees"]})
+        "xgb": XGB_GRID[0]["num_round"], "rf": RF_GRID[0]["num_trees"]},
+        timed_every=MAIN_TIMED_EVERY)
     del records
     phase("hist_binloop main_path", **k2)
 
@@ -7217,7 +7641,8 @@ def main(argv: list[str] | None = None) -> int:
     split_records = reg.pop("_split_records")
     reg_weights = {"gbt": GBT_GRID[0]["max_iter"],
                    "rfr": RFR_GRID[0]["num_trees"]}
-    split_reg = check_split_launches(torch, H, split_records, reg_weights)
+    split_reg = check_split_launches(torch, H, split_records, reg_weights,
+                                     timed_every=MAIN_TIMED_EVERY)
     del split_records
     H.split_search.launches = 0
     phase("split_search main_path regression", **split_reg)
@@ -7245,12 +7670,13 @@ def main(argv: list[str] | None = None) -> int:
     # counted); K2's 2-bin launches there are held against the CPU's plain
     # version at the classifiers' launches and through the fixtures
     k3 = check_main_launches(torch, H, "hist_wide", records, reg_weights,
-                             library_per_tree=True)
+                             library_per_tree=True,
+                             timed_every=MAIN_TIMED_EVERY)
     del records
     phase("hist_wide main_path", **k3)
     k2r = check_main_launches(torch, H, "hist_binloop", records_k2,
                               reg_weights, library_per_tree=True,
-                              cpu_check=False)
+                              cpu_check=False, timed_every=MAIN_TIMED_EVERY)
     del records_k2
     phase("hist_binloop main_path regression", **k2r)
     k2_weights = {"training": k2["estimated_path_launches"],
@@ -7397,7 +7823,7 @@ def main(argv: list[str] | None = None) -> int:
             "insights": insights_run["launches"]["tree_sum_device_route"],
             **{f"{path}": launches for path, launches in
                train_launches["tree_sum_device_route"].items()
-               if path.startswith("families")}},
+               if path.startswith(("families", "text"))}},
         "max_abs_err": max(route_main["max_abs_err"],
                            max(r["max_abs_err"] for r in route_rows.values())),
         "ms": route_main["ms"],

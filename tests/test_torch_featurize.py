@@ -3,7 +3,8 @@
 seeded inputs, on the CPU.
 
 The JAX package's ``tests/test_featurize_engine.py`` cases that this plane
-covers (its text stages wait for ROADMAP A11) run here against the port:
+covers (its text stages run in ``tests/test_torch_text_stages.py``) run
+here against the port:
 interning (codes, offsets and vocabulary order, ASCII rows' tokens first
 in a mixed column; first-occurrence order of whole values on tie-heavy
 columns), the code kernels, ``SparseMatrix``, the chunked pool, fused

@@ -379,14 +379,6 @@ def test_descaler_finds_the_loaded_scaler(tmp_path):
 
 
 # ------------------------------------------------------------ the vocabulary
-#: the text vocabulary whose stages are ROADMAP A11's
-A11_NAMES = ("tokenize", "ngram", "remove_stop_words", "tf", "count_vectorize",
-             "idf", "detect_languages", "detect_mime_types",
-             "detect_mime_types_map", "is_valid_email", "recognize_entities",
-             "word2vec", "lda", "jaccard_similarity", "ngram_similarity",
-             "tf_idf")
-
-
 def _features(pkg: str):
     if pkg == "jax":
         import transmogrifai_tpu.dsl  # noqa: F401
@@ -459,6 +451,27 @@ VOCABULARY = [
     ("probability_vector", lambda f: f["Prediction"].probability_vector()),
     ("raw_prediction_vector", lambda f: f["Prediction"].raw_prediction_vector()),
     ("tupled", lambda f: f["Prediction"].tupled()[1]),
+    # the text vocabulary (RichTextFeature.scala)
+    ("tokenize", lambda f: f["Text"].tokenize(min_token_length=2)),
+    ("ngram", lambda f: f["Text"].tokenize().ngram(n=3)),
+    ("remove_stop_words", lambda f: f["Text"].tokenize().remove_stop_words()),
+    ("tf", lambda f: f["Text"].tokenize().tf(num_features=64)),
+    ("count_vectorize", lambda f: f["Text"].tokenize().count_vectorize(
+        vocab_size=50, min_df=2.0)),
+    ("idf", lambda f: f["Text"].tokenize().tf(num_features=32).idf(
+        min_doc_freq=1)),
+    ("detect_languages", lambda f: f["Text"].detect_languages()),
+    ("detect_mime_types", lambda f: f["Text"].detect_mime_types()),
+    ("detect_mime_types_map", lambda f: f["URLMap"].detect_mime_types_map()),
+    ("is_valid_email", lambda f: f["Email"].is_valid_email()),
+    ("recognize_entities", lambda f: f["Text"].recognize_entities()),
+    ("word2vec", lambda f: f["Text"].tokenize().word2vec(
+        vector_size=8, min_count=1)),
+    ("lda", lambda f: f["Text"].tokenize().count_vectorize().lda(k=3)),
+    ("jaccard_similarity", lambda f: f["Text"].tokenize().jaccard_similarity(
+        f["Text"].tokenize())),
+    ("ngram_similarity", lambda f: f["Text"].ngram_similarity(f["Text"], n=2)),
+    ("tf_idf", lambda f: f["Text"].tokenize().tf_idf(num_terms=8)),
 ]
 
 
@@ -485,8 +498,7 @@ def test_vocabulary_builds_the_reference_stages(entry):
 def test_vocabulary_has_every_reference_name():
     """Every name ``transmogrifai_tpu/dsl.py`` attaches to ``Feature`` is on
     the port's ``Feature`` and built by a case above (or is
-    ``sanity_check``); the A11 names raise ``NotImplementedError`` naming
-    A11, whatever their arguments."""
+    ``sanity_check``), the text vocabulary's among them."""
     import re
 
     import transmogrifai_tpu  # noqa: F401  (its dsl, to read its names)
@@ -498,10 +510,6 @@ def test_vocabulary_has_every_reference_name():
         names = set(re.findall(r"^Feature\.(\w+) = ", fh.read(), re.M))
     assert len(names) > 60
     assert names - set(dir(PF)) == set()
-    covered = {v[0] for v in VOCABULARY} | set(A11_NAMES) | {
+    covered = {v[0] for v in VOCABULARY} | {
         "__add__", "__sub__", "__mul__", "__truediv__", "sanity_check"}
     assert names - covered == set()
-    f = _features("port")
-    for name in A11_NAMES:
-        with pytest.raises(NotImplementedError, match="A11"):
-            getattr(f["Text"], name)(f["Text"], num_terms=8)

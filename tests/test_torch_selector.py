@@ -389,6 +389,27 @@ def _stage_instances():
         *_feature_stage_instances(),
         *_dsl_stage_instances(),
         *_family_stage_instances(),
+        *_text_stage_instances(),
+    ]
+
+
+def _text_stage_instances():
+    """One instance of each stage class of the text stages and the
+    embeddings, with params off their defaults."""
+    from transmogrifai_tpu_torch.ops import embeddings, text_stages as T
+
+    rng = np.random.default_rng(5)
+    return [
+        T.TextTokenizer(False, 3, "de", True), T.OpNGram(3),
+        T.OpStopWordsRemover(["a", "b"], True),
+        T.OpCountVectorizerModel(["x", "y", "z"], True), T.OpHashingTF(64, True),
+        T.OpIDFModel(rng.normal(size=5)), T.JaccardSimilarity(),
+        T.NGramSimilarity(2), T.LangDetector(), T.MimeTypeDetector(),
+        T.MimeTypeMapDetector(), T.ValidEmailTransformer(),
+        T.HumanNameDetectorModel(True, frozenset({"ann", "bo"}), False),
+        T.NameEntityRecognizer(),
+        embeddings.OpWord2VecModel(["x", "y"], rng.normal(size=(2, 4))),
+        embeddings.OpLDAModel(np.abs(rng.normal(size=(3, 5)))),
     ]
 
 
@@ -513,7 +534,7 @@ def test_every_loadable_class_saves():
     assert {type(s).__name__ for s in _stage_instances()} == set(PP.STAGE_CLASSES)
 
 
-@pytest.mark.parametrize("index", range(87))
+@pytest.mark.parametrize("index", range(103))
 def test_params_and_arrays_are_the_inverse_of_loading(index):
     stage = _stage_instances()[index]
     params = json.loads(json.dumps(stage.get_params(), default=PP._json_default))

@@ -240,7 +240,6 @@ def test_planes_not_ported_name_their_item():
         (lambda: wf.train(checkpoint_dir="x"), "A12"),
         (lambda: wf.train(stream=True), "A12"),
         (lambda: wf.train(progress=print), "A12"),
-        (lambda: wf.with_sensitive_feature_detection(), "A11"),
         (lambda: wf.set_parallelism(None), "A13"),
     ):
         with pytest.raises(NotImplementedError, match=item):

@@ -27,8 +27,11 @@ multiclass factories) over ``selector.validators`` and ``evaluators``,
 ``model.summary_pretty()`` and ``model.save``, in the JAX package's saved
 format. ``score_function`` serves batches above the host-predict cutoff
 through the fused scoring graph (``compiler/fused.py``: one upload, the
-plan on the card, one download). The other planes are not ported yet
-(``ROADMAP.md`` A).
+plan on the card, one download). The DSL's text vocabulary builds text
+pipelines (``ops/text_stages.py``, ``nlp/``, ``utils/analyzers.py``), with
+word2vec and LDA fitted on the card (``ops/embeddings.py``) and
+sensitive-feature detection in ``train()``. The other planes are not
+ported yet (``ROADMAP.md`` A).
 """
 from . import dsl  # noqa: F401  (installs Feature.sanity_check)
 from . import types  # noqa: F401

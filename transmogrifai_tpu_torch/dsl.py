@@ -9,10 +9,12 @@ attaches them:
     vec = transmogrify_features([pred, bins, ...])
     checked = label.sanity_check(vec, remove_bad_features=True)
 
-The text vocabulary's stages (tokenizers, TF / IDF, word2vec, LDA, the
-detectors and similarities) are ``ROADMAP.md`` A11: their names are
-attached and raise ``NotImplementedError`` naming A11; ``string_indexed``
-(``ops/text_stages.OpStringIndexer``) is ported.
+The text vocabulary (RichTextFeature.scala) attaches the stages of
+``ops/text_stages.py`` and ``ops/embeddings.py``:
+
+    vecs = text.tokenize().word2vec(vector_size=100)
+    topics = text.tokenize().count_vectorize(vocab_size=2000).lda(k=10)
+    tfidf = text.tokenize().tf_idf(num_terms=512)
 """
 from __future__ import annotations
 
@@ -33,7 +35,23 @@ from .ops.scalers import (
     PercentileCalibrator,
     ScalerTransformer,
 )
-from .ops.text_stages import OpStringIndexer
+from .ops.embeddings import OpLDA, OpWord2Vec
+from .ops.text_stages import (
+    JaccardSimilarity,
+    LangDetector,
+    MimeTypeDetector,
+    MimeTypeMapDetector,
+    NameEntityRecognizer,
+    NGramSimilarity,
+    OpCountVectorizer,
+    OpHashingTF,
+    OpIDF,
+    OpNGram,
+    OpStopWordsRemover,
+    OpStringIndexer,
+    TextTokenizer,
+    ValidEmailTransformer,
+)
 from .ops.time_period import (
     TimePeriodListTransformer,
     TimePeriodMapTransformer,
@@ -64,17 +82,6 @@ def _scalar_or_feature(
             return self.transform_with(feature_cls(), other)
         return self.transform_with(scalar_cls(float(other)))
 
-    return method
-
-
-def _not_ported(name: str) -> Callable[..., Feature]:
-    def method(self: Feature, *args: Any, **kwargs: Any) -> Feature:
-        raise NotImplementedError(
-            f"Feature.{name} is not ported yet (ROADMAP.md, A11: "
-            "ops/text_stages.py and ops/embeddings.py)"
-        )
-
-    method.__name__ = name
     return method
 
 
@@ -123,18 +130,35 @@ def _auto_bucketize(self: Feature, label: Feature, **kwargs: Any) -> Feature:
 Feature.auto_bucketize = _auto_bucketize
 
 # ------------------------------------------------------------------- text dsl
-# RichTextFeature.scala; the stages of every name but the two domain
-# extractors and the string indexer are A11's
-for _name in (
-    "tokenize", "ngram", "remove_stop_words", "tf", "count_vectorize", "idf",
-    "detect_languages", "detect_mime_types",
-    "detect_mime_types_map", "is_valid_email", "recognize_entities",
-    "word2vec", "lda", "jaccard_similarity", "ngram_similarity", "tf_idf",
-):
-    setattr(Feature, _name, _not_ported(_name))
+# RichTextFeature.scala
+Feature.tokenize = _unary(TextTokenizer)
+Feature.ngram = _unary(OpNGram)
+Feature.remove_stop_words = _unary(OpStopWordsRemover)
+Feature.tf = _unary(OpHashingTF)
+Feature.count_vectorize = _unary(OpCountVectorizer)
+Feature.idf = _unary(OpIDF)
 Feature.string_indexed = _unary(OpStringIndexer)
+Feature.detect_languages = _unary(LangDetector)
+Feature.detect_mime_types = _unary(MimeTypeDetector)
+Feature.detect_mime_types_map = _unary(MimeTypeMapDetector)
+Feature.is_valid_email = _unary(ValidEmailTransformer)
 Feature.email_to_pick_list = _unary(EmailToPickListTransformer)
 Feature.url_map_to_pick_list_map = _unary(UrlMapToPickListMapTransformer)
+Feature.recognize_entities = _unary(NameEntityRecognizer)
+Feature.word2vec = _unary(OpWord2Vec)
+Feature.lda = _unary(OpLDA)
+Feature.jaccard_similarity = _binary(JaccardSimilarity)
+Feature.ngram_similarity = _binary(NGramSimilarity)
+
+
+def _tf_idf(self: Feature, num_terms: int = 512) -> Feature:
+    """tokenized text → hashed TF → IDF (RichTextFeature.tfidf)."""
+    return self.transform_with(OpHashingTF(num_features=num_terms)).transform_with(
+        OpIDF()
+    )
+
+
+Feature.tf_idf = _tf_idf
 
 # ------------------------------------------------------------------- date dsl
 Feature.to_unit_circle = _unary(DateToUnitCircleTransformer)

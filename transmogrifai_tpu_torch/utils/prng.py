@@ -1,7 +1,7 @@
-"""Counter-based random draws that reproduce the JAX package's bagging draws
-bit for bit: threefry2x32 keys (``PRNGKey``, ``split``), ``uniform``, ``normal`` and the
-Poisson draw for rates below 10 (Knuth's loop), as ``jax.random`` computes
-them with ``jax_threefry_partitionable`` on.
+"""Counter-based random draws that reproduce the JAX package's draws bit for
+bit: threefry2x32 keys (``PRNGKey``, ``split``), ``uniform``, ``normal``,
+``gamma`` and the Poisson draw for rates below 10 (Knuth's loop), as
+``jax.random`` computes them with ``jax_threefry_partitionable`` on.
 
 Everything here is numpy on the host, over uint32. A key is a uint32 array
 of shape (2,).
@@ -64,11 +64,16 @@ def random_bits(key: np.ndarray, num: int) -> np.ndarray:
     return b1 ^ b2
 
 
-def uniform(key: np.ndarray, num: int) -> np.ndarray:
-    """``jax.random.uniform(key, (num,))``: f32 in [0, 1) from the top 23
-    bits of each word, as the mantissa of a number in [1, 2), minus 1."""
-    bits = (random_bits(key, num) >> np.uint32(9)) | np.uint32(0x3F800000)
+def _uniform_of(bits: np.ndarray) -> np.ndarray:
+    """f32 in [0, 1) from the top 23 bits of each word, as the mantissa of a
+    number in [1, 2), minus 1."""
+    bits = (bits >> np.uint32(9)) | np.uint32(0x3F800000)
     return bits.view(np.float32) - np.float32(1.0)
+
+
+def uniform(key: np.ndarray, num: int) -> np.ndarray:
+    """``jax.random.uniform(key, (num,))``."""
+    return _uniform_of(random_bits(key, num))
 
 
 def _log_f32(u: np.ndarray) -> np.ndarray:
@@ -187,21 +192,133 @@ def _erfinv_xla(x: np.ndarray) -> np.ndarray:
     return (p * x).astype(np.float32)
 
 
-def normal(key: np.ndarray, shape, scale=None) -> np.ndarray:
-    """``jax.random.normal(key, shape)`` in float32, bit for bit: uniform
-    on [nextafter(-1, 0), 1) from the top 23 bits of each word, then
-    ``sqrt(2) * erfinv``. ``scale`` gives ``normal(key, shape) * scale``
-    as a jitted program computes it: XLA folds the two constants,
-    ``erfinv(u) * (sqrt(2) * scale)``."""
-    shape = tuple(int(s) for s in np.atleast_1d(shape)) if shape != () else ()
-    num = int(np.prod(shape, dtype=np.int64))
-    bits = (random_bits(key, num) >> np.uint32(9)) | np.uint32(0x3F800000)
-    floats = bits.view(np.float32) - _F(1.0)
+def _normal_of(bits: np.ndarray, scale=None) -> np.ndarray:
+    """The standard normal of ``jax.random.normal`` from its random words:
+    uniform on [nextafter(-1, 0), 1), then ``sqrt(2) * erfinv``."""
     lo = np.nextafter(_F(-1.0), _F(0.0))
     # (1 - lo) rounds to 2.0 in float32, so the scale is exact
-    u = np.maximum(lo, (floats * _F(2.0) + lo).astype(np.float32))
+    u = np.maximum(lo, (_uniform_of(bits) * _F(2.0) + lo).astype(np.float32))
     c = _F(np.sqrt(2))
     if scale is not None:
         c = (c * _F(scale)).astype(np.float32)
-        return (_erfinv_xla(u) * c).astype(np.float32).reshape(shape)
-    return (c * _erfinv_xla(u)).astype(np.float32).reshape(shape)
+        return (_erfinv_xla(u) * c).astype(np.float32)
+    return (c * _erfinv_xla(u)).astype(np.float32)
+
+
+def normal(key: np.ndarray, shape, scale=None) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` in float32, bit for bit. ``scale``
+    gives ``normal(key, shape) * scale`` as a jitted program computes it:
+    XLA folds the two constants, ``erfinv(u) * (sqrt(2) * scale)``."""
+    shape = tuple(int(s) for s in np.atleast_1d(shape)) if shape != () else ()
+    num = int(np.prod(shape, dtype=np.int64))
+    return _normal_of(random_bits(key, num), scale).reshape(shape)
+
+
+# --------------------------------------------------------------------------
+# jax.random.gamma: Marsaglia and Tsang's loop per element (jax's
+# ``_gamma_one`` under vmap), each element on its own key, as a jitted
+# program with a constant ``a`` computes it on XLA's CPU backend: the
+# constants d and c = (1/3) / sqrt(d) folded on the host in exact IEEE
+# arithmetic, ``1 + x * c`` and ``1 - 0.0331 * X^2`` fused multiply-adds,
+# the boost's ``pow`` the C library's ``powf``, subnormal results flushed
+# to zero.
+# --------------------------------------------------------------------------
+_TINY = np.finfo(np.float32).tiny
+
+
+def _split_each(keys: np.ndarray, num: int) -> np.ndarray:
+    """``jax.random.split(k, num)`` of every key of ``keys`` [n, 2] ->
+    [n, num, 2]."""
+    hi, lo = _counters(num)
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], hi[None, :], lo[None, :])
+    return np.stack([b1, b2], axis=-1)
+
+
+def _word_each(keys: np.ndarray) -> np.ndarray:
+    """The one random word of a scalar draw under every key of ``keys``."""
+    b1, b2 = threefry2x32(keys[:, 0], keys[:, 1], np.uint32(0), np.uint32(0))
+    return b1 ^ b2
+
+
+def _flush(x: np.ndarray) -> np.ndarray:
+    """Subnormal float32 values to zero, as XLA's CPU backend runs."""
+    return np.where(np.abs(x) < _TINY, _F(0), x).astype(np.float32)
+
+
+def _powf(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """float32 ``pow`` as XLA's CPU backend computes it: ``x * x`` and
+    ``x * x * x`` for the exponents 2 and 3 (its algebraic simplifier's
+    rewrites), else the C library's ``powf``."""
+    import ctypes
+    import ctypes.util
+
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    lib.powf.restype = ctypes.c_float
+    lib.powf.argtypes = (ctypes.c_float, ctypes.c_float)
+    out = np.fromiter((lib.powf(float(a), float(b)) for a, b in zip(x, y)),
+                      np.float32, len(x))
+    sq = (x * x).astype(np.float32)
+    out = np.where(y == _F(2), sq, out)
+    return np.where(y == _F(3), (sq * x).astype(np.float32), out)
+
+
+def gamma(key: np.ndarray, a: float, shape) -> np.ndarray:
+    """``jax.random.gamma(key, a, shape)`` in float32, bit for bit, as a
+    jitted program with the constant ``a`` computes it (a later ``* 0.01``
+    in that program is not folded into the draw).
+
+    Called eagerly, jax passes ``a`` into its program as an argument and
+    computes ``1 / sqrt(d)`` with the CPU's reciprocal-square-root estimate
+    and two Newton steps; those values of ``c`` are not reproduced here."""
+    shape = tuple(int(s) for s in np.atleast_1d(shape)) if shape != () else ()
+    n = int(np.prod(shape, dtype=np.int64))
+    alpha = _F(a)
+    boost = alpha >= _F(1)
+    alpha_b = alpha if boost else _F(alpha + _F(1))
+    d = _F(alpha_b - _F(1 / 3))
+    c = _F(_F(1 / 3) / np.sqrt(d, dtype=np.float32))
+    keys = split(np.asarray(key, np.uint32), n) if n else np.zeros((0, 2), np.uint32)
+    pair = _split_each(keys, 2)
+    loop_key, sub = pair[:, 0].copy(), pair[:, 1]
+    big_x = np.zeros(n, np.float32)
+    big_v = np.ones(n, np.float32)
+    big_u = np.full(n, _F(2), np.float32)
+
+    def accept_not(xx, vv, uu):
+        # continue while U >= 1 - 0.0331 X^2 and log U >= X/2 + d (1 - V + log V)
+        squeeze = _fma(_F(-0.0331), (xx * xx).astype(np.float32), _F(1))
+        with np.errstate(all="ignore"):
+            log_v = _log_xla(np.where(vv > 0, vv, _F(1)))
+            log_u = _log_xla(np.where(uu > 0, uu, _F(1)))
+        tail = ((_F(1) - vv).astype(np.float32) + log_v).astype(np.float32)
+        rhs = ((xx * _F(0.5)).astype(np.float32)
+               + (d * tail).astype(np.float32)).astype(np.float32)
+        return (uu >= squeeze) & (log_u >= rhs)
+
+    active = np.ones(n, dtype=bool)
+    while active.any():
+        idx = np.nonzero(active)[0]
+        three = _split_each(loop_key[idx], 3)
+        loop_key[idx] = three[:, 0]
+        x_key, u_key = three[:, 1].copy(), three[:, 2]
+        x = np.zeros(len(idx), np.float32)
+        v = np.full(len(idx), _F(-1), np.float32)
+        redo = np.ones(len(idx), dtype=bool)
+        while redo.any():
+            j = np.nonzero(redo)[0]
+            two = _split_each(x_key[j], 2)
+            x_key[j] = two[:, 0]
+            x[j] = _normal_of(_word_each(two[:, 1]))
+            v[j] = _fma(x[j], c, _F(1))
+            redo = v <= 0
+        big_x[idx] = (x * x).astype(np.float32)
+        big_v[idx] = ((v * v).astype(np.float32) * v).astype(np.float32)
+        big_u[idx] = _uniform_of(_word_each(u_key))
+        active = np.zeros(n, dtype=bool)
+        active[idx] = accept_not(big_x[idx], big_v[idx], big_u[idx])
+    out = (d * big_v).astype(np.float32)
+    if not boost:
+        samples = (_F(1) - _uniform_of(_word_each(sub))).astype(np.float32)
+        expo = np.full(n, _F(_F(1) / alpha), np.float32)
+        out = _flush((out * _flush(_powf(samples, expo))).astype(np.float32))
+    return _flush(out).reshape(shape)

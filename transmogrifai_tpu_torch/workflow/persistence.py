@@ -12,12 +12,15 @@ puts the predictors' arrays on the device. The raw feature filter's
 results (``rffResults``) and the blocklist travel as the reference writes
 them, and so do the serving profiles (``servingProfiles``, the drift
 sentinel's training baseline), so a model either package saved brings
-them to the other's drift sentinel, and the attribution profiles
-(``attributionProfiles``, the attribution drift monitor's baseline). The
-manifest fields of planes the port does not have yet (the
-distributed-resilience ledger, the analysis and run reports, sensitive
-features) are written as ``null``, which the reference's loader
-accepts.
+them to the other's drift sentinel, the attribution profiles
+(``attributionProfiles``, the attribution drift monitor's baseline) and
+the sensitive-feature findings (``sensitiveFeatures``). The fitted text
+stages carry their state both ways: the word2vec vocabulary and vectors,
+LDA's ``topic_word``, the count vectorizer's vocabulary, the IDF weights
+and the name detector's decision and dictionary. The manifest fields of
+planes the port does not have yet (the distributed-resilience ledger, the
+analysis and run reports) are written as ``null``, which the reference's
+loader accepts.
 """
 from __future__ import annotations
 
@@ -44,8 +47,8 @@ from ..models.mlp import MLPClassifierModel
 from ..models.naive_bayes import NaiveBayesModel
 from ..models.svc import LinearSVCModel
 from ..ops import (
-    bucketizers, dates, domains, lists, maps, phone, prediction, scalers,
-    simple, text_stages, time_period,
+    bucketizers, dates, domains, embeddings, lists, maps, phone, prediction,
+    scalers, simple, text_stages, time_period,
 )
 from ..ops import math as opmath
 from ..ops.categorical import OneHotModel
@@ -78,6 +81,14 @@ STAGE_CLASSES: dict[str, type] = {
         IsotonicRegressionCalibratorModel, CombinedModel,
         RecordInsightsLOCO, RecordInsightsCorrModel,
         text_stages.OpStringIndexerModel, text_stages.OpIndexToString,
+        text_stages.TextTokenizer, text_stages.OpNGram,
+        text_stages.OpStopWordsRemover, text_stages.OpCountVectorizerModel,
+        text_stages.OpHashingTF, text_stages.OpIDFModel,
+        text_stages.JaccardSimilarity, text_stages.NGramSimilarity,
+        text_stages.LangDetector, text_stages.MimeTypeDetector,
+        text_stages.MimeTypeMapDetector, text_stages.ValidEmailTransformer,
+        text_stages.HumanNameDetectorModel, text_stages.NameEntityRecognizer,
+        embeddings.OpWord2VecModel, embeddings.OpLDAModel,
         dates.DateVectorizer, dates.DateToUnitCircleTransformer,
         time_period.TimePeriodTransformer,
         time_period.TimePeriodListTransformer,
@@ -214,7 +225,7 @@ def save_workflow_model(model: "WorkflowModel", path: str) -> None:  # noqa: F82
         "holdoutRows": model.holdout_rows,
         "rffResults": model.rff_results,
         "blocklisted": model.blocklisted,
-        "sensitiveFeatures": None,
+        "sensitiveFeatures": model.sensitive_info,
         "servingProfiles": model.serving_profiles,
         "attributionProfiles": model.attribution_profiles,
         "distResilience": None,
@@ -319,6 +330,7 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
         holdout_rows=manifest.get("holdoutRows", 0),
         rff_results=manifest.get("rffResults"),
         blocklisted=manifest.get("blocklisted", []),
+        sensitive_info=manifest.get("sensitiveFeatures"),
         serving_profiles=manifest.get("servingProfiles"),
         attribution_profiles=manifest.get("attributionProfiles"),
         device=dev,

@@ -12,8 +12,11 @@ layer, evaluates the selected model on the holdout, and returns a fitted
 
 Not ported yet, each raising ``NotImplementedError`` that names its
 ``ROADMAP.md`` item: checkpoints and resume, streaming ingest, the progress
-callback and run reports (A12), an execution mesh (A13), sensitive
-feature detection (A11). ``with_raw_feature_filter`` runs the
+callback and run reports (A12), an execution mesh (A13).
+``with_sensitive_feature_detection`` scans the raw text features at train
+time (``prep/sensitive.py``) and records the findings in the model
+(``sensitive_info``: its summary's ``sensitiveFeatures`` and the saved
+manifest). ``with_raw_feature_filter`` runs the
 RawFeatureFilter before the holdout split (and before workflow CV's
 folds) and rewrites the DAG without the blocklisted features. ``train()`` validates the stages with
 ``validate_stages`` in place of the reference's preflight analysis (A14).
@@ -68,6 +71,7 @@ class Workflow:
         self._workflow_cv = False
         self._raw_feature_filter = None
         self._rff_score_reader: DataReader | None = None
+        self._detect_sensitive = False
         self.blocklisted_features: list[str] = []
 
     # ----------------------------------------------------------- configure
@@ -156,7 +160,11 @@ class Workflow:
         raise _not_ported("an execution mesh", "A13")
 
     def with_sensitive_feature_detection(self) -> "Workflow":
-        raise _not_ported("sensitive feature detection", "A11")
+        """Scan raw text features for personal data at train time and record
+        SensitiveFeatureInformation in the model summary
+        (SensitiveFeatureInformation.scala)."""
+        self._detect_sensitive = True
+        return self
 
     # --------------------------------------------------------------- train
     def _stages(self) -> list[PipelineStage]:
@@ -221,6 +229,17 @@ class Workflow:
         raw = self.reader.generate_dataset(raw_features)
         if raw.num_rows == 0:
             raise ValueError("Input dataset cannot be empty")
+
+        sensitive_info = None
+        if self._detect_sensitive:
+            from ..prep.sensitive import detect_sensitive_features
+
+            sensitive_info = [
+                s.to_json()
+                for s in detect_sensitive_features(raw, raw_features)
+            ]
+            if sensitive_info:
+                log.info("Sensitive features detected: %s", sensitive_info)
 
         rff_results = None
         if self._raw_feature_filter is not None:
@@ -329,6 +348,7 @@ class Workflow:
             holdout_rows=0 if holdout_data is None else holdout_data.num_rows,
             rff_results=None if rff_results is None else rff_results.to_json(),
             blocklisted=list(self.blocklisted_features),
+            sensitive_info=sensitive_info,
             label_summary=label_summary,
             training_params=dict(self._stage_overrides),
             serving_profiles=serving_profiles,
@@ -445,6 +465,7 @@ class WorkflowModel:
         holdout_rows: int = 0,
         rff_results: dict[str, Any] | None = None,
         blocklisted: list[str] | None = None,
+        sensitive_info: list[dict[str, Any]] | None = None,
         label_summary: dict[str, Any] | None = None,
         training_params: dict[str, Any] | None = None,
         serving_profiles: dict[str, Any] | None = None,
@@ -459,6 +480,7 @@ class WorkflowModel:
         self.holdout_rows = holdout_rows
         self.rff_results = rff_results
         self.blocklisted = blocklisted or []
+        self.sensitive_info = sensitive_info
         self.label_summary = label_summary
         self.training_params = training_params or {}
         #: per-raw-feature training distributions for the serve-time drift
@@ -611,8 +633,8 @@ class WorkflowModel:
     # ------------------------------------------------------------- summary
     def summary_json(self) -> dict[str, Any]:
         """The reference's summary keys; those of planes not ported yet
-        (sensitive features, the resilience and retrain ledgers, the
-        analysis and run reports) are ``None``."""
+        (the resilience and retrain ledgers, the analysis and run reports)
+        are ``None``."""
         sel_summary = None
         if self.selector_info is not None:
             model = self.fitted.get(self.selector_info["estimatorUid"])
@@ -625,7 +647,7 @@ class WorkflowModel:
             "resultFeatures": [f.name for f in self.result_features],
             "blocklistedFeatures": self.blocklisted,
             "rawFeatureFilterResults": self.rff_results,
-            "sensitiveFeatures": None,
+            "sensitiveFeatures": self.sensitive_info,
             "modelSelectorSummary": sel_summary,
             "stageMetadata": {
                 uid: s.metadata for uid, s in self.fitted.items() if s.metadata
