@@ -3456,12 +3456,22 @@ def path_counters(H, LS, ST, TS) -> dict:
             "tree_sum_device_route": TS.tree_sum_device_route}
 
 
+#: ``train_wide trees``' tree grids: the default grids with fewer rounds,
+#: for the whole script's time (``train_wide`` and ``train_flagship trees``
+#: run the default grids): RF 10 trees over every default depth (the
+#: depth-12 groups still pass the one-hot budget, so the leaf sums run),
+#: XGBoost 20 rounds
+WIDE_TREES_CUTS = {"RandomForestClassifier": {"num_trees": [10]},
+                   "XGBoostClassifier": {"num_round": [20]}}
+
+
 def train_flow(torch, ds, response: str, workflow_cv: bool,
-               trees_only: bool = False):
+               trees_only: bool = False, cuts: dict | None = None):
     """The five-line flow on the card at the default selector (with only
-    its tree candidates if ``trees_only``), with the uid counter reset as
-    the fixture generator resets the JAX package's: (model, prediction
-    feature, selector, train() seconds split)."""
+    its tree candidates if ``trees_only``; ``cuts`` overrides grid values
+    by family), with the uid counter reset as the fixture generator resets
+    the JAX package's: (model, prediction feature, selector, train()
+    seconds split)."""
     from transmogrifai_tpu_torch.features import from_dataset
     from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
     from transmogrifai_tpu_torch.selector import BinaryClassificationModelSelector
@@ -3475,6 +3485,9 @@ def train_flow(torch, ds, response: str, workflow_cv: bool,
                                  remove_bad_features=True)
     models = (make_candidates("BinaryClassification", TREE_FAMILIES)
               if trees_only else None)
+    if cuts and models:
+        models = [(e, {**g, **cuts.get(type(e).__name__, {})})
+                  for e, g in models]
     selector = BinaryClassificationModelSelector(models=models)
     pred = selector.set_input(label, checked).get_output()
     wf = Workflow().set_result_features(pred).set_input_dataset(ds)
@@ -3687,7 +3700,7 @@ def train_flagship(torch, smi: str, name: str, counters) -> dict:
     return out
 
 
-def profiled_busy_share(torch, ds, trees_only: bool) -> dict:
+def profiled_busy_share(torch, ds, trees_only: bool, cuts=None) -> dict:
     """The busy share of a second train of ``ds`` under ``torch.profiler``
     (CUDA activity: the kernels' and copies' device time over the profiled
     wall, which the profiler stretches), where nvidia-smi gave no
@@ -3696,7 +3709,7 @@ def profiled_busy_share(torch, ds, trees_only: bool) -> dict:
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        train_flow(torch, ds, "label", False, trees_only)
+        train_flow(torch, ds, "label", False, trees_only, cuts)
     wall = time.perf_counter() - t0
     total = sum(evt.self_device_time_total for evt in prof.key_averages()
                 if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e6
@@ -3738,8 +3751,9 @@ def train_wide(torch, smi: str, counters, trees_only: bool = False) -> dict:
         fn.launches = 0
     with UtilizationSampler(period_ms=100) as util:
         t0 = time.time()
-        model, pred, selector, seconds = train_flow(torch, ds, "label", False,
-                                                    trees_only)
+        model, pred, selector, seconds = train_flow(
+            torch, ds, "label", False, trees_only,
+            WIDE_TREES_CUTS if trees_only else None)
         t1 = time.time()
     launches = {k: fn.launches for k, fn in counters.items()}
     for fn in counters.values():
@@ -3748,7 +3762,8 @@ def train_wide(torch, smi: str, counters, trees_only: bool = False) -> dict:
     busy_share = {"device_busy_share": sum(busy) / len(busy) / 100.0,
                   "busy_share_source": "nvidia-smi utilization.gpu every "
                   "100 ms over the train", "busy_samples": len(busy)} \
-        if busy else profiled_busy_share(torch, ds, trees_only)
+        if busy else profiled_busy_share(
+            torch, ds, trees_only, WIDE_TREES_CUTS if trees_only else None)
     summary = model.summary_json()["modelSelectorSummary"]
     check_lanes("train_wide", summary)
     if trees_only and summary["bestModelType"] in GLM_FAMILIES:
@@ -6094,21 +6109,21 @@ FAMILY_MLP_ATOL = 4e-3
 #: run: the phase's new code is the other families, at their default
 #: grids, and the selector over the whole catalog)
 FAMILY_TREE_GRIDS = {
-    "RandomForestClassifier": {"max_depth": [3, 6], "num_trees": [10],
+    "RandomForestClassifier": {"max_depth": [3, 6], "num_trees": [5],
                                "min_instances_per_node": [10, 100]},
-    "XGBoostClassifier": {"num_round": [20], "eta": [0.3], "max_depth": [6],
+    "XGBoostClassifier": {"num_round": [10], "eta": [0.3], "max_depth": [6],
                           "min_child_weight": [1.0, 10.0]},
-    "GBTClassifier": {"max_depth": [3, 6], "max_iter": [5]},
+    "GBTClassifier": {"max_depth": [3, 6], "max_iter": [3]},
     "DecisionTreeClassifier": {"max_depth": [3, 6, 12],
                                "min_instances_per_node": [10, 100]},
 }
 FAMILY_TREE_GRIDS.update({k.replace("Classifier", "Regressor"): v
                           for k, v in FAMILY_TREE_GRIDS.items()})
-#: the multiclass selector's XGBoost grid, cut to 10 rounds for the whole
+#: the multiclass selector's XGBoost grid, cut to 5 rounds for the whole
 #: script's time (one-vs-rest over 4 classes: its sweep set the 21.7 s of
-#: that train()'s validation at 20)
+#: that train()'s validation at 20 rounds, 22.3 s at 10 on a slower machine)
 FAMILY_MULTI_TREE_GRIDS = {**FAMILY_TREE_GRIDS, "XGBoostClassifier": {
-    **FAMILY_TREE_GRIDS["XGBoostClassifier"], "num_round": [10]}}
+    **FAMILY_TREE_GRIDS["XGBoostClassifier"], "num_round": [5]}}
 #: the combiner's two binary selectors
 COMBINER_SELECTORS = (["OpLogisticRegression", "OpLinearSVC",
                        "OpMultilayerPerceptronClassifier"],
@@ -7115,6 +7130,510 @@ def text_phase(torch, smi: str, counters) -> dict:
             "launches": launches, "train_runs": runs}
 
 
+#: (a)'s table: ``fit_side_tables.wide_hash_table`` (the families
+#: phase's 1419-column table) written as this many CSV chunk files
+RESILIENCE_ROWS = 8192
+RESILIENCE_CHUNKS = 8
+
+
+def resilience_module():
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import resilience_flow
+
+    return resilience_flow
+
+
+def write_csv_chunks(directory: str, schema: dict, columns: dict,
+                     chunks: int) -> list:
+    """The table as ``chunks`` CSV files of equal rows (a header each, an
+    empty cell for a missing value, floats by ``repr``, which reads back
+    to the same double)."""
+    import csv
+
+    names = list(schema)
+    n = len(columns[names[0]])
+    size = -(-n // chunks)
+    paths = []
+    for c in range(chunks):
+        path = os.path.join(directory, f"part-{c:03d}.csv")
+        with open(path, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(names)
+            for i in range(c * size, min(n, (c + 1) * size)):
+                w.writerow(["" if columns[k][i] is None else
+                            repr(columns[k][i]) if isinstance(columns[k][i], float)
+                            else str(columns[k][i]) for k in names])
+        paths.append(path)
+    return paths
+
+
+def csv_features(schema: dict):
+    """A raw feature per column, typed by the schema, each parsing its CSV
+    cell (the label the response)."""
+    from transmogrifai_tpu_torch.features import FeatureBuilder as FB
+
+    parse = {"Real": float, "RealNN": float, "Integral": int,
+             "Binary": lambda v: v == "True"}
+    feats = []
+    for name, kind in schema.items():
+        conv = parse.get(kind, str)
+        fn = (lambda r, k=name, c=conv: None if r[k] is None else c(r[k]))
+        f = getattr(FB, kind)(name).extract(fn)
+        feats.append(f.as_response() if name == "label" else f.as_predictor())
+    return feats
+
+
+def resilience_selector():
+    """The default binary selector with the tree grids cut as the families
+    phase cuts them (``FAMILY_TREE_GRIDS``)."""
+    from transmogrifai_tpu_torch.selector import model_selector as MS
+
+    default = MS.BinaryClassificationModelSelector()
+    return MS.BinaryClassificationModelSelector(models=[
+        (e, FAMILY_TREE_GRIDS.get(type(e).__name__, g))
+        for e, g in default.models])
+
+
+def resilience_flow_of(schema: dict, reader):
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.utils import uid
+    from transmogrifai_tpu_torch.workflow.workflow import Workflow
+
+    uid.reset()
+    feats = csv_features(schema)
+    label = next(f for f in feats if f.is_response)
+    checked = label.sanity_check(
+        transmogrify([f for f in feats if not f.is_response]),
+        remove_bad_features=True)
+    pred = resilience_selector().set_input(label, checked).get_output()
+    return Workflow().set_result_features(pred).set_reader(reader), pred, feats
+
+
+class PollSyncs:
+    """Counts the host syncs made inside the run recorder's device-memory
+    polls: CUDA's sync debug mode is on only while a poll runs."""
+
+    def __init__(self, torch, runlog):
+        self.torch, self.runlog = torch, runlog
+        self.polls = self.syncs = 0
+
+    def __enter__(self):
+        import warnings
+
+        real = self.real = self.runlog.poll_device_memory
+
+        def poll():
+            self.torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = real()
+            finally:
+                self.torch.cuda.set_sync_debug_mode(0)
+            self.polls += 1
+            self.syncs += sum("synchronizing CUDA operation" in str(w.message)
+                              for w in caught)
+            return out
+
+        self.runlog.poll_device_memory = poll
+        return self
+
+    def __exit__(self, *exc):
+        self.runlog.poll_device_memory = self.real
+
+
+def resilience_stream(torch, smi: str, counters, F, tmp: str) -> dict:
+    """(a) ``train(stream=True, checkpoint_dir=, run_dir=)`` over the CSV
+    chunks of the full-width table, then the same flow materialized: the
+    streamed statistics bit-equal to a one-shot pass, the trees EQUAL, the
+    RUN report valid with the card's allocator in it, no sync in a poll."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    from fit_side_tables import wide_hash_table
+
+    from transmogrifai_tpu_torch.readers import FileStreamingReader, SimpleReader
+    from transmogrifai_tpu_torch.telemetry import runlog
+    from transmogrifai_tpu_torch.workflow import stream as WS
+
+    schema, columns = wide_hash_table(RESILIENCE_ROWS)
+    data = os.path.join(tmp, "chunks")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    write_csv_chunks(data, schema, columns, RESILIENCE_CHUNKS)
+    write_s = time.perf_counter() - t0
+    captured = {}
+    real_ingest = WS.stream_ingest
+
+    def ingest(*a, **kw):
+        captured["out"] = real_ingest(*a, **kw)
+        return captured["out"]
+
+    runs = {}
+    reader = FileStreamingReader(data, pattern="*.csv")
+    wf, pred, feats = resilience_flow_of(schema, reader)
+    box = capture_refit_lanes(pred)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    WS.stream_ingest = ingest
+    try:
+        with UtilizationSampler(period_ms=100) as util, \
+                PollSyncs(torch, runlog) as polls:
+            t0 = time.time()
+            model = wf.train(stream=True,
+                             checkpoint_dir=os.path.join(tmp, "ck_stream"),
+                             run_dir=os.path.join(tmp, "runs"))
+            torch.cuda.synchronize()
+            t1 = time.time()
+    finally:
+        WS.stream_ingest = real_ingest
+    runs["resilience stream"] = {"launches": {k: fn.launches
+                                              for k, fn in counters.items()}}
+    busy = util.between(t0, t1)
+    train_raw, summary = captured["out"]
+    report = model.run_report
+    problems = runlog.validate_run_report(report)
+    if problems:
+        raise AssertionError(f"resilience (a): RUN report {problems}")
+    run = report["run"]
+    mem = run["deviceMemory"]
+    if mem["backend"] != "cuda" or not mem["devicePeakBytes"] > 0:
+        raise AssertionError(f"resilience (a): device memory {mem}")
+    if polls.syncs or not polls.polls:
+        raise AssertionError(f"resilience (a): {polls.syncs} syncs in "
+                             f"{polls.polls} recorder polls")
+    # the one-shot pass over the same rows
+    records = [r for b in FileStreamingReader(data, pattern="*.csv")
+               .stream_batches() for r in b]
+    whole = SimpleReader(records).generate_dataset(feats)
+    one = WS.ChunkStatsReducer()
+    one.fold_dataset(whole)
+    if summary["fitStats"] != one.finalize():
+        raise AssertionError("resilience (a): streamed column stats differ "
+                             "from the one-shot pass")
+    if summary["rowsSeen"] != RESILIENCE_ROWS or summary["quarantinedTotal"]:
+        raise AssertionError(f"resilience (a): ingest {summary}")
+    # the same flow over the same records, materialized
+    wf2, pred2, _ = resilience_flow_of(schema, SimpleReader(records))
+    box2 = capture_refit_lanes(pred2)
+    for fn in counters.values():
+        fn.launches = 0
+    t2 = time.perf_counter()
+    model2 = wf2.train(stream=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t2
+    runs["resilience materialized"] = {"launches": {
+        k: fn.launches for k, fn in counters.items()}}
+    for fn in counters.values():
+        fn.launches = 0
+    a, b = F.fitted_arrays(model), F.fitted_arrays(model2)
+    if not same_arrays(a, b):
+        raise AssertionError("resilience (a): the streamed model differs from "
+                             "the materialized one")
+    sel = model.summary_json()["modelSelectorSummary"]
+    # every candidate's fold metrics (the tree families' fits among them)
+    # EQUAL the materialized run's
+    got_v = [(r["modelName"], r["grid"], r["metricValues"])
+             for r in sel["validationResults"]]
+    want_v = [(r["modelName"], r["grid"], r["metricValues"]) for r in
+              model2.summary_json()["modelSelectorSummary"]["validationResults"]]
+    if got_v != want_v:
+        raise AssertionError("resilience (a): the streamed sweep's metrics "
+                             "differ from the materialized one's")
+    # and every family's refit lanes, the tree families' trees among them
+    lanes, lanes2 = refit_lane_arrays(box), refit_lane_arrays(box2)
+    if not any(":split_feat" in k or "split_feat" in k for k in lanes):
+        raise AssertionError("resilience (a): no tree family's refit lane")
+    if not same_arrays(lanes, lanes2):
+        bad = sorted(k for k in set(lanes) | set(lanes2)
+                     if not same_arrays({k: lanes.get(k)}, {k: lanes2.get(k)}))
+        raise AssertionError("resilience (a): the streamed refit lanes differ "
+                             f"from the materialized ones: {bad[:8]}")
+    launches = runs["resilience stream"]["launches"]
+    for k in ("hist_binloop", "split_search", "node_order"):
+        if not launches[k]:
+            raise AssertionError(f"resilience (a): {k} never ran")
+    chunk_series = mem.get("chunkSeries", [])
+    return {"card": smi, "rows": RESILIENCE_ROWS,
+            "chunk_files": RESILIENCE_CHUNKS, "csv_write_s": write_s,
+            "ingest_s": run["phases"]["ingest"]["seconds"],
+            "chunks": summary["chunksDone"], "rows_seen": summary["rowsSeen"],
+            "quarantined": summary["quarantinedTotal"],
+            "rows_buffered": summary["rowsBuffered"],
+            "host_rss_per_chunk": [c["hostRssBytes"] for c in chunk_series],
+            "device_bytes_per_chunk": [c["deviceBytesInUse"]
+                                       for c in chunk_series],
+            "device_peak_bytes": mem["devicePeakBytes"],
+            "train_s": t1 - t0,
+            "phases_s": {k: v["seconds"] for k, v in run["phases"].items()},
+            "layers_s": [l["seconds"] for l in run["layers"]],
+            "candidates": [[c["model"], c["seconds"]] for c in run["candidates"]],
+            "device_busy_share": sum(busy) / len(busy) / 100.0 if busy
+            else "not measured", "busy_samples": len(busy),
+            "recorder_polls": polls.polls, "recorder_poll_syncs": polls.syncs,
+            "winner": sel["bestModelType"],
+            "materialized_train_s": plain_s,
+            "streamed_stats": "equal to the one-shot pass",
+            "streamed_model": "EQUAL the materialized one, every "
+                              "candidate's fold metrics and every family's "
+                              "refit lanes too",
+            "refit_lane_arrays": len(lanes),
+            "run_file": run.get("file"), "launches": launches,
+            "_runs": runs, "_model": model}
+
+
+def same_arrays(a: dict, b: dict) -> bool:
+    """The same names and EQUAL arrays (NaN where the other has NaN)."""
+    return sorted(a) == sorted(b) and all(
+        a[k] is not None and b[k] is not None
+        and np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+
+
+def capture_refit_lanes(pred) -> dict:
+    """A box that receives the selector's refit lanes when its validator
+    returns (``Validator.last_extra_models``, which the selector clears
+    once it took the winner's)."""
+    validator = pred.origin_stage.validator
+    real, box = validator.validate, {}
+
+    def validate(*a, **kw):
+        out = real(*a, **kw)
+        box["lanes"] = dict(validator.last_extra_models)
+        return out
+
+    validator.validate = validate
+    return box
+
+
+def refit_lane_arrays(box) -> dict:
+    """The arrays of every family's refit lanes of the selector's sweep
+    (each tree family's trees, each GLM's weights), keyed by family, mask,
+    grid point and name."""
+    out = {}
+    for uid, (_, models) in box["lanes"].items():
+        for mi, row in enumerate(models):
+            for pi, m in enumerate(row):
+                for k, v in m.get_arrays().items():
+                    out[f"{uid}:{mi}:{pi}:{k}"] = np.asarray(v)
+    return out
+
+
+def stage_devices(torch, model) -> dict:
+    """The device of every tensor a fitted stage holds (a selected model's
+    winner, its placed thresholds and packed stacks among them)."""
+    out = {}
+
+    def visit(prefix, obj, depth=0):
+        if isinstance(obj, torch.Tensor):
+            out[prefix] = obj.device.type
+        elif depth < 5 and isinstance(obj, (list, tuple)):
+            for i, o in enumerate(obj):
+                visit(f"{prefix}[{i}]", o, depth + 1)
+        elif depth < 5 and hasattr(obj, "__dict__") and not isinstance(
+                obj, type):
+            for k, v in vars(obj).items():
+                visit(f"{prefix}.{k}", v, depth + 1)
+
+    for uid, stage in model.fitted.items():
+        visit(type(stage).__name__, stage)
+    return out
+
+
+def resilience_resume(torch, counters, F, P, H, tmp: str) -> dict:
+    """(b) Crash and resume on the serving twin at small grids: after the
+    selector's layer (every stage restored, each tensor on the card), with
+    the selector's layer checkpoint lost (its candidates from their
+    checkpoints), after a stream chunk (< 1 chunk of rework), and a kernel
+    fault injected mid-train (it propagates; the resume then completes)."""
+    from transmogrifai_tpu_torch.utils.cuda_build import KernelLaunchError
+
+    ds = F.twin_ds(P)
+    wf, _ = F.tree_flow(P, ds, "xgb")
+    for fn in counters.values():
+        fn.launches = 0
+    reference = wf.train()
+    out = {}
+    for at in ("after_selector", "selector"):
+        r = F.crash_resume(P, os.path.join(tmp, f"ck_{at}"), "xgb", at,
+                           ds=ds, reference=reference)
+        a, b = F.fitted_arrays(r["resumed"]), F.fitted_arrays(reference)
+        if not same_arrays(a, b):
+            raise AssertionError(f"resilience (b) {at}: the resumed model "
+                                 "differs from the uninterrupted one")
+        devices = stage_devices(torch, r["resumed"])
+        off = {k: v for k, v in devices.items() if v != "cuda"}
+        if not devices or off:
+            raise AssertionError(f"resilience (b) {at}: restored tensors off "
+                                 f"the card {off or devices}")
+        if at == "selector" and not r["hits"] > 0:
+            raise AssertionError(f"resilience (b): no candidate checkpoint hit "
+                                 f"{r['attempts']}")
+        out[at] = {"fired": r["fired"], "layers": r["layers"],
+                   "candidate_hits": r["hits"],
+                   "restored_tensors_on_cuda": len(devices),
+                   "model": "EQUAL the uninterrupted one"}
+    s = F.stream_case(P, n=800, chunk=100, crash_after=3,
+                      ckpt_dir=os.path.join(tmp, "ck_chunk"))
+    sm = s["summary"]
+    rework = sm["chunksDone"] - sm["chunksSkippedOnResume"] - (
+        sm["chunksFolded"])
+    if not (s["crashed"] and sm["resumed"]
+            and sm["chunksSkippedOnResume"] == 4 and rework < 1):
+        raise AssertionError(f"resilience (b): stream resume {sm}")
+    out["after_chunk"] = {"chunks": sm["chunksDone"],
+                          "skipped_on_resume": sm["chunksSkippedOnResume"],
+                          "refolded": sm["chunksFolded"], "rework_chunks": rework}
+    # a kernel fault in the selector's sweep: the split search's wrapper
+    # raises at its 5th call
+    ck = os.path.join(tmp, "ck_fault")
+    wf3, _ = F.tree_flow(P, ds, "xgb")
+    real = H.split_search
+    calls = {"n": 0}
+
+    def faulty(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] == 5:
+            raise KernelLaunchError("injected: CUDA error: an illegal memory "
+                                    "access was encountered")
+        return real(*a, **kw)
+
+    faulty.launches = 0  # the wrapper counts on the module's attribute
+    H.split_search = faulty
+    try:
+        wf3.train(checkpoint_dir=ck)
+        raise AssertionError("resilience (b): the injected kernel fault did "
+                             "not propagate")
+    except KernelLaunchError:
+        pass
+    finally:
+        H.split_search = real
+    layers = sorted(os.listdir(os.path.join(ck, "layers")))
+    partial = [n for n in layers if ".tmp-" in n or ".old-" in n]
+    if partial or not layers:
+        raise AssertionError(f"resilience (b): checkpoints after the fault "
+                             f"{layers}")
+    resumed = wf3.train(checkpoint_dir=ck, resume=True)
+    a, b = F.fitted_arrays(resumed), F.fitted_arrays(reference)
+    if not same_arrays(a, b):
+        raise AssertionError("resilience (b): the model resumed after the "
+                             "kernel fault differs")
+    out["kernel_fault"] = {"propagated": True, "layers_kept": layers,
+                           "resumed": "EQUAL the uninterrupted one"}
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    return out
+
+
+def resilience_retrain(torch, counters, F, P, tmp: str) -> dict:
+    """(c) The retrain loop over a two-replica fleet of the serving fixture
+    ``xgb`` in virtual time: the state sequence, history, ledger and events
+    EQUAL the JAX package's stored run; promoted with no request dropped;
+    K1's launches from the canary's start; then a kernel fault in the
+    trainer propagates out of ``tick``."""
+    from transmogrifai_tpu_torch.utils.cuda_build import KernelLaunchError
+
+    with open(F.RESULTS) as fh:
+        want = json.load(fh)["retrain_loop"]
+    marks = {}
+    k1 = counters["serve_trees"]
+
+    def on_canary(fleet):
+        marks["k1"] = k1.launches
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = F.retrain_loop(P, os.path.join(tmp, "ck_retrain"),
+                         on_canary=on_canary)
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    k1_canary = launches["serve_trees"] - marks.get("k1", 0)
+    strip = lambda d: {k: v for k, v in d.items()  # noqa: E731
+                       if k != "deviceMemoryHighWater"}
+    if strip(got) != strip(want):
+        raise AssertionError(f"resilience (c): the loop differs from the JAX "
+                             f"package's: {strip(got)} against {strip(want)}")
+    if got["history"][-1]["outcome"] != "promoted" or got["dropped"]:
+        raise AssertionError(f"resilience (c): {got['history']}")
+    if not k1_canary:
+        raise AssertionError("resilience (c): K1 never ran during the canary")
+
+    def trainer(chunks, ctx):
+        raise KernelLaunchError("injected: CUDA error: an illegal memory "
+                                "access was encountered")
+
+    try:
+        F.retrain_loop(P, os.path.join(tmp, "ck_fault_rt"), trainer=trainer)
+        raise AssertionError("resilience (c): the trainer's kernel fault did "
+                             "not propagate out of tick")
+    except KernelLaunchError:
+        pass
+    return {"states": got["states"], "history": got["history"],
+            "ledger": got["ledger"],
+            "device_memory_high_water": got["deviceMemoryHighWater"],
+            "events": got["events"], "dropped": got["dropped"],
+            "k1_launches_canary": k1_canary, "seconds": seconds,
+            "equal_to_jax": True, "trainer_kernel_fault": "propagated",
+            "launches": launches}
+
+
+def resilience_telemetry(tmp: str) -> dict:
+    """(d) The export surfaces over (a)'s run."""
+    from transmogrifai_tpu_torch.telemetry import export
+
+    trace = export.export_chrome_trace(os.path.join(tmp, "trace.json"))
+    breakdown = export.phase_breakdown()
+    line = export.summary_line()
+    text = export.render_prometheus()
+    sources = {k: f"tptpu_{k}_" in text for k in ("run", "retrain")}
+    if not (trace["traceEvents"] and any(breakdown.values()) and line
+            and all(sources.values())):
+        raise AssertionError(f"resilience (d): {len(trace['traceEvents'])} "
+                             f"trace events, {breakdown}, {line}, {sources}")
+    return {"trace_events": len(trace["traceEvents"]),
+            "phase_breakdown_s": breakdown, "summary_line": line,
+            "exposition_sources": sources}
+
+
+def resilience_phase(torch, smi: str, counters, H) -> dict:
+    import tempfile
+
+    F = resilience_module()
+    P = F.package("port", DEV)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = resilience_stream(torch, smi, counters, F, tmp)
+        runs = a.pop("_runs")
+        model = a.pop("_model")
+        a["part_s"] = time.perf_counter() - t0
+        phase("resilience stream", **a)
+        tel = resilience_telemetry(tmp)
+        phase("resilience telemetry", **tel)
+        del model
+        t1 = time.perf_counter()
+        b = resilience_resume(torch, counters, F, P, H, tmp)
+        b["part_s"] = time.perf_counter() - t1
+        phase("resilience resume", **b)
+        runs["resilience resume"] = {"launches": b["launches"]}
+        t2 = time.perf_counter()
+        c = resilience_retrain(torch, counters, F, P, tmp)
+        c["part_s"] = time.perf_counter() - t2
+        phase("resilience retrain", **c)
+        runs["resilience retrain"] = {"launches": c["launches"]}
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in counters}
+    for k in ("hist_binloop", "split_search", "node_order", "serve_trees",
+              "tree_sum"):
+        if not launches[k]:
+            raise AssertionError(f"resilience: {k} never ran in the phase")
+    return {"seconds": time.perf_counter() - t0, "launches": launches,
+            "k1_launches_canary": c["k1_launches_canary"],
+            "train_runs": runs}
+
+
 @contextlib.contextmanager
 def scoped_env(env: dict):
     old = {k: os.environ.get(k) for k in env}
@@ -7310,6 +7829,15 @@ def run_text(torch, smi, M) -> dict:
     return run
 
 
+def run_resilience(torch, smi, M) -> dict:
+    """The run recorder, checkpoints with resume, the streamed train() and
+    the retrain loop on the card (K2, the split search, the row order, the
+    leaf sums, K1 and the tree sums inside them)."""
+    run = resilience_phase(torch, smi, M.counters, M.H)
+    phase("resilience", seconds=run["seconds"], launches=run["launches"])
+    return run
+
+
 def run_insights(torch, smi, M) -> dict:
     """``explain=3`` staged, fused and through the service, held to the JAX
     package's stored attributions, with the kernel-fault checks."""
@@ -7336,6 +7864,7 @@ PHASES = {
     "families": run_families,
     "insights": run_insights,
     "text": run_text,
+    "resilience": run_resilience,
 }
 
 #: a phase that takes over what another left, and that phase

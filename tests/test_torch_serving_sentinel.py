@@ -284,8 +284,9 @@ def test_guard_raise_is_not_swallowed_by_isolation():
 
 def test_metadata_has_the_reference_keys():
     """``metadata()`` carries the reference's keys; the planes not ported
-    yet hold ``None``, and ``attributions`` (the insights plane) has the
-    reference's sub-keys."""
+    yet hold ``None``, and ``attributions`` (the insights plane), the
+    retrain ledger and the telemetry snapshot have the reference's
+    sub-keys."""
     from transmogrifai_tpu.local.scoring import score_function as jax_sf
     from transmogrifai_tpu.workflow.persistence import load_workflow_model
 
@@ -295,10 +296,10 @@ def test_metadata_has_the_reference_keys():
     md = fn.metadata()
     jmd = jax_sf(load_workflow_model(H.model_path("twin"))).metadata()
     assert set(md) == set(jmd)
-    for key in ("analysis", "compileStats", "distributed",
-                "retrainLedger", "telemetry"):
+    for key in ("analysis", "compileStats", "distributed"):
         assert md[key] is None
-    assert set(md["attributions"]) == set(jmd["attributions"])
+    for key in ("attributions", "retrainLedger", "telemetry"):
+        assert set(md[key]) == set(jmd[key])
     assert set(jmd["fused"]) <= set(md["fused"])
 
 

@@ -235,15 +235,17 @@ def test_jax_saved_model_loads_in_the_port(tmp_path):
 
 # ---------------------------------------------------- workflow's own rules
 def test_planes_not_ported_name_their_item():
+    """A mesh (A13) raises naming its item (``None``, one device, is the
+    port's layout); train's checkpoint, stream and run-ledger arguments
+    are ported and reach train's own checks."""
     wf = PW.Workflow()
-    for call, item in (
-        (lambda: wf.train(checkpoint_dir="x"), "A12"),
-        (lambda: wf.train(stream=True), "A12"),
-        (lambda: wf.train(progress=print), "A12"),
-        (lambda: wf.set_parallelism(None), "A13"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="A13"):
+        wf.set_parallelism(object())
+    assert wf.set_parallelism(None) is wf
+    for kwargs in ({"checkpoint_dir": "x"}, {"stream": True},
+                   {"progress": print}, {"run_dir": "x"}):
+        with pytest.raises(ValueError, match="setResultFeatures"):
+            wf.train(**kwargs)
 
 
 def test_train_refuses_two_selectors_and_an_empty_workflow():

@@ -7,7 +7,7 @@ type inferred from the column (``fromDataFrame``, FeatureBuilder.scala:232):
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 from .. import types as T
 from ..dataset import Dataset
@@ -28,15 +28,22 @@ class _TypedBuilder:
         self.name = name
         self.ftype = ftype
         self._extract_fn: Callable[[Any], Any] | None = None
+        self._aggregate_fn: Callable[[Iterable[Any]], Any] | None = None
 
     def extract(self, fn: Callable[[Any], Any]) -> "_TypedBuilder":
         self._extract_fn = fn
         return self
 
+    def aggregate(self, fn: Callable[[Iterable[Any]], Any]) -> "_TypedBuilder":
+        """A custom monoid aggregator for the event-grouped readers
+        (MonoidAggregatorDefaults.scala)."""
+        self._aggregate_fn = fn
+        return self
+
     def _build(self, is_response: bool) -> Feature:
         return FeatureGeneratorStage(
             self.name, self.ftype, extract_fn=self._extract_fn,
-            is_response=is_response,
+            aggregate_fn=self._aggregate_fn, is_response=is_response,
         ).get_output()
 
     def as_predictor(self) -> Feature:

@@ -101,17 +101,22 @@ class Feature:
 class FeatureGeneratorStage(Transformer):
     """DAG leaf: one raw feature. Its column is built by a reader from the
     source records (``extract_fn`` maps one record to a raw value; without
-    one, dict records are read by the feature's name), not by the DAG."""
+    one, dict records are read by the feature's name), not by the DAG.
+    ``aggregate_fn`` optionally folds a key's events into one value in
+    the aggregate readers (``readers/aggregate.py``); without one they
+    fold with the type's monoid (``features/aggregators.aggregator_of``)."""
 
     def __init__(
         self, name: str, ftype: type,
         extract_fn: Callable[[Any], Any] | None = None,
+        aggregate_fn: Callable[[Iterable[Any]], Any] | None = None,
         is_response: bool = False, uid: str | None = None,
     ):
         super().__init__(operation_name=f"featureGen_{name}", uid=uid)
         self.feature_name = name
         self.ftype = ftype
         self.extract_fn = extract_fn
+        self.aggregate_fn = aggregate_fn
         self.is_response = is_response
 
     @property

@@ -123,8 +123,8 @@ def pipeline_tasks(thunks, window) -> "Iterator[object]":
     """Sliding-window pipeline over an ITERATOR of thunks: at most
     ``window`` tasks are submitted ahead on the featurize pool while
     earlier results are consumed, and results yield in submission order.
-    This is the out-of-core ingest's backpressure primitive (the
-    reference's ``workflow/stream.py``, ROADMAP A12): chunk k+1 featurizes
+    This is the out-of-core ingest's backpressure primitive
+    (``workflow/stream.py``): chunk k+1 featurizes
     on the pool while chunk k reduces on the caller's thread, and the
     bounded window keeps host RSS flat regardless of how many chunks the
     source produces.

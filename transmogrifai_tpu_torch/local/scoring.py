@@ -64,9 +64,12 @@ attribution drift monitor (``insights/drift.py``, over the model's
 any explain error; the port does so on every error but a kernel fault,
 which propagates like any other.
 
-Not ported yet: the static plan audit (``audit``) and the compile-plane
-ledger (A14), the retrain ledger and the telemetry export (A12), the
-distributed summary (A13); their ``metadata()`` keys hold ``None``.
+``metadata()["retrainLedger"]`` is the retrain loop's ledger
+(``resilience/retrain.ledger_snapshot``) and ``metadata()["telemetry"]``
+the serving snapshot (``telemetry/export.serving_snapshot``). Not ported
+yet: the static plan audit (``audit``) and the compile-plane ledger
+(A14), the distributed summary (A13); their ``metadata()`` keys hold
+``None``.
 """
 from __future__ import annotations
 
@@ -103,6 +106,7 @@ from ..telemetry import events as _tevents
 from ..telemetry import metrics as _tm
 from ..telemetry import runlog as _runlog
 from ..telemetry import spans as _tspans
+from ..telemetry.export import serving_snapshot
 from ..types import Prediction
 from ..types.columns import (
     PredictionColumn,
@@ -166,6 +170,13 @@ def _serving_source() -> dict[str, Any]:
 
 
 _tm.REGISTRY.register_source("serving", _serving_source)
+
+
+def _retrain_ledger() -> dict[str, Any]:
+    """The retrain loop's ledger (``resilience/retrain.py``)."""
+    from ..resilience.retrain import ledger_snapshot
+
+    return ledger_snapshot()
 
 
 def bucket(n: int) -> int:
@@ -1214,8 +1225,8 @@ def score_function(
                 "drift": attribution_drift_report,
             },
             "distributed": None,
-            "retrainLedger": None,
-            "telemetry": None,
+            "retrainLedger": _retrain_ledger(),
+            "telemetry": serving_snapshot(),
         }
 
     score_one.batch = score_batch

@@ -1,5 +1,6 @@
 """Fitted feature-engineering stages. The text stages and the embeddings
-are exported here, as the JAX package's ``ops`` exports them."""
+are exported here, and so is ``transmogrify``, as the JAX package's ``ops``
+exports them."""
 from .text_stages import (  # noqa: F401
     HumanNameDetector,
     JaccardSimilarity,
@@ -19,3 +20,4 @@ from .text_stages import (  # noqa: F401
     ValidEmailTransformer,
 )
 from .embeddings import OpLDA, OpWord2Vec  # noqa: F401
+from .transmogrify import transmogrify  # noqa: F401

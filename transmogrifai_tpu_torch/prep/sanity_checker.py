@@ -25,6 +25,7 @@ samples, is numpy's generator, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -123,6 +124,28 @@ class SanityChecker(Estimator):
         self.sample_upper_limit = sample_upper_limit
         self.sample_seed = sample_seed
         self.device = device
+
+    def get_params(self) -> dict[str, Any]:
+        """The reference's parameters (the device is the port's and is left
+        out, so a checkpoint's DAG signature does not depend on it)."""
+        return {
+            "max_correlation": self.max_correlation,
+            "max_feature_corr": self.max_feature_corr,
+            "min_correlation": self.min_correlation,
+            "min_variance": self.min_variance,
+            "max_cramers_v": self.max_cramers_v,
+            "max_rule_confidence": self.max_rule_confidence,
+            "min_required_rule_support": self.min_required_rule_support,
+            "remove_bad_features": self.remove_bad_features,
+            "remove_feature_group": self.remove_feature_group,
+            "protect_text_shared_hash": self.protect_text_shared_hash,
+            "correlation_type": self.correlation_type,
+            "correlation_exclusion": self.correlation_exclusion,
+            "check_sample": self.check_sample,
+            "sample_lower_limit": self.sample_lower_limit,
+            "sample_upper_limit": self.sample_upper_limit,
+            "sample_seed": self.sample_seed,
+        }
 
     def _sample_fraction(self, total: int) -> float:
         """SanityChecker.fraction (SanityChecker.scala:356-361): clamp the

@@ -1,8 +1,10 @@
 """DataReader core: records -> raw-feature columns (DataReader.scala:57-203).
 A reader reads its source records and applies each raw feature's
-extraction, giving one Column per raw feature. The aggregate, streaming
-and joined readers are not ported yet (``ROADMAP.md`` A12);
-``DatasetReader`` passes an already columnar dataset through. Record
+extraction, giving one Column per raw feature. ``DatasetReader`` passes an
+already columnar dataset through; the aggregate and conditional readers
+are ``readers/aggregate.py``, the joined ones ``readers/joins.py``, the
+streamed ones ``readers/streaming.py`` and the file formats
+``readers/{csv,parquet}.py``. Record
 reads go through a ``RetryPolicy`` (``resilience/retry.py``): transient
 errors back off and retry, every other error, a kernel fault among them,
 fails at once."""
@@ -26,6 +28,12 @@ class DataReader:
 
     def read_records(self) -> Iterable[Any]:  # pragma: no cover - abstract
         raise NotImplementedError
+
+    def is_unbounded(self) -> bool:
+        """Whether the source declares no known size. Materializing readers
+        are bounded; a streaming source returns True and ``Workflow.train``
+        routes it through the out-of-core fit (``workflow/stream.py``)."""
+        return False
 
     def _read_records_with_retry(self) -> list[Any]:
         from ..resilience.retry import default_io_policy

@@ -18,13 +18,19 @@ and ``partition_replica`` through :meth:`FaultPlan.replicas_to_kill` and
 :meth:`FaultPlan.replica_partitioned` (``serving/fleet.py``,
 ``serving/router.py``), ``drop_heartbeat`` through
 :meth:`FaultPlan.on_heartbeat` (the fleet's ``HostSentinel``), and
-``slow_replica`` through :func:`replica_scope`. The hooks of the stream,
-retrain and checkpoint faults (``fail_chunk_read``, ``tear_stream_chunk``,
-``corrupt_chunk``, ``oom_chunk``, ``crash_after_chunk``, ``fail_retrain``,
-``crash_retrain``, ``corrupt_new_chunk``, ``corrupt_shard``) wait for
-their consumers (``ROADMAP.md`` A12): their scripting methods record the
-fault, which then never fires. ``fail_host`` and ``straggle_collective``
-raise ``NotImplementedError``: the distributed plane is A13.
+``slow_replica`` through :func:`replica_scope`. The training stack
+consumes the rest: ``crash_after_layer`` and the retrain-scoped
+``fail_retrain`` / ``crash_retrain`` through :meth:`FaultPlan.on_layer_end`
+(``workflow/fit.py``), the stream faults through
+:meth:`FaultPlan.on_stream_chunk` (``readers/streaming.py``),
+:meth:`FaultPlan.on_stream_fold` and :meth:`FaultPlan.on_stream_chunk_end`
+(``workflow/stream.py``), and the retrain controller's through
+:meth:`FaultPlan.begin_retrain`, :meth:`FaultPlan.on_retrain_start` and
+:meth:`FaultPlan.corrupts_new_chunk` (``resilience/retrain.py``).
+``fail_host`` and ``straggle_collective`` raise ``NotImplementedError``,
+and so do the hooks of the distributed plane (:meth:`FaultPlan.
+on_collective`, and :meth:`FaultPlan.on_shard_load`, through which a
+sharded checkpoint's load reads ``corrupt_shard``): that plane is A13.
 
 ``SimulatedCrash`` derives from ``BaseException`` on purpose: it models a
 process death (preemption, OOM-kill) and must sail through every
@@ -47,6 +53,22 @@ log = logging.getLogger(__name__)
 class SimulatedCrash(BaseException):
     """Process-equivalent death: not an Exception, so candidate isolation
     and other broad handlers cannot swallow it."""
+
+
+class TornChunkError(RuntimeError):
+    """A stream ingest chunk arrived torn (truncated mid-write) — the
+    out-of-core fit quarantines it instead of folding partial rows."""
+
+
+class CorruptChunkError(RuntimeError):
+    """A stream ingest chunk decoded to garbage — quarantined, never
+    folded into the streaming fit stats."""
+
+
+class MemoryPressure(RuntimeError):
+    """Seeded memory-pressure signal on a stream ingest chunk: the
+    out-of-core fit must degrade (halve its in-flight window) instead of
+    dying."""
 
 
 
@@ -124,6 +146,10 @@ class FaultPlan:
         self._retrain_chunk_faults: list[dict[str, Any]] = []
         self._stream_fold_faults: list[dict[str, Any]] = []
         self._stream_crash_faults: list[dict[str, Any]] = []
+        # >0 while a RetrainController drives a warm-start fit: retrain-
+        # scoped layer faults only fire inside this window, so a plan can
+        # script "the RETRAIN crashes" without touching the initial train
+        self._retrain_depth = 0
         #: chronological record of fired faults: (kind, detail)
         self.fired: list[tuple[str, str]] = []
 
@@ -494,6 +520,56 @@ class FaultPlan:
                     f"injected fit failure on {type(stage).__name__}({stage.uid})"
                 )
 
+    def on_layer_end(self, layer_index: int) -> None:
+        with self._lock:
+            for f in self._crash_layers:
+                if f["count"] >= f["times"] or f["layer"] != layer_index:
+                    continue
+                f["count"] += 1
+                self.fired.append(("crash", f"layer-{layer_index}"))
+                raise SimulatedCrash(
+                    f"injected crash after layer {layer_index}"
+                )
+            if self._retrain_depth > 0:
+                for f in self._retrain_crash_faults:
+                    if f["count"] >= f["times"] or f["layer"] != layer_index:
+                        continue
+                    f["count"] += 1
+                    self.fired.append(
+                        ("retrain_crash", f"layer-{layer_index}")
+                    )
+                    raise SimulatedCrash(
+                        f"injected retrain crash after layer {layer_index}"
+                    )
+                for f in self._retrain_fail_faults:
+                    if f["count"] >= f["times"] or f["layer"] != layer_index:
+                        continue
+                    f["count"] += 1
+                    self.fired.append(
+                        ("retrain_fail", f"layer-{layer_index}")
+                    )
+                    exc = TransientError if f["transient"] else FatalError
+                    raise exc(
+                        f"injected retrain failure after layer {layer_index}"
+                    )
+
+    def on_collective(self, name: str) -> tuple[float, Any]:
+        """The distributed plane's collective hook (``CollectiveGuard``):
+        not ported yet (``ROADMAP.md`` A13)."""
+        raise NotImplementedError(
+            "FaultPlan.on_collective needs the distributed plane, not ported "
+            "yet (ROADMAP.md A13)"
+        )
+
+    def on_shard_load(self, layer_index: int) -> bool:
+        """The sharded checkpoint's load hook (``corrupt_shard``): not
+        ported yet (``ROADMAP.md`` A13). The port's layer checkpoints hold
+        host arrays and never consult it."""
+        raise NotImplementedError(
+            "FaultPlan.on_shard_load needs the sharded checkpoint layout, "
+            "not ported yet (ROADMAP.md A13)"
+        )
+
     def on_candidate_fit(self, est: Any) -> None:
         name = type(est).__name__
         with self._lock:
@@ -687,6 +763,101 @@ class FaultPlan:
                 except (TypeError, ValueError):
                     pass
         return value
+
+    # ---------------------------------------------- retrain-scoped hooks
+    def begin_retrain(self) -> None:
+        """Enter the retrain scope (RetrainController, around its
+        warm-start fit): retrain-scoped layer faults fire only inside."""
+        with self._lock:
+            self._retrain_depth += 1
+
+    def end_retrain(self) -> None:
+        with self._lock:
+            self._retrain_depth = max(0, self._retrain_depth - 1)
+
+    def on_retrain_start(self) -> None:
+        """Consulted by the RetrainController right before it invokes the
+        warm-start trainer — ``fail_retrain(after_layer=None)`` fires
+        here."""
+        with self._lock:
+            for f in self._retrain_fail_faults:
+                if f["count"] >= f["times"] or f["layer"] is not None:
+                    continue
+                f["count"] += 1
+                self.fired.append(("retrain_fail", "start"))
+                exc = TransientError if f["transient"] else FatalError
+                raise exc("injected retrain failure at start")
+
+    def corrupts_new_chunk(self, chunk_index: int) -> bool:
+        """True when the ``chunk_index``-th (1-based) freshly-collected
+        retrain chunk should arrive torn — the controller quarantines it."""
+        with self._lock:
+            for f in self._retrain_chunk_faults:
+                if f["count"] >= f["times"]:
+                    continue
+                if f["nth"] is not None and f["nth"] != chunk_index:
+                    continue
+                f["count"] += 1
+                self.fired.append(("retrain_chunk", f"chunk-{chunk_index}"))
+                return True
+        return False
+
+    def on_stream_chunk(self, path: str) -> None:
+        """Streaming-reader chunk fetch hook (readers/streaming.py)."""
+        with self._lock:
+            for f in self._chunk_faults:
+                if f["count"] >= f["times"]:
+                    continue
+                f["count"] += 1
+                self.fired.append(("chunk", path))
+                exc = TransientError if f["transient"] else FatalError
+                raise exc(f"injected chunk-read failure on {path}")
+
+    def on_stream_fold(self, chunk_index: int) -> None:
+        """Stream ingest fold hook (workflow/stream.py), consulted before
+        chunk ``chunk_index`` (0-based) is folded into the streaming fit
+        stats: armed ``tear_stream_chunk`` / ``corrupt_chunk`` faults
+        raise the typed quarantine errors, ``oom_chunk`` raises
+        ``MemoryPressure`` (the engine halves its window and folds the
+        chunk anyway)."""
+        with self._lock:
+            for f in self._stream_fold_faults:
+                if f["count"] >= f["times"]:
+                    continue
+                if f["chunk"] is not None and f["chunk"] != chunk_index:
+                    continue
+                f["count"] += 1
+                kind = f["kind"]
+                self.fired.append(
+                    (f"stream_{kind}", f"chunk-{chunk_index}")
+                )
+                if kind == "torn":
+                    raise TornChunkError(
+                        f"injected torn stream chunk {chunk_index}"
+                    )
+                if kind == "corrupt":
+                    raise CorruptChunkError(
+                        f"injected corrupt stream chunk {chunk_index}"
+                    )
+                raise MemoryPressure(
+                    f"injected memory pressure on stream chunk {chunk_index}"
+                )
+
+    def on_stream_chunk_end(self, chunk_index: int) -> None:
+        """Fires after chunk ``chunk_index`` was folded and its stream
+        cursor persisted — ``crash_after_chunk`` raises here, so a resume
+        restores everything up to and including this chunk."""
+        with self._lock:
+            for f in self._stream_crash_faults:
+                if f["count"] >= f["times"] or f["chunk"] != chunk_index:
+                    continue
+                f["count"] += 1
+                self.fired.append(
+                    ("stream_crash", f"chunk-{chunk_index}")
+                )
+                raise SimulatedCrash(
+                    f"injected crash after stream chunk {chunk_index}"
+                )
 
     def on_stage_output(self, stage: Any, column: Any) -> Any | None:
         """Return a corrupted replacement column, or None to keep the

@@ -303,6 +303,11 @@ class ModelSelector(PredictorEstimator):
         #: set by workflow-level CV (workflow/cv.py): validation already ran
         #: with per-fold DAG refits, so fit skips the validator
         self.precomputed_results: list | None = None
+        #: set by ``Workflow.train(checkpoint_dir=...)``: the validator
+        #: saves each family's sweep results there; ``_checkpoint_resume``
+        #: gates consuming them (the saves always happen)
+        self._checkpoint = None
+        self._checkpoint_resume = False
 
     def get_params(self):
         return {
@@ -338,6 +343,8 @@ class ModelSelector(PredictorEstimator):
         else:
             results = self.validator.validate(
                 self.models, xt, yt, self.evaluator, extra_masks=[final_mask],
+                checkpoint=self._checkpoint,
+                resume=self._checkpoint_resume,
             )
             prefit = self.validator.last_extra_models
             attempt_info = list(self.validator.last_attempt_info)

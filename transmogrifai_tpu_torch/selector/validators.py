@@ -19,12 +19,20 @@ never retries it. Each family's sweep runs under ``retry_policy``
 (``resilience/retry.py``): a transient failure backs off and retries before
 the family is excluded, a fatal one excludes it at once, and the attempts
 land in ``last_attempt_info``. An installed fault plan is consulted inside
-the retried region (``fail_candidate``). The reference's checkpoint and
-resume keys and run-ledger pulses are not ported yet (``ROADMAP.md`` A12).
+the retried region (``fail_candidate``).
+
+With a ``CheckpointManager`` (``resilience/checkpoint.py``) each finished
+family's fold metrics are saved under a key of its class, position, grid
+points, fold masks, metric and a sample of the data; ``resume=True``
+consumes a matching entry, so only unfinished families sweep again (a
+checkpoint hit is recorded as ``fromCheckpoint``). Each family's sweep
+pulses the active run recorder (``telemetry/runlog.py``) with its time.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import logging
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
@@ -35,6 +43,8 @@ from ..evaluators.base import Evaluator
 from ..models.base import PredictorEstimator
 from ..resilience import faults
 from ..resilience.retry import RetryPolicy
+from ..telemetry import runlog as _runlog
+from ..telemetry import spans as _tspans
 from ..utils.cuda_build import is_kernel_fault
 
 log = logging.getLogger(__name__)
@@ -67,6 +77,61 @@ def expand_grid(grid: dict[str, Sequence[Any]]) -> list[dict[str, Any]]:
     for key, values in grid.items():
         points = [{**p, key: v} for p in points for v in values]
     return points
+
+
+def _data_fingerprint(x: np.ndarray, y: np.ndarray) -> str:
+    """Cheap content fingerprint of the sweep's training arrays, so a CV
+    checkpoint recorded against one dataset can never answer for another.
+    Bounded sampling via resilience.checkpoint.update_array_sample — never
+    a full-array scan/copy for big data."""
+    from ..resilience.checkpoint import update_array_sample
+
+    h = hashlib.sha256()
+    for a in (x, y):
+        update_array_sample(h, a)
+    return h.hexdigest()[:16]
+
+
+def _folds_fingerprint(
+    folds: Sequence[tuple[np.ndarray, np.ndarray]]
+) -> str:
+    """Fingerprint of the actual fold masks — covers every split-shaping
+    knob (validator class, seed, num_folds, stratify, train ratio) at once,
+    so checkpointed fold metrics can never answer for a differently-split
+    resume."""
+    h = hashlib.sha256()
+    for train_mask, val_mask in folds:
+        h.update(np.packbits(np.asarray(train_mask, dtype=bool)).tobytes())
+        h.update(np.packbits(np.asarray(val_mask, dtype=bool)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _candidate_key(
+    index: int,
+    est: PredictorEstimator,
+    points: list[dict[str, Any]],
+    folds_fp: str,
+    evaluator: Evaluator,
+    data_fp: str,
+) -> str:
+    """Stable checkpoint key for one candidate family's sweep: the family
+    class + position + a hash of (grid points, fold masks, metric, data
+    fingerprint). Uids are process-local, so they stay out of the key on
+    purpose — a resumed process regenerates them but the sweep identity is
+    unchanged."""
+    blob = json.dumps(
+        {
+            "model": type(est).__name__,
+            "points": points,
+            "folds": folds_fp,
+            "metric": evaluator.default_metric,
+            "data": data_fp,
+        },
+        sort_keys=True,
+        default=str,
+    )
+    digest = hashlib.sha256(blob.encode()).hexdigest()[:12]
+    return f"{type(est).__name__}-{index}-{digest}"
 
 
 def batched_masks_hook(est):
@@ -109,6 +174,8 @@ class Validator:
         y: np.ndarray,
         evaluator: Evaluator,
         extra_masks: Sequence[np.ndarray] = (),
+        checkpoint=None,
+        resume: bool = False,
     ) -> list[CandidateResult]:
         """Fit every family x grid point on every fold; results carry the
         per-fold metric values. A family that fails is excluded and
@@ -120,8 +187,15 @@ class Validator:
         so the winner's refit is fitted when validation returns. They land
         in ``last_extra_models[family_uid] = (points, models)`` with
         ``models[mask_i][point_i]``; families without a batched hook are
-        left out (the selector refits the winner directly)."""
+        left out (the selector refits the winner directly).
+
+        ``checkpoint`` persists each finished family's fold metrics; with
+        ``resume=True`` a matching entry is consumed instead of sweeping
+        the family, whose refit lanes then stay empty (the selector refits
+        the winner directly)."""
         folds = self.split_masks(y)
+        data_fp = _data_fingerprint(x, y) if checkpoint is not None else ""
+        folds_fp = _folds_fingerprint(folds) if checkpoint is not None else ""
         results: list[CandidateResult] = []
         errors: list[str] = []
         self.last_extra_models = {}
@@ -136,16 +210,51 @@ class Validator:
             except Exception as e:
                 points_list.append(e)
 
-        def run(est, points):
-            """One family's sweep, retried: (results, attempts)."""
+        def run(i, est, points):
+            """One family: a checkpoint hit, or its retried sweep and the
+            save: (results, attempts, from checkpoint)."""
             if isinstance(points, Exception):
                 raise points
-            return self.retry_policy.call(
+            recorder = _runlog.active_recorder()
+            t0 = _tspans.clock() if recorder is not None else 0.0
+            key = None
+            if checkpoint is not None:
+                key = _candidate_key(
+                    i, est, points, folds_fp, evaluator, data_fp)
+            if key is not None and resume:
+                cached = checkpoint.load_candidate(key)
+                if cached is not None and len(
+                    cached.get("metricValues", [])
+                ) == len(points):
+                    log.info(
+                        "CV checkpoint hit: %s (%d points)", key, len(points))
+                    return [
+                        CandidateResult(
+                            model_name=type(est).__name__,
+                            model_uid=est.uid,
+                            grid=points[gi],
+                            metric_values=list(cached["metricValues"][gi]),
+                        )
+                        for gi in range(len(points))
+                    ], int(cached.get("attempts", 1)), True
+            out, attempts = self.retry_policy.call(
                 lambda: self._sweep_family(
                     est, points, folds, x, y, evaluator,
                     extra_masks=extra_masks,
                 )
             )
+            if recorder is not None:
+                recorder.on_candidate(
+                    type(est).__name__, len(points), _tspans.clock() - t0,
+                    rows=len(y),
+                )
+            if key is not None:
+                checkpoint.save_candidate(key, {
+                    "modelName": type(est).__name__,
+                    "metricValues": [r.metric_values for r in out],
+                    "attempts": attempts,
+                })
+            return out, attempts, False
 
         n_workers = max(1, min(self.parallelism, len(candidates)))
         # longest grid first: the biggest family's work heads the queue
@@ -157,7 +266,7 @@ class Validator:
         )
         with ThreadPoolExecutor(max_workers=n_workers) as pool:
             futs = {
-                i: pool.submit(run, candidates[i][0], points_list[i])
+                i: pool.submit(run, i, candidates[i][0], points_list[i])
                 for i in order
             }
             outs = []
@@ -172,6 +281,7 @@ class Validator:
         for (est, _), out in zip(candidates, outs):
             name = type(est).__name__
             failed = isinstance(out, Exception)
+            from_ckpt = False
             if failed:  # candidate-level isolation
                 attempts = getattr(out, "_retry_attempts", 1)
                 log.warning(
@@ -180,7 +290,7 @@ class Validator:
                 )
                 errors.append(f"{name}: {out}")
             else:
-                out, attempts = out
+                out, attempts, from_ckpt = out
                 results.extend(out)
             self.last_attempt_info.append({
                 "modelName": name,
@@ -188,7 +298,7 @@ class Validator:
                 "attempts": attempts,
                 "error": str(out) if failed else None,
                 "excluded": failed,
-                "fromCheckpoint": False,
+                "fromCheckpoint": from_ckpt,
             })
         if not results:
             raise RuntimeError(

@@ -1,4 +1,4 @@
-"""Telemetry plane of the port: the serving slice's part of it.
+"""Telemetry plane of the port.
 
 * :mod:`telemetry.spans` — trace spans, the serving-latency histograms
   (``record_serve_batch``) and the ring of recent serving traces, on an
@@ -11,22 +11,27 @@
   transitions, drift alerts, fused fallbacks).
 * :mod:`telemetry.export` — ``render_prometheus()``, the text exposition
   of the registry and every ledger source (the scoring closures', the
-  serving services' and fleets'), and the serve-latency snapshots.
-* :mod:`telemetry.runlog` — the host<->device transfer ledger and the
-  cross-run ``diff_runs`` / ``RegressionSentinel`` verdicts (the model
-  registry's canary gate). The run recorder and its reports are
-  ``ROADMAP.md`` A12, as are the Chrome trace export, the phase breakdown
-  and the summary line.
+  serving services' and fleets', the run ledger's and the retrain
+  loop's), the serve-latency snapshots, ``export_chrome_trace()``,
+  ``phase_breakdown()`` and ``summary_line()``.
+* :mod:`telemetry.runlog` — the run recorder every ``train()`` installs,
+  its RUN reports and their files, the host<->device transfer ledger and
+  the cross-run ``diff_runs`` / ``RegressionSentinel`` verdicts (the
+  model registry's canary gate). The compile plane's blocks of a report
+  wait for ``ROADMAP.md`` A14.
 """
 from __future__ import annotations
 
 from . import events  # noqa: F401
 from . import runlog  # noqa: F401
 from .export import (  # noqa: F401
+    export_chrome_trace,
     metrics_snapshot,
+    phase_breakdown,
     render_prometheus,
     serve_latency_summary,
     serving_snapshot,
+    summary_line,
 )
 from .metrics import (  # noqa: F401
     REGISTRY,

@@ -8,18 +8,24 @@ live scoring closures' health counters, the live serving services and
 fleets) and renders the standard text exposition — scrapeable as-is by a
 Prometheus agent.
 
+``export_chrome_trace()`` writes the buffered spans as a Chrome
+trace-event document (Perfetto, chrome://tracing); ``phase_breakdown()``
+attributes the leaf spans' seconds to the bench phases (ingest,
+featurize, compile, fit, eval, explain); ``summary_line()`` is the one
+telemetry line of ``summary_pretty()``.
+
 ``serve_latency_summary()`` / ``serving_snapshot()`` summarize the
 serve-latency histograms; ``metrics_snapshot()`` is the JSON view of the
-registry and its sources.
+registry and its sources, the run ledger (``run``) and the retrain loop's
+(``retrain``) among them.
 
 Not ported yet: the compile plane's ``compile`` source (``ROADMAP.md``
-A14), the distributed plane's ``resilience`` source (A13) and the retrain
-loop's ``retrain`` source (A12) are absent from the exposition; the
-Chrome trace export, the span-derived phase breakdown and the summary
-line are A12.
+A14) and the distributed plane's ``resilience`` source (A13) are absent
+from the exposition.
 """
 from __future__ import annotations
 
+import json
 import re
 from typing import Any
 
@@ -29,9 +35,12 @@ from . import spans as _spans
 
 __all__ = [
     "render_prometheus",
+    "export_chrome_trace",
+    "phase_breakdown",
     "serve_latency_summary",
     "serving_snapshot",
     "metrics_snapshot",
+    "summary_line",
 ]
 
 
@@ -42,6 +51,7 @@ def _ensure_default_sources() -> None:
     from ..featurize import stats as _fstats  # noqa: F401
     from ..insights import ledger as _attr  # noqa: F401
     from ..local import scoring as _scoring  # noqa: F401
+    from ..resilience import retrain as _retrain  # noqa: F401
     from . import runlog as _runlog  # noqa: F401
 
 
@@ -157,6 +167,60 @@ def render_prometheus(
     return "\n".join(lines) + "\n"
 
 
+# ---------------------------------------------------------------- chrome trace
+def export_chrome_trace(path: str | None = None) -> dict[str, Any]:
+    """The buffered spans as a Chrome trace-event document; written to
+    ``path`` when given. Open in Perfetto (ui.perfetto.dev) or
+    chrome://tracing."""
+    events = []
+    for rec in _spans.snapshot_events():
+        ev: dict[str, Any] = {
+            "name": rec["name"],
+            "cat": rec["name"].split("/", 1)[0],
+            "ph": "X",
+            "pid": 1,
+            "tid": rec["tid"],
+            "ts": round(rec["ts"] * 1e6, 3),
+            "dur": round(rec["dur"] * 1e6, 3),
+        }
+        if rec.get("args"):
+            ev["args"] = rec["args"]
+        events.append(ev)
+    doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+    if path is not None:
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(doc, f, default=str)
+    return doc
+
+
+# ------------------------------------------------------------ phase breakdown
+#: leaf span name (prefix) -> bench phase; nested parents (train/layer,
+#: cv/fold, selector sweeps) are deliberately absent so time is counted once
+_PHASE_PREFIXES = (
+    ("train/ingest", "ingest"),
+    ("train/transform", "featurize"),
+    ("compile/", "compile"),
+    ("train/fit", "fit"),
+    ("train/eval", "eval"),
+    # the explainability plane: train-time baseline sweeps + serve-time
+    # explain=k sweeps both attribute to one "explain" phase
+    ("train/attribution", "explain"),
+    ("serve/explain", "explain"),
+)
+
+
+def phase_breakdown() -> dict[str, float]:
+    """Span-derived seconds per bench phase (see module docstring)."""
+    out = {phase: 0.0 for _, phase in _PHASE_PREFIXES}
+    for rec in _spans.snapshot_events():
+        name = rec["name"]
+        for prefix, phase in _PHASE_PREFIXES:
+            if name.startswith(prefix):
+                out[phase] += rec["dur"]
+                break
+    return {phase: round(secs, 3) for phase, secs in out.items()}
+
+
 # ------------------------------------------------------------------ summaries
 def serve_latency_summary() -> dict[str, dict[str, Any]]:
     """Per-stage-family serving latency: count + p50/p95/p99 milliseconds
@@ -190,3 +254,25 @@ def metrics_snapshot() -> dict[str, Any]:
     """JSON snapshot of the registry + sources (the CLI ``--json`` view)."""
     _ensure_default_sources()
     return _metrics.REGISTRY.snapshot_all()
+
+
+def summary_line() -> str | None:
+    """One consolidated line for ``summary_pretty()`` — None when the
+    process recorded nothing."""
+    reg = _metrics.REGISTRY
+    spans_n = reg.counter("tptpu_spans_recorded_total").value
+    events_n = _events.count()
+    if not spans_n and not events_n:
+        return None
+    names = len(reg.histograms_named("tptpu_span_seconds"))
+    line = (
+        f"Telemetry: {spans_n} span(s) across {names} name(s), "
+        f"{events_n} event(s)"
+    )
+    total = serve_latency_summary().get("total")
+    if total and total["count"]:
+        line += (
+            f"; serve p50/p95/p99 {total['p50Ms']}/{total['p95Ms']}/"
+            f"{total['p99Ms']} ms over {total['count']} batch(es)"
+        )
+    return line

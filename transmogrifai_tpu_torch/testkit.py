@@ -450,8 +450,10 @@ def fault_plan(seed: int = 42) -> "Any":
             fn = score_function(model)
             fn.batch(rows)
 
-    The checkpoint, stream and distributed faults wait for their planes
-    (``ROADMAP.md`` A12, A13)."""
+    Training faults script the checkpointed and streamed train
+    (``crash_after_layer``, ``crash_after_chunk``, ``tear_stream_chunk``)
+    and the retrain loop (``crash_retrain``, ``corrupt_new_chunk``); the
+    distributed faults wait for their plane (``ROADMAP.md`` A13)."""
     from .resilience.faults import FaultPlan
 
     return FaultPlan(seed=seed)

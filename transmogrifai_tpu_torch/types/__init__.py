@@ -285,6 +285,12 @@ ALL_FEATURE_TYPES: tuple[type, ...] = (
 FEATURE_TYPES_BY_NAME: dict[str, type] = {t.__name__: t for t in ALL_FEATURE_TYPES}
 
 
+def is_subtype(t: type, parent: type) -> bool:
+    """True if feature type ``t`` is ``parent`` (or one of a tuple of
+    parents) or a subtype of it."""
+    return isinstance(t, type) and issubclass(t, parent)
+
+
 def feature_type_by_name(name: str) -> type:
     """Look up a feature type by its class name (FeatureType.scala:238)."""
     try:

@@ -226,6 +226,14 @@ class TextColumn(Column):
     def take(self, indices: np.ndarray) -> "TextColumn":
         return TextColumn(self.feature_type, self.values[indices])
 
+    @staticmethod
+    def from_values(feature_type: type, raw: Iterable[Any]) -> "TextColumn":
+        """Strings from raw values; ``None`` and ``""`` are missing."""
+        lst = [None if v is None or v == "" else str(v) for v in raw]
+        out = np.empty(len(lst), dtype=object)
+        out[:] = lst
+        return TextColumn(feature_type, out)
+
 
 def _take_rows(values: list, indices) -> list:
     """Rows of a per-row Python list by a slice (a view's rows, as

@@ -17,8 +17,16 @@ first, fits the tree families while those run on the card (PyTorch queues
 the launches asynchronously), then collects. Failure isolation is
 lane-granular: a lane whose predict or evaluation fails drops its own
 (uid, grid point) entry only. A kernel fault (``utils.cuda_build.
-is_kernel_fault``) is the program's and propagates. The reference's
-fold-resume stash and host-loss handling wait for ``ROADMAP.md`` A12/A13.
+is_kernel_fault``) is the program's and propagates.
+
+Each fold and each family's sweep in it runs under a telemetry span
+(``cv/fold``, ``cv/candidate``) and pulses the active run recorder
+(``telemetry/runlog.py``): the fold's start and end, and one candidate
+record per family per fold (with the error of a dropped family). The
+reference's fold-resume stash, which lets its failover loop re-enter the
+sweep after a lost host, waits for the distributed plane (``ROADMAP.md``
+A13); so does the per-fold sweep-lane accounting of the compile plane
+(A14), whose fold records read zero.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from ..evaluators.base import Evaluator
 from ..prep.splitters import DataCutter
 from ..selector.model_selector import ModelSelector
 from ..selector.validators import CandidateResult, batched_masks_hook, expand_grid
+from ..telemetry import runlog as _runlog
+from ..telemetry import spans as _tspans
 from ..types.columns import NumericColumn, VectorColumn
 from ..utils.cuda_build import is_kernel_fault
 from .fit import apply_transformations_dag, fit_and_transform_dag
@@ -69,11 +79,11 @@ def workflow_cv_results(
     per_candidate: dict[tuple[str, int], CandidateResult] = {}
     failed: set[str] = set()
     failed_lanes: set[tuple[str, int]] = set()
-    for train_mask, val_mask in folds:
+    for fold_i, (train_mask, val_mask) in enumerate(folds):
         _run_fold(
             selector, train_data, prefitted, targets, label_feature,
-            vector_feature, selector.evaluator, train_mask, val_mask,
-            per_candidate, failed, failed_lanes,
+            vector_feature, selector.evaluator, folds, fold_i, train_mask,
+            val_mask, per_candidate, failed, failed_lanes,
         )
     results = list(per_candidate.values())
     if not results:
@@ -89,60 +99,99 @@ def _run_fold(
     label_feature,
     vector_feature,
     evaluator,
+    folds,
+    fold_i: int,
     train_mask,
     val_mask,
     per_candidate: dict,
     failed: set,
     failed_lanes: set,
 ) -> None:
-    """One fold: the DAG refit, then the pipelined candidate sweep."""
-    fold_train = train_data.take(np.nonzero(train_mask)[0])
-    fold_val = train_data.take(np.nonzero(val_mask)[0])
+    """One fold: the DAG refit, the pipelined candidate sweep, the run
+    recorder's pulses."""
+    recorder = _runlog.active_recorder()
+    if recorder is not None:
+        recorder.on_fold_start(fold_i, total=len(folds))
+    with _tspans.span("cv/fold", fold=fold_i):
+        fold_train = train_data.take(np.nonzero(train_mask)[0])
+        fold_val = train_data.take(np.nonzero(val_mask)[0])
 
-    # the leak-free part: every estimator up to the selector's inputs is
-    # fitted on the fold's training rows only
-    fitted_t, fitted_stages = fit_and_transform_dag(
-        fold_train, targets, prefitted=prefitted
-    )
-    transformed_v = apply_transformations_dag(fold_val, targets, fitted_stages)
-    xt, yt = _arrays(fitted_t, label_feature.name, vector_feature.name)
-    xv, yv = _arrays(transformed_v, label_feature.name, vector_feature.name)
-    ones = np.ones(len(yt), dtype=np.float32)
+        # the leak-free part: every estimator up to the selector's inputs
+        # is fitted on the fold's training rows only
+        fitted_t, fitted_stages = fit_and_transform_dag(
+            fold_train, targets, prefitted=prefitted
+        )
+        transformed_v = apply_transformations_dag(
+            fold_val, targets, fitted_stages
+        )
+        xt, yt = _arrays(fitted_t, label_feature.name, vector_feature.name)
+        xv, yv = _arrays(
+            transformed_v, label_feature.name, vector_feature.name
+        )
+        ones = np.ones(len(yt), dtype=np.float32)
 
-    # issue every GLM family's lanes, fit the tree families on the host
-    # while those run, then collect the GLM lanes
-    pending: list[tuple[Any, list[dict], Any]] = []
-    host_side: list[tuple[Any, list[dict]]] = []
-    for est, grid in selector.models:
-        if est.uid in failed:
-            continue
-        points = expand_grid(grid)
-        dispatcher = getattr(est, "sweep_dispatch_masks", None)
-        if dispatcher is None:
-            host_side.append((est, points))
-            continue
-        try:
-            pending.append((est, points, dispatcher(xt, yt, [ones], points)))
-        except Exception as e:  # the whole family
+        def pulse(est, points, t0, error=None):
+            if recorder is not None:
+                recorder.on_candidate(
+                    type(est).__name__, len(points), _tspans.clock() - t0,
+                    rows=len(yt), fold=fold_i, error=error,
+                )
+
+        def drop(est, points, e, t0):
+            if not is_kernel_fault(e):
+                pulse(est, points, t0, error=str(e))
             _drop_family(est, points, e, per_candidate, failed)
 
-    for est, points in host_side:
-        try:
-            _sweep_fold(
-                est, points, xt, yt, xv, yv, evaluator, per_candidate,
-                failed_lanes,
-            )
-        except Exception as e:  # candidate-level isolation
-            _drop_family(est, points, e, per_candidate, failed)
+        # issue every GLM family's lanes, fit the tree families on the host
+        # while those run, then collect the GLM lanes
+        pending: list[tuple[Any, list[dict], Any, float]] = []
+        host_side: list[tuple[Any, list[dict]]] = []
+        for est, grid in selector.models:
+            if est.uid in failed:
+                continue
+            points = expand_grid(grid)
+            dispatcher = getattr(est, "sweep_dispatch_masks", None)
+            if dispatcher is None:
+                host_side.append((est, points))
+                continue
+            t0 = _tspans.clock()
+            try:
+                pending.append(
+                    (est, points, dispatcher(xt, yt, [ones], points), t0))
+            except Exception as e:  # the whole family
+                drop(est, points, e, t0)
 
-    for est, points, collect in pending:
-        try:
-            _eval_lanes(
-                est, points, collect()[0], xv, yv, evaluator, per_candidate,
-                failed_lanes,
-            )
-        except Exception as e:  # the whole family
-            _drop_family(est, points, e, per_candidate, failed)
+        for est, points in host_side:
+            t0 = _tspans.clock()
+            try:
+                with _tspans.span("cv/candidate", model=type(est).__name__,
+                                  points=len(points)):
+                    _sweep_fold(
+                        est, points, xt, yt, xv, yv, evaluator,
+                        per_candidate, failed_lanes,
+                    )
+                pulse(est, points, t0)
+            except Exception as e:  # candidate-level isolation
+                drop(est, points, e, t0)
+
+        for est, points, collect, t0 in pending:
+            try:
+                with _tspans.span("cv/candidate", model=type(est).__name__,
+                                  points=len(points)):
+                    _eval_lanes(
+                        est, points, collect()[0], xv, yv, evaluator,
+                        per_candidate, failed_lanes,
+                    )
+                pulse(est, points, t0)
+            except Exception as e:  # the whole family
+                drop(est, points, e, t0)
+
+    if recorder is not None:
+        recorder.on_fold_end(
+            fold_i, total=len(folds),
+            rows=int(train_mask.sum() + val_mask.sum()),
+            sweep=_runlog.no_compile_delta(),
+        )
 
 
 def _drop_family(est, points, e, per_candidate, failed) -> None:

@@ -13,23 +13,29 @@ results (``rffResults``) and the blocklist travel as the reference writes
 them, and so do the serving profiles (``servingProfiles``, the drift
 sentinel's training baseline), so a model either package saved brings
 them to the other's drift sentinel, the attribution profiles
-(``attributionProfiles``, the attribution drift monitor's baseline) and
-the sensitive-feature findings (``sensitiveFeatures``). The fitted text
+(``attributionProfiles``, the attribution drift monitor's baseline),
+the sensitive-feature findings (``sensitiveFeatures``) and the RUN report
+(``runReport``, ``telemetry/runlog.py``). The fitted text
 stages carry their state both ways: the word2vec vocabulary and vectors,
 LDA's ``topic_word``, the count vectorizer's vocabulary, the IDF weights
 and the name detector's decision and dictionary. The manifest fields of
-planes the port does not have yet (the distributed-resilience ledger, the
-analysis and run reports) are written as ``null``, which the reference's
-loader accepts.
+planes the port does not have yet (the distributed-resilience ledger and
+the analysis report) are written as ``null``, which the reference's loader
+accepts. ``stage_to_entry`` and ``atomic_write_model_dir`` also write the
+layer checkpoints (``resilience/checkpoint.py``); a fitted array held as a
+CUDA tensor is downloaded there and counted on the run ledger's transfer
+census.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import time
 from typing import Any
 
 import numpy as np
+import torch
 
 from .. import types as T
 from ..features.feature import Feature, FeatureGeneratorStage
@@ -152,7 +158,7 @@ def stage_to_entry(
     get_arrays = getattr(stage, "get_arrays", None)
     if get_arrays is not None:
         for k, v in get_arrays().items():
-            arrays_out[f"{stage.uid}__{k}"] = np.asarray(v)
+            arrays_out[f"{stage.uid}__{k}"] = _host_array(v)
     return {
         "estimatorUid": est_uid,
         "class": type(stage).__name__,
@@ -163,6 +169,21 @@ def stage_to_entry(
         "outputName": stage.output_name,
         "metadata": stage.metadata,
     }
+
+
+def _host_array(v: Any) -> np.ndarray:
+    """A fitted array on the host; a CUDA tensor is downloaded and its
+    bytes recorded on the run ledger."""
+    if isinstance(v, torch.Tensor):
+        if v.is_cuda:
+            from ..telemetry import runlog
+
+            t0 = time.perf_counter()
+            host = v.detach().cpu().numpy()
+            runlog.record_download(host.nbytes, time.perf_counter() - t0)
+            return host
+        return v.detach().numpy()
+    return np.asarray(v)
 
 
 def _json_default(o: Any):
@@ -230,12 +251,15 @@ def save_workflow_model(model: "WorkflowModel", path: str) -> None:  # noqa: F82
         "attributionProfiles": model.attribution_profiles,
         "distResilience": None,
         "analysis": None,
-        "runReport": None,
+        "runReport": getattr(model, "run_report", None),
     }
     atomic_write_model_dir(path, manifest, arrays)
 
 
-def _stage_arrays(npz: Any, uid: str, source: str) -> dict[str, np.ndarray]:
+def stage_arrays_from_npz(
+    npz: Any, uid: str, source: str
+) -> dict[str, np.ndarray]:
+    """A stage's arrays from an open npz, naming a corrupt member."""
     prefix = f"{uid}__"
     out: dict[str, np.ndarray] = {}
     for k in npz.files:
@@ -248,6 +272,20 @@ def _stage_arrays(npz: Any, uid: str, source: str) -> dict[str, np.ndarray]:
                     f"truncated: {e}"
                 ) from e
     return out
+
+
+def construct_stage_checked(
+    entry: dict[str, Any], arrays: dict[str, np.ndarray], source: str
+) -> PipelineStage:
+    """``construct_stage`` naming a torn save: a KeyError from a stage's
+    ``from_params`` means an expected array member is missing."""
+    try:
+        return construct_stage(entry["class"], entry["params"], arrays)
+    except KeyError as e:
+        raise ModelLoadError(
+            f"{source}: stage {entry['uid']} ({entry['class']}) is missing "
+            f"member {e} — the save was likely torn; delete and refit"
+        ) from e
 
 
 def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F821
@@ -293,15 +331,8 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
 
         fitted: dict[str, PipelineStage] = {}
         for entry in manifest["stages"]:
-            arrays = _stage_arrays(npz, entry["uid"], npz_path)
-            try:
-                stage = construct_stage(entry["class"], entry["params"], arrays)
-            except KeyError as e:
-                raise ModelLoadError(
-                    f"{npz_path}: stage {entry['uid']} ({entry['class']}) is "
-                    f"missing member {e} — the save was likely torn; delete "
-                    "and refit"
-                ) from e
+            arrays = stage_arrays_from_npz(npz, entry["uid"], npz_path)
+            stage = construct_stage_checked(entry, arrays, npz_path)
             stage.uid = entry["uid"]
             stage.operation_name = entry["operationName"]
             stage.metadata = entry.get("metadata", {})
@@ -333,5 +364,6 @@ def load_workflow_model(path: str, device=None) -> "WorkflowModel":  # noqa: F82
         sensitive_info=manifest.get("sensitiveFeatures"),
         serving_profiles=manifest.get("servingProfiles"),
         attribution_profiles=manifest.get("attributionProfiles"),
+        run_report=manifest.get("runReport"),
         device=dev,
     )

@@ -10,9 +10,15 @@ model selector's splitter (OpWorkflow.scala:380-384), fits the DAG layer by
 layer, evaluates the selected model on the holdout, and returns a fitted
 ``WorkflowModel`` that scores, evaluates, summarizes and saves.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: checkpoints and resume, streaming ingest, the progress
-callback and run reports (A12), an execution mesh (A13).
+``train(checkpoint_dir=, resume=, progress=, run_dir=, stream=)`` takes
+the reference's arguments: layer and candidate checkpoints with resume
+(``resilience/checkpoint.py``), the out-of-core streamed ingest
+(``workflow/stream.py``), and the run recorder every train installs
+(``telemetry/runlog.py``), whose RUN report the model carries
+(``run_report``, ``summary_json()["run"]``, the manifest, the "Run
+report:" line of ``summary_pretty``). Not ported yet: an execution mesh,
+and with it the failover loop that re-enters the fit after a lost host
+(``set_parallelism`` and ``train``'s ``on_mesh_mismatch`` are A13).
 ``with_sensitive_feature_detection`` scans the raw text features at train
 time (``prep/sensitive.py``) and records the findings in the model
 (``sensitive_info``: its summary's ``sensitiveFeatures`` and the saved
@@ -36,6 +42,7 @@ function built off the model.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Sequence
 
@@ -48,6 +55,7 @@ from ..featurize import stats as fstats
 from ..readers.core import DataReader, DatasetReader
 from ..selector.model_selector import ModelSelector, SelectedModel
 from ..stages.base import PipelineStage
+from ..telemetry import runlog as _runlog
 from ..telemetry import spans as _tspans
 from ..types.columns import NumericColumn, VectorColumn
 from ..utils.cuda_build import is_kernel_fault
@@ -56,6 +64,30 @@ from .dag import compute_dag, raw_features_of, validate_stages
 from .fit import apply_transformations_dag, fit_and_transform_dag
 
 log = logging.getLogger(__name__)
+
+
+#: one warning per process for a degraded summary section; the later ones
+#: still count on the run ledger and the event log
+_SUMMARY_DEGRADED_WARNED = [False]
+
+
+def _report_summary_degraded(section: str, e: Exception) -> None:
+    """A ``summary_pretty`` section failed to render: count it on the run
+    ledger (``summaryDegraded``), emit a ``summary_degraded`` event, and
+    warn once per process."""
+    from ..telemetry import events as _tevents
+
+    detail = f"{type(e).__name__}: {e}"
+    _runlog.stats().bump("summaryDegraded")
+    _tevents.emit("summary_degraded", section=section, error=detail)
+    if not _SUMMARY_DEGRADED_WARNED[0]:
+        _SUMMARY_DEGRADED_WARNED[0] = True
+        log.warning(
+            "summary_pretty %s section degraded (%s); counted as "
+            "summaryDegraded on the run ledger", section, detail,
+        )
+    else:
+        log.debug("summary_pretty %s section degraded (%s)", section, detail)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -157,7 +189,11 @@ class Workflow:
         self.blocklisted_features = sorted(dead)
 
     def set_parallelism(self, mesh: Any) -> "Workflow":
-        raise _not_ported("an execution mesh", "A13")
+        """``None`` is one device, the port's only layout; a mesh is the
+        distributed plane's (A13)."""
+        if mesh is not None:
+            raise _not_ported("an execution mesh", "A13")
+        return self
 
     def with_sensitive_feature_detection(self) -> "Workflow":
         """Scan raw text features for personal data at train time and record
@@ -201,17 +237,38 @@ class Workflow:
         stream: bool | None = None,
     ) -> "WorkflowModel":
         """Fit the DAG: read, reserve the holdout, fit (with workflow-level
-        CV when asked), evaluate the selected model on the holdout."""
-        if checkpoint_dir is not None or resume:
-            raise _not_ported("checkpoint_dir / resume", "A12")
-        if stream:
-            raise _not_ported("streaming ingest (stream=True)", "A12")
-        if progress is not None or run_dir is not None:
-            raise _not_ported("progress / run_dir (the run ledger)", "A12")
+        CV when asked), evaluate the selected model on the holdout.
+
+        With ``checkpoint_dir`` every completed layer and every finished
+        candidate family's sweep is persisted atomically there;
+        ``resume=True`` restores the completed layers as warm-start stages
+        (on the device of the estimators they stand in for) and consumes
+        the candidate results, so only unfinished work runs again.
+
+        Every train is recorded (``telemetry/runlog.py``): per-phase,
+        per-layer, per-fold and per-candidate timings, the featurize
+        ledger's deltas, the transfer census and the device-memory high
+        water land in a RUN report on the model (``model.run_report``,
+        ``summary_json()["run"]``, the manifest). ``progress`` receives
+        phase, layer and fold pulses with a seconds-per-layer ETA.
+        ``run_dir`` (None: ``$TPTPU_RUN_DIR``; ``""`` disables) persists the
+        report as ``RUN_*.json`` and diffs it against the directory's
+        latest report, warning on TPR findings.
+
+        ``stream=True`` (or, when ``stream`` is None, a reader that
+        declares ``is_unbounded()``) ingests through the out-of-core fit
+        (``workflow/stream.py``): chunk by chunk, stats folded as monoids,
+        torn and corrupt chunks quarantined, and with ``checkpoint_dir`` a
+        stream cursor per chunk, so a crash mid-ingest resumes with less
+        than one chunk of rework. ``stream=False`` materializes even an
+        unbounded reader."""
         if not self.result_features:
             raise ValueError("setResultFeatures must be called before train")
         if self.reader is None:
             raise ValueError("No input data: call set_input_dataset or set_reader")
+        if resume and checkpoint_dir is None:
+            raise ValueError("resume=True requires checkpoint_dir")
+        recorder = _runlog.RunRecorder(progress=progress).start()
         stages = self._stages()
         self._apply_overrides(stages)
         # the featurize plane's ledger over this train: the delta over the
@@ -226,7 +283,49 @@ class Workflow:
         selector = selectors[0] if selectors else None
 
         raw_features = raw_features_of(self.result_features)
-        raw = self.reader.generate_dataset(raw_features)
+        use_stream = (
+            stream if stream is not None else self.reader.is_unbounded()
+        )
+        ckpt = None
+        stream_summary = None
+        if use_stream:
+            if not hasattr(self.reader, "stream_batches"):
+                raise ValueError(
+                    "stream=True requires a chunked reader exposing "
+                    "stream_batches() (readers/streaming.py); "
+                    f"{type(self.reader).__name__} does not"
+                )
+            if checkpoint_dir is not None:
+                # made before the ingest, whose cursor it persists per
+                # chunk; a fresh train clears stale state once here
+                from ..resilience.checkpoint import CheckpointManager
+
+                ckpt = CheckpointManager(checkpoint_dir)
+                if not resume:
+                    ckpt.clear()
+            from .stream import stream_ingest
+
+            with recorder.phase("ingest"):
+                with _tspans.span(
+                    "train/ingest", features=len(raw_features), stream=1
+                ):
+                    raw, stream_summary = stream_ingest(
+                        self.reader, raw_features,
+                        recorder=recorder, checkpoint=ckpt, resume=resume,
+                    )
+            recorder.set_phase_rows("ingest", stream_summary["rowsSeen"])
+            recorder.set_stream_summary(stream_summary)
+            log.info(
+                "Streamed raw data: %d rows over %d chunks "
+                "(%d quarantined), %d buffered for fit",
+                stream_summary["rowsSeen"], stream_summary["chunksDone"],
+                stream_summary["quarantinedTotal"], raw.num_rows,
+            )
+        else:
+            with recorder.phase("ingest"):
+                with _tspans.span("train/ingest", features=len(raw_features)):
+                    raw = self.reader.generate_dataset(raw_features)
+            recorder.set_phase_rows("ingest", raw.num_rows)
         if raw.num_rows == 0:
             raise ValueError("Input dataset cannot be empty")
 
@@ -272,15 +371,56 @@ class Workflow:
                 train_data = raw.take(train_idx)
                 holdout_data = raw.take(holdout_idx)
 
-        if self._workflow_cv and selector is not None:
-            from .cv import workflow_cv_results
-
-            selector.precomputed_results = workflow_cv_results(
-                selector, train_data, prefitted=self._prefitted,
+        # checkpoints: completed layers restore into the warm-start dict;
+        # the selector checkpoints its candidate families
+        prefitted = dict(self._prefitted)
+        if checkpoint_dir is not None:
+            from ..resilience.checkpoint import (
+                CheckpointManager,
+                dag_signature,
+                dataset_fingerprint,
             )
-        fitted_data, fitted = fit_and_transform_dag(
-            train_data, self.result_features, prefitted=self._prefitted,
-        )
+
+            fresh_ckpt = ckpt is None  # stream mode made and cleared it
+            if fresh_ckpt:
+                ckpt = CheckpointManager(checkpoint_dir)
+                if not resume:
+                    # stale entries of an earlier run in the same directory
+                    # must never mix into a later crash and resume
+                    ckpt.clear()
+            if resume:
+                dag_layers = compute_dag(self.result_features)
+                prefitted.update(ckpt.load_layers(
+                    dag_signature(dag_layers, dataset_fingerprint(train_data)),
+                    dag_layers,
+                ))
+            if selector is not None:
+                selector._checkpoint = ckpt
+                # candidate results are consumed on an explicit resume only
+                selector._checkpoint_resume = resume
+
+        # the fit runs with the recorder installed, so the layer, fold and
+        # candidate pulses of fit.py, cv.py and validators.py land on it
+        try:
+            with _runlog.recording(recorder), recorder.phase(
+                "fit", rows=train_data.num_rows
+            ):
+                if self._workflow_cv and selector is not None:
+                    from .cv import workflow_cv_results
+
+                    # restored checkpoint stages stay out of the per-fold
+                    # refits: they were fitted on the whole training split
+                    selector.precomputed_results = workflow_cv_results(
+                        selector, train_data, prefitted=self._prefitted,
+                    )
+                fitted_data, fitted = fit_and_transform_dag(
+                    train_data, self.result_features, prefitted=prefitted,
+                    checkpoint=ckpt,
+                )
+        finally:
+            if selector is not None:
+                selector._checkpoint = None
+                selector._checkpoint_resume = False
 
         selector_info = None
         if selector is not None:
@@ -298,22 +438,34 @@ class Workflow:
                 sel_stage.summary["featurizeStats"] = fstats.delta(
                     featurize_baseline
                 )
+                if stream_summary is not None:
+                    # the chunk, quarantine and window accounting; the
+                    # reduced fit stats are too large for the summary
+                    sel_stage.summary["streamIngest"] = {
+                        k: v for k, v in stream_summary.items()
+                        if k != "fitStats"
+                    }
 
+        holdout_metrics = None
         if selector is not None and holdout_data is not None:
             sel_model = fitted[selector.uid]
-            transformed = apply_transformations_dag(
-                holdout_data, self.result_features, fitted
-            )
-            label_name, vec_name = selector.input_names
-            label, vec = transformed[label_name], transformed[vec_name]
-            if not (isinstance(label, NumericColumn) and isinstance(vec, VectorColumn)):
-                raise TypeError("holdout: expected (numeric label, vector) columns")
-            metrics = sel_model.evaluate_holdout(
-                np.asarray(vec.values, dtype=np.float32),
-                label.values.astype(np.float64),
-                selector.evaluator,
-            )
-            log.info("Holdout metrics: %s", metrics)
+            with recorder.phase("eval", rows=len(holdout_data)):
+                with _tspans.span("train/eval", rows=len(holdout_data)):
+                    transformed = apply_transformations_dag(
+                        holdout_data, self.result_features, fitted
+                    )
+                    label_name, vec_name = selector.input_names
+                    label, vec = transformed[label_name], transformed[vec_name]
+                    if not (isinstance(label, NumericColumn)
+                            and isinstance(vec, VectorColumn)):
+                        raise TypeError(
+                            "holdout: expected (numeric label, vector) columns")
+                    holdout_metrics = sel_model.evaluate_holdout(
+                        np.asarray(vec.values, dtype=np.float32),
+                        label.values.astype(np.float64),
+                        selector.evaluator,
+                    )
+            log.info("Holdout metrics: %s", holdout_metrics)
 
         label_summary = None
         if selector_info is not None:
@@ -335,9 +487,18 @@ class Workflow:
         attribution_seconds = None
         if selector_info is not None:
             t0 = time.perf_counter()
-            attribution_profiles = _attribution_baseline(
-                fitted, selector_info, fitted_data)
+            with recorder.phase("attribution"):
+                attribution_profiles = _attribution_baseline(
+                    fitted, selector_info, fitted_data)
             attribution_seconds = time.perf_counter() - t0
+
+        # freeze the recorder into the RUN report, persist it where a run
+        # directory is configured and diff it against that directory's
+        # latest run (the regression sentinel)
+        run_report = _finalize_run_report(
+            recorder, holdout_metrics, train_data.num_rows,
+            run_dir if run_dir is not None else os.environ.get("TPTPU_RUN_DIR"),
+        )
 
         model = WorkflowModel(
             result_features=self.result_features,
@@ -353,6 +514,7 @@ class Workflow:
             training_params=dict(self._stage_overrides),
             serving_profiles=serving_profiles,
             attribution_profiles=attribution_profiles,
+            run_report=run_report,
         )
         #: wall seconds of the attribution baseline inside this train()
         model.attribution_seconds = attribution_seconds
@@ -361,6 +523,42 @@ class Workflow:
             # name in selector_info covers a loaded model)
             model._live_evaluator = selector.evaluator
         return model
+
+
+def _finalize_run_report(
+    recorder: "_runlog.RunRecorder",
+    holdout_metrics: dict[str, Any] | None,
+    train_rows: int,
+    run_dir: str | None,
+) -> dict[str, Any] | None:
+    """Freeze the recorder into its RUN report; with a run directory, diff
+    it against the directory's latest run first (the verdict rides inside
+    the new report), then persist ``RUN_*.json``. A capture failure gives
+    ``run_report=None``, never a failed train."""
+    try:
+        recorder.record_quality(holdout_metrics)
+        report = recorder.finalize(train_rows=train_rows)
+        if run_dir:
+            baseline = _runlog.latest_run_report(run_dir)
+            if baseline is not None:
+                diff = _runlog.diff_runs(baseline, report)
+                report["run"]["regression"] = {
+                    "baselineRunId": (baseline.get("run") or {}).get("runId"),
+                    "baselineFile": (baseline.get("run") or {}).get("file"),
+                    "findings": [f.to_json() for f in diff.findings],
+                }
+                if diff.findings:
+                    log.warning(
+                        "train run regressed vs %s:\n%s",
+                        (baseline.get("run") or {}).get("file", "<baseline>"),
+                        diff.pretty(),
+                    )
+            path = _runlog.save_run_report(report, run_dir)
+            log.info("run report written: %s", path)
+        return report
+    except Exception as e:  # observability must never fail a train
+        log.warning("run report capture failed: %s", e)
+        return None
 
 
 def _attribution_baseline(
@@ -470,6 +668,7 @@ class WorkflowModel:
         training_params: dict[str, Any] | None = None,
         serving_profiles: dict[str, Any] | None = None,
         attribution_profiles: dict[str, Any] | None = None,
+        run_report: dict[str, Any] | None = None,
         device: torch.device | None = None,
     ):
         self.result_features = result_features
@@ -490,6 +689,9 @@ class WorkflowModel:
         #: the train-time per-group LOCO contribution baseline the
         #: attribution drift monitor compares explain sweeps with
         self.attribution_profiles = attribution_profiles
+        #: the train's RUN report (``telemetry/runlog.py``); None on models
+        #: saved without one, or where its capture failed
+        self.run_report = run_report
         self.device = device
 
     def to(self, device=None) -> "WorkflowModel":
@@ -633,8 +835,10 @@ class WorkflowModel:
     # ------------------------------------------------------------- summary
     def summary_json(self) -> dict[str, Any]:
         """The reference's summary keys; those of planes not ported yet
-        (the resilience and retrain ledgers, the analysis and run reports)
-        are ``None``."""
+        (the distributed-resilience ledger, the analysis report) are
+        ``None``."""
+        from ..resilience.retrain import ledger_snapshot
+
         sel_summary = None
         if self.selector_info is not None:
             model = self.fitted.get(self.selector_info["estimatorUid"])
@@ -653,9 +857,9 @@ class WorkflowModel:
                 uid: s.metadata for uid, s in self.fitted.items() if s.metadata
             },
             "distributedResilience": None,
-            "retrainLedger": None,
+            "retrainLedger": ledger_snapshot(),
             "analysis": None,
-            "run": None,
+            "run": self.run_report,
         }
 
     def summary_pretty(self) -> str:
@@ -734,6 +938,12 @@ class WorkflowModel:
         insights_line = self._record_insights_line()
         if insights_line:
             lines.append(insights_line)
+        lines.extend(self._run_report_lines())
+        from ..telemetry.export import summary_line
+
+        tel = summary_line()
+        if tel:
+            lines.append(tel)
         lines.append(
             f"Trained on {s['trainRows']} rows (holdout {s['holdoutRows']}); "
             f"{len(s['rawFeatures'])} raw features"
@@ -742,6 +952,50 @@ class WorkflowModel:
         if serve:
             lines.append(serve)
         return "\n".join(lines)
+
+    def _run_report_lines(self) -> list[str]:
+        """The RUN report's lines: "Run report:" (wall, phases, layers, the
+        transfer census, the device high-water, the file where persisted)
+        and a regression line where the diff against the run directory's
+        previous run found TPR findings."""
+        run = (self.run_report or {}).get("run") or {}
+        if not run:
+            return []
+        phases = run.get("phases") or {}
+        phase_s = ", ".join(
+            f"{name} {cell.get('seconds', 0.0):.2f}s"
+            for name, cell in phases.items()
+        )
+        census = run.get("transferCensus") or {}
+        h2d = census.get("hostToDevice") or {}
+        d2h = census.get("deviceToHost") or {}
+        mem = run.get("deviceMemory") or {}
+        line = (
+            f"Run report: {run.get('wallSeconds', 0.0):.2f}s wall"
+            + (f" ({phase_s})" if phase_s else "")
+            + f", {len(run.get('layers') or [])} layer(s), "
+            f"h2d {h2d.get('count', 0)}x/{h2d.get('bytes', 0):,} B, "
+            f"d2h {d2h.get('count', 0)}x/{d2h.get('bytes', 0):,} B, "
+            f"device high-water {mem.get('highWaterBytes', 0):,} B "
+            f"({mem.get('backend', '?')})"
+        )
+        if run.get("file"):
+            line += f" — {run['file']}"
+        lines = [line]
+        findings = (run.get("regression") or {}).get("findings") or []
+        if findings:
+            codes: dict[str, int] = {}
+            for f in findings:
+                codes[f["code"]] = codes.get(f["code"], 0) + 1
+            code_s = ", ".join(
+                f"{c}×{n}" if n > 1 else c for c, n in sorted(codes.items())
+            )
+            lines.append(
+                f"Run regression: {len(findings)} finding(s) vs "
+                f"{run['regression'].get('baselineFile', 'previous run')} "
+                f"({code_s})"
+            )
+        return lines
 
     def _insights_lines(self) -> list[str]:
         """The top insights by label correlation and the model's top
@@ -791,8 +1045,7 @@ class WorkflowModel:
                 lines.append("")
             return lines
         except Exception as e:  # insights stay best-effort, but observable
-            log.warning("summary insights section degraded: %s: %s",
-                        type(e).__name__, e)
+            _report_summary_degraded("insights", e)
             return []
 
     def _record_insights_line(self) -> str | None:
