@@ -7847,6 +7847,341 @@ def run_insights(torch, smi, M) -> dict:
     return run
 
 
+#: each spawned world of the parallel phase is killed past this deadline
+PARALLEL_DEADLINE_S = 300
+
+
+def parallel_world(n: int, target: str, args: tuple, tmp: str) -> list:
+    """[(result, collective tapes)] of an n-rank ``gloo`` world spawned for
+    ``target`` (``module:function``), every rank killed past the deadline
+    (``tests/torch_fixtures/world.py``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import world
+
+    return world.run_world(n, target, args, tmp, deadline=PARALLEL_DEADLINE_S)
+
+
+def parallel_records(tmp: str, rows: int):
+    """(schema, records, features) of ``wide_hash_table(rows)`` through CSV
+    chunks and back: the resilience phase's materialized twin."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    from fit_side_tables import wide_hash_table
+
+    from transmogrifai_tpu_torch.readers import FileStreamingReader
+
+    schema, columns = wide_hash_table(rows)
+    data = os.path.join(tmp, f"chunks_{rows}")
+    if not os.path.isdir(data):
+        os.makedirs(data)
+        write_csv_chunks(data, schema, columns, RESILIENCE_CHUNKS)
+    records = [r for b in FileStreamingReader(data, pattern="*.csv")
+               .stream_batches() for r in b]
+    return schema, records, csv_features(schema)
+
+
+def parallel_train(torch, schema, records, mesh, counters) -> dict:
+    """The twin's flow (the default binary selector at
+    ``FAMILY_TREE_GRIDS``) trained under ``mesh`` (None: one device), then
+    its training rows scored; the kernels' counts read around each."""
+    from transmogrifai_tpu_torch.readers import SimpleReader
+
+    wf, pred, feats = resilience_flow_of(schema, SimpleReader(records))
+    box = capture_refit_lanes(pred)
+    wf.set_parallelism(mesh)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model = wf.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ds = SimpleReader(records).generate_dataset(
+        [f for f in feats if not f.is_response])
+    for fn in counters.values():
+        fn.launches = 0
+    prob = np.asarray(model.score(ds)[pred.name].probability)
+    score_launches = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    sel = model.summary_json()["modelSelectorSummary"]
+    return {"model": model, "lanes": refit_lane_arrays(box), "prob": prob,
+            "summary": sel, "train_s": train_s, "launches": launches,
+            "score_launches": score_launches}
+
+
+def parallel_rank_train(data_dir: str, rows: int) -> dict:
+    """A rank of (c): the twin's flow trained over the world's data mesh
+    on this rank's card (``gloo`` when ranks share it), its rows scored."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import hist as H
+    from transmogrifai_tpu_torch.models import leaf_sum as LS
+    from transmogrifai_tpu_torch.models import serve_trees as ST
+    from transmogrifai_tpu_torch.models import tree_sum as TS
+    from transmogrifai_tpu_torch.parallel import make_mesh
+
+    schema, records, _ = parallel_records(data_dir, rows)
+    mesh = make_mesh()
+    run = parallel_train(torch, schema, records, mesh,
+                         path_counters(H, LS, ST, TS))
+    run.pop("model")
+    run.pop("lanes")
+    run["mesh"] = mesh.describe()
+    return run
+
+
+def parallel_trees_match(a: dict, b: dict) -> float:
+    """Splits EQUAL and live leaves within the reference's rtol 1e-5 /
+    atol 1e-6 (``tests/test_trees_sharded.py:41-53``), dead slots NaN on
+    both; returns the largest leaf difference."""
+    if not (np.array_equal(a["split_feat"], b["split_feat"])
+            and np.array_equal(a["split_bin"], b["split_bin"])):
+        raise AssertionError("parallel (b): the sharded splits differ from "
+                             "the single-device fit's")
+    la, lb = a["leaf_value"], b["leaf_value"]
+    live = np.isfinite(la)
+    if not np.array_equal(live, np.isfinite(lb)):
+        raise AssertionError("parallel (b): dead leaf slots differ")
+    np.testing.assert_allclose(la[live], lb[live], rtol=1e-5, atol=1e-6)
+    return float(np.abs(la[live] - lb[live]).max()) if live.any() else 0.0
+
+
+#: collectives every sharded train() of the twin must tape: the trees'
+#: all-reduces and the logistic sweep's (its extra lane is the refit; the
+#: column shift is all-reduced only over more than one data rank)
+PARALLEL_TAPED = (
+    "tree_histogram", "tree_occupancy", "tree_leaf_sums",
+    *(f"sweep_logistic_binary_sharded/glm_{g}" for g in (
+        "count", "moments", "range", "loss", "grad", "grad_sum")),
+)
+
+
+def parallel_untaped(allreduces: dict) -> list:
+    """The names of ``PARALLEL_TAPED`` that a tape's counts lack."""
+    return [n for n in PARALLEL_TAPED if not allreduces.get(n)]
+
+
+def parallel_a(torch, smi: str, counters, tmp: str) -> dict:
+    """(a) One NCCL rank: ``train()`` under ``make_mesh(n_data=1)`` EQUALS
+    the same ``train()`` without a mesh (model, fold metrics, refit lanes,
+    scores), with the same K2 and split-search launches; the all-reduces
+    by name from the tape."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from transmogrifai_tpu_torch.parallel import guarded, make_mesh
+
+    t0 = time.perf_counter()
+    schema, records, _ = parallel_records(tmp, RESILIENCE_ROWS)
+    records_s = time.perf_counter() - t0
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(n_data=1)
+        plain = parallel_train(torch, schema, records, None, counters)
+        prior = guarded.set_tracing(True)
+        guarded.reset_tapes()
+        try:
+            meshed = parallel_train(torch, schema, records, mesh, counters)
+            tape = guarded.tape_names()
+        finally:
+            guarded.set_tracing(prior)
+    finally:
+        dist.destroy_process_group()
+    F = resilience_module()
+    if not same_arrays(F.fitted_arrays(plain["model"]),
+                       F.fitted_arrays(meshed["model"])):
+        raise AssertionError("parallel (a): the mesh-of-one model differs")
+    if not same_arrays(plain["lanes"], meshed["lanes"]):
+        raise AssertionError("parallel (a): the refit lanes differ")
+    got_v = [(r["modelName"], r["grid"], r["metricValues"])
+             for r in meshed["summary"]["validationResults"]]
+    want_v = [(r["modelName"], r["grid"], r["metricValues"])
+              for r in plain["summary"]["validationResults"]]
+    if got_v != want_v:
+        raise AssertionError("parallel (a): the fold metrics differ")
+    if not np.array_equal(plain["prob"], meshed["prob"]):
+        raise AssertionError("parallel (a): the scores differ")
+    for k in ("hist_binloop", "split_search", "node_order"):
+        if plain["launches"][k] != meshed["launches"][k]:
+            raise AssertionError(f"parallel (a): {k} launches differ: "
+                                 f"{plain['launches'][k]} vs "
+                                 f"{meshed['launches'][k]}")
+        if not meshed["launches"][k]:
+            raise AssertionError(f"parallel (a): {k} never ran")
+    allreduces = {n: tape.count(n) for n in sorted(set(tape))}
+    missing = parallel_untaped(allreduces)
+    if missing:
+        raise AssertionError(f"parallel (a): no {missing} collective taped")
+    return {"card": smi, "mesh": mesh.describe(), "rows": RESILIENCE_ROWS,
+            "records_s": records_s, "plain_train_s": plain["train_s"],
+            "mesh_train_s": meshed["train_s"],
+            "winner": meshed["summary"]["bestModelType"],
+            "equal": "model, fold metrics, refit lanes and scores EQUAL "
+                     "the unsharded train()",
+            "launches": meshed["launches"],
+            "plain_launches": plain["launches"],
+            "score_launches": meshed["score_launches"],
+            "allreduces": allreduces, "tape_length": len(tape),
+            "_plain": plain}
+
+
+def parallel_b(torch, smi: str, tmp: str) -> dict:
+    """(b) Two ``gloo`` ranks sharing ``cuda:0``: forest and boosted fits
+    at [16384, 128] x 32 bins (K2) and a 256-bin boosted fit (K3). Rank 0
+    and rank 1 EQUAL each other and the same 2-rank world on the CPU;
+    their splits EQUAL the single-device card fit and their leaves lie
+    within rtol 1e-5 / atol 1e-6; the ranks' tapes are identical."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import parallel_cases as C
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    def spawn(device: str):
+        t = time.perf_counter()
+        out = parallel_world(2, "parallel_cases:card_fits", (device,),
+                             os.path.join(tmp, f"b_{device}"))
+        return out, time.perf_counter() - t
+
+    # the card's world and the CPU's, two processes each, side by side
+    with ThreadPoolExecutor(2) as pool:
+        card_run, cpu_run = pool.submit(spawn, "cuda:0"), pool.submit(spawn,
+                                                                      "cpu")
+        (card, card_s), (cpu, cpu_s) = card_run.result(), cpu_run.result()
+    single = C.card_fits("cuda:0", sharded=False)
+    (r0, tape0), (r1, tape1) = card
+    if tape0["hosts"]["0"] != tape1["hosts"]["1"]:
+        raise AssertionError("parallel (b): the ranks' tapes differ")
+    keys = ("split_feat", "split_bin", "leaf_value", "outputs")
+    leaf_err, per_rank = {}, {}
+    for name in r0:
+        for other, what in ((r1, "rank 1"), (cpu[0][0], "the CPU world")):
+            if not same_arrays({k: r0[name][k] for k in keys},
+                               {k: other[name][k] for k in keys}):
+                raise AssertionError(f"parallel (b): {name} on rank 0 "
+                                     f"differs from {what}")
+        leaf_err[name] = parallel_trees_match(single[name], r0[name])
+        per_rank[name] = [r[0][name]["launches"] for r in card]
+    for k, names in (("hist_binloop", ("forest", "boosted")),
+                     ("hist_wide", ("boosted_256",)),
+                     ("split_search", tuple(r0))):
+        for name in names:
+            if not all(r[name]["launches"][k] for r in (r0, r1)):
+                raise AssertionError(f"parallel (b): {name} made no {k} "
+                                     "launch on a rank")
+    names = [n for _, n in tape0["hosts"]["0"]]
+    return {"card": smi, "ranks": 2, "backend": "gloo",
+            "shape": [C.CARD_ROWS, C.CARD_FEATS], "depth": C.CARD_DEPTH,
+            "equal": "rank 0 EQUAL rank 1 EQUAL the 2-rank CPU world; "
+                     "splits EQUAL the single-device card fit",
+            "leaf_max_abs_err_vs_single": leaf_err,
+            "launches_per_rank": per_rank,
+            "fit_s_per_rank": {n: [r[0][n]["seconds"] for r in card]
+                               for n in r0},
+            "single_fit_s": {n: single[n]["seconds"] for n in single},
+            "card_world_s": card_s, "cpu_world_s": cpu_s,
+            "allreduces": {n: names.count(n) for n in sorted(set(names))},
+            "tapes": "identical"}
+
+
+def parallel_c(smi: str, tmp: str, plain: dict) -> dict:
+    """(c) The 2-rank world trains the twin of (a) and scores its rows:
+    held to ``tests/test_workflow_mesh.py:61-97``'s tolerances against
+    (a)'s unsharded train(). Not cut: at 4096 rows the two ranks'
+    logistic winner scored up to 5.4e-4 from one device's, past the
+    rtol 1e-3 / atol 1e-5 held here (PERF.md)."""
+    rows = RESILIENCE_ROWS
+    t0 = time.perf_counter()
+    ranks = parallel_world(2, "chip_smoke:parallel_rank_train", (tmp, rows),
+                           os.path.join(tmp, "c"))
+    world_s = time.perf_counter() - t0
+    (r0, tape0), (r1, tape1) = ranks
+    if tape0["hosts"]["0"] != tape1["hosts"]["1"]:
+        raise AssertionError("parallel (c): the ranks' tapes differ")
+    if not np.array_equal(r0["prob"], r1["prob"]):
+        raise AssertionError("parallel (c): the ranks' scores differ")
+    s1, s2 = plain["summary"], r0["summary"]
+    if s1["bestModelName"] != s2["bestModelName"]:
+        raise AssertionError(f"parallel (c): winner {s2['bestModelName']} "
+                             f"against {s1['bestModelName']} on one device")
+    worst = {}
+    for a, b in zip(s1["validationResults"], s2["validationResults"]):
+        if (a["modelName"], a["grid"]) != (b["modelName"], b["grid"]):
+            raise AssertionError("parallel (c): the candidates differ")
+        tol = ((1e-4, 1e-6) if a["modelName"] == "XGBoostClassifier"
+               else (1e-3, 1e-3))
+        np.testing.assert_allclose(b["metricValues"], a["metricValues"],
+                                   rtol=tol[0], atol=tol[1])
+        err = float(np.abs(np.subtract(b["metricValues"],
+                                       a["metricValues"])).max())
+        worst[a["modelName"]] = max(worst.get(a["modelName"], 0.0), err)
+    np.testing.assert_allclose(r0["prob"], plain["prob"], rtol=1e-3,
+                               atol=1e-5)
+    tree_winner = s2["bestModelType"] not in ("OpLogisticRegression",
+                                              "LogisticRegression")
+    k1 = r0["score_launches"]["serve_trees"]
+    if tree_winner and not k1:
+        raise AssertionError("parallel (c): a tree won but scoring made no "
+                             "K1 launch")
+    names = [n for _, n in tape0["hosts"]["0"]]
+    allreduces = {n: names.count(n) for n in sorted(set(names))}
+    missing = parallel_untaped(allreduces)
+    if missing:
+        raise AssertionError(f"parallel (c): no {missing} collective taped")
+    return {"card": smi, "mesh": r0["mesh"], "rows": rows,
+            "winner": s2["bestModelType"],
+            "fold_metric_max_abs_err": worst,
+            "prob_max_abs_err": float(np.abs(r0["prob"] - plain["prob"]).max()),
+            "scoring": (f"K1, {k1} launches" if tree_winner else
+                        "a logistic winner: scored without K1"),
+            "train_s_per_rank": [r[0]["train_s"] for r in ranks],
+            "launches_per_rank": [r[0]["launches"] for r in ranks],
+            "world_s": world_s, "allreduces": allreduces,
+            "tapes": "identical"}
+
+
+def parallel_phase(torch, smi: str, counters) -> dict:
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = parallel_a(torch, smi, counters, tmp)
+        plain = a.pop("_plain")
+        a["part_s"] = time.perf_counter() - t0
+        phase("parallel (a) nccl world of one", **a)
+        t1 = time.perf_counter()
+        b = parallel_b(torch, smi, tmp)
+        b["part_s"] = time.perf_counter() - t1
+        phase("parallel (b) two gloo ranks on one card", **b)
+        t2 = time.perf_counter()
+        c = parallel_c(smi, tmp, plain)
+        c["part_s"] = time.perf_counter() - t2
+        phase("parallel (c) train() over two ranks", **c)
+    runs = {"parallel (a) mesh": {"launches": a["launches"]},
+            "parallel (a) score": {"launches": a["score_launches"]}}
+    # the spawned ranks' own counts, by rank (their processes' wrappers)
+    for rank in range(2):
+        fits = [per[rank] for per in b["launches_per_rank"].values()]
+        runs[f"parallel (b) rank {rank}"] = {"launches": {
+            k: sum(f.get(k, 0) for f in fits) for k in counters}}
+        runs[f"parallel (c) rank {rank}"] = {
+            "launches": c["launches_per_rank"][rank]}
+    return {"seconds": time.perf_counter() - t0, "launches": a["launches"],
+            "train_runs": runs}
+
+
+def run_parallel(torch, smi, M) -> dict:
+    """The data-parallel plane: one NCCL rank's train() EQUAL to no mesh,
+    two gloo ranks' sharded fits (K2, K3, the split search per rank) EQUAL
+    across ranks and the CPU, and train() over two ranks."""
+    run = parallel_phase(torch, smi, M.counters)
+    phase("parallel", seconds=run["seconds"], launches=run["launches"])
+    return run
+
+
 #: the phases after the kernels' checks and the main path, in the order a
 #: whole run takes them; each prints its lines and returns its record. A
 #: partial run (``--phases a,b``) takes the named ones in the order named.
@@ -7865,6 +8200,7 @@ PHASES = {
     "insights": run_insights,
     "text": run_text,
     "resilience": run_resilience,
+    "parallel": run_parallel,
 }
 
 #: a phase that takes over what another left, and that phase

@@ -235,13 +235,18 @@ def test_jax_saved_model_loads_in_the_port(tmp_path):
 
 # ---------------------------------------------------- workflow's own rules
 def test_planes_not_ported_name_their_item():
-    """A mesh (A13) raises naming its item (``None``, one device, is the
-    port's layout); train's checkpoint, stream and run-ledger arguments
-    are ported and reach train's own checks."""
+    """A mesh is ported (``parallel/mesh.py``): ``set_parallelism`` takes
+    one, ``None`` or ``"auto"`` and refuses anything else; train's
+    checkpoint, stream and run-ledger arguments are ported and reach
+    train's own checks."""
+    from transmogrifai_tpu_torch.parallel import make_mesh
+
     wf = PW.Workflow()
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="Mesh"):
         wf.set_parallelism(object())
     assert wf.set_parallelism(None) is wf
+    assert wf.set_parallelism(make_mesh(n_data=1, device="cpu")) is wf
+    wf.set_parallelism(None)
     for kwargs in ({"checkpoint_dir": "x"}, {"stream": True},
                    {"progress": print}, {"run_dir": "x"}):
         with pytest.raises(ValueError, match="setResultFeatures"):

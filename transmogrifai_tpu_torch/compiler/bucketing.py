@@ -12,9 +12,10 @@ real lanes back with ``[:k]``.
 Buckets: powers of two up to 64, then multiples of 32.
 ``TPTPU_LANE_BUCKETS=0`` disables padding.
 
-Left out: ``mesh_lane_bucket``, the sharded sweep's variant (multi-GPU
-fits, ``ROADMAP.md`` A13), and the compile-stats ledger that
-``bucket_sweep_lanes`` feeds in the reference (``record_sweep``, A14).
+``mesh_lane_bucket`` is the sharded sweep's variant: lanes split over a
+mesh's model axis, so the bucket is rounded up to that axis's size.
+Left out: the compile-stats ledger that ``bucket_sweep_lanes`` feeds in
+the reference (``record_sweep``, A14).
 """
 from __future__ import annotations
 
@@ -42,13 +43,29 @@ def lane_bucket(k: int) -> int:
     return -(-k // _STEP) * _STEP
 
 
-def bucket_sweep_lanes(*arrays: np.ndarray) -> tuple[int, tuple]:
-    """Bucket the lane count of axis 0 and pad every array onto it by
-    replicating lane 0. Returns ``(k, padded_arrays)``; callers slice the
-    fit's outputs back with ``[:k]``."""
+def mesh_lane_bucket(k: int, multiple: int = 1) -> int:
+    """Smallest lane bucket >= k that ``multiple`` divides evenly: lanes
+    split over a model axis of that size into equal blocks. With padding
+    disabled it is the plain ceiling multiple (divisibility is needed by
+    the sharded sweep, not an optimization)."""
+    multiple = max(1, int(multiple))
+    b = max(lane_bucket(k), multiple)
+    while b % multiple:
+        nb = lane_bucket(b + 1)
+        b = nb if nb > b else b + 1
+    return b
+
+
+def bucket_sweep_lanes(*arrays: np.ndarray,
+                       multiple: int = 1) -> tuple[int, tuple]:
+    """Bucket the lane count of axis 0 (rounded up to ``multiple`` when the
+    lanes split over a model axis of that size) and pad every array onto
+    it by replicating lane 0. Returns ``(k, padded_arrays)``; callers
+    slice the fit's outputs back with ``[:k]``."""
     arrays = tuple(np.asarray(a) for a in arrays)
     k = arrays[0].shape[0]
-    return k, pad_lane_arrays(lane_bucket(k), *arrays)
+    bucket = mesh_lane_bucket(k, multiple) if multiple > 1 else lane_bucket(k)
+    return k, pad_lane_arrays(bucket, *arrays)
 
 
 def pad_lane_arrays(bucket: int, *arrays: np.ndarray) -> tuple:

@@ -68,8 +68,8 @@ which propagates like any other.
 (``resilience/retrain.ledger_snapshot``) and ``metadata()["telemetry"]``
 the serving snapshot (``telemetry/export.serving_snapshot``). Not ported
 yet: the static plan audit (``audit``) and the compile-plane ledger
-(A14), the distributed summary (A13); their ``metadata()`` keys hold
-``None``.
+(A14), the distributed-resilience summary (A13b); their ``metadata()``
+keys hold ``None``.
 """
 from __future__ import annotations
 

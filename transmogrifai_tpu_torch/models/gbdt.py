@@ -911,6 +911,13 @@ class _ForestEstimator(_TreeEstimator):
         the fit's [K * C, N] outputs (``_sweep_lanes``) for the sweep's
         evaluation. Bins with this estimator's ``max_bins``, as the
         reference does."""
+        from ..parallel.mesh import execution_mesh
+
+        if execution_mesh() is not None:
+            # per-lane targets are single-device only (trees.py raises);
+            # under a mesh the family fits model by model, one class at a
+            # time, so it is not dropped
+            return None
         dev, thresholds, binned, fgroups = self._binned(x)
         colsample = self._colsample(x.shape[1])
         merged = [{**self.get_params(), **p} for p in group_points]

@@ -3,8 +3,10 @@ estimator, the port of the JAX package's ``models/linear.py``.
 
 ``fit_arrays`` runs ``solvers.fit_linear``; sweeps run
 ``solvers.fit_linear_batched`` with the dispatch / collect split of the
-logistic estimator (one host sync, the collector's download). The
-mesh-sharded sweep is not ported yet (``ROADMAP.md`` A13).
+logistic estimator (one host sync, the collector's download). Under an
+execution mesh the sweep runs sharded (``parallel/fit.py::
+sweep_parallel_fit``) and ``fit_arrays`` over this rank's rows with the
+sums all-reduced.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import numpy as np
 import torch
 
 from ..compiler import bucketing
+from ..parallel.fit import ambient_fit, sweep_parallel_fit
+from ..parallel.mesh import execution_mesh
 from ..utils.device import resolve_device
 from .base import (
     LinearCoreModel, PredictorEstimator, collect_lanes, group_grid_by_statics,
@@ -80,7 +84,8 @@ class LinearRegression(PredictorEstimator):
 
     def fit_arrays(self, x, y, row_mask):
         dev = resolve_device(self.device)
-        params = fit_linear(
+        params = ambient_fit(
+            fit_linear,
             np.asarray(x, dtype=np.float32), np.asarray(y, dtype=np.float32),
             np.asarray(row_mask, dtype=np.float32), float(self.reg_param),
             float(self.elastic_net_param), num_iters=_iters(self.max_iter),
@@ -108,6 +113,7 @@ class LinearRegression(PredictorEstimator):
             ),
         )
         dev = resolve_device(self.device)
+        mesh = execution_mesh()
         stacked_groups: list[tuple[list[int], torch.Tensor]] = []
         if groups:
             xd, yd = to_device(x, dev), to_device(y, dev)
@@ -123,6 +129,13 @@ class LinearRegression(PredictorEstimator):
                 dtype=np.float32,
             )
             rm = np.repeat(np.stack(masks), len(idxs), axis=0)  # mask-major
+            if mesh is not None:
+                out = sweep_parallel_fit(
+                    fit_linear_batched, "sweep_linear_sharded", mesh, xd, yd,
+                    rm, regs, ens, num_iters=_iters(max_iter),
+                    fit_intercept=fit_intercept, device=dev)
+                stacked_groups.append((idxs, packed_lanes(out)))
+                continue
             k, (rm, regs, ens) = bucketing.bucket_sweep_lanes(rm, regs, ens)
             out = fit_linear_batched(
                 xd, yd, rm, regs, ens, num_iters=_iters(max_iter),

@@ -7,9 +7,12 @@ three or more classes through ``solvers.fit_logistic_multinomial_batched``
 (FISTA at four times ``max_iter``, as the reference runs it).
 ``sweep_dispatch_masks`` issues a folds x grid sweep and returns a
 collector: the fits run on the device while the caller does other work,
-and the collector's download is the sweep's one host sync. Not ported: the
-mesh-sharded sweep (A13) and the compile plane's donation and executable
-bank (A14).
+and the collector's download is the sweep's one host sync. Under an
+execution mesh the binary sweep runs sharded (``parallel/fit.py::
+sweep_parallel_fit``: rows over the data axis, lanes over the model
+axis), and ``fit_arrays`` over this rank's rows with the sums
+all-reduced. Not ported: the compile plane's donation and executable bank
+(A14).
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import numpy as np
 import torch
 
 from ..compiler import bucketing
+from ..parallel.fit import ambient_fit, sweep_parallel_fit
+from ..parallel.mesh import execution_mesh
 from ..utils.device import resolve_device
 from .base import (
     LinearCoreModel, PredictorEstimator, collect_lanes, group_grid_by_statics,
@@ -27,6 +32,7 @@ from .solvers import (
     fit_logistic_multinomial, fit_logistic_multinomial_batched, packed_lanes,
     to_device,
 )
+
 
 #: FISTA's iterations per ``max_iter`` for the multinomial fit (the
 #: reference's budget: binary runs quasi-Newton at ``max_iter``)
@@ -137,7 +143,8 @@ class LogisticRegression(PredictorEstimator):
         n_classes = num_classes(y, row_mask)
         dev = resolve_device(self.device)
         if n_classes != 2:
-            params = fit_logistic_multinomial(
+            params = ambient_fit(
+                fit_logistic_multinomial,
                 np.asarray(x, dtype=np.float32), np.asarray(y, dtype=np.float32),
                 row_mask, float(self.reg_param), float(self.elastic_net_param),
                 n_classes,
@@ -147,7 +154,8 @@ class LogisticRegression(PredictorEstimator):
             )
             lane = torch.cat([params.weights.reshape(-1), params.intercept])
             return _lane_model(download_lanes([lane[None]])[0], n_classes, dev)
-        params = fit_logistic_binary(
+        params = ambient_fit(
+            fit_logistic_binary,
             np.asarray(x, dtype=np.float32), np.asarray(y, dtype=np.float32),
             row_mask, float(self.reg_param), float(self.elastic_net_param),
             num_iters=int(self.max_iter), fit_intercept=bool(self.fit_intercept),
@@ -192,6 +200,22 @@ class LogisticRegression(PredictorEstimator):
         real lanes sliced back with ``[:k]``; multinomial [k, D * C + C],
         unpadded, as the reference's ``vmap`` runs them."""
         fit_intercept, max_iter, standardization = statics
+        mesh = execution_mesh()
+        if mesh is not None:
+            # the sharded sweep: lanes over the model axis, rows over the
+            # data axis, every sum over rows all-reduced
+            fit_fn, name, kw = (
+                (fit_logistic_binary_batched, "sweep_logistic_binary_sharded",
+                 dict(num_iters=max_iter)) if n_classes == 2 else
+                (fit_logistic_multinomial_batched,
+                 "sweep_logistic_multinomial_sharded",
+                 dict(num_classes=n_classes,
+                      num_iters=max_iter * MULTINOMIAL_ITERS_PER_MAX_ITER)))
+            out = sweep_parallel_fit(
+                fit_fn, name, mesh, xd, yd, rm, regs, ens,
+                fit_intercept=fit_intercept, standardization=standardization,
+                device=dev, **kw)
+            return packed_lanes(out) if n_classes == 2 else _multi_packed(out)
         if n_classes != 2:
             return _multi_packed(fit_logistic_multinomial_batched(
                 xd, yd, rm, regs, ens, n_classes,

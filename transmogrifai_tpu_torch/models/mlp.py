@@ -12,7 +12,10 @@ gradients come from ``torch.autograd``, and optax's Adam update (b1 0.9,
 b2 0.999, eps 1e-8, bias-corrected ``mu_hat / (sqrt(nu_hat) + eps)``) is
 written out. ``compute_dtype="bfloat16"`` rounds each layer's operands to
 bfloat16 and accumulates in float32 (params and optimizer state stay
-float32). The mesh padding of the reference's data-parallel fit is A13's.
+float32). Under an execution mesh the fit is data parallel: rows pad to
+the data-axis multiple with mask 0, each rank takes its block, and the
+loss and every gradient are all-reduced over the data axis in rank order,
+so every rank takes the same Adam steps.
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import execution_mesh
 from ..utils import prng
 from ..utils.device import resolve_device
 from .base import PredictorEstimator, PredictorModel, num_classes
-from .solvers import _check_precision, to_device
+from .solvers import _check_precision, _row_sum, to_device
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -63,16 +67,19 @@ def _forward(params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
 
 
 def train_mlp(x, y1h, row_mask, sizes, num_iters: int, step_size: float,
-              seed: int, compute_dtype=None, device=None):
+              seed: int, compute_dtype=None, device=None, mesh=None):
     """The reference's ``_train_mlp``: (final float32 parameters as numpy
-    layers, the per-step losses [num_iters] as numpy)."""
+    layers, the per-step losses [num_iters] as numpy). With ``mesh`` the
+    rows are this rank's block: the count, the loss and the gradients are
+    all-reduced over its data axis."""
+    red = _row_sum(mesh)
     dev = resolve_device(device)
     _check_precision(dev)
     cd = None if compute_dtype is None else getattr(torch, str(compute_dtype))
     x = to_device(x, dev)
     y1h = to_device(y1h, dev)
     row_mask = to_device(row_mask, dev)
-    n = torch.clamp_min(row_mask.sum(), 1.0)
+    n = torch.clamp_min(red("mlp_count", row_mask.sum()), 1.0)
     params = [{k: torch.from_numpy(v).to(dev).requires_grad_(True)
                for k, v in layer.items()}
               for layer in _init_params(seed, sizes)]
@@ -85,8 +92,9 @@ def train_mlp(x, y1h, row_mask, sizes, num_iters: int, step_size: float,
         logits = _forward(params, x, cd)
         ll = -(y1h * torch.log_softmax(logits, dim=-1)).sum(-1) * row_mask
         loss = ll.sum() / n
-        grads = torch.autograd.grad(loss, flat)
-        losses.append(loss.detach())
+        grads = [red("mlp_grad", gr)
+                 for gr in torch.autograd.grad(loss, flat)]
+        losses.append(red("mlp_loss", loss.detach()))
         # optax's bias corrections, 1 - decay**count, in float32
         c1 = float(np.float32(1) - np.float32(_B1) ** np.float32(step))
         c2 = float(np.float32(1) - np.float32(_B2) ** np.float32(step))
@@ -200,10 +208,17 @@ class MLPClassifier(PredictorEstimator):
         sizes = (int(np.shape(x)[1]), *self.hidden_layers, n_classes)
         y1h = np.eye(n_classes, dtype=np.float32)[np.asarray(y).astype(np.int64)]
         dev = resolve_device(self.device)
+        x = np.asarray(x, dtype=np.float32)
+        mesh = execution_mesh()
+        if mesh is not None:
+            # the data-parallel fit: this rank's block of the rows,
+            # padded past the end with mask-0 rows
+            x, y1h, row_mask = (mesh.local_rows(a)
+                                for a in (x, y1h, row_mask))
         params, losses = train_mlp(
-            np.asarray(x, dtype=np.float32), y1h, row_mask, sizes,
+            x, y1h, row_mask, sizes,
             int(self.max_iter), float(self.step_size), int(self.seed),
-            compute_dtype=self.compute_dtype, device=dev,
+            compute_dtype=self.compute_dtype, device=dev, mesh=mesh,
         )
         self.metadata["finalLoss"] = float(losses[-1])
         model = MLPClassifierModel(params, n_classes)

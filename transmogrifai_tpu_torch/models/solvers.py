@@ -23,6 +23,14 @@ reference within stated tolerances, not bit for bit
 (``tests/test_torch_solvers.py``). On the card they must run in full
 float32: ``_check_precision`` refuses a fit while TF32 matmuls are on.
 
+Data parallel (``mesh=``, ``parallel/fit.py``): every rank passes its
+block of the rows, and every sum over rows inside the solver (counts,
+moments, the masked min / max, the loss and the gradient) is all-reduced
+over the mesh's data axis in rank order (``Mesh.all_reduce``, taped as
+``glm_count``, ``glm_moments``, ``glm_loss``, ``glm_grad``, ...), so every
+rank holds the same bits and takes the same steps. A mesh of one rank is the
+identity: the fit equals the one without a mesh.
+
 ``fit_linear_svc`` runs FISTA on the Huberized hinge; ``fit_glm_irls``
 runs iteratively reweighted least squares, one ``torch.linalg.solve`` of
 the [D+1, D+1] normal equations per iteration, the reference's
@@ -98,7 +106,7 @@ def _effectively_constant(std: torch.Tensor, scale: torch.Tensor,
     return std <= torch.clamp_min(rel_tol * scale, 1e-12)
 
 
-def _masked_minmax(x: torch.Tensor, rm: torch.Tensor):
+def _masked_minmax(x: torch.Tensor, rm: torch.Tensor, mesh=None):
     """Per-(lane, column) masked min/max: ``([K, D] min, [K, D] max)`` for
     x [N, D] under masks rm [K, N].
 
@@ -117,13 +125,39 @@ def _masked_minmax(x: torch.Tensor, rm: torch.Tensor):
     if not mins:
         empty = x.new_empty((0, x.shape[1]))
         return empty, empty
+    if mesh is not None:
+        # one exact all-reduce: the minimum of [min | -max]
+        d = x.shape[1]
+        both = mesh.all_reduce("glm_range", torch.cat(
+            [torch.stack(mins), -torch.stack(maxs)], dim=1), op="min")
+        return both[:, :d], -both[:, d:]
     return torch.stack(mins), torch.stack(maxs)
 
 
-def _standardize(x: torch.Tensor, row_mask: torch.Tensor):
-    n = torch.clamp_min(row_mask.sum(), 1.0)
-    mean = (x * row_mask[:, None]).sum(0) / n
-    var = ((x - mean) ** 2 * row_mask[:, None]).sum(0) / n
+def _row_sum(mesh) -> Callable:
+    """``red(name, t)``, the sum over rows across ranks: ``t`` itself
+    without a mesh, else the all-reduce of each rank's partial over the
+    data axis, taped under ``name``."""
+    if mesh is None:
+        return lambda name, t: t
+    return mesh.all_reduce
+
+
+def _col_mean(x: torch.Tensor, mesh, num_rows) -> torch.Tensor:
+    """Column means over the global rows: ``x.mean`` on one rank (so a
+    mesh of one equals no mesh), else the all-reduced sums over
+    ``num_rows``, the global count of real rows (padding rows are
+    zero)."""
+    if mesh is None or mesh.shape["data"] == 1:
+        return x.mean(dim=0)
+    return mesh.all_reduce("glm_shift", x.sum(dim=0)) / float(num_rows)
+
+
+def _standardize(x: torch.Tensor, row_mask: torch.Tensor, red=None):
+    red = red or _row_sum(None)
+    n = torch.clamp_min(red("glm_count", row_mask.sum()), 1.0)
+    mean = red("glm_moments", (x * row_mask[:, None]).sum(0)) / n
+    var = red("glm_moments", ((x - mean) ** 2 * row_mask[:, None]).sum(0)) / n
     std = torch.sqrt(var)
     const = _effectively_constant(std, torch.sqrt(var + mean**2))
     safe = torch.where(const, 1.0, std)
@@ -164,7 +198,7 @@ def _fista(grad_fn, prox_fn, w0, step, num_iters: int):
 
 def fit_linear_batched(
     x, y, row_masks, reg_params, elastic_nets, num_iters: int = 200,
-    fit_intercept: bool = True, device=None,
+    fit_intercept: bool = True, device=None, mesh=None, num_rows=None,
 ) -> GLMParams:
     """K elastic-net linear regressions sharing one feature matrix x [N, D]
     (y [N], row_masks [K, N], reg_params and elastic_nets [K]), as lanes of
@@ -172,19 +206,21 @@ def fit_linear_batched(
     gradient GEMM on the shared x, with each lane's standardization applied
     implicitly (x globally shifted so the one-pass lane moments do not
     cancel in float32). Returns weights [K, D], intercept [K] on the
-    device."""
+    device. With ``mesh`` the rows are this rank's block and
+    ``num_rows`` the global count of real rows."""
     dev = resolve_device(device)
     _check_precision(dev)
+    red = _row_sum(mesh)
     x = to_device(x, dev)
     y = to_device(y, dev)
     rm = to_device(row_masks, dev)
     reg_params = to_device(reg_params, dev)
     elastic_nets = to_device(elastic_nets, dev)
-    n = torch.clamp_min(rm.sum(dim=1), 1.0)                 # [K]
-    gshift = x.mean(dim=0)
+    n = torch.clamp_min(red("glm_count", rm.sum(dim=1)), 1.0)  # [K]
+    gshift = _col_mean(x, mesh, num_rows)
     xc = x - gshift[None, :]
-    s1 = rm @ xc                                            # [K, D]
-    s2 = rm @ (xc * xc)
+    s1 = red("glm_moments", rm @ xc)                        # [K, D]
+    s2 = red("glm_moments", rm @ (xc * xc))
     mean_shift = s1 / n[:, None]
     var = torch.clamp_min(s2 / n[:, None] - mean_shift**2, 0.0)
     std = torch.sqrt(var)
@@ -192,7 +228,7 @@ def fit_linear_batched(
     # fold-constant detection must be exact (masked min/max): an
     # all-zero-in-mask column has mean_true ~ 0, where the std-relative
     # test degenerates
-    xmin, xmax = _masked_minmax(x, rm)                      # [K, D] each
+    xmin, xmax = _masked_minmax(x, rm, mesh)                # [K, D] each
     const = (xmax <= xmin) | _effectively_constant(
         std, torch.sqrt(var + mean_true**2))
     safe = torch.where(const, 1.0, std)
@@ -202,7 +238,7 @@ def fit_linear_batched(
         xc = x
         ym = torch.zeros_like(n)
     else:
-        ym = (rm @ y) / n                                   # [K]
+        ym = red("glm_target_mean", rm @ y) / n             # [K]
     yc = torch.where(rm > 0, y[None, :] - ym[:, None], 0.0)  # [K, N]
     l1 = (reg_params * elastic_nets)[:, None]
     l2 = (reg_params * (1.0 - elastic_nets))[:, None]
@@ -212,7 +248,8 @@ def fit_linear_batched(
         v = torch.where(const, 0.0, w_std / safe)           # [K, D]
         logits = xc @ v.T - (mean_shift * v).sum(dim=1)[None, :]  # [N, K]
         r = (logits.T - yc) * rm                            # [K, N]
-        g_raw = r @ xc - mean_shift * r.sum(dim=1)[:, None]
+        g_raw = (red("glm_grad", r @ xc)
+                 - mean_shift * red("glm_grad_sum", r.sum(dim=1))[:, None])
         g = torch.where(const, 0.0, g_raw / safe) / n[:, None]
         return g + l2 * w_std
 
@@ -238,37 +275,38 @@ def fit_linear_batched(
 
 def fit_linear(
     x, y, row_mask, reg_param, elastic_net, num_iters: int = 200,
-    fit_intercept: bool = True, device=None,
+    fit_intercept: bool = True, device=None, mesh=None, num_rows=None,
 ) -> GLMParams:
     """Linear regression with elastic net, one fit (Spark WLS semantics
     for alpha=0 through converged FISTA). Weights [D], intercept scalar on
-    the device."""
+    the device. With ``mesh`` the rows are this rank's block."""
     dev = resolve_device(device)
     _check_precision(dev)
+    red = _row_sum(mesh)
     x = to_device(x, dev)
     y = to_device(y, dev)
     row_mask = to_device(row_mask, dev)
-    n = torch.clamp_min(row_mask.sum(), 1.0)
-    xs, mean, std, const = _standardize(x, row_mask)
+    n = torch.clamp_min(red("glm_count", row_mask.sum()), 1.0)
+    xs, mean, std, const = _standardize(x, row_mask, red)
     if not fit_intercept:
         # Spark parity: scale only, never center x or y
         mean = torch.zeros(x.shape[1], dtype=x.dtype, device=dev)
         xs = _scale_only(x, row_mask, std, const)
         ym = torch.zeros((), dtype=x.dtype, device=dev)
     else:
-        ym = (y * row_mask).sum() / n
+        ym = red("glm_target_mean", (y * row_mask).sum()) / n
     yc = torch.where(row_mask > 0, y - ym, 0.0)
     l1 = _f32(np.float32(reg_param) * np.float32(elastic_net))
     l2 = _f32(np.float32(reg_param) * (np.float32(1.0) - np.float32(elastic_net)))
 
     def grad(w):
         r = (xs @ w - yc) * row_mask
-        return xs.T @ r / n + l2 * w
+        return red("glm_grad", xs.T @ r) / n + l2 * w
 
     def prox(w, step):
         return _soft_threshold(w, step * l1)
 
-    col = (xs * xs).sum(0) / n
+    col = red("glm_lipschitz", (xs * xs).sum(0)) / n
     lip = col.sum() + l2
     step = 1.0 / torch.clamp_min(lip, 1e-6)
     w0 = torch.zeros(x.shape[1], dtype=x.dtype, device=dev)
@@ -405,6 +443,7 @@ def _lbfgs_owlqn(
 def fit_logistic_binary(
     x, y, row_mask, reg_param, elastic_net, num_iters: int = 100,
     fit_intercept: bool = True, standardization: bool = True, device=None,
+    mesh=None, num_rows=None,
 ) -> GLMParams:
     """Binary logistic regression by L-BFGS/OWL-QN: the K=1 lane of
     ``fit_logistic_binary_batched``, so the sweep and the winner's refit
@@ -415,7 +454,8 @@ def fit_logistic_binary(
         np.asarray([reg_param], dtype=np.float32),
         np.asarray([elastic_net], dtype=np.float32),
         num_iters=num_iters, fit_intercept=fit_intercept,
-        standardization=standardization, device=dev,
+        standardization=standardization, device=dev, mesh=mesh,
+        num_rows=num_rows,
     )
     return GLMParams(weights=out.weights[0], intercept=out.intercept[0])
 
@@ -423,6 +463,7 @@ def fit_logistic_binary(
 def fit_logistic_binary_batched(
     x, y, row_masks, reg_params, elastic_nets, num_iters: int = 100,
     fit_intercept: bool = True, standardization: bool = True, device=None,
+    mesh=None, num_rows=None,
 ) -> GLMParams:
     """K binary logistic L-BFGS/OWL-QN fits sharing one feature matrix x
     [N, D] (y [N] in {0, 1}, row_masks [K, N], reg_params and elastic_nets
@@ -430,32 +471,35 @@ def fit_logistic_binary_batched(
     [T*K]-lane line-search GEMM and one gradient GEMM pair), each lane's
     standardization applied implicitly:
         xs^T r = (x^T (r m) - mean sum(r m)) / std
-    Returns weights [K, D], intercept [K] on the device."""
+    Returns weights [K, D], intercept [K] on the device. With ``mesh``
+    the rows are this rank's block and ``num_rows`` the global count of
+    real rows."""
     dev = resolve_device(device)
     _check_precision(dev)
+    red = _row_sum(mesh)
     x = to_device(x, dev)
     y = to_device(y, dev)
     rm = to_device(row_masks, dev)
     reg_params = to_device(reg_params, dev)
     elastic_nets = to_device(elastic_nets, dev)
     k_fits = rm.shape[0]
-    n = torch.clamp_min(rm.sum(dim=1), 1.0)                 # [K]
+    n = torch.clamp_min(red("glm_count", rm.sum(dim=1)), 1.0)  # [K]
     # shifted-data moments: center on the global column means first so the
     # one-pass per-lane variance does not cancel in f32 for large-mean
     # columns; without standardization nothing is centered
     if standardization:
-        gshift = x.mean(dim=0)                              # [D]
+        gshift = _col_mean(x, mesh, num_rows)               # [D]
     else:
         gshift = torch.zeros(x.shape[1], dtype=x.dtype, device=dev)
     xc = x - gshift[None, :]
-    s1 = rm @ xc                                            # [K, D]
-    s2 = rm @ (xc * xc)                                     # [K, D]
+    s1 = red("glm_moments", rm @ xc)                        # [K, D]
+    s2 = red("glm_moments", rm @ (xc * xc))                 # [K, D]
     mean_raw = s1 / n[:, None]
     var = torch.clamp_min(s2 / n[:, None] - mean_raw**2, 0.0)
     std = torch.sqrt(var)
     # fold-constant detection is exact and order-invariant (masked
     # min/max), so it equals the reference's
-    xmin, xmax = _masked_minmax(x, rm)                      # [K, D] each
+    xmin, xmax = _masked_minmax(x, rm, mesh)                # [K, D] each
     const = xmax <= xmin
     # near-constant columns: clamp std to the one-pass noise floor rather
     # than gating (a continuous guard)
@@ -483,7 +527,7 @@ def fit_logistic_binary_batched(
         # jax.nn.softplus is logaddexp(x, 0) (torch's softplus returns x
         # itself above its threshold of 20)
         ll = torch.logaddexp(logits, zero) - y * logits
-        f = (ll * rm).sum(-1) / n
+        f = red("glm_loss", (ll * rm).sum(-1)) / n
         f = f + 0.5 * l2[:, 0] * (w_std * w_std).sum(-1)
         return f + l1[:, 0] * torch.abs(w_std).sum(-1)
 
@@ -510,8 +554,8 @@ def fit_logistic_binary_batched(
         # port's twin), which takes one source of difference out
         p = _xla_sigmoid(logits)
         r = (p - y[None, :]) * rm                           # [K, N]
-        xr = r @ xc                                         # [K, D]
-        rsum = r.sum(dim=1)[:, None]
+        xr = red("glm_grad", r @ xc)                        # [K, D]
+        rsum = red("glm_grad_sum", r.sum(dim=1))[:, None]
         gw = (xr - mean_c * rsum) / safe / n[:, None] + l2 * w_std
         if standardization:
             # constant columns are cancellation noise: pin them at 0
@@ -550,7 +594,7 @@ def fit_logistic_binary_batched(
 def fit_logistic_multinomial_batched(
     x, y, row_masks, reg_params, elastic_nets, num_classes: int,
     num_iters: int = 200, fit_intercept: bool = True,
-    standardization: bool = True, device=None,
+    standardization: bool = True, device=None, mesh=None, num_rows=None,
 ) -> GLMParams:
     """K softmax regressions (Spark multinomial logistic parity) sharing
     one feature matrix x [N, D] (y [N] class ids, row_masks [K, N],
@@ -560,9 +604,10 @@ def fit_logistic_multinomial_batched(
     [K, N, D], made lane by lane by ``_standardize``); per iteration one
     batched [N, D] x [D, C] product, a softmax, and one batched [D, N] x
     [N, C] gradient product. Returns weights [K, D, C], intercept [K, C] on
-    the device."""
+    the device. With ``mesh`` the rows are this rank's block."""
     dev = resolve_device(device)
     _check_precision(dev)
+    red = _row_sum(mesh)
     x = to_device(x, dev)
     y = to_device(y, dev)
     rm = to_device(row_masks, dev)
@@ -570,13 +615,13 @@ def fit_logistic_multinomial_batched(
     ens = to_device(elastic_nets, dev)
     k_fits, (n_rows, d) = rm.shape[0], x.shape
     c = int(num_classes)
-    n = torch.clamp_min(rm.sum(dim=1), 1.0)                 # [K]
+    n = torch.clamp_min(red("glm_count", rm.sum(dim=1)), 1.0)  # [K]
     xs = torch.empty((k_fits, n_rows, d), dtype=x.dtype, device=dev)
     mean = torch.zeros((k_fits, d), dtype=x.dtype, device=dev)
     std = torch.ones((k_fits, d), dtype=x.dtype, device=dev)
     for k in range(k_fits):
         if standardization:
-            xs_k, mean_k, std_k, const_k = _standardize(x, rm[k])
+            xs_k, mean_k, std_k, const_k = _standardize(x, rm[k], red)
             if fit_intercept:
                 mean[k] = mean_k
             else:
@@ -601,8 +646,9 @@ def fit_logistic_multinomial_batched(
         if fit_intercept:
             logits = logits + b[:, None, :]
         r = (torch.softmax(logits, dim=-1) - y1h[None]) * rmc  # [K, N, C]
-        gw = torch.bmm(xs.transpose(1, 2), r) / n[:, None, None] + l2 * w
-        gb = (r.sum(dim=1) / n[:, None] if fit_intercept
+        gw = (red("glm_grad", torch.bmm(xs.transpose(1, 2), r))
+              / n[:, None, None] + l2 * w)
+        gb = (red("glm_grad_sum", r.sum(dim=1)) / n[:, None] if fit_intercept
               else torch.zeros_like(b))
         return torch.cat([gw.reshape(k_fits, dc), gb], dim=1)
 
@@ -610,7 +656,7 @@ def fit_logistic_multinomial_batched(
         return torch.cat([_soft_threshold(params[:, :dc], step * l1),
                           params[:, dc:]], dim=1)
 
-    col = (xs * xs).sum(dim=1) / n[:, None]                 # [K, D]
+    col = red("glm_lipschitz", (xs * xs).sum(dim=1)) / n[:, None]  # [K, D]
     lip = 0.5 * col.sum(dim=1, keepdim=True) + l2[:, :, 0]  # [K, 1]
     step = 1.0 / torch.clamp_min(lip, 1e-6)
     params0 = torch.zeros((k_fits, dc + c), dtype=x.dtype, device=dev)
@@ -626,7 +672,7 @@ def fit_logistic_multinomial_batched(
 def fit_logistic_multinomial(
     x, y, row_mask, reg_param, elastic_net, num_classes: int,
     num_iters: int = 200, fit_intercept: bool = True,
-    standardization: bool = True, device=None,
+    standardization: bool = True, device=None, mesh=None, num_rows=None,
 ) -> GLMParams:
     """Softmax regression, one fit: the K=1 lane of
     ``fit_logistic_multinomial_batched``. Weights [D, C], intercept [C] on
@@ -637,7 +683,7 @@ def fit_logistic_multinomial(
         np.asarray([reg_param], dtype=np.float32),
         np.asarray([elastic_net], dtype=np.float32), num_classes,
         num_iters=num_iters, fit_intercept=fit_intercept,
-        standardization=standardization, device=dev,
+        standardization=standardization, device=dev, mesh=mesh,
     )
     return GLMParams(weights=out.weights[0], intercept=out.intercept[0])
 

@@ -19,6 +19,20 @@ splits agree.
 Control flow that the reference runs as ``lax.cond`` on the device is a
 Python ``if`` on a device value here: one host sync per grown level
 (``host_syncs`` counts them).
+
+Sharded growth (``mesh=``, or the ambient ``parallel.mesh.execution_mesh``):
+every rank grows over its block of the rows (padded to the data-axis
+multiple with mask-0 rows at the global tail) and the grower all-reduces
+at the reference's points (its ``trees.py:465-468``, ``:562-563``,
+``:526-528``, ``:694-696``): each node chunk's histogram (with its row
+counts) between the build and the split search, the occupancy before the
+live-slot count is read (so every rank compacts, exits early and skips
+chunks alike), and the leaf sums. The sums run in rank order
+(``Mesh.all_reduce``), so every rank grows the same trees; the splits
+equal the single-device fit's and the leaves agree to float
+reassociation. The fused K4 stays off this route, as in the reference.
+The outputs (margins, training predictions) stay row-sharded and are
+gathered to the global rows once, at the end.
 """
 from __future__ import annotations
 
@@ -241,6 +255,12 @@ def grow_tree_batched(binned, grad, hess, row_mask, feat_mask, max_depth,
     )[0]
 
 
+def _psum(mesh, name: str, t: torch.Tensor) -> torch.Tensor:
+    """All-reduce over the mesh's data axis (taped under ``name``);
+    identity without a mesh."""
+    return t if mesh is None else mesh.all_reduce(name, t)
+
+
 def _grow_tree_impl(
     binned: torch.Tensor,     # [N, F] int32 codes, shared across fits
     grad: torch.Tensor,       # [K, N] float32
@@ -252,6 +272,7 @@ def _grow_tree_impl(
     reg_lambda=1.0, gamma=0.0, min_child_weight=1.0, min_info_gain=0.0,
     feature_groups=None,      # (narrow_idx, wide_idx) original feature ids
     max_depth_v=None,         # [K] int per-lane depth caps
+    mesh=None,                # rows: this rank's block of the mesh's data axis
 ) -> tuple[Tree, torch.Tensor]:
     """(trees [K, ...], each row's final leaf slot [K, N]).
 
@@ -261,10 +282,13 @@ def _grow_tree_impl(
     in the original code space. Across groups the merge keeps the lowest
     original feature id on equal gain, as a single search would.
     ``max_depth_v`` caps each lane's depth: levels at or past a lane's cap
-    emit no splits."""
+    emit no splits. With ``mesh`` the rows are this rank's block, and the
+    histograms, occupancy and leaf sums are all-reduced over its data
+    axis."""
     global host_syncs
     dev = binned.device
     k_fits, n = grad.shape
+    n_global = n if mesh is None else n * mesh.shape["data"]
     b = num_bins
     max_nodes = 1 << max_depth
     g = grad * row_mask
@@ -294,8 +318,8 @@ def _grow_tree_impl(
     if max_depth == 0:
         # root-only tree: no splits, one leaf over every row
         node0 = torch.zeros((k_fits, n), dtype=torch.int32, device=dev)
-        leaf_g0 = _xla_sum(g, 1)[:, None]
-        leaf_h0 = _xla_sum(h, 1)[:, None]
+        leaf_g0, leaf_h0 = _psum(mesh, "tree_leaf_sums", torch.stack(
+            [_xla_sum(g, 1)[:, None], _xla_sum(h, 1)[:, None]]))
         return Tree(
             split_feat=torch.full((k_fits, 0, 1), -1, dtype=torch.int32, device=dev),
             split_bin=torch.zeros((k_fits, 0, 1), dtype=torch.int32, device=dev),
@@ -303,10 +327,11 @@ def _grow_tree_impl(
         ), node0
 
     # node compaction: at most min(2^depth, N) slots are live at any level
+    # (N the global row count when sharded)
     cap = max_nodes
-    if cap > n:
+    if cap > n_global:
         cap = 1
-        while cap < n:
+        while cap < n_global:
             cap <<= 1
         cap = min(cap, max_nodes)
 
@@ -327,7 +352,7 @@ def _grow_tree_impl(
     chunk_nodes = min(chunk_cap, n_nodes)
     num_chunks = -(-n_nodes // chunk_nodes)
 
-    def group_stats(gbin, gmask, gb, gidx, route, loc, m, rows):
+    def group_stats(gbin, gmask, gb, gidx, route, loc, m, rows, count):
         """(gain, original feature, bin) of the best split per slot."""
         if route == "binloop":
             hist = H.build_histogram_binloop(gbin, loc, g, h, m, gb, order=rows)
@@ -335,8 +360,11 @@ def _grow_tree_impl(
             hist = H.build_histogram_wide(gbin, loc, g, h, m, gb, order=rows)
         else:
             hist = H.build_histogram_scatter_batched(gbin, loc, g, h, m, gb)
+        # the allreduce of the reference's Rabit step: every rank searches
+        # the global histogram
+        hist = _psum(mesh, "tree_histogram", hist)
         best_gain, best_feat, best_bin = H.split_search(
-            hist, gmask, lam, gam, mcw, count=None if rows is None else rows[2])
+            hist, gmask, lam, gam, mcw, count=count)
         if gidx is not None:
             best_feat = gidx[best_feat.long()].to(torch.int32)
         return best_gain, best_feat, best_bin
@@ -348,9 +376,13 @@ def _grow_tree_impl(
         loc = torch.where(in_chunk, local - c0, -1).to(torch.int32).contiguous()
         # the kernels' row order, shared by every group of the chunk
         rows = H.node_order(loc, m, g, h) if sorted_routes else None
+        # the split search skips the slots that hold no row anywhere
+        count = None if rows is None else _psum(mesh, "tree_node_count",
+                                                rows[2])
         bg = bf = bb = None
         for (gbin, gmask, gb, gidx), route in zip(groups, routes):
-            gg, gf, gbn = group_stats(gbin, gmask, gb, gidx, route, loc, m, rows)
+            gg, gf, gbn = group_stats(gbin, gmask, gb, gidx, route, loc, m,
+                                      rows, count)
             if bg is None:
                 bg, bf, bb = gg, gf, gbn
             else:
@@ -370,7 +402,7 @@ def _grow_tree_impl(
         # compaction: live slots (those holding an active row) numbered
         # densely from 0 by occupancy + exclusive prefix rank
         hist_node = torch.where(active, node, sentinel)
-        occ = _occupancy(hist_node, max_nodes)
+        occ = _psum(mesh, "tree_occupancy", _occupancy(hist_node, max_nodes))
         live = occ > 0
         live_i = live.to(torch.int64)
         rank = torch.cumsum(live_i, dim=1) - live_i
@@ -425,6 +457,9 @@ def _grow_tree_impl(
     else:
         leaf_g = _segment_sum_small(g, node, max_nodes)
         leaf_h = _segment_sum_small(h, node, max_nodes)
+    if mesh is not None:
+        leaf_g, leaf_h = mesh.all_reduce("tree_leaf_sums",
+                                         torch.stack([leaf_g, leaf_h]))
     leaf_value = -leaf_g / (leaf_h + lam[:, None])
     return Tree(feats, bins, leaf_value), node
 
@@ -509,17 +544,61 @@ def fit_boosted(binned, y, row_mask, num_rounds, max_depth, num_bins,
     return Tree(*(a[0] for a in trees)), margin[0]
 
 
+def _resolve_mesh(mesh):
+    """``mesh``, or the ambient execution mesh when None."""
+    if mesh is not None:
+        return mesh
+    from ..parallel.mesh import execution_mesh
+
+    return execution_mesh()
+
+
+def _shard(mesh, n: int):
+    """(lo, hi) of this rank's block of the padded row space, or None
+    without a mesh."""
+    return None if mesh is None else mesh.row_block(n)[:2]
+
+
+def _rows_of(t: torch.Tensor, blk, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (zero rows past its end),
+    or ``t`` itself without a mesh."""
+    if blk is None:
+        return t
+    from ..parallel.mesh import take_rows
+
+    return take_rows(t, blk[0], blk[1], dim).contiguous()
+
+
+def _gather_rows(mesh, t: torch.Tensor, n: int) -> torch.Tensor:
+    """Row-sharded [K, n_local] outputs -> the global [K, n] on every
+    rank."""
+    if mesh is None:
+        return t
+    return mesh.all_gather("tree_rows", t.contiguous(), 1)[:, :n]
+
+
 def fit_boosted_batched(binned, y, row_mask, num_rounds, max_depth, num_bins,
                         eta=0.3, reg_lambda=1.0, gamma=0.0, min_child_weight=1.0,
                         min_info_gain=0.0, base_score=0.0,
-                        objective="binary:logistic", feature_groups=None):
+                        objective="binary:logistic", feature_groups=None,
+                        mesh=None):
     """K boosting runs batched over the fit axis (``_boost_chunk_body`` as
     one chunk of every round): each round grows all K trees together, and
     the margin update reads each row's leaf from the grower's own routing.
-    Returns trees [K, R, ...] and the training margins [K, N]."""
+    Returns trees [K, R, ...] and the training margins [K, N].
+
+    With ``mesh`` (default: the ambient execution mesh) rows shard over
+    its data axis: gradients and margins stay row-sharded, each level's
+    histogram is all-reduced, the trees come back the same on every rank
+    and the margins are gathered once at the end."""
+    mesh = _resolve_mesh(mesh)
     k_fits, n = row_mask.shape
     dev = binned.device
     y, row_mask = _f32(y, dev), _f32(row_mask, dev)
+    blk = _shard(mesh, n)
+    binned = _rows_of(binned, blk, 0)
+    y, row_mask = _rows_of(y, blk, 0), _rows_of(row_mask, blk, 1)
+    n_global, n = n, row_mask.shape[1]
     f = binned.shape[1]
     feat_mask = torch.ones((k_fits, f), dtype=torch.float32, device=dev)
     eta_v = torch.as_tensor(np.broadcast_to(
@@ -537,12 +616,13 @@ def fit_boosted_batched(binned, y, row_mask, num_rounds, max_depth, num_bins,
         g, h = _grads(margin, y[None, :], objective)
         tree, leaf_slot = _grow_tree_impl(
             binned, g, h, row_mask, feat_mask, max_depth=max_depth,
-            num_bins=num_bins, feature_groups=feature_groups, **knobs,
+            num_bins=num_bins, feature_groups=feature_groups, mesh=mesh,
+            **knobs,
         )
         step = _small_table_lookup(tree.leaf_value, leaf_slot)
         margin = _fma32(eta_v[:, None], step, margin)
         trees.append(tree)
-    return _stack_trees(trees, 1), margin
+    return _stack_trees(trees, 1), _gather_rows(mesh, margin, n_global)
 
 
 # --------------------------------------------------------------------------
@@ -580,19 +660,28 @@ def _bag_masks(tkey, sub, col, row_mask, n, f, bootstrap):
 def _forest_trees(binned, target, row_mask, seed, sub, col, min_instances,
                   min_info_gain, feature_groups=None, max_depth_v=None,
                   subset_n=None, subset_w=None, *, num_trees, max_depth,
-                  num_bins, bootstrap):
+                  num_bins, bootstrap, mesh=None):
     """The bagged forest tree by tree (``_forest_trees_scan``): per-tree
     keys split from ``seed``, masks drawn per tree, one batched growth per
     tree. Returns (trees [K, T, ...], each lane's mean-leaf output on every
-    training row [K, N], read from the grower's own routing)."""
+    training row [K, N], read from the grower's own routing).
+
+    With ``mesh`` the bag masks are drawn over the global unpadded rows
+    with the same keys on every rank (so they equal the single-device
+    draw), then each rank grows over its block (the reference's
+    ``_fit_forest_batched_sharded``, its ``trees.py:1647-1690``)."""
     dev = binned.device
     rm_host = np.asarray(row_mask.detach().cpu() if isinstance(row_mask, torch.Tensor)
                          else row_mask, dtype=np.float32)
     k_fits, n = rm_host.shape
     f = binned.shape[1]
+    blk = _shard(mesh, n)
+    binned = _rows_of(binned, blk, 0)
+    n_local = binned.shape[0]
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
-    gneg = -(target if target.dim() == 2 else target[None, :].expand(k_fits, n))
-    ones = torch.ones((k_fits, n), dtype=torch.float32, device=dev)
+    gneg = -_rows_of(target if target.dim() == 2
+                     else target[None, :].expand(k_fits, n), blk, 1)
+    ones = torch.ones((k_fits, n_local), dtype=torch.float32, device=dev)
     tkeys = prng.split(prng.prng_key(seed), num_trees)
     col_t = np.ones_like(col) if subset_n is not None else col
     feature_groups, knobs = _knobs(
@@ -604,28 +693,31 @@ def _forest_trees(binned, target, row_mask, seed, sub, col, min_instances,
     preds, trees = [], []
     for t in range(num_trees):
         rm_t, fm_t = _bag_masks(tkeys[t], sub, col_t, rm_host, n, f, bootstrap)
+        rm_t = _rows_of(torch.from_numpy(rm_t), blk, 1).numpy()
         grp = (subset_n[t], subset_w[t]) if subset_n is not None else feature_groups
         tree, node = _grow_tree_impl(
             binned, gneg, ones, _upload(rm_t, dev), _upload(fm_t, dev),
             max_depth=max_depth, num_bins=num_bins,
-            feature_groups=grp, max_depth_v=max_depth_v, **knobs,
+            feature_groups=grp, max_depth_v=max_depth_v, mesh=mesh, **knobs,
         )
         preds.append(_small_table_lookup(tree.leaf_value, node))
         trees.append(tree)
     # the mean over trees as the reference's reduction takes it: the sum in
     # XLA's order times the f32 reciprocal of the tree count
     mean = _xla_sum(torch.stack(preds), 0) * _f32c(1.0 / num_trees)
-    return _stack_trees(trees, 1), mean
+    return _stack_trees(trees, 1), _gather_rows(mesh, mean, n)
 
 
 def fit_forest_batched(binned, target, row_mask, num_trees, max_depth,
                        num_bins, subsample_rate=1.0, colsample_rate=1.0,
                        min_instances=1.0, min_info_gain=0.0, seed=42,
                        bootstrap=True, feature_groups=None,
-                       max_depth_v=None, return_outputs=False):
+                       max_depth_v=None, return_outputs=False, mesh=None):
     """K random forests batched over the fit axis. Returns trees
     [K, T, ...]; with ``return_outputs`` also the [K, N] mean-leaf training
-    outputs.
+    outputs. With ``mesh`` (default: the ambient execution mesh) rows
+    shard over its data axis; per-lane depth caps and per-lane targets
+    are single-device only, as in the reference.
 
     A plain-number ``colsample_rate`` < 1 with ``feature_groups`` draws an
     exact-count feature subset per tree on the host, stratified over the
@@ -633,6 +725,15 @@ def fit_forest_batched(binned, target, row_mask, num_trees, max_depth,
     tree over only those columns; otherwise a Bernoulli feature mask is
     drawn per tree and lane."""
     k_fits = row_mask.shape[0]
+    mesh = _resolve_mesh(mesh)
+    if mesh is not None:
+        if max_depth_v is not None:
+            raise NotImplementedError(
+                "per-lane depth caps are single-device only (the sweep path)")
+        if getattr(target, "ndim", 1) != 1:
+            raise NotImplementedError(
+                "per-lane targets are single-device only (the multiclass "
+                "sweep path); shard multiclass one class at a time")
     subset_n = subset_w = None
     rate = (
         float(colsample_rate)
@@ -673,6 +774,7 @@ def fit_forest_batched(binned, target, row_mask, num_trees, max_depth,
         feature_groups=feature_groups, max_depth_v=max_depth_v,
         subset_n=subset_n, subset_w=subset_w, num_trees=num_trees,
         max_depth=max_depth, num_bins=num_bins, bootstrap=bootstrap,
+        mesh=mesh,
     )
     return (trees, outs) if return_outputs else trees
 

@@ -22,9 +22,10 @@ hardening, the training-side retries, checkpoints and the retrain loop.
   resumes from its checkpoints, run-ledger gate, registry canary), driven
   by ``tick()`` on an injectable clock.
 
-The distributed plane (the failover loop, the collective guard, the
-sharded checkpoint layout) is not ported yet (``ROADMAP.md`` A13);
-``distributed.py`` holds its serving-side part.
+Distributed resilience (the failover loop, the collective guard, the
+sharded checkpoint layout) is not ported yet (``ROADMAP.md`` A13b);
+``distributed.py`` holds its serving-side part and the seams the
+data-parallel plane (``parallel/``) consults.
 """
 from .checkpoint import (  # noqa: F401
     CheckpointError,

@@ -25,9 +25,9 @@ which records the bytes on the run ledger's transfer census.
 
 The DAG signature leaves a stage's ``device`` parameter out, so a
 checkpoint does not depend on where it was written. The saved arrays are
-host numpy; the manifest's ``mesh`` field is written as ``null`` until the
-distributed plane (``ROADMAP.md`` A13) records a topology and reshards on
-a topology change, and the sharded layout's load hook
+host numpy; the manifest's ``mesh`` field is written as ``null`` until
+distributed resilience (``ROADMAP.md`` A13b) records a topology and
+reshards on a topology change, and the sharded layout's load hook
 (``FaultPlan.on_shard_load``) waits for it too.
 """
 from __future__ import annotations
@@ -52,8 +52,8 @@ class CheckpointError(RuntimeError):
 
 class CheckpointMeshMismatch(CheckpointError):
     """A layer checkpoint written under another device topology than the
-    resuming run's mesh, under a strict layout policy: the distributed
-    plane's check (``ROADMAP.md`` A13). The port's checkpoints record no
+    resuming run's mesh, under a strict layout policy: distributed
+    resilience's check (``ROADMAP.md`` A13b). The port's checkpoints record no
     mesh, so nothing raises it yet."""
 
 

@@ -11,12 +11,14 @@ needs.
   beats) plus the per-collective duration history behind a p99-based
   straggler deadline.
 
+``active_collective_guard()`` and ``active_controller()`` are what the
+parallel plane's seam (``parallel/guarded.py``) and ``Workflow.train``
+consult: both return ``None``, because no controller can be installed yet.
 The rest of the module — ``CollectiveGuard``, ``FailoverController``, the
 row re-slicing (``host_blocks``, ``adopt_orphans``), ``mesh_fingerprint``,
-the installed controller and the ``resilience`` ledger source — wraps
-the sharded reductions and the streamed fit, which are not ported yet
-(``ROADMAP.md`` A13). Referring to any of them raises
-``NotImplementedError``.
+installing a controller and the ``resilience`` ledger source — is
+distributed resilience, ``ROADMAP.md`` A13b. Referring to any of them
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,24 +34,36 @@ from ..telemetry import events as _tevents
 
 log = logging.getLogger(__name__)
 
-__all__ = ["HeartbeatConfig", "HostLostError", "HostSentinel"]
+__all__ = ["HeartbeatConfig", "HostLostError", "HostSentinel",
+           "active_collective_guard", "active_controller"]
 
-#: the reference module's names that wait for the distributed plane
+#: the reference module's names that wait for distributed resilience
 NOT_PORTED = (
     "CollectiveGuard", "FailoverController", "simulated_host_count",
     "host_blocks", "adopt_orphans", "mesh_fingerprint", "install_controller",
-    "uninstall_controller", "active_controller", "active_collective_guard",
-    "installed_controller",
+    "uninstall_controller", "installed_controller",
 )
 
 
 def __getattr__(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"resilience.distributed.{name} needs the distributed plane, not "
-            "ported yet (ROADMAP.md A13)"
+            f"resilience.distributed.{name} is distributed resilience, not "
+            "ported yet (ROADMAP.md A13b)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def active_controller():
+    """The installed failover controller: always None, since installing
+    one is distributed resilience (``ROADMAP.md`` A13b)."""
+    return None
+
+
+def active_collective_guard():
+    """The installed controller's collective guard, which the parallel
+    plane's seam runs every collective behind: None (no controller)."""
+    return None
 
 
 class HostLostError(BaseException):

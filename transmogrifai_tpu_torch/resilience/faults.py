@@ -30,7 +30,8 @@ consumes the rest: ``crash_after_layer`` and the retrain-scoped
 ``fail_host`` and ``straggle_collective`` raise ``NotImplementedError``,
 and so do the hooks of the distributed plane (:meth:`FaultPlan.
 on_collective`, and :meth:`FaultPlan.on_shard_load`, through which a
-sharded checkpoint's load reads ``corrupt_shard``): that plane is A13.
+sharded checkpoint's load reads ``corrupt_shard``): that is distributed
+resilience, A13b.
 
 ``SimulatedCrash`` derives from ``BaseException`` on purpose: it models a
 process death (preemption, OOM-kill) and must sail through every
@@ -447,11 +448,11 @@ class FaultPlan:
         times: int = 1,
     ) -> "FaultPlan":
         """Declare a simulated host dead at the end of a DAG layer or during
-        a collective. Its consumer, the distributed plane and its
-        ``HostLostError``, is not ported yet (``ROADMAP.md`` A13)."""
+        a collective. Its consumer, the failover controller and its
+        ``HostLostError``, is not ported yet (``ROADMAP.md`` A13b)."""
         raise NotImplementedError(
-            "FaultPlan.fail_host needs the distributed plane, not ported "
-            "yet (ROADMAP.md A13)"
+            "FaultPlan.fail_host needs distributed resilience, not ported "
+            "yet (ROADMAP.md A13b)"
         )
 
     def straggle_collective(
@@ -462,11 +463,11 @@ class FaultPlan:
         times: int = 1,
     ) -> "FaultPlan":
         """Inflate a collective's observed duration. Its consumer, the
-        distributed plane's ``CollectiveGuard``, is not ported yet
-        (``ROADMAP.md`` A13)."""
+        ``CollectiveGuard`` of distributed resilience, is not ported yet
+        (``ROADMAP.md`` A13b)."""
         raise NotImplementedError(
-            "FaultPlan.straggle_collective needs the distributed plane, not "
-            "ported yet (ROADMAP.md A13)"
+            "FaultPlan.straggle_collective needs distributed resilience, "
+            "not ported yet (ROADMAP.md A13b)"
         )
 
     def drop_heartbeat(
@@ -554,20 +555,20 @@ class FaultPlan:
                     )
 
     def on_collective(self, name: str) -> tuple[float, Any]:
-        """The distributed plane's collective hook (``CollectiveGuard``):
-        not ported yet (``ROADMAP.md`` A13)."""
+        """The collective guard's hook (``CollectiveGuard``): distributed
+        resilience, not ported yet (``ROADMAP.md`` A13b)."""
         raise NotImplementedError(
-            "FaultPlan.on_collective needs the distributed plane, not ported "
-            "yet (ROADMAP.md A13)"
+            "FaultPlan.on_collective needs distributed resilience, not "
+            "ported yet (ROADMAP.md A13b)"
         )
 
     def on_shard_load(self, layer_index: int) -> bool:
         """The sharded checkpoint's load hook (``corrupt_shard``): not
-        ported yet (``ROADMAP.md`` A13). The port's layer checkpoints hold
+        ported yet (``ROADMAP.md`` A13b). The port's layer checkpoints hold
         host arrays and never consult it."""
         raise NotImplementedError(
             "FaultPlan.on_shard_load needs the sharded checkpoint layout, "
-            "not ported yet (ROADMAP.md A13)"
+            "not ported yet (ROADMAP.md A13b)"
         )
 
     def on_candidate_fit(self, est: Any) -> None:

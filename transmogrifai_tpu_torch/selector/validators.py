@@ -257,6 +257,13 @@ class Validator:
             return out, attempts, False
 
         n_workers = max(1, min(self.parallelism, len(candidates)))
+        from ..parallel.mesh import execution_mesh
+
+        mesh = execution_mesh()
+        if mesh is not None and mesh.size > 1:
+            # SPMD: every rank must make its collectives in one order, so
+            # the families run one after another, in the queue's order
+            n_workers = 1
         # longest grid first: the biggest family's work heads the queue
         order = sorted(
             range(len(candidates)),

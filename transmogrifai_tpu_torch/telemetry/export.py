@@ -20,8 +20,8 @@ registry and its sources, the run ledger (``run``) and the retrain loop's
 (``retrain``) among them.
 
 Not ported yet: the compile plane's ``compile`` source (``ROADMAP.md``
-A14) and the distributed plane's ``resilience`` source (A13) are absent
-from the exposition.
+A14) and the ``resilience`` source of distributed resilience (A13b) are
+absent from the exposition.
 """
 from __future__ import annotations
 

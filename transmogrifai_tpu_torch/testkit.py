@@ -453,7 +453,8 @@ def fault_plan(seed: int = 42) -> "Any":
     Training faults script the checkpointed and streamed train
     (``crash_after_layer``, ``crash_after_chunk``, ``tear_stream_chunk``)
     and the retrain loop (``crash_retrain``, ``corrupt_new_chunk``); the
-    distributed faults wait for their plane (``ROADMAP.md`` A13)."""
+    distributed faults wait for distributed resilience (``ROADMAP.md``
+    A13b)."""
     from .resilience.faults import FaultPlan
 
     return FaultPlan(seed=seed)

@@ -11,9 +11,14 @@ the process-wide setting. Contingency tables are one matmul Gᵀ·Y on the
 card, routed the same way, every group of a vector in one product per
 dtype. The statistics of a finished [K, C] table
 (chi-squared, Cramér's V, PMI, rule confidence) are a few host float64
-operations on K x C cells, as in the reference. The reference's
-multi-device mesh route (``parallel/reductions.py``) is not ported yet
-(``ROADMAP.md`` A13).
+operations on K x C cells, as in the reference. Under an execution mesh
+of more than one data rank (the one ``Workflow.train`` installs around
+its fit), inputs at or above ``_DEVICE_THRESHOLD`` elements take the
+reference's mesh route (``_stats_mesh``): column stats, the centred gram
+and the contingency tables through ``parallel/reductions.py``, each rank
+reducing its block of the rows. Without one (``set_parallelism(None)``,
+``TPTPU_MESH=0``, or outside a fit) every rank computes on its own
+rows.
 
 Every entry point takes ``device=None`` (the card, which must be present)
 or ``device="cpu"``.
@@ -40,6 +45,19 @@ class ColumnStats:
     variance: np.ndarray  # [D]
     min: np.ndarray       # [D]
     max: np.ndarray       # [D]
+
+
+def _stats_mesh(size: int):
+    """The ambient execution mesh for a statistic of ``size`` elements
+    when its data axis spans more than one rank, or None on the one-rank
+    or small-problem path (the reference's ``_stats_mesh``). A mesh of
+    one rank takes the one-rank route, so it computes the same bits."""
+    if size < _DEVICE_THRESHOLD:
+        return None
+    from ..parallel.mesh import DATA_AXIS, execution_mesh
+
+    mesh = execution_mesh()
+    return mesh if mesh is not None and mesh.shape[DATA_AXIS] > 1 else None
 
 
 @contextlib.contextmanager
@@ -71,8 +89,19 @@ def _host64(t: torch.Tensor) -> np.ndarray:
 
 def column_stats_tensor(t: torch.Tensor) -> ColumnStats:
     """Per-column count/mean/variance/min/max of ``t`` in its own dtype
-    (sample variance, n-1 denominator)."""
+    (sample variance, n-1 denominator). Large inputs in a world of several
+    ranks reduce over the mesh (``parallel.reductions.pcolumn_stats``)."""
     n = t.shape[0]
+    mesh = _stats_mesh(t.numel())
+    if mesh is not None:
+        from ..parallel.reductions import pcolumn_stats
+
+        r = pcolumn_stats(t.detach(), mesh)
+        cnt = float(r["count"])
+        return ColumnStats(
+            count=int(n), mean=r["mean"],
+            variance=r["m2"] / max(cnt - 1.0, 1.0),
+            min=r["min"].astype(np.float64), max=r["max"].astype(np.float64))
     mean = t.mean(dim=0)
     var = ((t - mean) ** 2).sum(dim=0) / max(n - 1, 1)
     return ColumnStats(
@@ -92,8 +121,24 @@ def correlation_tensor(m: torch.Tensor) -> torch.Tensor:
     """Pearson correlation of the columns of ``m`` via the centred gram
     matrix, in ``m``'s dtype, then as float64: zero-variance columns
     correlate 0 with everything, the diagonal is 1, values are clipped to
-    [-1, 1]."""
+    [-1, 1]. Large inputs in a world of several ranks build the centred
+    gram over the mesh (``parallel.reductions.pcentered_gram``)."""
     n = m.shape[0]
+    mesh = _stats_mesh(m.numel())
+    if mesh is not None:
+        from ..parallel.reductions import pcentered_gram
+
+        g, _, cnt = pcentered_gram(m.detach(), mesh)
+        cov = g / max(cnt - 1.0, 1.0)
+        std64 = np.sqrt(np.maximum(np.diag(cov), 0.0))
+        denom64 = np.outer(std64, std64)
+        corr = torch.from_numpy(
+            cov / np.where(denom64 == 0, 1.0, denom64)).to(m.device)
+        zero = torch.from_numpy(std64 == 0).to(m.device)
+        corr[zero, :] = 0.0
+        corr[:, zero] = 0.0
+        corr.fill_diagonal_(1.0)
+        return corr.clamp_(-1.0, 1.0)
     c = m - m.mean(dim=0)
     with full_f32_matmul():
         cov = (c.T @ c) / max(n - 1, 1)
@@ -167,8 +212,18 @@ def contingency_tables(x: torch.Tensor, groups: list[list[int]],
     for dtype, members in by_dtype.items():
         cols = torch.tensor([i for gi in members for i in groups[gi]],
                             device=x.device)
-        with full_f32_matmul():
-            table = _host64(x.index_select(1, cols).to(dtype).T @ y.to(dtype))
+        g, yd = x.index_select(1, cols).to(dtype), y.to(dtype)
+        mesh = (_stats_mesh(g.numel() + yd.numel())
+                if dtype == torch.float32 else None)
+        if mesh is not None:
+            # the reference's mesh route for tables at or above the
+            # threshold: each rank's rows, the counts all-reduced
+            from ..parallel.reductions import pcontingency
+
+            table = pcontingency(g, yd, mesh)
+        else:
+            with full_f32_matmul():
+                table = _host64(g.T @ yd)
         off = 0
         for gi in members:
             out[gi] = table[off:off + len(groups[gi])]

@@ -24,8 +24,8 @@ Each fold and each family's sweep in it runs under a telemetry span
 (``telemetry/runlog.py``): the fold's start and end, and one candidate
 record per family per fold (with the error of a dropped family). The
 reference's fold-resume stash, which lets its failover loop re-enter the
-sweep after a lost host, waits for the distributed plane (``ROADMAP.md``
-A13); so does the per-fold sweep-lane accounting of the compile plane
+sweep after a lost host, waits for distributed resilience (``ROADMAP.md``
+A13b); so does the per-fold sweep-lane accounting of the compile plane
 (A14), whose fold records read zero.
 """
 from __future__ import annotations

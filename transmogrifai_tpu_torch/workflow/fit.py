@@ -13,8 +13,8 @@ atomically before that hook, so a killed run resumes through the
 (``telemetry/runlog.py``) gets a pulse at each layer's start and end, and
 each layer, fit and transform runs under a telemetry span. The port's
 fits upload their own inputs, so there is no prefetch of the next layer's
-matrices; the distributed plane's heartbeat at the layer boundary is
-``ROADMAP.md`` A13.
+matrices; a failover controller's heartbeat at the layer boundary is
+distributed resilience, ``ROADMAP.md`` A13b.
 """
 from __future__ import annotations
 

@@ -16,9 +16,15 @@ the reference's arguments: layer and candidate checkpoints with resume
 (``workflow/stream.py``), and the run recorder every train installs
 (``telemetry/runlog.py``), whose RUN report the model carries
 (``run_report``, ``summary_json()["run"]``, the manifest, the "Run
-report:" line of ``summary_pretty``). Not ported yet: an execution mesh,
-and with it the failover loop that re-enters the fit after a lost host
-(``set_parallelism`` and ``train``'s ``on_mesh_mismatch`` are A13).
+report:" line of ``summary_pretty``). ``set_parallelism(mesh)`` pins the
+execution mesh (``parallel/mesh.py``) that the fit phase runs under:
+every rank of a ``torch.distributed`` world runs the same ``train()`` on
+the same dataset, the estimators shard the rows over the mesh's data axis
+and all-reduce their sums, and every rank returns the same model. The
+default, ``"auto"``, is the data mesh over the world when it has more than
+one rank, else one device. Not ported yet: the failover loop that
+re-enters the fit after a lost host, and ``train``'s
+``on_mesh_mismatch`` (distributed resilience, A13b).
 ``with_sensitive_feature_detection`` scans the raw text features at train
 time (``prep/sensitive.py``) and records the findings in the model
 (``sensitive_info``: its summary's ``sensitiveFeatures`` and the saved
@@ -90,10 +96,6 @@ def _report_summary_degraded(section: str, e: Exception) -> None:
         log.debug("summary_pretty %s section degraded (%s)", section, detail)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
-
-
 class Workflow:
     def __init__(self):
         self.result_features: tuple[Feature, ...] = ()
@@ -105,6 +107,7 @@ class Workflow:
         self._rff_score_reader: DataReader | None = None
         self._detect_sensitive = False
         self.blocklisted_features: list[str] = []
+        self._mesh: Any = "auto"
 
     # ----------------------------------------------------------- configure
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -189,11 +192,24 @@ class Workflow:
         self.blocklisted_features = sorted(dead)
 
     def set_parallelism(self, mesh: Any) -> "Workflow":
-        """``None`` is one device, the port's only layout; a mesh is the
-        distributed plane's (A13)."""
-        if mesh is not None:
-            raise _not_ported("an execution mesh", "A13")
+        """Pin the execution mesh for the fit. ``"auto"`` (the default) is
+        the data mesh over the world when it has more than one rank, else
+        one device; ``None`` forces one device; a ``parallel.mesh.Mesh``
+        (``make_mesh``) shards the rows over its data axis."""
+        from ..parallel.mesh import Mesh
+
+        if not (mesh is None or mesh == "auto" or isinstance(mesh, Mesh)):
+            raise TypeError(
+                "set_parallelism takes None, 'auto' or a parallel.mesh.Mesh "
+                f"(make_mesh), not {type(mesh).__name__}")
+        self._mesh = mesh
         return self
+
+    def _resolve_mesh(self):
+        from ..parallel.mesh import default_execution_mesh
+
+        return (default_execution_mesh() if isinstance(self._mesh, str)
+                else self._mesh)
 
     def with_sensitive_feature_detection(self) -> "Workflow":
         """Scan raw text features for personal data at train time and record
@@ -400,11 +416,15 @@ class Workflow:
                 selector._checkpoint_resume = resume
 
         # the fit runs with the recorder installed, so the layer, fold and
-        # candidate pulses of fit.py, cv.py and validators.py land on it
+        # candidate pulses of fit.py, cv.py and validators.py land on it,
+        # and under the execution mesh: tree fits all-reduce their
+        # histograms, GLM fits their sums over rows (None: one device)
+        from ..parallel.mesh import use_execution_mesh
+
         try:
             with _runlog.recording(recorder), recorder.phase(
                 "fit", rows=train_data.num_rows
-            ):
+            ), use_execution_mesh(self._resolve_mesh()):
                 if self._workflow_cv and selector is not None:
                     from .cv import workflow_cv_results
 
